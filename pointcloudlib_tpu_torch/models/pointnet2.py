@@ -1,0 +1,57 @@
+"""PointNet++ SSG classification (counterpart of
+``pointcloudlib_tpu/models/pointnet2.py``).
+
+SA(512, r=.2, k=64, [64,64,128]) → SA(128, r=.4, k=64, [128,128,256]) →
+SA(all, [256,512,1024]) → FC 512→256→n_classes with dropout 0.5. Input
+features are the raw normals.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from pointcloudlib_tpu_torch.nn.layers import (
+    DenseBNAct,
+    SetAbstraction,
+    reference_linear_init,
+)
+
+
+class ClsHead(nn.Module):
+    """DenseBNAct(512) → DenseBNAct(256) → dropout → Dense(n_classes)."""
+
+    def __init__(self, in_features: int, n_classes: int):
+        super().__init__()
+        self.fc1 = DenseBNAct(in_features, 512)
+        self.fc2 = DenseBNAct(512, 256)
+        self.drop = nn.Dropout(0.5)
+        self.out = nn.Linear(256, n_classes)
+        reference_linear_init(self.out.weight, 256)
+        nn.init.zeros_(self.out.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(self.drop(self.fc2(self.fc1(x))))
+
+
+class PointNet2SSG(nn.Module):
+    """``feat_channels``: per-point input features (3 for normals, 0 for
+    xyz only)."""
+
+    def __init__(self, n_classes: int = 40, feat_channels: int = 3):
+        super().__init__()
+        self.sa1 = SetAbstraction(feat_channels, [64, 64, 128], n_points=512,
+                                  radius=0.2, n_samples=64)
+        self.sa2 = SetAbstraction(128, [128, 128, 256], n_points=128,
+                                  radius=0.4, n_samples=64)
+        self.sa3 = SetAbstraction(256, [256, 512, 1024])
+        self.head = ClsHead(1024, n_classes)
+
+    def forward(self, xyz: torch.Tensor,
+                feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xyz, f = self.sa1(xyz, feats)
+        xyz, f = self.sa2(xyz, f)
+        _, f = self.sa3(xyz, f)
+        return self.head(f[:, 0])

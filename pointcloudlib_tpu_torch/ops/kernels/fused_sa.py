@@ -1,0 +1,166 @@
+"""Eval-mode fused set abstraction with the ball query inside: the CUDA
+kernel ``csrc/fused_sa_bq_eval.cu`` and its plain version.
+
+Replaces the TPU kernel ``pointcloudlib_tpu/ops/pallas/fused_sa.py``
+(``fused_sa_bq_eval`` → ``_k_bqeval``). The layer's first Dense is
+folded outside the kernel into ``q = [xyz‖f]·W1`` (bf16) and
+``off = new_xyz·W1[:3]``, so the grouped first-layer pre-activation is
+``h1 = q[idx] − off``; the kernel runs ball query, gather, the
+BN→ReLU→Dense chain and the max over neighbours without writing any
+grouped tensor to device memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from pointcloudlib_tpu_torch.ops import geometry
+from pointcloudlib_tpu_torch.ops.kernels import _build
+
+_EPS = 1e-5  # BatchNorm epsilon (nn/layers.py DenseBNAct)
+
+_SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+
+
+class SAParams(NamedTuple):
+    """Learned parameters of the fused 3-layer SA MLP (no Dense biases;
+    W1 lives outside, folded into q and off)."""
+
+    w2: torch.Tensor  # [C1, C2]
+    w3: torch.Tensor  # [C2, C3]
+    g1: torch.Tensor  # BN scale / offset per layer
+    b1: torch.Tensor
+    g2: torch.Tensor
+    b2: torch.Tensor
+    g3: torch.Tensor
+    b3: torch.Tensor
+
+
+class SAStats(NamedTuple):
+    """Per-layer BatchNorm running statistics (biased variance)."""
+
+    m1: torch.Tensor
+    v1: torch.Tensor
+    m2: torch.Tensor
+    v2: torch.Tensor
+    m3: torch.Tensor
+    v3: torch.Tensor
+
+
+def _stack_stats(mu, var, gam, bet) -> torch.Tensor:
+    """Fold BN into ``[4, C]`` rows ``(sc, bi, rs, mrs)``:
+    ``rs = rsqrt(var + 1e-5)``, ``sc = γ·rs``, ``bi = β − μ·sc``,
+    ``mrs = μ·rs`` (``fused_sa.py:1431``)."""
+    rs = torch.rsqrt(var + _EPS)
+    sc = gam * rs
+    bi = bet - mu * sc
+    return torch.stack([sc, bi, rs, mu * rs]).float()
+
+
+def _folded(params: SAParams, stats: SAStats):
+    return (_stack_stats(stats.m1, stats.v1, params.g1, params.b1),
+            _stack_stats(stats.m2, stats.v2, params.g2, params.b2),
+            _stack_stats(stats.m3, stats.v3, params.g3, params.b3))
+
+
+def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 operands, f32 accumulation: exact products in f32 (TF32 is
+    off package-wide)."""
+    return a.bfloat16().float() @ b.bfloat16().float()
+
+
+def _chain(h1: torch.Tensor, st, w2, w3) -> torch.Tensor:
+    st1, st2, st3 = st
+    y1 = torch.clamp_min(h1 * st1[0] + st1[1], 0.0)
+    y2 = torch.clamp_min(_bf16_mm(y1, w2) * st2[0] + st2[1], 0.0)
+    return torch.clamp_min(_bf16_mm(y2, w3) * st3[0] + st3[1], 0.0)
+
+
+def fused_sa_bq_eval_plain(new_xyz, pts, q, off, params: SAParams,
+                           stats: SAStats, radius: float, k: int
+                           ) -> torch.Tensor:
+    """The eval semantics of ``_k_bqeval`` written out: ball query,
+    gather ``float(bf16 q)[idx] − off``, the chain per slot, then the
+    max over live slots (slot < cnt; a cnt==0 row keeps slot 0, whose
+    index is the fallback point 0)."""
+    idx, cnt = geometry.ball_query(new_xyz, pts, radius, k)
+    h1 = geometry.index_points(q.bfloat16().float(), idx) - off[:, :, None]
+    y3 = _chain(h1, _folded(params, stats), params.w2, params.w3)
+    slot = torch.arange(k, device=cnt.device)
+    live = slot < torch.clamp_min(cnt, 1)[..., None]
+    return torch.where(live[..., None], y3, float("-inf")).amax(dim=2)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_sa_bq_eval")
+    fn = lib.sa_bq_eval_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.sa_bq_eval_smem.argtypes = [ctypes.c_int] * 5
+        lib.sa_bq_eval_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fused_sa_bq_eval(new_xyz, pts, q, off, params: SAParams,
+                     stats: SAStats, radius: float, k: int) -> torch.Tensor:
+    """Eval-mode fused SA → ``[B, M, C3]`` float32.
+
+    ``new_xyz [B, M, 3]`` and ``pts [B, N, 3]`` float32, ``q [B, N, C1]``
+    bfloat16, ``off [B, M, C1]`` float32. The kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return fused_sa_bq_eval_plain(new_xyz, pts, q, off, params, stats,
+                                      radius, k)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_sa_bq_eval: unsupported device {q.device}")
+    b, n, c1 = q.shape
+    m = new_xyz.shape[1]
+    widths = (c1, params.w2.shape[1], params.w3.shape[1])
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"fused_sa_bq_eval: q must be bfloat16, got {q.dtype}")
+    for name, t, shape in (("new_xyz", new_xyz, (b, m, 3)),
+                           ("pts", pts, (b, n, 3)),
+                           ("off", off, (b, m, c1))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"fused_sa_bq_eval: {name} must be float32 "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"fused_sa_bq_eval: {name} on {t.device}, "
+                             f"q on {q.device}")
+    lib = _lib()
+    smem = lib.sa_bq_eval_smem(n, *widths, k)
+    if smem == 0:
+        raise ValueError(f"fused_sa_bq_eval: no kernel instance for widths "
+                         f"{widths}")
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"fused_sa_bq_eval: N={n}, k={k} need {smem} bytes "
+                         f"of shared memory, above one block's {_SMEM_LIMIT}")
+    st = torch.cat([torch.cat([s[0], s[1]]) for s in _folded(params, stats)])
+    st = _aligned(st.float())
+    w2 = _aligned(params.w2.bfloat16())
+    w3 = _aligned(params.w3.bfloat16())
+    new_xyz, pts, q, off = map(_aligned, (new_xyz, pts, q, off))
+    out = torch.empty((b, m, widths[2]), dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sa_bq_eval_launch(
+            new_xyz.data_ptr(), pts.data_ptr(), q.data_ptr(), off.data_ptr(),
+            st.data_ptr(), w2.data_ptr(), w3.data_ptr(), out.data_ptr(),
+            b, n, m, *widths, k, radius * radius, stream)
+    _build.check(err, "fused_sa_bq_eval")
+    fused_sa_bq_eval.launches += 1
+    return out
+
+
+fused_sa_bq_eval.launches = 0
