@@ -36,84 +36,9 @@
 // separate tensor ops round; only the products' summation order differs
 // from the plain version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fused_sa_common.cuh"
 
 namespace pcl {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;  // grouped rows per pass through the chain
-
-__device__ __forceinline__ float bf_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ float bf_at(const uint4& v, int t) {
-  const uint32_t w = word(v, t >> 1);
-  return (t & 1) ? bf_hi(w) : bf_lo(w);
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-__device__ __forceinline__ float bn_relu(float h, float sc, float bi) {
-  return fmaxf(__fadd_rn(__fmul_rn(h, sc), bi), 0.0f);
-}
-
-// Thread layout of a [kRows, CIN] x [CIN, COUT] product: thread
-// (rg, cg) owns rows [rg*RPT, rg*RPT + RPT) and channels [cg*8, cg*8+8).
-template <int COUT>
-struct Tile {
-  static constexpr int NCG = COUT / 8;
-  static constexpr int NRG = kThreads / NCG;
-  static constexpr int RPT = kRows / NRG;
-  static_assert(COUT % 8 == 0 && kThreads % NCG == 0, "channel tiling");
-  static_assert(RPT >= 1 && kRows % NRG == 0, "row tiling");
-};
-
-// acc = Y[rows of this thread] . W[:, 8 channels of this thread].
-// ys: bf16 [kRows, CIN + 8] in shared memory, ws: bf16 [CIN, COUT].
-template <int CIN, int COUT>
-__device__ __forceinline__ void product(const __nv_bfloat16* ys,
-                                        const __nv_bfloat16* ws, int rg,
-                                        int cg,
-                                        float (&acc)[Tile<COUT>::RPT][8]) {
-  constexpr int RPT = Tile<COUT>::RPT;
-  constexpr int YS = CIN + 8;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
-#pragma unroll 2
-  for (int kk = 0; kk < CIN; kk += 8) {
-    uint4 yv[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      yv[i] = *reinterpret_cast<const uint4*>(ys + (rg * RPT + i) * YS + kk);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const uint4 wv =
-          *reinterpret_cast<const uint4*>(ws + (kk + t) * COUT + cg * 8);
-      float w[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) w[c] = bf_at(wv, c);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float y = bf_at(yv[i], t);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(y, w[c], acc[i][c]);
-      }
-    }
-  }
-}
 
 struct Args {
   const float* new_xyz;        // [B, M, 3]

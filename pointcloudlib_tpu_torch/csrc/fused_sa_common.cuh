@@ -1,0 +1,240 @@
+// Pieces shared by the fused set-abstraction kernels (eval, f1, tails,
+// backward passes): bf16 unpacking, the BN affine with explicit
+// round-to-nearest steps, the 64-row register-tiled product over bf16
+// operands with f32 sums, the in-kernel ball-query distance, and the
+// per-channel block reduction into a global sum.
+//
+// Every row of a tile runs the same instruction sequence, whatever its
+// position, so repeat-first padding rows (replicas of slot 0) come out
+// bit-identical to slot 0: the max-pool's tie split depends on it.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace pcl {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 64;  // grouped rows per pass through the chain
+
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float bf_at(const uint4& v, int t) {
+  const uint32_t w = word(v, t >> 1);
+  return (t & 1) ? bf_hi(w) : bf_lo(w);
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint4 pk;
+  pk.x = pack2(v[0], v[1]);
+  pk.y = pack2(v[2], v[3]);
+  pk.z = pack2(v[4], v[5]);
+  pk.w = pack2(v[6], v[7]);
+  return pk;
+}
+// float -> bf16 -> float, round to nearest even
+__device__ __forceinline__ float bf_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// z = h*sc + bi, one rounding per operation (no FMA contraction)
+__device__ __forceinline__ float bn_z(float h, float sc, float bi) {
+  return __fadd_rn(__fmul_rn(h, sc), bi);
+}
+__device__ __forceinline__ float bn_relu(float h, float sc, float bi) {
+  return fmaxf(bn_z(h, sc, bi), 0.0f);
+}
+// x^ = h*rs - mu*rs
+__device__ __forceinline__ float xhat(float h, float rs, float mrs) {
+  return __fsub_rn(__fmul_rn(h, rs), mrs);
+}
+// train-mode BN backward of one row given the pre-divided sums
+// u1 = sum(dz)/R, u2 = sum(dz*x^)/R: sc * ((dz - u1) - x^*u2)
+__device__ __forceinline__ float bn_bwd(float dz, float xh, float sc,
+                                        float u1, float u2) {
+  return __fmul_rn(sc, __fsub_rn(__fsub_rn(dz, u1), __fmul_rn(xh, u2)));
+}
+
+// d2 = max((|c|^2 - 2 c.p) + |p|^2, 0), the plain square_distance's
+// order of operations; p.w holds |p|^2.
+__device__ __forceinline__ float sq_dist(float cx, float cy, float cz,
+                                         float c2, const float4& p) {
+  const float inner = __fadd_rn(
+      __fadd_rn(__fmul_rn(cx, p.x), __fmul_rn(cy, p.y)), __fmul_rn(cz, p.z));
+  return fmaxf(__fadd_rn(__fsub_rn(c2, __fmul_rn(2.0f, inner)), p.w), 0.0f);
+}
+__device__ __forceinline__ float sumsq3(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                   __fmul_rn(z, z));
+}
+
+// Thread layout of a [kRows, CIN] x [CIN, COUT] product: thread
+// (rg, cg) owns rows [rg*RPT, rg*RPT + RPT) and channels [cg*8, cg*8+8).
+template <int COUT>
+struct Tile {
+  static constexpr int NCG = COUT / 8;
+  static constexpr int NRG = kThreads / NCG;
+  static constexpr int RPT = kRows / NRG;
+  static_assert(COUT % 8 == 0 && kThreads % NCG == 0, "channel tiling");
+  static_assert(RPT >= 1 && kRows % NRG == 0, "row tiling");
+};
+
+// acc = Y[rows of this thread] . W[:, 8 channels of this thread].
+// ys: bf16 [kRows, CIN + 8] in shared memory, ws: bf16 [CIN, COUT] in
+// shared or global memory, 16-byte aligned.
+template <int CIN, int COUT>
+__device__ __forceinline__ void product(const __nv_bfloat16* ys,
+                                        const __nv_bfloat16* ws, int rg,
+                                        int cg,
+                                        float (&acc)[Tile<COUT>::RPT][8]) {
+  constexpr int RPT = Tile<COUT>::RPT;
+  constexpr int YS = CIN + 8;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+#pragma unroll 2
+  for (int kk = 0; kk < CIN; kk += 8) {
+    uint4 yv[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+      yv[i] = *reinterpret_cast<const uint4*>(ys + (rg * RPT + i) * YS + kk);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const uint4 wv =
+          *reinterpret_cast<const uint4*>(ws + (kk + t) * COUT + cg * 8);
+      float w[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) w[c] = bf_at(wv, c);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float y = bf_at(yv[i], t);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(y, w[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+// ys[r, :] = bf16(relu(BN1(h1[row0 + r, :]))) for the kRows rows of a
+// tile; h1 is bf16 [rows, C1] in global memory.
+template <int C1>
+__device__ __forceinline__ void load_y1(const __nv_bfloat16* h1,
+                                        size_t row0, const float* sc1,
+                                        const float* bi1,
+                                        __nv_bfloat16* ys) {
+  const __nv_bfloat16* src = h1 + row0 * C1;
+  for (int e = threadIdx.x; e < kRows * (C1 / 2); e += kThreads) {
+    const int r = e / (C1 / 2);
+    const int cc = (e % (C1 / 2)) * 2;
+    const uint32_t hh =
+        *reinterpret_cast<const uint32_t*>(src + (size_t)r * C1 + cc);
+    *reinterpret_cast<uint32_t*>(ys + r * (C1 + 8) + cc) =
+        pack2(bn_relu(bf_lo(hh), sc1[cc], bi1[cc]),
+              bn_relu(bf_hi(hh), sc1[cc + 1], bi1[cc + 1]));
+  }
+}
+
+// ys[rows of this thread, 8 channels] = bf16(relu(acc*sc + bi))
+template <int COUT>
+__device__ __forceinline__ void store_bn_relu(
+    const float (&acc)[Tile<COUT>::RPT][8], const float* sc, const float* bi,
+    __nv_bfloat16* ys, int rg, int cg) {
+#pragma unroll
+  for (int i = 0; i < Tile<COUT>::RPT; ++i) {
+    float v[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      v[c] = bn_relu(acc[i][c], sc[cg * 8 + c], bi[cg * 8 + c]);
+    *reinterpret_cast<uint4*>(ys + (rg * Tile<COUT>::RPT + i) * (COUT + 8) +
+                              cg * 8) = pack8(v);
+  }
+}
+
+// Adds each thread's per-channel partial sums v[8] (channels cg*8..+8)
+// into red[C] in shared memory, then red into out[C] in global memory.
+// Every thread of the block must call it; red is scratch of C floats.
+template <int C>
+__device__ __forceinline__ void flush_sum(const float (&v)[8], int cg,
+                                          float* red, float* out) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < C; i += kThreads) red[i] = 0.0f;
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 8; ++c) atomicAdd(red + cg * 8 + c, v[c]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < C; i += kThreads) atomicAdd(out + i, red[i]);
+}
+
+// Per-row gradient at z3 = BN3(h3) of the max over each center's k slots,
+// split evenly among the slots that reach the max (replicas included),
+// then masked by z3 > 0. For this thread's rows and channels, in place:
+// z[i][c] (z3) becomes dz3. mx/ts are [cpt, C3] shared arrays, zeroed
+// before the call; cl is the thread's center in the tile, dout_row that
+// center's output gradient. Contains two block barriers.
+template <int RPT, int C3>
+__device__ __forceinline__ void maxpool_dz(float (&z)[RPT][8],
+                                           const float* dout_row, int cl,
+                                           int cg, float* mx, int* ts) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float m = 0.0f;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) m = fmaxf(m, fmaxf(z[i][c], 0.0f));
+    atomicMax(reinterpret_cast<int*>(mx + cl * C3 + cg * 8 + c),
+              __float_as_int(m));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float m = mx[cl * C3 + cg * 8 + c];
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) n += fmaxf(z[i][c], 0.0f) == m;
+    atomicAdd(ts + cl * C3 + cg * 8 + c, n);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float m = mx[cl * C3 + cg * 8 + c];
+    const float share =
+        __fdiv_rn(dout_row[cg * 8 + c], (float)ts[cl * C3 + cg * 8 + c]);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+      z[i][c] = (z[i][c] > 0.0f && fmaxf(z[i][c], 0.0f) == m) ? share : 0.0f;
+  }
+}
+
+// Blocks for a grid-stride loop: as many as fit on the card at once,
+// never more than there is work.
+template <typename K>
+cudaError_t resident_blocks(K kernel, size_t smem, long long work,
+                            int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  long long b = (long long)sms * per_sm;
+  *blocks = (int)(work < b ? work : b);
+  return cudaSuccess;
+}
+
+}  // namespace pcl

@@ -2,7 +2,9 @@
 ``pointcloudlib_tpu/nn/layers.py``).
 
 Pointwise convolutions are Dense layers over the trailing feature axis.
-BatchNorm uses eps 1e-5 and torch momentum 0.1 (flax's 0.9).
+BatchNorm uses eps 1e-5 and flax's running update: momentum 0.9 on the
+biased batch variance (torch's own BatchNorm would update with the
+unbiased one).
 
 Mixed precision follows the JAX package: on the card a Dense layer
 takes bf16 operands with f32 accumulation and a bf16 result, as
@@ -25,12 +27,12 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa import (
     SAStats,
     fused_sa_bq_eval,
 )
+from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
+    fused_sa_bq_train,
+)
 
 _BN_EPS = 1e-5
-_BN_MOMENTUM = 0.1
-_TRAIN_SLICE = ("training the fused set abstraction is not ported yet "
-                "(ROADMAP.md, queue 1, item 2: the train slice — _k_bqf1, "
-                "the tails, _k_p1/_k_p2 and the train step)")
+_BN_MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
 
 
 @torch.no_grad()
@@ -52,6 +54,43 @@ def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.bfloat16().float() @ b.bfloat16().float()
 
 
+@torch.no_grad()
+def update_running(running: torch.Tensor, batch: torch.Tensor) -> None:
+    """``running ← 0.9·running + 0.1·batch`` in place (flax's update,
+    ``nn/layers.py:357``)."""
+    running.copy_(_BN_MOMENTUM * running + (1.0 - _BN_MOMENTUM) * batch)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over ``[R, C]`` rows with flax's running statistics.
+
+    Normalises with the batch's biased statistics in training and the
+    running ones in eval (``F.batch_norm``); in training it then updates
+    ``running_mean``/``running_var`` with the batch mean and the
+    *biased* variance ``E[x²] − E[x]²``, as ``flax.linen.BatchNorm``
+    does. Names follow ``nn.BatchNorm1d`` (``weight``, ``bias``,
+    ``running_mean``, ``running_var``)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, _BN_EPS)
+        with torch.no_grad():
+            mean = x.mean(0)
+            var = torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
+        update_running(self.running_mean, mean)
+        update_running(self.running_var, var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            _BN_EPS)
+
+
 class DenseBNAct(nn.Module):
     """Dense (no bias) → BatchNorm → ReLU over the last axis."""
 
@@ -59,7 +98,7 @@ class DenseBNAct(nn.Module):
         super().__init__()
         self.dense = nn.Linear(in_features, features, bias=False)
         reference_linear_init(self.dense.weight, in_features)
-        self.bn = nn.BatchNorm1d(features, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+        self.bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(x.device)
@@ -77,9 +116,12 @@ class PointMLP(nn.Sequential):
 
 
 class FusedSetAbstraction(nn.Module):
-    """Fused SA layer, eval only: FPS, then ball query + gather +
-    (BN→ReLU, Dense) ×3 + max in one kernel (``nn/layers.py:221``).
-    Grouped features are ``[recentred xyz ‖ features]``.
+    """Fused SA layer: FPS, then ball query + gather + (BN→ReLU, Dense)
+    ×3 + max (``nn/layers.py:221``). Eval runs one kernel with the
+    running statistics; training runs the fused train kernels with batch
+    statistics over every grouped row and then updates the running ones
+    (biased variance, momentum 0.9). Grouped features are
+    ``[recentred xyz ‖ features]``.
 
     Parameters keep the JAX names and layouts (``w1 [3+C, C1]``,
     ``w2``, ``w3``, ``bn{l}_scale``/``bn{l}_bias``; buffers
@@ -113,24 +155,31 @@ class FusedSetAbstraction(nn.Module):
 
     def prepare(self, xyz: torch.Tensor, feats: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``(new_xyz, q, off)``: FPS centers and the kernel's folded
-        first layer ``q = [xyz‖f]·W1`` (rounded to bf16, as
-        ``fused_sa.py:1427`` casts it) and ``off = new_xyz·W1[:3]``, both
-        from bf16-rounded operands with f32 accumulation
-        (``nn/layers.py:303-314``)."""
+        """``(new_xyz, q, off)``: FPS centers and the kernels' folded
+        first layer ``q = [xyz‖f]·W1`` and ``off = new_xyz·W1[:3]``, both
+        float32 from bf16-rounded operands with f32 accumulation
+        (``nn/layers.py:303-314``). The kernels round ``q`` to bf16
+        (``fused_sa.py:1259,1427``): eval before its call, training
+        inside the autograd function, so that ``dq`` stays float32."""
         new_xyz = index_points(xyz, fps(xyz, self.n_points))
         p = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
         q = _bf16_mm(p, self.w1)
         off = _bf16_mm(new_xyz, self.w1[:3])
-        return new_xyz, q.bfloat16(), off
+        return new_xyz, q, off
 
     def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(_TRAIN_SLICE)
         new_xyz, q, off = self.prepare(xyz, feats)
-        out = fused_sa_bq_eval(new_xyz, xyz, q, off, self.sa_params(),
-                               self.sa_stats(), self.radius, self.n_samples)
+        if not self.training:
+            out = fused_sa_bq_eval(new_xyz, xyz, q.bfloat16(), off,
+                                   self.sa_params(), self.sa_stats(),
+                                   self.radius, self.n_samples)
+            return new_xyz, out
+        out, batch = fused_sa_bq_train(new_xyz, xyz, q, off,
+                                       self.sa_params(), self.radius,
+                                       self.n_samples)
+        for running, value in zip(self.sa_stats(), batch):
+            update_running(running, value)
         return new_xyz, out
 
 

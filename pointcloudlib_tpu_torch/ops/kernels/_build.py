@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` on its own into ``build/kernels/<name>-<hash>.so`` at the
-repository root, then loaded with ``ctypes``. The hash covers the source
-and the flags, so an edited source is rebuilt and a built one is reused.
+repository root, then loaded with ``ctypes``. The hash covers the source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source is
+rebuilt and a built one is reused.
 ``-Xptxas -v`` output (registers, shared memory, spills per kernel) is
 kept beside each library in ``<name>-<hash>.log``.
 
@@ -45,6 +46,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Tuple[Path, Path, Path]:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = f"{name}-{h.hexdigest()[:12]}"
     return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"

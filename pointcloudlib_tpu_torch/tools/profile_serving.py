@@ -43,6 +43,11 @@ BATCH, N_POINTS, N_CLOUDS = 64, 1024, 256
 STAGES = (
     (r"fps_kernel", "fps kernel"),
     (r"bq_eval_kernel", "fused_sa_bq_eval kernel"),
+    (r"bq_f1_kernel", "bq_f1 kernel"),
+    (r"tail_kernel", "sa_tail kernel"),
+    (r"p1_rows_kernel|p1_mats_kernel", "sa_bwd_p1 kernel"),
+    (r"p2_kernel", "sa_bwd_p2 kernel"),
+    (r"multi_tensor|foreach|sgd", "optimizer"),
     (r"Memcpy HtoD|memcpy.*HtoD", "copy host->device"),
     (r"Memcpy DtoH|memcpy.*DtoH", "copy device->host"),
     (r"gemm|gemv|cutlass|xmma|cublas|sm90_|ampere_", "dense matmuls"),

@@ -1,0 +1,120 @@
+"""Where the train step's time goes: ``make_cls_train_step`` under
+torch.profiler.
+
+    python -m pointcloudlib_tpu_torch.tools.profile_train [--out DIR]
+
+Trains PointNet++ SSG (full width, seeded random weights, normals as
+features, dropout 0.5) at B=64, N=1024 on 64 labelled synthetic surface
+clouds with SGD (momentum 0.9, lr 0.02), after 3 warm-up steps, and
+prints one JSON line with:
+
+* ``wall_ms_per_step`` — host clock per step, ending in a synchronize,
+  without the profiler (median of 10 steps), and with it;
+* ``device_busy_ms_per_step`` and ``device_busy_share`` — the union of
+  the device's kernel and copy intervals over 5 profiled steps, per step
+  and as a share of that window's wall time;
+* ``stages`` — device milliseconds per step by kernel-name group (the
+  six ported kernels, dense matmuls, BatchNorm, optimizer, …).
+
+The Chrome trace goes to ``DIR/train_trace.json`` (default
+``build/profile``). Needs a CUDA device; exits non-zero without one or
+when the profiler records no device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pointcloudlib_tpu_torch.data.synthetic import SyntheticModelNet
+from pointcloudlib_tpu_torch.models import get_cls_model
+from pointcloudlib_tpu_torch.tools.profile_serving import _stage, _union_us
+from pointcloudlib_tpu_torch.train import make_cls_train_step, sgd_momentum
+from pointcloudlib_tpu_torch.utils.interop import (
+    from_jax_variables,
+    random_jax_variables,
+)
+
+BATCH, N_POINTS, LR = 64, 1024, 0.02
+WARMUP, TIMED, PROFILED = 3, 10, 5
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=str(
+        Path(__file__).resolve().parents[2] / "build" / "profile"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("profile_train: needs a CUDA device")
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+    model = get_cls_model("pointnet2")
+    from_jax_variables(model, random_jax_variables(model, seed=0))
+    step = make_cls_train_step(model, sgd_momentum(model.parameters(), LR))
+    clouds, normals, labels = SyntheticModelNet(
+        n_points=N_POINTS, size=BATCH, seed=5).batch(0, BATCH)
+    dev = torch.device("cuda")
+    batch = {"xyz": torch.from_numpy(clouds).to(dev),
+             "feats": torch.from_numpy(normals).to(dev),
+             "label": torch.from_numpy(labels).long().to(dev)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(WARMUP):
+        step(batch, gen)
+    torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(TIMED):
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        sys.exit("profile_train: the profiler recorded no device time")
+    stages: dict = {}
+    for e in events:
+        st = _stage(e.name)
+        stages[st] = stages.get(st, 0.0) + e.time_range.elapsed_us()
+    busy_us = _union_us((e.time_range.start, e.time_range.end)
+                        for e in events)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "train_trace.json"))
+    print(json.dumps({
+        "card": power, "batch": BATCH, "n_points": N_POINTS,
+        "steps": PROFILED,
+        "wall_ms_per_step": float(np.median(walls)),
+        "wall_ms_per_step_runs": walls,
+        "samples_per_s": BATCH * 1e3 / float(np.median(walls)),
+        "profiled_wall_ms_per_step": window_us / 1e3 / PROFILED,
+        "device_busy_ms_per_step": busy_us / 1e3 / PROFILED,
+        "device_busy_share": busy_us / window_us,
+        "stages": {k: v / 1e3 / PROFILED for k, v in
+                   sorted(stages.items(), key=lambda kv: -kv[1])},
+        "kernel_names": sorted({e.name[:80] for e in events}),
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

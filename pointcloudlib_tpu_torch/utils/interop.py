@@ -137,6 +137,22 @@ def from_jax_variables(model, variables: Mapping):
     return model
 
 
+@torch.no_grad()
+def to_jax_variables(model) -> Dict:
+    """The inverse of :func:`from_jax_variables`: ``model``'s parameters
+    and BN running statistics as the JAX fused-layout ``{"params",
+    "batch_stats"}`` tree of float32 numpy arrays (Dense kernels
+    transposed back to ``[in, out]``)."""
+    tree: Dict = {}
+    for path, (t, transposed) in _entries(model).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        a = t.detach().float().cpu().numpy()
+        node[path[-1]] = np.ascontiguousarray(a.T if transposed else a)
+    return tree
+
+
 def random_jax_variables(model, seed: int = 0) -> Dict:
     """A seeded numpy tree in the layout :func:`from_jax_variables`
     takes: kernels U(±1/√fan_in), BN scales U(0.8, 1.2), biases and

@@ -79,10 +79,23 @@ def test_bridge_rejects_bad_trees():
 
 
 def test_fused_training_not_ported():
-    model = get_cls_model("pointnet2").train()
-    x, nrm = _clouds(1, 2, 128)
-    with pytest.raises(NotImplementedError, match="train slice"):
-        model(torch.from_numpy(x), torch.from_numpy(nrm))
+    """The name is from when training the fused set abstraction raised;
+    it now checks that a train-mode forward and backward run on the CPU:
+    finite logits, a gradient on every parameter, the running statistics
+    of both fused layers moved."""
+    model = get_cls_model("pointnet2", dropout=0.0)
+    from_jax_variables(model, random_jax_variables(model, seed=3))
+    model.train()
+    before = model.sa1.fused.var1.clone(), model.sa2.fused.mean3.clone()
+    x, nrm = _clouds(1, 4, 128)
+    logits = model(torch.from_numpy(x), torch.from_numpy(nrm))
+    assert logits.shape == (4, 40) and torch.isfinite(logits).all()
+    logits.square().sum().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    assert model.sa1.fused.w1.grad.abs().sum() > 0
+    assert not torch.equal(model.sa1.fused.var1, before[0])
+    assert not torch.equal(model.sa2.fused.mean3, before[1])
 
 
 def test_only_ported_models():
