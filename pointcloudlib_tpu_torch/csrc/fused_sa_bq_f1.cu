@@ -18,10 +18,10 @@
 // the distance tests are ~10 f32 operations per (center, point). The
 // design stages each cloud in shared memory once per tile of MT centers,
 // lets one warp per center scan it 32 points a step (a ballot gives the
-// in-order ranks of the hits), and writes h1 with consecutive threads on
-// consecutive channel pairs. Each thread keeps a fixed channel pair, so
-// its share of the sums stays in registers until one shared-memory and
-// one global atomicAdd per channel and block.
+// in-order ranks of the hits; bq_scan, shared with the standalone ball
+// query and the eval kernel), and writes h1 with consecutive threads on
+// consecutive channel pairs (f1_rows, shared with the forward pass that
+// takes a given idx).
 //
 // Numerics: the distances use the eval kernel's round-to-nearest
 // sequence, so membership is bit-identical to geometry.ball_query; h1 is
@@ -57,7 +57,6 @@ struct F1Layout {
 
 template <int C1>
 __global__ void __launch_bounds__(kThreads) bq_f1_kernel(const F1Args a) {
-  static_assert(kThreads % (C1 / 2) == 0, "fixed channel pair per thread");
   extern __shared__ __align__(16) unsigned char smem[];
   float4* ptss = reinterpret_cast<float4*>(smem);
   int* nbr = reinterpret_cast<int*>(smem + (size_t)a.n * 16);
@@ -72,34 +71,16 @@ __global__ void __launch_bounds__(kThreads) bq_f1_kernel(const F1Args a) {
   const int lane = tid % 32;
   const int warp = tid / 32;
 
-  const float* pg = a.pts + (size_t)b * n * 3;
-  for (int j = tid; j < n; j += kThreads) {
-    const float x = pg[3 * j], y = pg[3 * j + 1], z = pg[3 * j + 2];
-    ptss[j] = make_float4(x, y, z, sumsq3(x, y, z));
-  }
+  stage_cloud(a.pts + (size_t)b * n * 3, n, ptss);
   for (int i = tid; i < 2 * C1; i += kThreads) red[i] = 0.0f;
   __syncthreads();
 
   // ball query: one warp per center, the whole cloud (cnt counts every hit)
   for (int c = warp; c < mt; c += kWarps) {
-    const float* cg = a.new_xyz + ((size_t)b * a.m + m0 + c) * 3;
-    const float cx = cg[0], cy = cg[1], cz = cg[2];
-    const float c2 = sumsq3(cx, cy, cz);
-    int count = 0;
-    for (int base = 0; base < n; base += 32) {
-      const int j = base + lane;
-      const bool hit = j < n && sq_dist(cx, cy, cz, c2, ptss[j]) < a.r2;
-      const unsigned bal = __ballot_sync(0xffffffffu, hit);
-      const int rank = count + __popc(bal & ((1u << lane) - 1u));
-      if (hit && rank < k) nbr[c * k + rank] = j;
-      count += __popc(bal);
-    }
-    __syncwarp();
-    if (count == 0 && lane == 0) nbr[c * k] = 0;  // empty row: point 0
-    __syncwarp();
-    const int live = count == 0 ? 1 : min(count, k);
-    const int first = nbr[c * k];
-    for (int j = live + lane; j < k; j += 32) nbr[c * k + j] = first;
+    const int count = bq_scan<true>(
+        a.new_xyz + ((size_t)b * a.m + m0 + c) * 3, ptss, n, k, a.r2, lane,
+        nbr + c * k);
+    bq_fill(nbr + c * k, count, k, lane);
     if (lane == 0) a.cnt[(size_t)b * a.m + m0 + c] = count;
   }
   __syncthreads();
@@ -107,32 +88,9 @@ __global__ void __launch_bounds__(kThreads) bq_f1_kernel(const F1Args a) {
   int* idxg = a.idx + ((size_t)b * a.m + m0) * k;
   for (int e = tid; e < mt * k; e += kThreads) idxg[e] = nbr[e];
 
-  // h1 for every slot; this thread's channel pair is fixed
-  constexpr int NCP = C1 / 2;
-  const int cc = (tid % NCP) * 2;
-  const __nv_bfloat16* qg = a.q + (size_t)b * n * C1;
-  const float* offg = a.off + ((size_t)b * a.m + m0) * C1;
-  __nv_bfloat16* hg = a.h1 + ((size_t)b * a.m + m0) * k * C1;
-  float s0 = 0.0f, s1 = 0.0f, ss0 = 0.0f, ss1 = 0.0f;
-  for (int e = tid; e < mt * k * NCP; e += kThreads) {
-    const int row = e / NCP;  // c * k + j
-    const int c = row / k;
-    const uint32_t qq = *reinterpret_cast<const uint32_t*>(
-        qg + (size_t)nbr[row] * C1 + cc);
-    const float h0 = __fsub_rn(bf_lo(qq), offg[(size_t)c * C1 + cc]);
-    const float h1 = __fsub_rn(bf_hi(qq), offg[(size_t)c * C1 + cc + 1]);
-    *reinterpret_cast<uint32_t*>(hg + (size_t)row * C1 + cc) = pack2(h0, h1);
-    s0 += h0;
-    s1 += h1;
-    ss0 += h0 * h0;
-    ss1 += h1 * h1;
-  }
-  atomicAdd(red + cc, s0);
-  atomicAdd(red + cc + 1, s1);
-  atomicAdd(red + C1 + cc, ss0);
-  atomicAdd(red + C1 + cc + 1, ss1);
-  __syncthreads();
-  for (int i = tid; i < 2 * C1; i += kThreads) atomicAdd(a.psum + i, red[i]);
+  f1_rows<C1>(a.q + (size_t)b * n * C1, a.off + ((size_t)b * a.m + m0) * C1,
+              a.h1 + ((size_t)b * a.m + m0) * k * C1, nbr, mt * k, k, red,
+              a.psum);
 }
 
 template <int C1>
@@ -150,7 +108,7 @@ cudaError_t launch_f1(const F1Args& a, int batch, cudaStream_t stream) {
 
 }  // namespace pcl
 
-// Widths compiled: C1 = 64 (SA1) and 128 (SA2). Returns the launch's
+// Widths compiled: C1 = 32, 64 and 128. Returns the launch's
 // cudaGetLastError() code, or cudaErrorInvalidValue for what it does not
 // take.
 extern "C" int sa_bq_f1_launch(const void* new_xyz, const void* pts,
@@ -173,6 +131,7 @@ extern "C" int sa_bq_f1_launch(const void* new_xyz, const void* pts,
   a.k = k;
   a.r2 = r2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c1 == 32) return pcl::launch_f1<32>(a, batch, s);
   if (c1 == 64) return pcl::launch_f1<64>(a, batch, s);
   if (c1 == 128) return pcl::launch_f1<128>(a, batch, s);
   return cudaErrorInvalidValue;
@@ -180,6 +139,7 @@ extern "C" int sa_bq_f1_launch(const void* new_xyz, const void* pts,
 
 // Dynamic shared memory the launch above needs (0: width not compiled).
 extern "C" long long sa_bq_f1_smem(int n, int c1, int k) {
+  if (c1 == 32) return (long long)pcl::F1Layout<32>::bytes(n, k);
   if (c1 == 64) return (long long)pcl::F1Layout<64>::bytes(n, k);
   if (c1 == 128) return (long long)pcl::F1Layout<128>::bytes(n, k);
   return 0;

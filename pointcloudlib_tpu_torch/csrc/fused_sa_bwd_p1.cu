@@ -23,10 +23,19 @@
 // per-center max and tie count in shared memory, accumulate ps3 and vecs
 // in registers and write left and right as bf16 rows to a scratch the
 // caller allocates; (b) a split-row product: each block owns a 64 x 128
-// tile of mats for one range of rows, sums 32-row chunks staged in
-// shared memory, and adds its tile into mats (zeroed by the caller) with
-// one atomicAdd per element. All sums are f32 in another order than the
-// plain version (atomics across blocks).
+// tile of mats (the last row of tiles may be ragged: 3*96 = 288 rows)
+// for one range of rows, sums 32-row chunks staged in shared memory, and
+// adds its tile into mats (zeroed by the caller) with one atomicAdd per
+// element. All sums are f32 in another order than the plain version
+// (atomics across blocks).
+//
+// A center with k > 64 slots spans k/64 tiles, and its max and tie count
+// are known only after the last of them. One block then walks the
+// center's tiles twice: a first pass runs the chain and folds (max, tie
+// count) of relu(z3) into shared memory (tie_merge), the second runs the
+// chain again and does everything else. The even tie split over all k
+// slots holds as for k <= 64: every row runs the same instruction
+// sequence in both passes.
 
 #include "fused_sa_common.cuh"
 
@@ -93,83 +102,107 @@ __global__ void __launch_bounds__(kThreads) p1_rows_kernel(const P1Args a) {
   const float* rs3 = bi3 + C3;
   const float* mrs3 = rs3 + C3;
 
+  static_assert(T3::ACTIVE == kThreads, "every thread owns a tile of h3");
+  const bool act2 = T2::active();
   const int rg2 = tid / T2::NCG, cg2 = tid % T2::NCG;
   const int rg3 = tid / T3::NCG, cg3 = tid % T3::NCG;
   const int k = a.k;
+  const int tpc = tiles_per_center(k);
   const int cl3 = rg3 * T3::RPT / k;  // this thread's center in a tile
+  unsigned long long* mc = reinterpret_cast<unsigned long long*>(mx);
   float vy[8], vm[8], vx[8], s3[8], ss3[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) vy[c] = vm[c] = vx[c] = s3[c] = ss3[c] = 0.0f;
 
-  const long long tiles = a.rows / kRows;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const size_t row0 = (size_t)t * kRows;
+  // a unit: one tile of whole centers, or the tiles of one center
+  const long long units = a.rows / ((long long)kRows * tpc);
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
     for (int i = tid; i < (kRows / 8) * C3; i += kThreads) {
       mx[i] = 0.0f;
       ts[i] = 0;
     }
-    load_y1<C1>(a.h1, row0, sc1, bi1, y1s);
-    __syncthreads();
+    // pass 0 (only when a center spans several tiles) folds the center's
+    // max and tie count; pass 1 does the work
+    for (int pass = tpc > 1 ? 0 : 1; pass < 2; ++pass)
+      for (int sub = 0; sub < tpc; ++sub) {
+        const size_t row0 = ((size_t)u * tpc + sub) * kRows;
+        load_y1<C1>(a.h1, row0, sc1, bi1, y1s);
+        __syncthreads();
 
-    // layer 2: left = [y2 | m2 | m2*x2], y2 to shared memory for layer 3
-    float acc2[T2::RPT][8];
-    product<C1, C2>(y1s, w2s, rg2, cg2, acc2);
+        // layer 2: left = [y2 | m2 | m2*x2], y2 to shared memory for layer 3
+        if (act2) {
+          float acc2[T2::RPT][8];
+          product<C1, C2>(y1s, w2s, rg2, cg2, acc2);
 #pragma unroll
-    for (int i = 0; i < T2::RPT; ++i) {
-      const int r = rg2 * T2::RPT + i;
-      float y[8], m[8], x[8];
+          for (int i = 0; i < T2::RPT; ++i) {
+            const int r = rg2 * T2::RPT + i;
+            float y[8], m[8], x[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int ch = cg2 * 8 + c;
-        const float z = bn_z(acc2[i][c], sc2[ch], bi2[ch]);
-        y[c] = fmaxf(z, 0.0f);
-        m[c] = z > 0.0f ? 1.0f : 0.0f;
-        x[c] = __fmul_rn(m[c], xhat(acc2[i][c], rs2[ch], mrs2[ch]));
-        vy[c] += y[c];
-        vm[c] += m[c];
-        vx[c] += x[c];
-      }
-      const uint4 yb = pack8(y);
-      *reinterpret_cast<uint4*>(y2s + r * (C2 + 8) + cg2 * 8) = yb;
-      __nv_bfloat16* lg = a.left + (row0 + r) * (3 * C2) + cg2 * 8;
-      *reinterpret_cast<uint4*>(lg) = yb;
-      *reinterpret_cast<uint4*>(lg + C2) = pack8(m);
-      *reinterpret_cast<uint4*>(lg + 2 * C2) = pack8(x);
-    }
-    __syncthreads();
+            for (int c = 0; c < 8; ++c) {
+              const int ch = cg2 * 8 + c;
+              const float z = bn_z(acc2[i][c], sc2[ch], bi2[ch]);
+              y[c] = fmaxf(z, 0.0f);
+              m[c] = z > 0.0f ? 1.0f : 0.0f;
+              x[c] = __fmul_rn(m[c], xhat(acc2[i][c], rs2[ch], mrs2[ch]));
+            }
+            const uint4 yb = pack8(y);
+            *reinterpret_cast<uint4*>(y2s + r * (C2 + 8) + cg2 * 8) = yb;
+            if (pass == 0) continue;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              vy[c] += y[c];
+              vm[c] += m[c];
+              vx[c] += x[c];
+            }
+            __nv_bfloat16* lg = a.left + (row0 + r) * (3 * C2) + cg2 * 8;
+            *reinterpret_cast<uint4*>(lg) = yb;
+            *reinterpret_cast<uint4*>(lg + C2) = pack8(m);
+            *reinterpret_cast<uint4*>(lg + 2 * C2) = pack8(x);
+          }
+        }
+        __syncthreads();
 
-    // layer 3 and the max-pool gradient: right = [dz3 | x3]
-    float acc3[T3::RPT][8], dz3[T3::RPT][8];
-    product<C2, C3>(y2s, w3s, rg3, cg3, acc3);
+        // layer 3 and the max-pool gradient: right = [dz3 | x3]
+        float acc3[T3::RPT][8], dz3[T3::RPT][8];
+        product<C2, C3>(y2s, w3s, rg3, cg3, acc3);
 #pragma unroll
-    for (int i = 0; i < T3::RPT; ++i)
+        for (int i = 0; i < T3::RPT; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
-        dz3[i][c] = bn_z(acc3[i][c], sc3[cg3 * 8 + c], bi3[cg3 * 8 + c]);
-    const float* dout_row = a.dout + (row0 / k + cl3) * C3;
-    maxpool_dz<T3::RPT, C3>(dz3, dout_row, cl3, cg3, mx, ts);  // z3 -> dz3
+          for (int c = 0; c < 8; ++c)
+            dz3[i][c] = bn_z(acc3[i][c], sc3[cg3 * 8 + c], bi3[cg3 * 8 + c]);
+        if (pass == 0) {
+          tie_merge<T3::RPT>(dz3, cg3, mc);
+          __syncthreads();
+          continue;
+        }
+        const float* dout_row = a.dout + (row0 / k + cl3) * C3;
+        if (tpc == 1)
+          maxpool_dz<T3::RPT, C3>(dz3, dout_row, cl3, cg3, mx, ts);
+        else
+          merged_dz<T3::RPT>(dz3, dout_row, cg3, mc);  // z3 -> dz3
 #pragma unroll
-    for (int i = 0; i < T3::RPT; ++i) {
-      const int r = rg3 * T3::RPT + i;
-      float x[8];
+        for (int i = 0; i < T3::RPT; ++i) {
+          const int r = rg3 * T3::RPT + i;
+          float x[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int ch = cg3 * 8 + c;
-        x[c] = xhat(acc3[i][c], rs3[ch], mrs3[ch]);
-        s3[c] += dz3[i][c];
-        ss3[c] += dz3[i][c] * x[c];
+          for (int c = 0; c < 8; ++c) {
+            const int ch = cg3 * 8 + c;
+            x[c] = xhat(acc3[i][c], rs3[ch], mrs3[ch]);
+            s3[c] += dz3[i][c];
+            ss3[c] += dz3[i][c] * x[c];
+          }
+          __nv_bfloat16* rgp = a.right + (row0 + r) * (2 * C3) + cg3 * 8;
+          *reinterpret_cast<uint4*>(rgp) = pack8(dz3[i]);
+          *reinterpret_cast<uint4*>(rgp + C3) = pack8(x);
+        }
+        __syncthreads();
       }
-      __nv_bfloat16* rgp = a.right + (row0 + r) * (2 * C3) + cg3 * 8;
-      *reinterpret_cast<uint4*>(rgp) = pack8(dz3[i]);
-      *reinterpret_cast<uint4*>(rgp + C3) = pack8(x);
-    }
-    __syncthreads();
   }
   flush_sum<C3>(s3, cg3, red, a.ps3);
   flush_sum<C3>(ss3, cg3, red, a.ps3 + C3);
-  flush_sum<C2>(vy, cg2, red, a.vecs);
-  flush_sum<C2>(vm, cg2, red, a.vecs + C2);
-  flush_sum<C2>(vx, cg2, red, a.vecs + 2 * C2);
+  flush_sum<C2>(vy, cg2, red, a.vecs, act2);
+  flush_sum<C2>(vm, cg2, red, a.vecs + C2, act2);
+  flush_sum<C2>(vx, cg2, red, a.vecs + 2 * C2, act2);
 }
 
 // mats[I, J] += left[r0:r1, I]^T . right[r0:r1, J] for one 64 x 128 tile
@@ -199,7 +232,7 @@ __global__ void __launch_bounds__(kThreads)
     {
       const int r = tid / 8, v = tid % 8;
       uint4 val = make_uint4(0, 0, 0, 0);
-      if (base + r < r1)
+      if (base + r < r1 && i0 + v * 8 < I)
         val = *reinterpret_cast<const uint4*>(left + (base + r) * I + i0 +
                                               v * 8);
       *reinterpret_cast<uint4*>(&ls[r][v * 8]) = val;
@@ -228,6 +261,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
+  if (i0 + ig * 4 >= I) return;  // ragged last row of tiles (I % 4 == 0)
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -245,24 +279,27 @@ cudaError_t launch_p1(const P1Args& a, cudaStream_t stream) {
       rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = resident_blocks(rows_kernel, smem, a.rows / kRows, &blocks);
+  err = resident_blocks(
+      rows_kernel, smem,
+      a.rows / ((long long)kRows * tiles_per_center(a.k)), &blocks);
   if (err != cudaSuccess) return err;
   rows_kernel<<<blocks, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr int I = 3 * C2, J = 2 * C3;
-  static_assert(I % kMI == 0 && J % kMJ == 0, "mats tiling");
+  static_assert(I % 8 == 0 && J % kMJ == 0, "mats tiling");
   auto mats_kernel = p1_mats_kernel<I, J>;
   int resident = 0;
   err = resident_blocks(mats_kernel, 0, 1LL << 40, &resident);
   if (err != cudaSuccess) return err;
-  const int tiles = (I / kMI) * (J / kMJ);
+  constexpr int ITILES = (I + kMI - 1) / kMI;
+  const int tiles = ITILES * (J / kMJ);
   long long splits = (2LL * resident + tiles - 1) / tiles;
   long long per_block = (a.rows + splits - 1) / splits;
   per_block = (per_block + kMR - 1) / kMR * kMR;
   splits = (a.rows + per_block - 1) / per_block;
-  const dim3 grid(I / kMI, J / kMJ, (unsigned)splits);
+  const dim3 grid(ITILES, J / kMJ, (unsigned)splits);
   mats_kernel<<<grid, kThreads, 0, stream>>>(a.left, a.right, a.mats, a.rows,
                                              per_block);
   return cudaGetLastError();
@@ -270,9 +307,9 @@ cudaError_t launch_p1(const P1Args& a, cudaStream_t stream) {
 
 }  // namespace pcl
 
-// Widths compiled: SA1 (64/64/128) and SA2 (128/128/256). rows = B*M*k
-// must be a multiple of 64 and k one of 8, 16, 32, 64. ps3, vecs and mats
-// are zeroed by the caller; left and right are scratch of rows*3*C2 and
+// Widths compiled: (32, 32, 64), (64, 64, 128), (64, 96, 128) and
+// (128, 128, 256). k is 8, 16, 32 or a multiple of 64, and rows = B*M*k a
+// multiple of 64. ps3, vecs and mats are zeroed by the caller; left and right are scratch of rows*3*C2 and
 // rows*2*C3 bf16. Returns cudaGetLastError() of the launches.
 extern "C" int sa_bwd_p1_launch(const void* h1, const void* dout,
                                 const void* st, const void* w2,
@@ -280,7 +317,7 @@ extern "C" int sa_bwd_p1_launch(const void* h1, const void* dout,
                                 void* left, void* right, void* mats,
                                 long long rows, int k, int c1, int c2,
                                 int c3, void* stream) {
-  if (rows < 1 || rows % pcl::kRows || k < 8 || k % 8 || pcl::kRows % k)
+  if (rows < 1 || !pcl::k_ok(k) || rows % pcl::kRows || rows % k)
     return cudaErrorInvalidValue;
   pcl::P1Args a;
   a.h1 = static_cast<const __nv_bfloat16*>(h1);
@@ -296,9 +333,10 @@ extern "C" int sa_bwd_p1_launch(const void* h1, const void* dout,
   a.rows = rows;
   a.k = k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c1 == 64 && c2 == 64 && c3 == 128)
-    return pcl::launch_p1<64, 64, 128>(a, s);
-  if (c1 == 128 && c2 == 128 && c3 == 256)
-    return pcl::launch_p1<128, 128, 256>(a, s);
+#define PCL_LAUNCH(A, B, C)          \
+  if (c1 == A && c2 == B && c3 == C) \
+    return pcl::launch_p1<A, B, C>(a, s);
+  PCL_TRAIN_WIDTHS(PCL_LAUNCH)
+#undef PCL_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -21,7 +21,11 @@
 // cores in f32 in this first version), then the scatter: one f32
 // atomicAdd per row and channel into an L2-resident [B, N, 2C1+1].
 // Resident blocks walk 64-row tiles of whole centers (k divides 64), so
-// the max-pool ties and d1/d2 are reduced in shared memory; W2 and W3
+// the max-pool ties and d1/d2 are reduced in shared memory. A center with
+// k > 64 slots (k a multiple of 64) spans k/64 tiles that one block walks
+// twice: a first pass runs the forward chain and folds the center's max
+// and tie count (tie_merge), the second runs everything, with d1/d2
+// summed in shared memory across the center's tiles. W2 and W3
 // sit in shared memory as bf16, their transposes are read from global
 // memory (L1/L2) to stay within one block's 227 KB at SA2. dw2 and the
 // ps1 sums stay in registers until one atomicAdd per element and block.
@@ -76,10 +80,14 @@ __global__ void __launch_bounds__(kThreads) p2_kernel(const P2Args a) {
   using T2 = Tile<C2>;
   using T3 = Tile<C3>;
   // dw2 ownership: thread (igw, cgw) owns rows igw*RI..+RI, channels cgw*8..+8
+  // (the first NCGW*NIGW threads; the rest own no part of dw2)
   constexpr int NCGW = C2 / 8;
-  constexpr int NIGW = kThreads / NCGW;
+  constexpr int NIGW =
+      pow2_floor(kThreads / NCGW) < C1 ? pow2_floor(kThreads / NCGW) : C1;
   constexpr int RI = C1 / NIGW;
-  static_assert(kThreads % NCGW == 0 && C1 % NIGW == 0, "dw2 tiling");
+  static_assert(C1 % NIGW == 0 && NCGW * NIGW <= kThreads, "dw2 tiling");
+  static_assert(T1::ACTIVE == kThreads && T3::ACTIVE == kThreads,
+                "every thread owns a tile of h1 and of h3");
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem + L::w2);
@@ -124,11 +132,15 @@ __global__ void __launch_bounds__(kThreads) p2_kernel(const P2Args a) {
   const int rg2 = tid / T2::NCG, cg2 = tid % T2::NCG;
   const int rg3 = tid / T3::NCG, cg3 = tid % T3::NCG;
   const int igw = tid / NCGW, cgw = tid % NCGW;
+  const bool act2 = T2::active();
+  const bool actw = tid < NCGW * NIGW;
   const int k = a.k;
-  const int cpt = kRows / k;
+  const int cpt = centers_per_tile(k);
+  const int tpc = tiles_per_center(k);
   const int cl1 = rg1 * T1::RPT / k;
   const int cl3 = rg3 * T3::RPT / k;
   constexpr int SW = 2 * C1 + 1;  // scat row width
+  unsigned long long* mc = reinterpret_cast<unsigned long long*>(mx);
 
   float dw[RI][8], s1[8], ss1[8];
 #pragma unroll
@@ -138,139 +150,162 @@ __global__ void __launch_bounds__(kThreads) p2_kernel(const P2Args a) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) s1[c] = ss1[c] = 0.0f;
 
-  const long long tiles = a.rows / kRows;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const size_t row0 = (size_t)t * kRows;
+  // a unit: one tile of whole centers, or the tiles of one center
+  const long long units = a.rows / ((long long)kRows * tpc);
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
     for (int i = tid; i < (kRows / 8) * C3; i += kThreads) {
       mx[i] = 0.0f;
       ts[i] = 0;
     }
     for (int i = tid; i < (kRows / 8) * C1; i += kThreads)
       d1s[i] = d2s[i] = 0.0f;
-    load_y1<C1>(a.h1, row0, sc1, bi1, y1s);
-    __syncthreads();
+    // pass 0 (only when a center spans several tiles) folds the center's
+    // max and tie count; pass 1 does the work
+    for (int pass = tpc > 1 ? 0 : 1; pass < 2; ++pass)
+      for (int sub = 0; sub < tpc; ++sub) {
+        const size_t row0 = ((size_t)u * tpc + sub) * kRows;
+        load_y1<C1>(a.h1, row0, sc1, bi1, y1s);
+        __syncthreads();
 
-    // forward recompute: h2 stays in registers, y2 goes to shared memory
-    float acc2[T2::RPT][8];
-    product<C1, C2>(y1s, w2s, rg2, cg2, acc2);
-    store_bn_relu<C2>(acc2, sc2, bi2, y2s, rg2, cg2);
-    __syncthreads();
-    float acc3[T3::RPT][8], dz3[T3::RPT][8];
-    product<C2, C3>(y2s, w3s, rg3, cg3, acc3);
-#pragma unroll
-    for (int i = 0; i < T3::RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        dz3[i][c] = bn_z(acc3[i][c], sc3[cg3 * 8 + c], bi3[cg3 * 8 + c]);
-    maxpool_dz<T3::RPT, C3>(dz3, a.dout + (row0 / k + cl3) * C3, cl3, cg3,
-                            mx, ts);
-
-    // dh3 -> bf16 in shared memory
-#pragma unroll
-    for (int i = 0; i < T3::RPT; ++i) {
-      float v[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int ch = cg3 * 8 + c;
-        v[c] = bn_bwd(dz3[i][c], xhat(acc3[i][c], rs3[ch], mrs3[ch]),
-                      sc3[ch], u31[ch], u32[ch]);
-      }
-      *reinterpret_cast<uint4*>(dh3s + (rg3 * T3::RPT + i) * (C3 + 8) +
-                                cg3 * 8) = pack8(v);
-    }
-    __syncthreads();
-
-    // dh2 = BN2 backward of (z2 > 0) * (dh3 . W3^T) -> bf16 over y2s
-    {
-      float dy2[T2::RPT][8];
-      product<C3, C2>(dh3s, a.wt3, rg2, cg2, dy2);
-#pragma unroll
-      for (int i = 0; i < T2::RPT; ++i) {
-        float v[8];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int ch = cg2 * 8 + c;
-          const float z2 = bn_z(acc2[i][c], sc2[ch], bi2[ch]);
-          const float dz2 = z2 > 0.0f ? dy2[i][c] : 0.0f;
-          v[c] = bn_bwd(dz2, xhat(acc2[i][c], rs2[ch], mrs2[ch]), sc2[ch],
-                        u21[ch], u22[ch]);
+        // forward recompute: h2 stays in registers, y2 goes to shared memory
+        float acc2[T2::RPT][8];
+        if (act2) {
+          product<C1, C2>(y1s, w2s, rg2, cg2, acc2);
+          store_bn_relu<C2>(acc2, sc2, bi2, y2s, rg2, cg2);
         }
-        *reinterpret_cast<uint4*>(y2s + (rg2 * T2::RPT + i) * (C2 + 8) +
-                                  cg2 * 8) = pack8(v);
-      }
-    }
-    __syncthreads();
-    const __nv_bfloat16* dh2s = y2s;
+        __syncthreads();
+        float acc3[T3::RPT][8], dz3[T3::RPT][8];
+        product<C2, C3>(y2s, w3s, rg3, cg3, acc3);
+#pragma unroll
+        for (int i = 0; i < T3::RPT; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            dz3[i][c] = bn_z(acc3[i][c], sc3[cg3 * 8 + c], bi3[cg3 * 8 + c]);
+        if (pass == 0) {
+          tie_merge<T3::RPT>(dz3, cg3, mc);
+          __syncthreads();
+          continue;
+        }
+        const float* dout_row = a.dout + (row0 / k + cl3) * C3;
+        if (tpc == 1)
+          maxpool_dz<T3::RPT, C3>(dz3, dout_row, cl3, cg3, mx, ts);
+        else
+          merged_dz<T3::RPT>(dz3, dout_row, cg3, mc);
 
-    // dw2 += bf16(y1)^T . bf16(dh2) over the tile's rows
+        // dh3 -> bf16 in shared memory
+#pragma unroll
+        for (int i = 0; i < T3::RPT; ++i) {
+          float v[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int ch = cg3 * 8 + c;
+            v[c] = bn_bwd(dz3[i][c], xhat(acc3[i][c], rs3[ch], mrs3[ch]),
+                          sc3[ch], u31[ch], u32[ch]);
+          }
+          *reinterpret_cast<uint4*>(dh3s + (rg3 * T3::RPT + i) * (C3 + 8) +
+                                    cg3 * 8) = pack8(v);
+        }
+        __syncthreads();
+
+        // dh2 = BN2 backward of (z2 > 0) * (dh3 . W3^T) -> bf16 over y2s
+        if (act2) {
+          float dy2[T2::RPT][8];
+          product<C3, C2>(dh3s, a.wt3, rg2, cg2, dy2);
+#pragma unroll
+          for (int i = 0; i < T2::RPT; ++i) {
+            float v[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const int ch = cg2 * 8 + c;
+              const float z2 = bn_z(acc2[i][c], sc2[ch], bi2[ch]);
+              const float dz2 = z2 > 0.0f ? dy2[i][c] : 0.0f;
+              v[c] = bn_bwd(dz2, xhat(acc2[i][c], rs2[ch], mrs2[ch]), sc2[ch],
+                            u21[ch], u22[ch]);
+            }
+            *reinterpret_cast<uint4*>(y2s + (rg2 * T2::RPT + i) * (C2 + 8) +
+                                      cg2 * 8) = pack8(v);
+          }
+        }
+        __syncthreads();
+        const __nv_bfloat16* dh2s = y2s;
+
+        // dw2 += bf16(y1)^T . bf16(dh2) over the tile's rows
+        if (actw) {
 #pragma unroll 4
-    for (int r = 0; r < kRows; ++r) {
-      const uint4 dv =
-          *reinterpret_cast<const uint4*>(dh2s + r * (C2 + 8) + cgw * 8);
-      float d[8];
+          for (int r = 0; r < kRows; ++r) {
+            const uint4 dv =
+                *reinterpret_cast<const uint4*>(dh2s + r * (C2 + 8) + cgw * 8);
+            float d[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) d[c] = bf_at(dv, c);
+            for (int c = 0; c < 8; ++c) d[c] = bf_at(dv, c);
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float y = __bfloat162float(y1s[r * (C1 + 8) + igw * RI + i]);
+            for (int i = 0; i < RI; ++i) {
+              const float y =
+                  __bfloat162float(y1s[r * (C1 + 8) + igw * RI + i]);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) dw[i][c] = fmaf(y, d[c], dw[i][c]);
-      }
-    }
-
-    // dz1 = (z1 > 0) * (dh2 . W2^T); sums, per-center sums, scatter
-    {
-      float dy1[T1::RPT][8];
-      product<C2, C1>(dh2s, a.wt2, rg1, cg1, dy1);
-      float dsum[8], xsum[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) dsum[c] = xsum[c] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < T1::RPT; ++i) {
-        const size_t row = row0 + rg1 * T1::RPT + i;
-        const uint4 hv =
-            *reinterpret_cast<const uint4*>(a.h1 + row * C1 + cg1 * 8);
-        const size_t cloud = row / a.mk;
-        float* dst = a.scat + (cloud * a.n + a.idx[row]) * SW;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int ch = cg1 * 8 + c;
-          const float h = bf_at(hv, c);
-          const float z1 = bn_z(h, sc1[ch], bi1[ch]);
-          const float dz1 = z1 > 0.0f ? dy1[i][c] : 0.0f;
-          const float x1 = xhat(h, rs1[ch], mrs1[ch]);
-          s1[c] += dz1;
-          ss1[c] += dz1 * x1;
-          dsum[c] += dz1;
-          xsum[c] += x1;
-          atomicAdd(dst + ch, bf_round(dz1));
-          atomicAdd(dst + C1 + ch, bf_round(x1));
+              for (int c = 0; c < 8; ++c) dw[i][c] = fmaf(y, d[c], dw[i][c]);
+            }
+          }
         }
-        if (cg1 == 0) atomicAdd(dst + 2 * C1, 1.0f);
-      }
+
+        // dz1 = (z1 > 0) * (dh2 . W2^T); sums, per-center sums, scatter
+        {
+          float dy1[T1::RPT][8];
+          product<C2, C1>(dh2s, a.wt2, rg1, cg1, dy1);
+          float dsum[8], xsum[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        atomicAdd(d1s + cl1 * C1 + cg1 * 8 + c, dsum[c]);
-        atomicAdd(d2s + cl1 * C1 + cg1 * 8 + c, xsum[c]);
+          for (int c = 0; c < 8; ++c) dsum[c] = xsum[c] = 0.0f;
+#pragma unroll
+          for (int i = 0; i < T1::RPT; ++i) {
+            const size_t row = row0 + rg1 * T1::RPT + i;
+            const uint4 hv =
+                *reinterpret_cast<const uint4*>(a.h1 + row * C1 + cg1 * 8);
+            const size_t cloud = row / a.mk;
+            float* dst = a.scat + (cloud * a.n + a.idx[row]) * SW;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const int ch = cg1 * 8 + c;
+              const float h = bf_at(hv, c);
+              const float z1 = bn_z(h, sc1[ch], bi1[ch]);
+              const float dz1 = z1 > 0.0f ? dy1[i][c] : 0.0f;
+              const float x1 = xhat(h, rs1[ch], mrs1[ch]);
+              s1[c] += dz1;
+              ss1[c] += dz1 * x1;
+              dsum[c] += dz1;
+              xsum[c] += x1;
+              atomicAdd(dst + ch, bf_round(dz1));
+              atomicAdd(dst + C1 + ch, bf_round(x1));
+            }
+            if (cg1 == 0) atomicAdd(dst + 2 * C1, 1.0f);
+          }
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            atomicAdd(d1s + cl1 * C1 + cg1 * 8 + c, dsum[c]);
+            atomicAdd(d2s + cl1 * C1 + cg1 * 8 + c, xsum[c]);
+          }
+        }
+        __syncthreads();
+        if (sub == tpc - 1) {  // the unit's centers are complete
+          float* d1g = a.d1 + (row0 / k) * C1;
+          float* d2g = a.d2 + (row0 / k) * C1;
+          for (int i = tid; i < cpt * C1; i += kThreads) {
+            d1g[i] = d1s[i];
+            d2g[i] = d2s[i];
+          }
+          __syncthreads();
+        }
       }
-    }
-    __syncthreads();
-    float* d1g = a.d1 + (row0 / k) * C1;
-    float* d2g = a.d2 + (row0 / k) * C1;
-    for (int i = tid; i < cpt * C1; i += kThreads) {
-      d1g[i] = d1s[i];
-      d2g[i] = d2s[i];
-    }
-    __syncthreads();
   }
 
   flush_sum<C1>(s1, cg1, red, a.ps1);
   flush_sum<C1>(ss1, cg1, red, a.ps1 + C1);
+  if (actw) {
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      atomicAdd(a.dw2 + (igw * RI + i) * C2 + cgw * 8 + c, dw[i][c]);
+      for (int c = 0; c < 8; ++c)
+        atomicAdd(a.dw2 + (igw * RI + i) * C2 + cgw * 8 + c, dw[i][c]);
+  }
 }
 
 template <int C1, int C2, int C3>
@@ -282,7 +317,9 @@ cudaError_t launch_p2(const P2Args& a, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = resident_blocks(kernel, smem, a.rows / kRows, &blocks);
+  err = resident_blocks(
+      kernel, smem, a.rows / ((long long)kRows * tiles_per_center(a.k)),
+      &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
@@ -290,9 +327,9 @@ cudaError_t launch_p2(const P2Args& a, cudaStream_t stream) {
 
 }  // namespace pcl
 
-// Widths compiled: SA1 (64/64/128) and SA2 (128/128/256). rows = B*M*k
-// must be a multiple of 64 and k one of 8, 16, 32, 64. Returns
-// cudaGetLastError() of the launch.
+// Widths compiled: (32, 32, 64), (64, 64, 128), (64, 96, 128) and
+// (128, 128, 256). k is 8, 16, 32 or a multiple of 64, and rows = B*M*k a
+// multiple of 64. Returns cudaGetLastError() of the launch.
 extern "C" int sa_bwd_p2_launch(const void* h1, const void* dout,
                                 const void* idx, const void* st,
                                 const void* us, const void* w2,
@@ -301,8 +338,8 @@ extern "C" int sa_bwd_p2_launch(const void* h1, const void* dout,
                                 void* scat, void* d1, void* d2,
                                 long long rows, int n, int mk, int k, int c1,
                                 int c2, int c3, void* stream) {
-  if (rows < 1 || rows % pcl::kRows || k < 8 || k % 8 || pcl::kRows % k ||
-      n < 1 || mk < 1 || mk % k)
+  if (rows < 1 || !pcl::k_ok(k) || rows % pcl::kRows || rows % k || n < 1 ||
+      mk < 1 || mk % k)
     return cudaErrorInvalidValue;
   pcl::P2Args a;
   a.h1 = static_cast<const __nv_bfloat16*>(h1);
@@ -324,9 +361,10 @@ extern "C" int sa_bwd_p2_launch(const void* h1, const void* dout,
   a.mk = mk;
   a.k = k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c1 == 64 && c2 == 64 && c3 == 128)
-    return pcl::launch_p2<64, 64, 128>(a, s);
-  if (c1 == 128 && c2 == 128 && c3 == 256)
-    return pcl::launch_p2<128, 128, 256>(a, s);
+#define PCL_LAUNCH(A, B, C)          \
+  if (c1 == A && c2 == B && c3 == C) \
+    return pcl::launch_p2<A, B, C>(a, s);
+  PCL_TRAIN_WIDTHS(PCL_LAUNCH)
+#undef PCL_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
-// Pieces shared by the fused set-abstraction kernels (eval, f1, tails,
-// backward passes): bf16 unpacking, the BN affine with explicit
-// round-to-nearest steps, the 64-row register-tiled product over bf16
-// operands with f32 sums, the in-kernel ball-query distance, and the
-// per-channel block reduction into a global sum.
+// Pieces shared by the ball-query and fused set-abstraction kernels
+// (ball query, eval, f1, tails, backward passes): bf16 unpacking, the BN
+// affine with explicit round-to-nearest steps, the 64-row register-tiled
+// product over bf16 operands with f32 sums, the ball-query distance and
+// its warp scan, the h1 gather of forward pass 1, the max-pool gradient
+// (within one tile, or folded across the tiles of a center with more
+// than 64 slots), and the per-channel block reduction into a global sum.
 //
 // Every row of a tile runs the same instruction sequence, whatever its
 // position, so repeat-first padding rows (replicas of slot 0) come out
@@ -81,15 +83,69 @@ __device__ __forceinline__ float sumsq3(float x, float y, float z) {
                    __fmul_rn(z, z));
 }
 
+// One warp finds a center's neighbours: the first k points of
+// ptss[0, n) in index order with d2 < r2 go to nbr[0, k) (shared or
+// global memory); p.w holds |p|^2. Returns the number of hits: all of
+// them when FULL, else the scan stops once k are found.
+template <bool FULL>
+__device__ __forceinline__ int bq_scan(const float* center,
+                                       const float4* ptss, int n, int k,
+                                       float r2, int lane, int* nbr) {
+  const float cx = center[0], cy = center[1], cz = center[2];
+  const float c2 = sumsq3(cx, cy, cz);
+  int count = 0;
+  for (int base = 0; base < n && (FULL || count < k); base += 32) {
+    const int j = base + lane;
+    const bool hit = j < n && sq_dist(cx, cy, cz, c2, ptss[j]) < r2;
+    const unsigned bal = __ballot_sync(0xffffffffu, hit);
+    const int rank = count + __popc(bal & ((1u << lane) - 1u));
+    if (hit && rank < k) nbr[rank] = j;
+    count += __popc(bal);
+  }
+  return count;
+}
+
+// Repeat-first padding of a scanned row by its warp: slots past
+// min(count, k) repeat slot 0, a row with no hit is all 0.
+__device__ __forceinline__ void bq_fill(int* nbr, int count, int k,
+                                        int lane) {
+  __syncwarp();
+  if (count == 0 && lane == 0) nbr[0] = 0;
+  __syncwarp();
+  const int live = count == 0 ? 1 : min(count, k);
+  const int first = nbr[0];
+  for (int j = live + lane; j < k; j += 32) nbr[j] = first;
+}
+
+// Stages a cloud [n, 3] in shared memory as (x, y, z, |p|^2).
+__device__ __forceinline__ void stage_cloud(const float* pg, int n,
+                                            float4* ptss) {
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const float x = pg[3 * j], y = pg[3 * j + 1], z = pg[3 * j + 2];
+    ptss[j] = make_float4(x, y, z, sumsq3(x, y, z));
+  }
+}
+
+__host__ __device__ constexpr int pow2_floor(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+
 // Thread layout of a [kRows, CIN] x [CIN, COUT] product: thread
-// (rg, cg) owns rows [rg*RPT, rg*RPT + RPT) and channels [cg*8, cg*8+8).
+// (rg, cg) = (tid / NCG, tid % NCG) owns rows [rg*RPT, rg*RPT + RPT) and
+// channels [cg*8, cg*8+8). Where COUT / 8 does not divide the block (96
+// channels: 12 groups), only the first ACTIVE = NCG*NRG threads own a
+// tile and the rest sit that product out.
 template <int COUT>
 struct Tile {
   static constexpr int NCG = COUT / 8;
-  static constexpr int NRG = kThreads / NCG;
+  static constexpr int NRG = pow2_floor(kThreads / NCG);
   static constexpr int RPT = kRows / NRG;
-  static_assert(COUT % 8 == 0 && kThreads % NCG == 0, "channel tiling");
-  static_assert(RPT >= 1 && kRows % NRG == 0, "row tiling");
+  static constexpr int ACTIVE = NCG * NRG;
+  static_assert(COUT % 8 == 0 && NCG <= kThreads, "channel tiling");
+  static_assert(RPT >= 1 && RPT <= 8 && kRows % NRG == 0, "row tiling");
+  __device__ static bool active() { return threadIdx.x < ACTIVE; }
 };
 
 // acc = Y[rows of this thread] . W[:, 8 channels of this thread].
@@ -166,17 +222,62 @@ __device__ __forceinline__ void store_bn_relu(
 
 // Adds each thread's per-channel partial sums v[8] (channels cg*8..+8)
 // into red[C] in shared memory, then red into out[C] in global memory.
-// Every thread of the block must call it; red is scratch of C floats.
+// Every thread of the block must call it, those that own no tile of the
+// product (Tile::active() false) with active = false; red is scratch of
+// C floats.
 template <int C>
 __device__ __forceinline__ void flush_sum(const float (&v)[8], int cg,
-                                          float* red, float* out) {
+                                          float* red, float* out,
+                                          bool active = true) {
   __syncthreads();
   for (int i = threadIdx.x; i < C; i += kThreads) red[i] = 0.0f;
   __syncthreads();
+  if (active) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) atomicAdd(red + cg * 8 + c, v[c]);
+    for (int c = 0; c < 8; ++c) atomicAdd(red + cg * 8 + c, v[c]);
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < C; i += kThreads) atomicAdd(out + i, red[i]);
+}
+
+// Forward pass 1 after the neighbours are known, for one block's nrows =
+// centers * k grouped rows: h1[row] = bf16(float(bf16 q[nbr[row]]) -
+// off[row / k]) and [sum h1, sum h1^2] of the f32 h1 before its rounding,
+// added into psum [2, C1]. qg is the cloud's q, offg and hg the block's
+// first center's rows, nbr in shared or global memory, red scratch of
+// 2*C1 floats zeroed by the caller before a barrier. Each thread keeps a
+// fixed channel pair, so its share of the sums stays in registers until
+// one shared-memory and one global atomicAdd per channel and block.
+template <int C1>
+__device__ __forceinline__ void f1_rows(const __nv_bfloat16* qg,
+                                        const float* offg,
+                                        __nv_bfloat16* hg, const int* nbr,
+                                        int nrows, int k, float* red,
+                                        float* psum) {
+  static_assert(kThreads % (C1 / 2) == 0, "fixed channel pair per thread");
+  constexpr int NCP = C1 / 2;
+  const int tid = threadIdx.x;
+  const int cc = (tid % NCP) * 2;
+  float s0 = 0.0f, s1 = 0.0f, ss0 = 0.0f, ss1 = 0.0f;
+  for (int e = tid; e < nrows * NCP; e += kThreads) {
+    const int row = e / NCP;  // c * k + j
+    const int c = row / k;
+    const uint32_t qq = *reinterpret_cast<const uint32_t*>(
+        qg + (size_t)nbr[row] * C1 + cc);
+    const float h0 = __fsub_rn(bf_lo(qq), offg[(size_t)c * C1 + cc]);
+    const float h1 = __fsub_rn(bf_hi(qq), offg[(size_t)c * C1 + cc + 1]);
+    *reinterpret_cast<uint32_t*>(hg + (size_t)row * C1 + cc) = pack2(h0, h1);
+    s0 += h0;
+    s1 += h1;
+    ss0 += h0 * h0;
+    ss1 += h1 * h1;
+  }
+  atomicAdd(red + cc, s0);
+  atomicAdd(red + cc + 1, s1);
+  atomicAdd(red + C1 + cc, ss0);
+  atomicAdd(red + C1 + cc + 1, ss1);
+  __syncthreads();
+  for (int i = tid; i < 2 * C1; i += kThreads) atomicAdd(psum + i, red[i]);
 }
 
 // Per-row gradient at z3 = BN3(h3) of the max over each center's k slots,
@@ -217,6 +318,73 @@ __device__ __forceinline__ void maxpool_dz(float (&z)[RPT][8],
       z[i][c] = (z[i][c] > 0.0f && fmaxf(z[i][c], 0.0f) == m) ? share : 0.0f;
   }
 }
+
+// The same gradient for a center whose k slots span several 64-row tiles
+// (k a multiple of 64, one center per tile). A first pass over the
+// center's tiles folds each thread's (max, tie count) of relu(z3) into
+// mc[C3]: one 64-bit word per channel, the max's bits above the count
+// (non-negative floats order as their bits), zeroed before the center.
+// A second pass turns z3 into dz3 from the folded words.
+template <int RPT>
+__device__ __forceinline__ void tie_merge(const float (&z)[RPT][8], int cg,
+                                          unsigned long long* mc) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float m = 0.0f;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) m = fmaxf(m, fmaxf(z[i][c], 0.0f));
+    unsigned n = 0;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) n += fmaxf(z[i][c], 0.0f) == m;
+    const unsigned mb = __float_as_uint(m);
+    unsigned long long* slot = mc + cg * 8 + c;
+    unsigned long long old = *slot;
+    while (true) {
+      const unsigned ob = (unsigned)(old >> 32);
+      if (mb < ob) break;
+      const unsigned long long next =
+          mb > ob ? ((unsigned long long)mb << 32) | n : old + n;
+      const unsigned long long seen = atomicCAS(slot, old, next);
+      if (seen == old) break;
+      old = seen;
+    }
+  }
+}
+
+template <int RPT>
+__device__ __forceinline__ void merged_dz(float (&z)[RPT][8],
+                                          const float* dout_row, int cg,
+                                          const unsigned long long* mc) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const unsigned long long w = mc[cg * 8 + c];
+    const float m = __uint_as_float((unsigned)(w >> 32));
+    const float share =
+        __fdiv_rn(dout_row[cg * 8 + c], (float)(unsigned)(w & 0xffffffffu));
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+      z[i][c] = (z[i][c] > 0.0f && fmaxf(z[i][c], 0.0f) == m) ? share : 0.0f;
+  }
+}
+
+// How a center's k slots meet the 64-row tiles: k divides 64 (cpt whole
+// centers a tile) or is a multiple of it (tpc tiles a center).
+__host__ __device__ __forceinline__ bool k_ok(int k) {
+  return k >= 8 && k % 8 == 0 && (kRows % k == 0 || k % kRows == 0);
+}
+__host__ __device__ __forceinline__ int centers_per_tile(int k) {
+  return k < kRows ? kRows / k : 1;
+}
+__host__ __device__ __forceinline__ int tiles_per_center(int k) {
+  return k < kRows ? 1 : k / kRows;
+}
+
+// Width triples (C1, C2, C3) the train kernels are compiled for.
+#define PCL_TRAIN_WIDTHS(X) \
+  X(32, 32, 64)             \
+  X(64, 64, 128)            \
+  X(64, 96, 128)            \
+  X(128, 128, 256)
 
 // Blocks for a grid-stride loop: as many as fit on the card at once,
 // never more than there is work.

@@ -17,9 +17,11 @@
 // h1 in shared memory and registers and writes nothing but its sums or
 // the pooled rows. Blocks stay resident (as many as fit) and walk
 // 64-row tiles; W2 and W3 are staged once per block as bf16. A tile
-// holds 64/k whole centers (k divides 64), so the max needs no traffic
-// between blocks; the sums reach global memory once per block and
-// channel (atomicAdd: f32 in another order than the plain version,
+// holds 64/k whole centers when k divides 64; when k is a multiple of 64
+// a block walks the k/64 consecutive tiles of one center and keeps its
+// running max in shared memory between them. Either way the max needs no
+// traffic between blocks; the sums reach global memory once per block
+// and channel (atomicAdd: f32 in another order than the plain version,
 // within 1e-3 relative).
 
 #include "fused_sa_common.cuh"
@@ -79,68 +81,77 @@ __global__ void __launch_bounds__(kThreads) tail_kernel(const TailArgs a) {
   const float* sc3 = sts + 4 * (C1 + C2);
   const float* bi3 = sc3 + C3;
 
+  static_assert(T3::ACTIVE == kThreads, "every thread owns a tile of h3");
+  const bool act2 = T2::active();
   const int rg2 = tid / T2::NCG, cg2 = tid % T2::NCG;
   const int rg3 = tid / T3::NCG, cg3 = tid % T3::NCG;
   const int k = a.k;
-  const int cpt = kRows / k;  // centers per tile
+  const int cpt = centers_per_tile(k);
+  const int tpc = tiles_per_center(k);
   float s[8], ss[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) s[c] = ss[c] = 0.0f;
 
-  const long long tiles = a.rows / kRows;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const size_t row0 = (size_t)t * kRows;
-    load_y1<C1>(a.h1, row0, sc1, bi1, y1s);
-    __syncthreads();
-    float acc2[T2::RPT][8];
-    product<C1, C2>(y1s, w2s, rg2, cg2, acc2);
-    if (STAGE == 2) {
-#pragma unroll
-      for (int i = 0; i < T2::RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          s[c] += acc2[i][c];
-          ss[c] += acc2[i][c] * acc2[i][c];
-        }
-    } else {
-      store_bn_relu<C2>(acc2, sc2, bi2, y2s, rg2, cg2);
+  // a unit: one tile of whole centers, or the tiles of one center
+  const long long units = a.rows / ((long long)kRows * tpc);
+  for (long long u = blockIdx.x; u < units; u += gridDim.x)
+    for (int sub = 0; sub < tpc; ++sub) {
+      const size_t row0 = ((size_t)u * tpc + sub) * kRows;
+      load_y1<C1>(a.h1, row0, sc1, bi1, y1s);
       __syncthreads();
-      float acc3[T3::RPT][8];
-      product<C2, C3>(y2s, w3s, rg3, cg3, acc3);
-      if (STAGE == 3) {
+      float acc2[T2::RPT][8];
+      if (act2) product<C1, C2>(y1s, w2s, rg2, cg2, acc2);
+      if (STAGE == 2) {
+        if (act2) {
 #pragma unroll
-        for (int i = 0; i < T3::RPT; ++i)
+          for (int i = 0; i < T2::RPT; ++i)
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            s[c] += acc3[i][c];
-            ss[c] += acc3[i][c] * acc3[i][c];
-          }
+            for (int c = 0; c < 8; ++c) {
+              s[c] += acc2[i][c];
+              ss[c] += acc2[i][c] * acc2[i][c];
+            }
+        }
       } else {
-        // this thread's RPT rows lie in one center (RPT divides 8, k % 8 == 0)
-        const int cl = rg3 * T3::RPT / k;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int ch = cg3 * 8 + c;
-          float mx = 0.0f;
+        if (act2) store_bn_relu<C2>(acc2, sc2, bi2, y2s, rg2, cg2);
+        __syncthreads();
+        float acc3[T3::RPT][8];
+        product<C2, C3>(y2s, w3s, rg3, cg3, acc3);
+        if (STAGE == 3) {
 #pragma unroll
           for (int i = 0; i < T3::RPT; ++i)
-            mx = fmaxf(mx, bn_relu(acc3[i][c], sc3[ch], bi3[ch]));
-          atomicMax(reinterpret_cast<int*>(outm + cl * C3 + ch),
-                    __float_as_int(mx));
-        }
-        __syncthreads();
-        float* og = a.out + (size_t)(row0 / k) * C3;
-        for (int i = tid; i < cpt * C3; i += kThreads) {
-          og[i] = outm[i];
-          outm[i] = 0.0f;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              s[c] += acc3[i][c];
+              ss[c] += acc3[i][c] * acc3[i][c];
+            }
+        } else {
+          // this thread's RPT rows lie in one center (RPT divides 8 | k)
+          const int cl = rg3 * T3::RPT / k;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int ch = cg3 * 8 + c;
+            float mx = 0.0f;
+#pragma unroll
+            for (int i = 0; i < T3::RPT; ++i)
+              mx = fmaxf(mx, bn_relu(acc3[i][c], sc3[ch], bi3[ch]));
+            atomicMax(reinterpret_cast<int*>(outm + cl * C3 + ch),
+                      __float_as_int(mx));
+          }
+          if (sub == tpc - 1) {  // the unit's centers are complete
+            __syncthreads();
+            float* og = a.out + (size_t)(row0 / k) * C3;
+            for (int i = tid; i < cpt * C3; i += kThreads) {
+              og[i] = outm[i];
+              outm[i] = 0.0f;
+            }
+          }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
-  }
   if (STAGE == 2) {
-    flush_sum<C2>(s, cg2, red, a.out);
-    flush_sum<C2>(ss, cg2, red, a.out + C2);
+    flush_sum<C2>(s, cg2, red, a.out, act2);
+    flush_sum<C2>(ss, cg2, red, a.out + C2, act2);
   } else if (STAGE == 3) {
     flush_sum<C3>(s, cg3, red, a.out);
     flush_sum<C3>(ss, cg3, red, a.out + C3);
@@ -156,7 +167,9 @@ cudaError_t launch_tail(const TailArgs& a, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = resident_blocks(kernel, smem, a.rows / kRows, &blocks);
+  err = resident_blocks(
+      kernel, smem, a.rows / ((long long)kRows * tiles_per_center(a.k)),
+      &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
@@ -172,14 +185,15 @@ cudaError_t launch_stage(int stage, const TailArgs& a, cudaStream_t s) {
 
 }  // namespace pcl
 
-// Widths compiled: SA1 (64/64/128) and SA2 (128/128/256). rows = B*M*k
-// must be a multiple of 64 and k one of 8, 16, 32, 64. out is zeroed by
-// the caller for stages 2 and 3. Returns cudaGetLastError() of the launch.
+// Widths compiled: (32, 32, 64), (64, 64, 128), (64, 96, 128) and
+// (128, 128, 256). k is 8, 16, 32 or a multiple of 64, and rows = B*M*k a
+// multiple of 64. out is zeroed by the caller for stages 2 and 3.
+// Returns cudaGetLastError() of the launch.
 extern "C" int sa_tail_launch(int stage, const void* h1, const void* st,
                               const void* w2, const void* w3, void* out,
                               long long rows, int k, int c1, int c2, int c3,
                               void* stream) {
-  if (rows < 1 || rows % pcl::kRows || k < 8 || k % 8 || pcl::kRows % k)
+  if (rows < 1 || !pcl::k_ok(k) || rows % pcl::kRows || rows % k)
     return cudaErrorInvalidValue;
   pcl::TailArgs a;
   a.h1 = static_cast<const __nv_bfloat16*>(h1);
@@ -190,9 +204,10 @@ extern "C" int sa_tail_launch(int stage, const void* h1, const void* st,
   a.rows = rows;
   a.k = k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c1 == 64 && c2 == 64 && c3 == 128)
-    return pcl::launch_stage<64, 64, 128>(stage, a, s);
-  if (c1 == 128 && c2 == 128 && c3 == 256)
-    return pcl::launch_stage<128, 128, 256>(stage, a, s);
+#define PCL_LAUNCH(A, B, C)          \
+  if (c1 == A && c2 == B && c3 == C) \
+    return pcl::launch_stage<A, B, C>(stage, a, s);
+  PCL_TRAIN_WIDTHS(PCL_LAUNCH)
+#undef PCL_LAUNCH
   return cudaErrorInvalidValue;
 }

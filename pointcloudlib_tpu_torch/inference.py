@@ -18,6 +18,8 @@ Example::
 
     p = Predictor.from_variables("pointnet2", jax_variables)
     probs = p.predict_proba(clouds, normals)      # [B, 40]
+
+``"pointnet2"`` (SSG) and ``"pointnet2_msg"`` are the ported models.
 """
 
 from __future__ import annotations

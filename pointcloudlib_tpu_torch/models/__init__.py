@@ -1,13 +1,16 @@
 """Model registry (counterpart of ``pointcloudlib_tpu/models``).
 
-Only PointNet++ SSG classification is ported so far; the other entries
-of the JAX registry follow in later slices (ROADMAP.md)."""
+PointNet++ SSG and MSG classification are ported so far; the other
+entries of the JAX registry follow in later slices (ROADMAP.md)."""
 
 from __future__ import annotations
 
-from pointcloudlib_tpu_torch.models.pointnet2 import PointNet2SSG
+from pointcloudlib_tpu_torch.models.pointnet2 import (
+    PointNet2MSG,
+    PointNet2SSG,
+)
 
-CLS_MODELS = {"pointnet2": PointNet2SSG}
+CLS_MODELS = {"pointnet2": PointNet2SSG, "pointnet2_msg": PointNet2MSG}
 
 
 def get_cls_model(name: str, n_classes: int = 40, **kw):

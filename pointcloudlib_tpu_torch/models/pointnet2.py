@@ -1,10 +1,13 @@
-"""PointNet++ SSG classification (counterpart of
+"""PointNet++ SSG and MSG classification (counterpart of
 ``pointcloudlib_tpu/models/pointnet2.py``).
 
-SA(512, r=.2, k=64, [64,64,128]) → SA(128, r=.4, k=64, [128,128,256]) →
-SA(all, [256,512,1024]) → FC 512→256→n_classes with dropout (0.5, the
-reference rate; 0 for deterministic comparisons). Input features are the
-raw normals.
+SSG: SA(512, r=.2, k=64, [64,64,128]) → SA(128, r=.4, k=64,
+[128,128,256]) → SA(all, [256,512,1024]) → the head.
+MSG: MSG(512, r=(.1,.2,.4), k=(16,32,128), [32,32,64], [64,64,128],
+[64,96,128]) → MSG(128, r=(.2,.4,.8), k=(32,64,128), [64,64,128],
+[128,128,256], [128,128,256]) → SA(all, [256,512,1024]) → the head.
+The head is FC 512→256→n_classes with dropout (0.5, the reference rate;
+0 for deterministic comparisons). Input features are the raw normals.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 from pointcloudlib_tpu_torch.nn.layers import (
     DenseBNAct,
     SetAbstraction,
+    SetAbstractionMSG,
     reference_linear_init,
 )
 
@@ -61,6 +65,36 @@ class PointNet2SSG(nn.Module):
         self.sa2 = SetAbstraction(128, [128, 128, 256], n_points=128,
                                   radius=0.4, n_samples=64)
         self.sa3 = SetAbstraction(256, [256, 512, 1024])
+        self.head = ClsHead(1024, n_classes, dropout)
+
+    def forward(self, xyz: torch.Tensor,
+                feats: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits ``[B, n_classes]``; ``generator`` draws the head's
+        dropout mask in training."""
+        xyz, f = self.sa1(xyz, feats)
+        xyz, f = self.sa2(xyz, f)
+        _, f = self.sa3(xyz, f)
+        return self.head(f[:, 0], generator)
+
+
+class PointNet2MSG(nn.Module):
+    """Multi-scale grouping (``models/pointnet2.py:135``). The JAX model
+    fixes the head's dropout at 0.5; here it is an argument, as in
+    :class:`PointNet2SSG`, for deterministic comparisons."""
+
+    def __init__(self, n_classes: int = 40, feat_channels: int = 3,
+                 dropout: float = 0.5):
+        super().__init__()
+        self.sa1 = SetAbstractionMSG(
+            feat_channels, n_points=512, radii=[0.1, 0.2, 0.4],
+            n_samples=[16, 32, 128],
+            mlps=[[32, 32, 64], [64, 64, 128], [64, 96, 128]])
+        self.sa2 = SetAbstractionMSG(
+            64 + 128 + 128, n_points=128, radii=[0.2, 0.4, 0.8],
+            n_samples=[32, 64, 128],
+            mlps=[[64, 64, 128], [128, 128, 256], [128, 128, 256]])
+        self.sa3 = SetAbstraction(128 + 256 + 256, [256, 512, 1024])
         self.head = ClsHead(1024, n_classes, dropout)
 
     def forward(self, xyz: torch.Tensor,

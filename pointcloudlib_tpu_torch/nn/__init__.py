@@ -5,6 +5,7 @@ from pointcloudlib_tpu_torch.nn.layers import (
     FusedSetAbstraction,
     PointMLP,
     SetAbstraction,
+    SetAbstractionMSG,
     compute_dtype,
     reference_linear_init,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "FusedSetAbstraction",
     "PointMLP",
     "SetAbstraction",
+    "SetAbstractionMSG",
     "compute_dtype",
     "reference_linear_init",
 ]

@@ -21,18 +21,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pointcloudlib_tpu_torch.ops import fps, group_all, index_points
+from pointcloudlib_tpu_torch.ops import (
+    ball_query,
+    fps,
+    group_all,
+    index_points,
+)
 from pointcloudlib_tpu_torch.ops.kernels.fused_sa import (
     SAParams,
     SAStats,
     fused_sa_bq_eval,
+    fused_sa_eval,
 )
 from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
     fused_sa_bq_train,
+    fused_sa_train,
 )
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
+# largest n_samples that takes the kernels with the ball query inside
+# (the JAX package's default gate, ``_bq_kmax``, ``nn/layers.py:147``)
+_BQ_KMAX = 64
 
 
 @torch.no_grad()
@@ -123,6 +133,11 @@ class FusedSetAbstraction(nn.Module):
     (biased variance, momentum 0.9). Grouped features are
     ``[recentred xyz ‖ features]``.
 
+    Routing follows the JAX layer (``nn/layers.py:265-290``): the kernels
+    with the ball query inside when no neighbour index is given, N is a
+    multiple of 128 and ``n_samples`` ≤ 64; else the standalone ball
+    query, then the kernels that take its index.
+
     Parameters keep the JAX names and layouts (``w1 [3+C, C1]``,
     ``w2``, ``w3``, ``bn{l}_scale``/``bn{l}_bias``; buffers
     ``mean{l}``/``var{l}``)."""
@@ -153,31 +168,57 @@ class FusedSetAbstraction(nn.Module):
         return SAStats(self.mean1, self.var1, self.mean2, self.var2,
                        self.mean3, self.var3)
 
-    def prepare(self, xyz: torch.Tensor, feats: Optional[torch.Tensor]
+    def prepare(self, xyz: torch.Tensor, feats: Optional[torch.Tensor],
+                new_xyz: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``(new_xyz, q, off)``: FPS centers and the kernels' folded
-        first layer ``q = [xyz‖f]·W1`` and ``off = new_xyz·W1[:3]``, both
-        float32 from bf16-rounded operands with f32 accumulation
-        (``nn/layers.py:303-314``). The kernels round ``q`` to bf16
-        (``fused_sa.py:1259,1427``): eval before its call, training
-        inside the autograd function, so that ``dq`` stays float32."""
-        new_xyz = index_points(xyz, fps(xyz, self.n_points))
+        """``(new_xyz, q, off)``: the centers (FPS unless given) and the
+        kernels' folded first layer ``q = [xyz‖f]·W1`` and ``off =
+        new_xyz·W1[:3]``, both float32 from bf16-rounded operands with f32
+        accumulation (``nn/layers.py:303-314``). The kernels round ``q``
+        to bf16 (``fused_sa.py:1259,1427``): eval before its call,
+        training inside the autograd function, so that ``dq`` stays
+        float32."""
+        if new_xyz is None:
+            new_xyz = index_points(xyz, fps(xyz, self.n_points))
         p = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
         q = _bf16_mm(p, self.w1)
         off = _bf16_mm(new_xyz, self.w1[:3])
         return new_xyz, q, off
 
-    def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor]
+    def fuses_ball_query(self, n: int) -> bool:
+        """Whether a cloud of ``n`` points takes the kernels with the ball
+        query inside (``fuse_bq``, ``nn/layers.py:278``)."""
+        return n % 128 == 0 and self.n_samples <= _BQ_KMAX
+
+    def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor], *,
+                new_xyz: Optional[torch.Tensor] = None,
+                nidx: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        new_xyz, q, off = self.prepare(xyz, feats)
+        """``new_xyz`` and ``nidx`` may be given by the caller (MSG shares
+        one FPS across its scales)."""
+        new_xyz, q, off = self.prepare(xyz, feats, new_xyz)
+        ncnt = None
+        fuse_bq = nidx is None and self.fuses_ball_query(xyz.shape[1])
+        if not fuse_bq and nidx is None:
+            nidx, ncnt = ball_query(new_xyz, xyz, self.radius,
+                                    self.n_samples)
         if not self.training:
-            out = fused_sa_bq_eval(new_xyz, xyz, q.bfloat16(), off,
-                                   self.sa_params(), self.sa_stats(),
-                                   self.radius, self.n_samples)
+            if fuse_bq:
+                out = fused_sa_bq_eval(new_xyz, xyz, q.bfloat16(), off,
+                                       self.sa_params(), self.sa_stats(),
+                                       self.radius, self.n_samples)
+            else:
+                out = fused_sa_eval(q.bfloat16(), off, nidx,
+                                    self.sa_params(), self.sa_stats(),
+                                    cnt=ncnt)
             return new_xyz, out
-        out, batch = fused_sa_bq_train(new_xyz, xyz, q, off,
-                                       self.sa_params(), self.radius,
-                                       self.n_samples)
+        if fuse_bq:
+            out, batch = fused_sa_bq_train(new_xyz, xyz, q, off,
+                                           self.sa_params(), self.radius,
+                                           self.n_samples)
+        else:
+            # every slot runs in training: the counts change nothing
+            out, batch = fused_sa_train(q, off, nidx, self.sa_params())
         for running, value in zip(self.sa_stats(), batch):
             update_running(running, value)
         return new_xyz, out
@@ -204,9 +245,10 @@ class SetAbstraction(nn.Module):
                                              radius, n_samples)
         else:
             raise NotImplementedError(
-                "unfused grouped set abstraction is not ported yet "
-                "(ROADMAP.md, queue 1, item 6: PointNet++ MSG and the "
-                "standalone ball-query kernel)")
+                "the unfused grouped set abstraction (an MLP of other than "
+                "3 layers, or n_samples not a multiple of 8) is not ported; "
+                "no model of the JAX package takes it when its fused set "
+                "abstraction is on (ROADMAP.md)")
 
     def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -215,3 +257,36 @@ class SetAbstraction(nn.Module):
         h = self.mlp(group_all(xyz, feats))
         new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
         return new_xyz, h.amax(dim=2)
+
+
+class SetAbstractionMSG(nn.Module):
+    """PointNet++ multi-scale-grouping set abstraction
+    (``nn/layers.py:375``): one FPS, one :class:`FusedSetAbstraction` per
+    ``(radius, n_samples, mlp)`` scale on the shared centers, the scales'
+    features concatenated on the last axis. Every scale must be fusable
+    (3 widths, ``n_samples % 8 == 0``), as every scale of the JAX
+    package's models is; the unfused branch is not ported."""
+
+    def __init__(self, in_channels: int, n_points: int,
+                 radii: Sequence[float], n_samples: Sequence[int],
+                 mlps: Sequence[Sequence[int]]):
+        super().__init__()
+        if not (len(radii) == len(n_samples) == len(mlps)):
+            raise ValueError("SetAbstractionMSG: radii, n_samples and mlps "
+                             "must have one entry per scale")
+        if any(len(m) != 3 for m in mlps) or any(k % 8 for k in n_samples):
+            raise NotImplementedError(
+                "SetAbstractionMSG: the unfused branch (an MLP of other "
+                "than 3 layers, or n_samples not a multiple of 8) is not "
+                "ported (ROADMAP.md)")
+        self.n_points = n_points
+        self.scales = nn.ModuleList(
+            FusedSetAbstraction(in_channels, mlp, n_points, r, k)
+            for r, k, mlp in zip(radii, n_samples, mlps))
+
+    def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        new_xyz = index_points(xyz, fps(xyz, self.n_points))
+        outs = [scale(xyz, feats, new_xyz=new_xyz)[1]
+                for scale in self.scales]
+        return new_xyz, torch.cat(outs, dim=-1)

@@ -1,8 +1,11 @@
 """Point-cloud ops: plain geometry, device resolution and kernel dispatch."""
 
-from pointcloudlib_tpu_torch.ops.dispatch import fps, resolve_device
-from pointcloudlib_tpu_torch.ops.geometry import (
+from pointcloudlib_tpu_torch.ops.dispatch import (
     ball_query,
+    fps,
+    resolve_device,
+)
+from pointcloudlib_tpu_torch.ops.geometry import (
     farthest_point_sample,
     group_all,
     group_points,

@@ -1,4 +1,4 @@
-"""Device resolution and the FPS entry point.
+"""Device resolution and the FPS and ball-query entry points.
 
 The JAX package picks Pallas or XLA per process from the backend. Here
 the choice follows the tensor: a CUDA tensor goes to the hand-written
@@ -9,10 +9,11 @@ none — a caller that wants the CPU says so.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
+from pointcloudlib_tpu_torch.ops.kernels import ball_query as _bq_kernel
 from pointcloudlib_tpu_torch.ops.kernels import fps as _fps_kernel
 
 
@@ -33,3 +34,12 @@ def fps(xyz: torch.Tensor, n_samples: int,
     CUDA kernel for a CUDA tensor, the plain loop for a CPU tensor.
     Both give bit-identical indices."""
     return _fps_kernel.fps(xyz, n_samples, skip_near_origin)
+
+
+def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
+               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First ``k`` in-radius points in index order → ``(idx [B, M, k],
+    cnt [B, M])`` int32 — the CUDA kernel for CUDA tensors, the plain
+    ``geometry.ball_query`` for CPU tensors. Both give bit-identical
+    results."""
+    return _bq_kernel.ball_query(centers, points, radius, k)

@@ -1,11 +1,14 @@
-"""Eval-mode fused set abstraction with the ball query inside: the CUDA
-kernel ``csrc/fused_sa_bq_eval.cu`` and its plain version.
+"""Eval-mode fused set abstraction: the CUDA kernels
+``csrc/fused_sa_bq_eval.cu`` (ball query inside) and
+``csrc/fused_sa_eval.cu`` (from a given neighbour index), and their plain
+versions.
 
-Replaces the TPU kernel ``pointcloudlib_tpu/ops/pallas/fused_sa.py``
-(``fused_sa_bq_eval`` → ``_k_bqeval``). The layer's first Dense is
-folded outside the kernel into ``q = [xyz‖f]·W1`` (bf16) and
+Replaces the TPU kernels of ``pointcloudlib_tpu/ops/pallas/fused_sa.py``
+``fused_sa_bq_eval`` → ``_k_bqeval`` and ``fused_sa_eval`` →
+``_fused_sa_eval_jit`` → ``_k_eval``. The layer's first Dense is folded
+outside the kernels into ``q = [xyz‖f]·W1`` (bf16) and
 ``off = new_xyz·W1[:3]``, so the grouped first-layer pre-activation is
-``h1 = q[idx] − off``; the kernel runs ball query, gather, the
+``h1 = q[idx] − off``; a kernel runs (ball query,) gather, the
 BN→ReLU→Dense chain and the max over neighbours without writing any
 grouped tensor to device memory.
 """
@@ -13,7 +16,7 @@ grouped tensor to device memory.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -23,6 +26,9 @@ from pointcloudlib_tpu_torch.ops.kernels import _build
 _EPS = 1e-5  # BatchNorm epsilon (nn/layers.py DenseBNAct)
 
 _SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+
+# (C1, C2, C3) the eval kernels are compiled for (csrc/fused_sa_eval.cuh)
+EVAL_WIDTHS = ((32, 32, 64), (64, 64, 128), (64, 96, 128), (128, 128, 256))
 
 
 class SAParams(NamedTuple):
@@ -94,6 +100,16 @@ def fused_sa_bq_eval_plain(new_xyz, pts, q, off, params: SAParams,
     return torch.where(live[..., None], y3, float("-inf")).amax(dim=2)
 
 
+def fused_sa_eval_plain(q, off, idx, params: SAParams, stats: SAStats,
+                        cnt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The eval semantics of ``_k_eval`` written out: gather
+    ``float(bf16 q)[idx] − off``, the chain per slot, the max over all k
+    slots. ``cnt`` changes nothing: the slots past it repeat slot 0."""
+    h1 = geometry.index_points(q.bfloat16().float(), idx) - off[:, :, None]
+    return _chain(h1, _folded(params, stats), params.w2,
+                  params.w3).amax(dim=2)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_sa_bq_eval")
     fn = lib.sa_bq_eval_launch
@@ -106,9 +122,28 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_idx() -> ctypes.CDLL:
+    lib = _build.load("fused_sa_eval")
+    fn = lib.sa_eval_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _eval_operands(params: SAParams, stats: SAStats):
+    """``(st, w2, w3)`` as the eval kernels take them: the folded
+    ``sc, bi`` rows of the three layers in one float32 vector, the
+    weights in bf16."""
+    st = torch.cat([torch.cat([s[0], s[1]]) for s in _folded(params, stats)])
+    return (_aligned(st.float()), _aligned(params.w2.bfloat16()),
+            _aligned(params.w3.bfloat16()))
 
 
 def fused_sa_bq_eval(new_xyz, pts, q, off, params: SAParams,
@@ -145,10 +180,7 @@ def fused_sa_bq_eval(new_xyz, pts, q, off, params: SAParams,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"fused_sa_bq_eval: N={n}, k={k} need {smem} bytes "
                          f"of shared memory, above one block's {_SMEM_LIMIT}")
-    st = torch.cat([torch.cat([s[0], s[1]]) for s in _folded(params, stats)])
-    st = _aligned(st.float())
-    w2 = _aligned(params.w2.bfloat16())
-    w3 = _aligned(params.w3.bfloat16())
+    st, w2, w3 = _eval_operands(params, stats)
     new_xyz, pts, q, off = map(_aligned, (new_xyz, pts, q, off))
     out = torch.empty((b, m, widths[2]), dtype=torch.float32,
                       device=q.device)
@@ -164,3 +196,56 @@ def fused_sa_bq_eval(new_xyz, pts, q, off, params: SAParams,
 
 
 fused_sa_bq_eval.launches = 0
+
+
+def fused_sa_eval(q, off, idx, params: SAParams, stats: SAStats,
+                  cnt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eval-mode fused SA from a given neighbour index → ``[B, M, C3]``
+    float32.
+
+    ``q [B, N, C1]`` bfloat16, ``off [B, M, C1]`` float32, ``idx
+    [B, M, k]`` int32 with every entry in ``[0, N)`` and, optionally, the
+    ball query's ``cnt [B, M]`` int32: the kernel then runs only the
+    first ``max(min(cnt, k), 1)`` slots of a center (the rest repeat slot
+    0 and cannot raise the max). The kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return fused_sa_eval_plain(q, off, idx, params, stats, cnt)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_sa_eval: unsupported device {q.device}")
+    b, n, c1 = q.shape
+    _, m, k = idx.shape
+    widths = (c1, params.w2.shape[1], params.w3.shape[1])
+    if widths not in EVAL_WIDTHS:
+        raise ValueError(f"fused_sa_eval: no kernel instance for widths "
+                         f"{widths}; compiled: {EVAL_WIDTHS}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"fused_sa_eval: q must be bfloat16, got {q.dtype}")
+    checks = [("off", off, (b, m, c1), torch.float32),
+              ("idx", idx, (b, m, k), torch.int32)]
+    if cnt is not None:
+        checks.append(("cnt", cnt, (b, m), torch.int32))
+    for name, t, shape, dtype in checks:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"fused_sa_eval: {name} must be {dtype} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"fused_sa_eval: {name} on {t.device}, q on "
+                             f"{q.device}")
+    st, w2, w3 = _eval_operands(params, stats)
+    q, off, idx = map(_aligned, (q, off, idx))
+    cnt_ptr = None if cnt is None else _aligned(cnt).data_ptr()
+    out = torch.empty((b, m, widths[2]), dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib_idx().sa_eval_launch(
+            q.data_ptr(), off.data_ptr(), idx.data_ptr(), cnt_ptr,
+            st.data_ptr(), w2.data_ptr(), w3.data_ptr(), out.data_ptr(),
+            b, n, m, *widths, k, stream)
+    _build.check(err, "fused_sa_eval")
+    fused_sa_eval.launches += 1
+    return out
+
+
+fused_sa_eval.launches = 0

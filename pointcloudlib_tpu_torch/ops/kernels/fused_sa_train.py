@@ -1,14 +1,16 @@
-"""Train-mode fused set abstraction with the ball query inside: the CUDA
-kernels of ``csrc/fused_sa_bq_f1.cu``, ``fused_sa_tail.cu``,
+"""Train-mode fused set abstraction: the CUDA kernels of
+``csrc/fused_sa_bq_f1.cu``, ``fused_sa_f1.cu``, ``fused_sa_tail.cu``,
 ``fused_sa_bwd_p1.cu`` and ``fused_sa_bwd_p2.cu``, their plain versions,
-and the ``torch.autograd.Function`` that chains them.
+and the two ``torch.autograd.Function``s that chain them.
 
 Replaces ``pointcloudlib_tpu/ops/pallas/fused_sa.py``
-``fused_sa_bq_train`` and its custom VJP: forward ``_k_bqf1`` (ball
-query, gather, bf16 h1 checkpoint, Σ/Σ² of h1), then ``_k_stats2``,
-``_k_stats3`` and ``_k_out`` (one templated tail kernel here); backward
-``_k_p1`` and ``_k_p2``. Between the kernels, plain tensor ops do what
-the JAX package leaves to XLA: the BN moments, the folded BN rows
+``fused_sa_bq_train`` and ``fused_sa_train`` and their custom VJPs.
+Forward pass 1 is ``_k_bqf1`` (ball query inside) or ``_k_f1`` (from a
+given neighbour index): gather, bf16 h1 checkpoint, Σ/Σ² of h1. From
+there the two routes are the same code: ``_k_stats2``, ``_k_stats3`` and
+``_k_out`` (one templated tail kernel here), then ``_k_p1`` and ``_k_p2``
+in the backward. Between the kernels, plain tensor ops do what the JAX
+package leaves to XLA: the BN moments, the folded BN rows
 (``_stack_stats``), ``_combine_p1`` and the affine assembly of ``dq`` and
 ``doff``.
 
@@ -31,6 +33,7 @@ from pointcloudlib_tpu_torch.ops.kernels import _build
 from pointcloudlib_tpu_torch.ops.kernels.fused_sa import (
     _EPS,
     _SMEM_LIMIT,
+    EVAL_WIDTHS,
     SAParams,
     SAStats,
     _aligned,
@@ -38,8 +41,9 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa import (
     _stack_stats,
 )
 
-_TILE_ROWS = 64  # grouped rows per kernel tile; k must divide it
-_WIDTHS = ((64, 64, 128), (128, 128, 256))  # instances compiled (SA1, SA2)
+_TILE_ROWS = 64  # grouped rows per kernel tile; k divides it or is a multiple
+_WIDTHS = EVAL_WIDTHS  # (C1, C2, C3) compiled (csrc/fused_sa_common.cuh)
+_F1_WIDTHS = (32, 64, 128)  # C1 the two pass-1 kernels are compiled for
 
 # ---------------------------------------------------------------- plain
 
@@ -88,8 +92,16 @@ def bq_f1_plain(new_xyz, pts, q, off, radius: float, k: int):
     as ``_k_bqf1`` computes them: ``h1 = bf16(float(bf16 q)[idx] − off)``
     with ``psum`` taken on the f32 h1 before its rounding."""
     idx, cnt = geometry.ball_query(new_xyz, pts, radius, k)
+    h1, psum = sa_f1_plain(q, off, idx)
+    return idx, h1, cnt, psum
+
+
+def sa_f1_plain(q, off, idx):
+    """``(h1 [B,M,k,C1] bf16, psum [2,C1])`` as ``_k_f1`` computes them
+    from a given ``idx``: ``h1 = bf16(float(bf16 q)[idx] − off)`` with
+    ``psum`` taken on the f32 h1 before its rounding."""
     h = geometry.index_points(_bf(q), idx) - off[:, :, None]
-    return idx, h.bfloat16(), cnt, _sums(h)
+    return h.bfloat16(), _sums(h)
 
 
 def sa_tail_plain(stage: int, h1, st1, st2, st3, w2, w3) -> torch.Tensor:
@@ -152,13 +164,19 @@ def sa_bwd_p2_plain(h1, dout, idx, st1, st2, st3, w2, w3, us3, us2,
 
 def fused_sa_reference_plain(new_xyz, pts, q, off, params: SAParams,
                              radius: float, k: int):
-    """The train-mode math of the whole layer as differentiable tensor
-    ops (``fused_sa_reference``, ``fused_sa.py:1929``, with the ball
-    query in front): every rounding the kernels make, BN statistics over
-    all k slots. Torch autograd over it is the oracle for the
-    hand-written backward; ``amax`` splits its gradient among ties as
-    ``jnp.max`` does. Returns ``(out [B,M,C3], SAStats)``."""
+    """:func:`fused_sa_idx_reference_plain` with the ball query in
+    front."""
     idx, _ = geometry.ball_query(new_xyz, pts, radius, k)
+    return fused_sa_idx_reference_plain(q, off, idx, params)
+
+
+def fused_sa_idx_reference_plain(q, off, idx, params: SAParams):
+    """The train-mode math of the whole layer as differentiable tensor
+    ops (``fused_sa_reference``, ``fused_sa.py:1929``): every rounding
+    the kernels make, BN statistics over all k slots. Torch autograd over
+    it is the oracle for the hand-written backward; ``amax`` splits its
+    gradient among ties as ``jnp.max`` does. Returns ``(out [B,M,C3],
+    SAStats)``."""
     h1 = geometry.index_points(_bf(q), idx) - off[:, :, None]
 
     def moments(h):
@@ -190,6 +208,10 @@ _SIGNATURES = {
                             + [ctypes.c_float, ctypes.c_void_p],
                             ctypes.c_int),
         "sa_bq_f1_smem": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    },
+    "fused_sa_f1": {
+        "sa_f1_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p], ctypes.c_int),
     },
     "fused_sa_tail": {
         "sa_tail_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 5
@@ -245,10 +267,11 @@ def _rows_ok(what: str, rows: int, k: int, widths) -> None:
     if tuple(widths) not in _WIDTHS:
         raise ValueError(f"{what}: no kernel instance for widths "
                          f"{tuple(widths)}; compiled: {_WIDTHS}")
-    if k % 8 or _TILE_ROWS % k or rows % _TILE_ROWS:
-        raise ValueError(f"{what}: needs k in (8, 16, 32, 64) and B·M·k a "
-                         f"multiple of {_TILE_ROWS}, got k={k}, "
-                         f"rows={rows}")
+    if (k < 8 or k % 8 or (_TILE_ROWS % k and k % _TILE_ROWS)
+            or rows % _TILE_ROWS):
+        raise ValueError(f"{what}: needs k in (8, 16, 32) or a multiple of "
+                         f"{_TILE_ROWS}, and B·M·k a multiple of "
+                         f"{_TILE_ROWS}, got k={k}, rows={rows}")
 
 
 def _pack_st(widths, *sts) -> torch.Tensor:
@@ -302,6 +325,37 @@ def bq_f1(new_xyz, pts, q, off, radius: float, k: int):
 bq_f1.launches = 0
 
 
+def sa_f1(q, off, idx):
+    """Forward pass 1 from a given ``idx`` → ``(h1, psum)`` as
+    :func:`sa_f1_plain`: the kernel for CUDA tensors (``q`` bfloat16,
+    ``idx`` int32 with every entry in ``[0, N)``), the plain version for
+    CPU tensors."""
+    if not _on_card("sa_f1", q):
+        return sa_f1_plain(q, off, idx)
+    b, n, c1 = q.shape
+    _, m, k = idx.shape
+    if c1 not in _F1_WIDTHS:
+        raise ValueError(f"sa_f1: no kernel instance for C1={c1}; "
+                         f"compiled: {_F1_WIDTHS}")
+    dev = q.device
+    _expect("sa_f1", dev, q=(q, (b, n, c1), torch.bfloat16),
+            off=(off, (b, m, c1), torch.float32),
+            idx=(idx, (b, m, k), torch.int32))
+    h1 = torch.empty((b, m, k, c1), dtype=torch.bfloat16, device=dev)
+    psum = torch.zeros((2, c1), dtype=torch.float32, device=dev)
+    q, off, idx = map(_aligned, (q, off, idx))
+    with torch.cuda.device(dev):
+        err = _lib("fused_sa_f1").sa_f1_launch(
+            q.data_ptr(), off.data_ptr(), idx.data_ptr(), h1.data_ptr(),
+            psum.data_ptr(), b, n, m, c1, k, _stream(dev))
+    _build.check(err, "sa_f1")
+    sa_f1.launches += 1
+    return h1, psum
+
+
+sa_f1.launches = 0
+
+
 def sa_tail(stage: int, h1, st1, st2: Optional[torch.Tensor],
             st3: Optional[torch.Tensor], w2, w3) -> torch.Tensor:
     """Forward tail ``stage`` (2, 3 or 4) as :func:`sa_tail_plain`; the
@@ -335,10 +389,12 @@ def sa_tail(stage: int, h1, st1, st2: Optional[torch.Tensor],
             _stream(dev))
     _build.check(err, f"sa_tail stage {stage}")
     sa_tail.launches += 1
+    sa_tail.launches_by_stage[stage] += 1
     return out
 
 
 sa_tail.launches = 0
+sa_tail.launches_by_stage = {2: 0, 3: 0, 4: 0}  # the three TPU kernels
 
 
 def sa_bwd_p1(h1, dout, st1, st2, st3, w2, w3):
@@ -450,11 +506,11 @@ def _combine_p1(ps3, vecs, mats, st3, w3, r: float):
     return dw3, torch.stack([s2_1, s2_2])
 
 
-def _forward(new_xyz, pts, q, off, params: SAParams, radius: float,
-             k: int):
-    b, _, _ = q.shape
-    r = float(b * new_xyz.shape[1] * k)
-    idx, h1, _, p1 = bq_f1(new_xyz, pts, q.bfloat16(), off, radius, k)
+def _forward_tail(h1, p1, params: SAParams):
+    """The forward after pass 1, shared by the two routes
+    (``tail_from``, ``fused_sa.py:1614``): ``(out, SAStats, (st1, st2,
+    st3))`` from the bf16 h1 and its ``[Σ, Σ²]``."""
+    r = float(h1.shape[0] * h1.shape[1] * h1.shape[2])
     m1, v1 = _moments(p1, r)
     st1 = _stack_stats(m1, v1, params.g1, params.b1)
     m2, v2 = _moments(sa_tail(2, h1, st1, None, None, params.w2, params.w3),
@@ -464,7 +520,7 @@ def _forward(new_xyz, pts, q, off, params: SAParams, radius: float,
                       r)
     st3 = _stack_stats(m3, v3, params.g3, params.b3)
     out = sa_tail(4, h1, st1, st2, st3, params.w2, params.w3)
-    return out, SAStats(m1, v1, m2, v2, m3, v3), (idx, h1, st1, st2, st3)
+    return out, SAStats(m1, v1, m2, v2, m3, v3), (st1, st2, st3)
 
 
 def _backward(dout, idx, h1, st1, st2, st3, w2, w3, n: int):
@@ -487,7 +543,28 @@ def _backward(dout, idx, h1, st1, st2, st3, w2, w3, n: int):
     return dq, doff, grads
 
 
-class FusedSABqTrain(torch.autograd.Function):
+class _FusedSAFunction(torch.autograd.Function):
+    """What the two routes share: after pass 1 the forward tails, and the
+    whole backward. A subclass's ``forward`` calls :meth:`finish`."""
+
+    @staticmethod
+    def finish(ctx, idx, h1, p1, params: SAParams, n: int):
+        out, stats, (st1, st2, st3) = _forward_tail(h1, p1, params)
+        ctx.save_for_backward(idx, h1, st1, st2, st3, params.w2, params.w3)
+        ctx.n = n
+        ctx.mark_non_differentiable(*stats)
+        return (out, *stats)
+
+    @staticmethod
+    def grads(ctx, dout):
+        """``(dq, doff, *SAParams gradients)``."""
+        idx, h1, st1, st2, st3, w2, w3 = ctx.saved_tensors
+        dq, doff, g = _backward(dout.float().contiguous(), idx, h1, st1, st2,
+                                st3, w2, w3, ctx.n)
+        return (dq, doff, *g)
+
+
+class FusedSABqTrain(_FusedSAFunction):
     """Train-mode fused SA with the ball query inside. Inputs
     ``new_xyz [B,M,3]``, ``pts [B,N,3]``, ``q [B,N,C1]`` and ``off
     [B,M,C1]`` float32, then the eight :class:`SAParams` tensors, the
@@ -498,20 +575,33 @@ class FusedSABqTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, new_xyz, pts, q, off, w2, w3, g1, b1, g2, b2, g3, b3,
                 radius, k):
-        params = SAParams(w2, w3, g1, b1, g2, b2, g3, b3)
-        out, stats, (idx, h1, st1, st2, st3) = _forward(
-            new_xyz, pts, q, off, params, radius, k)
-        ctx.save_for_backward(idx, h1, st1, st2, st3, w2, w3)
-        ctx.n = pts.shape[1]
-        ctx.mark_non_differentiable(*stats)
-        return (out, *stats)
+        idx, h1, _, p1 = bq_f1(new_xyz, pts, q.bfloat16(), off, radius, k)
+        return _FusedSAFunction.finish(
+            ctx, idx, h1, p1, SAParams(w2, w3, g1, b1, g2, b2, g3, b3),
+            pts.shape[1])
 
     @staticmethod
     def backward(ctx, dout, *_):
-        idx, h1, st1, st2, st3, w2, w3 = ctx.saved_tensors
-        dq, doff, g = _backward(dout.float().contiguous(), idx, h1, st1, st2,
-                                st3, w2, w3, ctx.n)
-        return (None, None, dq, doff, *g, None, None)
+        return (None, None, *_FusedSAFunction.grads(ctx, dout), None, None)
+
+
+class FusedSATrain(_FusedSAFunction):
+    """Train-mode fused SA from a given neighbour index. Inputs
+    ``q [B,N,C1]`` and ``off [B,M,C1]`` float32, ``idx [B,M,k]`` int32,
+    then the eight :class:`SAParams` tensors. Returns as
+    :class:`FusedSABqTrain`; no gradient flows to ``idx``."""
+
+    @staticmethod
+    def forward(ctx, q, off, idx, w2, w3, g1, b1, g2, b2, g3, b3):
+        h1, p1 = sa_f1(q.bfloat16(), off, idx)
+        return _FusedSAFunction.finish(
+            ctx, idx, h1, p1, SAParams(w2, w3, g1, b1, g2, b2, g3, b3),
+            q.shape[1])
+
+    @staticmethod
+    def backward(ctx, dout, *_):
+        dq, doff, *g = _FusedSAFunction.grads(ctx, dout)
+        return (dq, doff, None, *g)
 
 
 def fused_sa_bq_train(new_xyz, pts, q, off, params: SAParams, radius: float,
@@ -520,4 +610,16 @@ def fused_sa_bq_train(new_xyz, pts, q, off, params: SAParams, radius: float,
     hand-written backward."""
     out, *stats = FusedSABqTrain.apply(new_xyz, pts, q, off, *params,
                                        radius, k)
+    return out, SAStats(*stats)
+
+
+def fused_sa_train(q, off, idx, params: SAParams,
+                   cnt: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, SAStats]:
+    """``(out [B,M,C3], SAStats)`` of the train-mode fused SA from a given
+    ``idx [B,M,k]``, with its hand-written backward. ``cnt`` (the ball
+    query's counts) is accepted as the JAX function accepts it; the JAX
+    package only uses it to pick slot-capped variants of the same passes,
+    which give the same result, and the kernels here run every slot."""
+    out, *stats = FusedSATrain.apply(q, off, idx, *params)
     return out, SAStats(*stats)

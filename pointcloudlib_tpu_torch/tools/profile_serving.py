@@ -1,20 +1,21 @@
 """Where the serving time goes: the port's Predictor under torch.profiler.
 
-    python -m pointcloudlib_tpu_torch.tools.profile_serving [--out DIR]
+    python -m pointcloudlib_tpu_torch.tools.profile_serving \
+        [--model pointnet2|pointnet2_msg] [--out DIR]
 
-Serves PointNet++ SSG (full width, seeded random weights, normals as
-features) at B=64, N=1024 on 256 synthetic surface clouds after a
-warm-up request, and prints one JSON line with:
+Serves PointNet++ SSG at B=64 or MSG at B=32 (full width, seeded random
+weights, normals as features), N=1024, on 256 synthetic surface clouds
+after a warm-up request, and prints one JSON line with:
 
-* ``wall_ms_per_batch`` — host clock per served batch of 64 without the
+* ``wall_ms_per_batch`` — host clock per served batch without the
   profiler (median of 5 requests of 256 clouds), and with it;
 * ``device_busy_ms_per_batch`` and ``device_busy_share`` — the union of
   the device's kernel and copy intervals over the profiled window, per
   batch and as a share of that window's wall time;
 * ``stages`` — device milliseconds per batch by kernel-name group
-  (the two ported kernels, dense matmuls, BatchNorm, copies, …).
+  (the ported kernels, dense matmuls, BatchNorm, copies, …).
 
-The Chrome trace goes to ``DIR/serving_trace.json`` (default
+The Chrome trace goes to ``DIR/serving_trace_MODEL.json`` (default
 ``build/profile``). Needs a CUDA device; exits non-zero without one or
 when the profiler records no device time.
 """
@@ -37,20 +38,24 @@ from pointcloudlib_tpu_torch.inference import Predictor
 from pointcloudlib_tpu_torch.models import get_cls_model
 from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
 
-BATCH, N_POINTS, N_CLOUDS = 64, 1024, 256
+N_POINTS, N_CLOUDS = 1024, 256
+BATCH = {"pointnet2": 64, "pointnet2_msg": 32}  # the JAX package's rows
 
 # kernel-name pattern -> stage, first match wins
 STAGES = (
     (r"fps_kernel", "fps kernel"),
+    (r"ball_query_kernel", "ball_query kernel"),
     (r"bq_eval_kernel", "fused_sa_bq_eval kernel"),
+    (r"eval_kernel", "fused_sa_eval kernel"),
     (r"bq_f1_kernel", "bq_f1 kernel"),
+    (r"f1_kernel", "sa_f1 kernel"),
     (r"tail_kernel", "sa_tail kernel"),
     (r"p1_rows_kernel|p1_mats_kernel", "sa_bwd_p1 kernel"),
     (r"p2_kernel", "sa_bwd_p2 kernel"),
     (r"multi_tensor|foreach|sgd", "optimizer"),
     (r"Memcpy HtoD|memcpy.*HtoD", "copy host->device"),
     (r"Memcpy DtoH|memcpy.*DtoH", "copy device->host"),
-    (r"gemm|gemv|cutlass|xmma|cublas|sm90_|ampere_", "dense matmuls"),
+    (r"gemm|gemv|cutlass|xmma|cublas|nvjet|sm90_|ampere_", "dense matmuls"),
     (r"batch_norm|bn_fw", "batchnorm"),
     (r"softmax", "softmax"),
     (r"reduce_kernel", "reductions (max-pool, sums)"),
@@ -80,7 +85,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(
         Path(__file__).resolve().parents[2] / "build" / "profile"))
+    ap.add_argument("--model", default="pointnet2", choices=sorted(BATCH))
     args = ap.parse_args(argv)
+    batch = BATCH[args.model]
     if not torch.cuda.is_available():
         sys.exit("profile_serving: needs a CUDA device")
     power = subprocess.run(
@@ -88,13 +95,12 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
 
-    variables = random_jax_variables(get_cls_model("pointnet2"), seed=0)
-    pred = Predictor.from_variables("pointnet2", variables,
-                                    batch_size=BATCH)
+    variables = random_jax_variables(get_cls_model(args.model), seed=0)
+    pred = Predictor.from_variables(args.model, variables, batch_size=batch)
     clouds, normals, _ = SyntheticModelNet(
         n_points=N_POINTS, size=N_CLOUDS, seed=0).batch(0, N_CLOUDS)
     pred.predict_proba(clouds, normals)  # warm-up: kernels built, caches
-    batches = N_CLOUDS // BATCH
+    batches = N_CLOUDS // batch
 
     walls = []
     for _ in range(5):
@@ -121,9 +127,10 @@ def main(argv=None) -> None:
     busy_us = _union_us((e.time_range.start, e.time_range.end) for e in dev)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "serving_trace.json"))
+    prof.export_chrome_trace(str(out / f"serving_trace_{args.model}.json"))
     print(json.dumps({
-        "card": power, "batch": BATCH, "n_points": N_POINTS,
+        "model": args.model, "card": power, "batch": batch,
+        "n_points": N_POINTS,
         "batches": batches,
         "wall_ms_per_batch": float(np.median(walls)),
         "wall_ms_per_batch_runs": walls,

@@ -1,12 +1,13 @@
 """Where the train step's time goes: ``make_cls_train_step`` under
 torch.profiler.
 
-    python -m pointcloudlib_tpu_torch.tools.profile_train [--out DIR]
+    python -m pointcloudlib_tpu_torch.tools.profile_train \
+        [--model pointnet2|pointnet2_msg] [--out DIR]
 
-Trains PointNet++ SSG (full width, seeded random weights, normals as
-features, dropout 0.5) at B=64, N=1024 on 64 labelled synthetic surface
-clouds with SGD (momentum 0.9, lr 0.02), after 3 warm-up steps, and
-prints one JSON line with:
+Trains PointNet++ SSG at B=64 or MSG at B=32 (full width, seeded random
+weights, normals as features, dropout 0.5), N=1024, on one batch of
+labelled synthetic surface clouds with SGD (momentum 0.9, lr 0.02), after
+3 warm-up steps, and prints one JSON line with:
 
 * ``wall_ms_per_step`` — host clock per step, ending in a synchronize,
   without the profiler (median of 10 steps), and with it;
@@ -14,9 +15,11 @@ prints one JSON line with:
   the device's kernel and copy intervals over 5 profiled steps, per step
   and as a share of that window's wall time;
 * ``stages`` — device milliseconds per step by kernel-name group (the
-  six ported kernels, dense matmuls, BatchNorm, optimizer, …).
+  ported kernels, dense matmuls, BatchNorm, optimizer, …);
+* ``peak_device_bytes`` — ``torch.cuda.max_memory_allocated`` over the
+  timed steps.
 
-The Chrome trace goes to ``DIR/train_trace.json`` (default
+The Chrome trace goes to ``DIR/train_trace_MODEL.json`` (default
 ``build/profile``). Needs a CUDA device; exits non-zero without one or
 when the profiler records no device time.
 """
@@ -35,14 +38,18 @@ import torch
 
 from pointcloudlib_tpu_torch.data.synthetic import SyntheticModelNet
 from pointcloudlib_tpu_torch.models import get_cls_model
-from pointcloudlib_tpu_torch.tools.profile_serving import _stage, _union_us
+from pointcloudlib_tpu_torch.tools.profile_serving import (
+    BATCH,
+    _stage,
+    _union_us,
+)
 from pointcloudlib_tpu_torch.train import make_cls_train_step, sgd_momentum
 from pointcloudlib_tpu_torch.utils.interop import (
     from_jax_variables,
     random_jax_variables,
 )
 
-BATCH, N_POINTS, LR = 64, 1024, 0.02
+N_POINTS, LR = 1024, 0.02
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 
@@ -50,7 +57,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(
         Path(__file__).resolve().parents[2] / "build" / "profile"))
+    ap.add_argument("--model", default="pointnet2", choices=sorted(BATCH))
     args = ap.parse_args(argv)
+    bsz = BATCH[args.model]
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA device")
     power = subprocess.run(
@@ -58,11 +67,11 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
 
-    model = get_cls_model("pointnet2")
+    model = get_cls_model(args.model)
     from_jax_variables(model, random_jax_variables(model, seed=0))
     step = make_cls_train_step(model, sgd_momentum(model.parameters(), LR))
     clouds, normals, labels = SyntheticModelNet(
-        n_points=N_POINTS, size=BATCH, seed=5).batch(0, BATCH)
+        n_points=N_POINTS, size=bsz, seed=5).batch(0, bsz)
     dev = torch.device("cuda")
     batch = {"xyz": torch.from_numpy(clouds).to(dev),
              "feats": torch.from_numpy(normals).to(dev),
@@ -71,6 +80,7 @@ def main(argv=None) -> None:
     for _ in range(WARMUP):
         step(batch, gen)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     walls = []
     for _ in range(TIMED):
@@ -78,6 +88,8 @@ def main(argv=None) -> None:
         step(batch, gen)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+
+    peak = torch.cuda.max_memory_allocated()
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -100,13 +112,13 @@ def main(argv=None) -> None:
                         for e in events)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "train_trace.json"))
+    prof.export_chrome_trace(str(out / f"train_trace_{args.model}.json"))
     print(json.dumps({
-        "card": power, "batch": BATCH, "n_points": N_POINTS,
-        "steps": PROFILED,
+        "model": args.model, "card": power, "batch": bsz,
+        "n_points": N_POINTS, "steps": PROFILED, "peak_device_bytes": peak,
         "wall_ms_per_step": float(np.median(walls)),
         "wall_ms_per_step_runs": walls,
-        "samples_per_s": BATCH * 1e3 / float(np.median(walls)),
+        "samples_per_s": bsz * 1e3 / float(np.median(walls)),
         "profiled_wall_ms_per_step": window_us / 1e3 / PROFILED,
         "device_busy_ms_per_step": busy_us / 1e3 / PROFILED,
         "device_busy_share": busy_us / window_us,

@@ -7,8 +7,11 @@ in the **fused** layout the JAX model has when its fused set
 abstraction is on:
 
 * ``SetAbstraction_{0,1}/FusedSetAbstraction_0/{w1,w2,w3,
-  bn{1,2,3}_scale,bn{1,2,3}_bias}`` with batch stats ``mean{l}/var{l}``;
-* ``SetAbstraction_2/PointMLP_0/DenseBNAct_i/{Dense_0/kernel,
+  bn{1,2,3}_scale,bn{1,2,3}_bias}`` with batch stats ``mean{l}/var{l}``
+  (SSG), or ``SetAbstractionMSG_{0,1}/FusedSetAbstraction_{0,1,2}/…``
+  with the same leaves, one per scale (MSG);
+* ``SetAbstraction_2`` (SSG) or ``SetAbstraction_0`` (MSG: flax numbers
+  each class on its own) ``/PointMLP_0/DenseBNAct_i/{Dense_0/kernel,
   BatchNorm_0/{scale,bias}}`` with batch stats ``BatchNorm_0/{mean,var}``;
 * ``_ClsHead_0/DenseBNAct_{0,1}/…`` and ``_ClsHead_0/Dense_0/{kernel,bias}``.
 
@@ -27,11 +30,16 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from pointcloudlib_tpu_torch.models.pointnet2 import ClsHead, PointNet2SSG
+from pointcloudlib_tpu_torch.models.pointnet2 import (
+    ClsHead,
+    PointNet2MSG,
+    PointNet2SSG,
+)
 from pointcloudlib_tpu_torch.nn.layers import (
     DenseBNAct,
     FusedSetAbstraction,
     SetAbstraction,
+    SetAbstractionMSG,
 )
 
 # (collection, *module path, leaf) -> (tensor, transposed)
@@ -76,12 +84,20 @@ def _head(head: ClsHead, path, out: _Entries):
 
 
 def _entries(model) -> _Entries:
-    if not isinstance(model, PointNet2SSG):
+    if not isinstance(model, (PointNet2SSG, PointNet2MSG)):
         raise NotImplementedError(
             f"no JAX weight mapping for {type(model).__name__} yet")
     out: _Entries = {}
-    for i, sa in enumerate((model.sa1, model.sa2, model.sa3)):
-        _set_abstraction(sa, (f"SetAbstraction_{i}",), out)
+    seen: Dict[str, int] = {}  # flax numbers the modules of each class
+    for sa in (model.sa1, model.sa2, model.sa3):
+        cls = type(sa).__name__
+        path = (f"{cls}_{seen.setdefault(cls, 0)}",)
+        seen[cls] += 1
+        if isinstance(sa, SetAbstractionMSG):
+            for j, scale in enumerate(sa.scales):
+                _fused(scale, (*path, f"FusedSetAbstraction_{j}"), out)
+        else:
+            _set_abstraction(sa, path, out)
     _head(model.head, ("_ClsHead_0",), out)
     return out
 

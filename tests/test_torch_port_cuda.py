@@ -15,6 +15,7 @@ import torch
 
 from pointcloudlib_tpu_torch.inference import Predictor
 from pointcloudlib_tpu_torch.models import get_cls_model
+from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
 from pointcloudlib_tpu_torch.ops.kernels import fps as kfps
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa as kfs
 from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
@@ -116,22 +117,150 @@ def test_bq_eval_rejects_what_it_cannot_run(card):
                              stats, 0.2, 8)
 
 
+@pytest.mark.parametrize("model", ["pointnet2", "pointnet2_msg"])
 @pytest.mark.parametrize("n", [100, 2000])
-def test_predictor_card_matches_cpu(card, n):
+def test_predictor_card_matches_cpu(card, n, model):
     """Smallest and largest served buckets (128: SA1 samples more
-    centers than points; 2048) through both kernels on the card, against
-    the plain path on the CPU; the card's dense layers use bf16
-    operands, the CPU's f32."""
+    centers than points; 2048) through the serving kernels on the card
+    (SSG: FPS and the ball-query eval kernel; MSG: those, the ball query
+    and the eval kernel that takes its index), against the plain path on
+    the CPU; the card's dense layers use bf16 operands, the CPU's f32."""
     rng = np.random.default_rng(n)
     x = rng.standard_normal((3, n, 3)).astype(np.float32)
     x /= np.linalg.norm(x, axis=-1, keepdims=True)
     nrm = rng.standard_normal((3, n, 3)).astype(np.float32)
-    variables = random_jax_variables(get_cls_model("pointnet2"), seed=n)
-    got = Predictor.from_variables("pointnet2", variables, batch_size=2,
+    variables = random_jax_variables(get_cls_model(model), seed=n)
+    got = Predictor.from_variables(model, variables, batch_size=2,
                                    device=card).predict_proba(x, nrm)
-    want = Predictor.from_variables("pointnet2", variables, batch_size=2,
+    want = Predictor.from_variables(model, variables, batch_size=2,
                                     device="cpu").predict_proba(x, nrm)
     np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+
+
+# ------------------------------- ball query and the kernels that take idx
+
+
+@pytest.mark.parametrize("b,n,m,radius,k", [
+    (4, 1024, 512, 0.4, 128),     # MSG1's k=128 scale: most rows short
+    (4, 512, 128, 0.8, 128),      # MSG2's: cnt above and below k
+    (2, 1000, 70, 0.3, 16),       # N % 32 != 0, ragged center tile
+    (2, 128, 33, 0.4, 128),       # k = N: every row short
+    (2, 300, 64, 2.5, 8),         # every point a hit: cnt = N > k
+    (1, 37, 5, 0.5, 64),          # N just above one warp, k > N
+])
+def test_ball_query_bit_identical(card, b, n, m, radius, k):
+    rng = np.random.default_rng(n + k)
+    pts = _sphere(rng, b, n, card)
+    nx = pts[:, :m].clone()
+    nx[0, 0] = 50.0                         # an empty row
+    before = kbq.ball_query.launches
+    idx, cnt = kbq.ball_query(nx, pts, radius, k)
+    torch.cuda.synchronize()
+    assert kbq.ball_query.launches == before + 1
+    want_idx, want_cnt = kbq.ball_query_plain(nx, pts, radius, k)
+    assert int(cnt[0, 0]) == 0 and (idx[0, 0] == 0).all()
+    assert idx.dtype == torch.int32 and cnt.dtype == torch.int32
+    assert torch.equal(cnt, want_cnt)
+    assert torch.equal(idx, want_idx)
+
+
+IDX_SHAPES = {  # widths, B, N, M, radius, k
+    "msg1_k128": ((64, 96, 128), 4, 1024, 512, 0.4, 128),
+    "msg2_k128": ((128, 128, 256), 4, 512, 128, 0.8, 128),
+    "c32_k16": ((32, 32, 64), 2, 300, 70, 0.3, 16),   # ragged center tile
+}
+
+
+def _idx_layer(card, name):
+    widths, b, n, m, radius, k = IDX_SHAPES[name]
+    c1, c2, c3 = widths
+    rng = np.random.default_rng(sum(widths) + k)
+    pts = _sphere(rng, b, n, card)
+    nx = pts[:, :m].clone()
+    nx[0, 0] = 50.0
+    q = pts @ torch.from_numpy(rng.standard_normal((3, c1)).astype(
+        np.float32)).to(card)
+    off = torch.from_numpy(rng.normal(0, 0.3, (b, m, c1)).astype(
+        np.float32)).to(card)
+    idx, cnt = kbq.ball_query_plain(nx, pts, radius, k)
+    params, stats = _sa(rng, card, c1, c2, c3)
+    return q, off, idx, cnt, params, stats
+
+
+@pytest.mark.parametrize("name", sorted(IDX_SHAPES))
+def test_sa_f1_matches_plain(card, name):
+    from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as ft
+
+    q, off, idx, _, _, _ = _idx_layer(card, name)
+    before = ft.sa_f1.launches
+    h1, psum = ft.sa_f1(q.bfloat16(), off, idx)
+    torch.cuda.synchronize()
+    assert ft.sa_f1.launches == before + 1
+    want_h1, want_psum = ft.sa_f1_plain(q.bfloat16(), off, idx)
+    # one f32 subtraction and one rounding on both sides
+    assert torch.equal(h1.view(torch.int16), want_h1.view(torch.int16))
+    _close_sums(psum, want_psum, "psum1")
+
+
+@pytest.mark.parametrize("with_cnt", [True, False])
+@pytest.mark.parametrize("name", sorted(IDX_SHAPES))
+def test_sa_eval_idx_matches_plain(card, name, with_cnt):
+    q, off, idx, cnt, params, stats = _idx_layer(card, name)
+    q = q.bfloat16()
+    before = kfs.fused_sa_eval.launches
+    got = kfs.fused_sa_eval(q, off, idx, params, stats,
+                            cnt=cnt if with_cnt else None)
+    torch.cuda.synchronize()
+    assert kfs.fused_sa_eval.launches == before + 1
+    want = kfs.fused_sa_eval_plain(q, off, idx, params, stats)
+    # the ball-query eval kernel's bound: one bf16 rounding may move
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+def test_fused_sa_train_idx_matches_bq_route(card):
+    """The two routes share everything after pass 1: from the same
+    neighbours, the forward, the batch statistics and every gradient of
+    ``fused_sa_train`` agree with ``fused_sa_bq_train``. Not bit for bit,
+    and not the same from run to run: the BN sums are added by atomics in
+    another order on every launch, a last-bit change of a folded BN row
+    moves a bf16 rounding of y1 here and there, and that can move a
+    max-pool winner, which reroutes one center's gradient to another
+    point (128 of dq's 38,400 elements at this shape). Of 15 runs on an
+    H100, 12 agreed to a cosine of 1 − 4e-7 or better and 3 read a cosine
+    of 0.99961 and a norm 0.35 % off at worst (``bn1_bias``). Each
+    gradient is held to a cosine of 0.995 and a norm within 2 %, which a
+    wrong wiring of the gradients would miss by far."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as ft
+
+    L = _train_layer(card, "sa1_k16")
+    p = L["p"]
+    co = torch.randn(L["dout"].shape, device=card,
+                     generator=torch.Generator(device=card).manual_seed(0))
+
+    def run(fn, front):
+        q = L["q"].clone().requires_grad_()
+        off = L["off"].clone().requires_grad_()
+        ps = kfs.SAParams(*[t.clone().requires_grad_() for t in p])
+        out, stats = fn(*front(q, off), ps)
+        grads = torch.autograd.grad((out * co).sum(), [q, off, *ps])
+        return out, stats, grads
+
+    out_a, stats_a, g_a = run(
+        lambda *a: ft.fused_sa_bq_train(*a, L["radius"], L["k"]),
+        lambda q, off: (L["nx"], L["pts"], q, off))
+    out_b, stats_b, g_b = run(
+        ft.fused_sa_train, lambda q, off: (q, off, L["idx"]))
+    torch.testing.assert_close(out_b, out_a, rtol=1e-2, atol=1e-2)
+    for a, b_ in zip(stats_a, stats_b):
+        torch.testing.assert_close(b_, a, rtol=1e-3, atol=1e-5)
+    readings = {}
+    for a, b_, what in zip(g_a, g_b, ["q", "off", *kfs.SAParams._fields]):
+        a, b_ = a.double().ravel(), b_.double().ravel()
+        readings[what] = (float(a @ b_ / (a.norm() * b_.norm())),
+                          float(b_.norm() / a.norm()))
+    print("idx route against bq route, (cosine, norm ratio):", readings)
+    for what, (cos, ratio) in readings.items():
+        assert cos >= 0.995 and abs(ratio - 1) <= 0.02, (what, cos, ratio)
 
 
 # ------------------------------------------------ train slice kernels
@@ -140,6 +269,12 @@ TRAIN_SHAPES = {  # widths, B, N, M, radius, k
     "sa1": ((64, 64, 128), 4, 1024, 512, 0.2, 64),
     "sa2": ((128, 128, 256), 4, 512, 128, 0.4, 64),
     "sa1_k16": ((64, 64, 128), 2, 300, 96, 0.3, 16),  # N % 32 != 0
+    # PointNet++ MSG's other widths and k: one row a thread at C1 = 32,
+    # 12 channel groups at C2 = 96, and k = 128, where a center spans two
+    # 64-row tiles and most of its slots are replicas of slot 0
+    "msg1_k16": ((32, 32, 64), 4, 1024, 512, 0.1, 16),
+    "msg1_k128": ((64, 96, 128), 2, 1024, 512, 0.4, 128),
+    "msg2_k128": ((128, 128, 256), 4, 512, 128, 0.8, 128),
 }
 
 
@@ -280,48 +415,37 @@ def test_train_kernels_reject_what_they_cannot_run(card):
                    st[:, :16], None, None, params.w2, params.w3)
 
 
-def test_train_step_card_matches_cpu(card):
-    """One train-mode forward and backward of PointNet++ SSG on 8 clouds
-    at N=1024, on the card (the kernels, bf16 dense operands) and on the
-    CPU (the plain versions, f32 dense layers), from the same weights
-    with dropout 0: the loss within 1e-2 relative, each parameter's
-    gradient at cosine ≥ 0.85 with a norm within 15 %. A last-bit
-    difference can move a max-pool's winner and reroute that point's
-    gradient (measured on an H100: cosine ≥ 0.935, norms within 7.1 %)."""
-    from pointcloudlib_tpu_torch.train import soft_cross_entropy
-    from pointcloudlib_tpu_torch.utils.interop import from_jax_variables
+@pytest.mark.parametrize("model_name", ["pointnet2", "pointnet2_msg"])
+def test_train_step_card_matches_cpu(card, model_name):
+    """One train-mode forward and backward of PointNet++ SSG and MSG on 8
+    clouds at N=1024, on the card (the kernels, bf16 dense operands) and
+    on the CPU (the plain versions, f32 dense layers), from the same
+    weights with dropout 0: the loss within 1e-2 relative, each
+    parameter's gradient at cosine ≥ 0.85 with a norm within 15 % (SSG)
+    or 25 % (MSG); ``tools/grad_check.py`` holds the bounds, says why
+    they differ and which gradients are exactly 0 and not compared. On
+    these sphere-shell clouds every pooled output of MSG's two k=128
+    scales is positive, so their last BN biases are such gradients;
+    nothing else may go uncompared but SA3's last BN bias. ``pytest -s``
+    shows the readings."""
+    from pointcloudlib_tpu_torch.tools.grad_check import grad_agreement
 
     rng = np.random.default_rng(11)
     x = rng.standard_normal((8, 1024, 3)).astype(np.float32)
     x /= np.linalg.norm(x, axis=-1, keepdims=True)
     nrm = rng.standard_normal((8, 1024, 3)).astype(np.float32)
-    label = torch.from_numpy(rng.integers(0, 40, 8))
-    variables = random_jax_variables(get_cls_model("pointnet2"), seed=5)
-
-    def grads(dev):
-        model = get_cls_model("pointnet2", dropout=0.0)
-        from_jax_variables(model, variables)
-        model = model.to(dev).train()
-        logits = model(torch.from_numpy(x).to(dev),
-                       torch.from_numpy(nrm).to(dev))
-        loss = soft_cross_entropy(logits, label.to(dev))
-        loss.backward()
-        return loss.item(), {k: p.grad.double().cpu() for k, p in
-                             model.named_parameters()}
-
-    loss_card, g_card = grads(card)
-    loss_cpu, g_cpu = grads(torch.device("cpu"))
-    assert loss_card == pytest.approx(loss_cpu, rel=1e-2)
-    # SA3's last BN bias has no gradient (the head's BN cancels a
-    # constant shift): skip gradients that are rounding noise
-    floor = 1e-6 * max(float(g.norm()) for g in g_cpu.values())
-    agree = {}
-    for k, g in g_cpu.items():
-        if g.norm() > floor:
-            gc = g_card[k]
-            agree[k] = (float(gc.ravel() @ g.ravel() / (gc.norm() * g.norm())),
-                        float(gc.norm() / g.norm()))
-    worst_cos = min(agree.items(), key=lambda kv: kv[1][0])
-    worst_dev = max(agree.items(), key=lambda kv: abs(kv[1][1] - 1))
-    assert worst_cos[1][0] >= 0.85, (worst_cos, worst_dev)
-    assert abs(worst_dev[1][1] - 1) <= 0.15, (worst_cos, worst_dev)
+    batch = {"xyz": torch.from_numpy(x), "feats": torch.from_numpy(nrm),
+             "label": torch.from_numpy(rng.integers(0, 40, 8))}
+    variables = random_jax_variables(get_cls_model(model_name), seed=5)
+    got = grad_agreement(model_name, variables, batch, card)
+    agree = got["agree"]
+    print(model_name, "card against CPU: least cosine",
+          min(agree.items(), key=lambda kv: kv[1][0]),
+          "largest norm deviation",
+          max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)),
+          "not compared", got["not_compared"])
+    assert not got["failures"], got["failures"]
+    allowed = {"sa3.mlp.2.bn.bias"}
+    if model_name == "pointnet2_msg":
+        allowed |= {"sa1.scales.2.bn3_bias", "sa2.scales.2.bn3_bias"}
+    assert set(got["not_compared"]) <= allowed, got["not_compared"]
