@@ -8,7 +8,7 @@ once:
 
 1. device — the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
-2. build — the nine kernel sources of ``pointcloudlib_tpu_torch/csrc``
+2. build — the eleven kernel sources of ``pointcloudlib_tpu_torch/csrc``
    compiled (one ``nvcc`` per source, started together), with seconds and
    the ``-Xptxas -v`` registers, shared memory and spills of each kernel;
 3. kernels — the SSG serving kernels against their plain PyTorch versions
@@ -64,11 +64,34 @@ once:
    which gradients are exactly 0 and not compared). MSG: the same at B=32:
    per step exactly 2 launches of FPS, 4 of the ball-query f1, 2 of the
    ball query, 2 of the f1 that takes its idx, 18 of the tail, 6 of p1
-   and of p2, none of an eval kernel; peak device memory reported.
+   and of p2, none of an eval kernel; peak device memory reported;
+8. part-segmentation kernels — PointNet++ part segmentation at full width
+   (B=16, N=2048, xyz as features, 16 ShapeNet-part-shaped synthetic
+   clouds, seeded random weights): FPS 2048→512 and 512→128, the
+   ball-query eval, pass-1, tail, p1 and p2 kernels at SA1 and SA2 under
+   the bounds above; the 3-NN interpolation at FP2 and FP1 (idx
+   bit-identical, w and out within 1e-6·max|plain|) and the row
+   scatter-add at both backward shapes (within 1e-5·max|plain|; f32
+   atomics in another order), with ``index_add_`` timed beside it; edge
+   cases: supports of 36 and 100 points, duplicate support points,
+   queries equal to support points (a hard copy of the feature) and
+   scatter indices at or beyond n (dropped);
+9. part-segmentation serving — ``SegPredictor(batch_size=16)`` on 64
+   clouds, three requests: per served batch exactly 2 launches of FPS, 2
+   of the ball-query eval kernel and 2 of the 3-NN interpolation, none of
+   any other kernel; then 2 clouds on the card and on the CPU:
+   probabilities within 5e-3 and part ids equal wherever the top two
+   probabilities differ by more than 1e-2;
+10. part-segmentation train — ``make_seg_train_step`` at B=16 with SGD
+   (momentum 0.9, lr 0.01): 2 warm-up and 10 timed steps, per step
+   exactly 2 launches of FPS, f1, p1, p2, the 3-NN interpolation and the
+   scatter-add, 6 of the tail; losses finite, parameters and running
+   statistics moved, peak memory; then the card-vs-CPU loss and gradient
+   check on 8 clouds.
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
-entry per TPU kernel replaced (eleven; the three forward tails share one
-source and one wrapper, counted per stage); the last line is
+entry per TPU kernel replaced (thirteen; the three forward tails share
+one source and one wrapper, counted per stage); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -84,8 +107,11 @@ import time
 import numpy as np
 import torch
 
-from pointcloudlib_tpu_torch.data.synthetic import SyntheticModelNet
-from pointcloudlib_tpu_torch.inference import Predictor
+from pointcloudlib_tpu_torch.data.synthetic import (
+    SyntheticModelNet,
+    SyntheticShapeNetPart,
+)
+from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
 from pointcloudlib_tpu_torch.models import get_cls_model
 from pointcloudlib_tpu_torch.ops import geometry
 from pointcloudlib_tpu_torch.ops.kernels import _build
@@ -93,14 +119,20 @@ from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
 from pointcloudlib_tpu_torch.ops.kernels import fps as kfps
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa as kfs
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as kft
+from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
 from pointcloudlib_tpu_torch.tools.grad_check import (
     GRAD_COS,
     GRAD_NORM,
     LOSS_RTOL,
+    SEG,
+    build_model,
     grad_agreement,
+    synthetic_batch,
 )
 from pointcloudlib_tpu_torch.train import (
     make_cls_train_step,
+    make_seg_train_step,
     reference_flat_lr,
     sgd_momentum,
 )
@@ -121,9 +153,12 @@ BQ_ATOL = BQ_RTOL = 1e-2
 PROB_ATOL = 5e-3
 SUM_TOL = 1e-3                 # Σ/Σ² of the train kernels, × max|plain|
 TRAIN_STEPS, WARMUP_STEPS, CHECK_CLOUDS = 10, 2, 8
+SEG_BATCH, SEG_POINTS, SEG_CLOUDS = 16, 2048, 64  # bench.py:201-243
+SEG_LR = 0.01                                      # bench.py:233
+TI_TOL, SCATTER_TOL = 1e-6, 1e-5                   # × max|plain|
 CSRC = "pointcloudlib_tpu_torch/csrc/"
-SOURCES = ("fps", "ball_query", "fused_sa_bq_eval",
-           "fused_sa_eval") + kft.SOURCES
+SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
+           "three_interp", "scatter_rows") + kft.SOURCES
 PALLAS = "pointcloudlib_tpu/ops/pallas/"
 FUSED_SA = PALLAS + "fused_sa.py"
 
@@ -312,7 +347,9 @@ COUNTED = {"fps": kfps.fps, "ball_query": kbq.ball_query,
            "fused_sa_bq_eval": kfs.fused_sa_bq_eval,
            "fused_sa_eval": kfs.fused_sa_eval, "bq_f1": kft.bq_f1,
            "sa_f1": kft.sa_f1, "sa_tail": kft.sa_tail,
-           "sa_bwd_p1": kft.sa_bwd_p1, "sa_bwd_p2": kft.sa_bwd_p2}
+           "sa_bwd_p1": kft.sa_bwd_p1, "sa_bwd_p2": kft.sa_bwd_p2,
+           "three_interp": kti.three_interp_fwd,
+           "scatter_rows": kga.scatter_rows}
 # launches per served batch and per train step; a kernel not named: none
 SSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 2}
 MSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 4, "ball_query": 2,
@@ -321,6 +358,8 @@ SSG_STEP = {"fps": 2, "bq_f1": 2, "sa_tail": 6, "sa_bwd_p1": 2,
             "sa_bwd_p2": 2}
 MSG_STEP = {"fps": 2, "bq_f1": 4, "ball_query": 2, "sa_f1": 2,
             "sa_tail": 18, "sa_bwd_p1": 6, "sa_bwd_p2": 6}
+SEG_SERVE = {"fps": 2, "fused_sa_bq_eval": 2, "three_interp": 2}
+SEG_STEP = {**SSG_STEP, "three_interp": 2, "scatter_rows": 2}
 
 
 def _zero_counts() -> None:
@@ -397,12 +436,12 @@ def phase_serving(name, variables, data, power, batch, per_batch, extra):
 # ------------------------------------------------------ train kernels
 
 
-def _check_sums(what, got, want):
-    """``(max |Δ|, max |plain|)``; fails beyond SUM_TOL·max|plain|."""
+def _check_sums(what, got, want, tol=SUM_TOL):
+    """``(max |Δ|, max |plain|)``; fails beyond ``tol``·max|plain|."""
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    if not torch.isfinite(got).all() or not err <= SUM_TOL * scale:
-        fail(f"{what}: |Δ| {err} beyond {SUM_TOL}·max|plain|")
+    if not torch.isfinite(got).all() or not err <= tol * scale:
+        fail(f"{what}: |Δ| {err} beyond {tol}·max|plain| ({scale})")
     return err, scale
 
 
@@ -447,7 +486,7 @@ def _train_inputs(sa, nx, pts, q, off, g):
                 dout=dout, us=(ps3 / r, s2 / r))
 
 
-def _train_layers(model, xyz, nrm):
+def _train_layers(model, xyz, nrm, tag=""):
     """SA1's and SA2's train-kernel inputs on the main path's data: SA2
     takes SA1's train-mode output, as in a train step."""
     g = torch.Generator(device=DEV).manual_seed(2)
@@ -462,7 +501,8 @@ def _train_layers(model, xyz, nrm):
         nx = l2["nx"].clone()
         nx[0, 0] = 50.0  # a center with no neighbour: cnt == 0
         l2e = _train_inputs(sa2, nx, nx1, q2, off2, g)
-    return [("SA1", l1), ("SA2", l2), ("SA2 empty row", l2e)]
+    return [(f"{tag}SA1", l1), (f"{tag}SA2", l2),
+            (f"{tag}SA2 empty row", l2e)]
 
 
 def _train_case(name, L, timed, route="bq"):
@@ -586,9 +626,9 @@ def _train_case(name, L, timed, route="bq"):
     return out
 
 
-def phase_train_kernels(model, xyz, nrm):
+def phase_train_kernels(model, xyz, nrm, tag=""):
     recs = {}
-    for name, L in _train_layers(model, xyz, nrm):
+    for name, L in _train_layers(model, xyz, nrm, tag):
         for kernel, rs in _train_case(name, L, timed="empty" not in name
                                       ).items():
             recs.setdefault(kernel, []).extend(rs)
@@ -762,16 +802,20 @@ def phase_msg_kernels(model, xyz, nrm):
 
 
 def phase_train(name, variables, power, batch_size, per_step):
-    clouds, normals, labels = SyntheticModelNet(
-        n_points=N_POINTS, size=batch_size, seed=5).batch(0, batch_size)
-    batch = {"xyz": torch.from_numpy(clouds).to(DEV),
-             "feats": torch.from_numpy(normals).to(DEV),
-             "label": torch.from_numpy(labels).long().to(DEV)}
-    model = get_cls_model(name)
+    """``name`` trains at ``batch_size``: a classification model on
+    ModelNet40-shaped clouds at N=1024 with the reference's flat lr, or
+    :data:`SEG` on ShapeNet-part-shaped clouds at N=2048 with lr 0.01."""
+    n_points = SEG_POINTS if name == SEG else N_POINTS
+    batch = {k: v.to(DEV) for k, v in synthetic_batch(
+        name, batch_size, 5, n_points).items()}
+    model = build_model(name)
     from_jax_variables(model, variables)
-    # ModelNet40's training set
-    lr = reference_flat_lr(0.02, 9840, batch_size)
-    step = make_cls_train_step(model, sgd_momentum(model.parameters(), lr))
+    if name == SEG:
+        lr, make = SEG_LR, make_seg_train_step
+    else:  # ModelNet40's training set
+        lr, make = reference_flat_lr(0.02, 9840, batch_size), \
+            make_cls_train_step
+    step = make(model, sgd_momentum(model.parameters(), lr))
     gen = torch.Generator(device=DEV).manual_seed(0)
     losses = [step(batch, gen)["loss"] for _ in range(WARMUP_STEPS)]
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -793,8 +837,11 @@ def phase_train(name, variables, power, batch_size, per_step):
     after = model.state_dict()
     still = [k for k, v in before.items() if v.dtype.is_floating_point
              and torch.equal(v, after[k])]
-    # SA3's last BN bias gets no gradient: the head's BN cancels a shift
-    if [k for k in still if k != "sa3.mlp.2.bn.bias"]:
+    # gradients that are exactly 0 (a train-mode BN removes the shift)
+    # may leave a parameter where it was: SA3's last BN bias and the
+    # part-segmentation head's Dense bias
+    if [k for k in still if k not in ("sa3.mlp.2.bn.bias",
+                                      "head.dense.bias")]:
         fail(f"train steps left these unchanged: {still}")
 
     check = grad_agreement(name, variables,
@@ -804,7 +851,7 @@ def phase_train(name, variables, power, batch_size, per_step):
     emit(f"train {name}", {
         "samples_per_s": batch_size * TRAIN_STEPS / secs,
         "step_ms": 1e3 * secs / TRAIN_STEPS, "batch": batch_size,
-        "n_points": N_POINTS, "steps": TRAIN_STEPS, "lr": lr, "card": power,
+        "n_points": n_points, "steps": TRAIN_STEPS, "lr": lr, "card": power,
         "launches": launches, "peak_device_bytes": peak, "losses": losses,
         "check_clouds": CHECK_CLOUDS, "loss_card": check["loss"],
         "loss_cpu": check["loss_cpu"],
@@ -817,6 +864,215 @@ def phase_train(name, variables, power, batch_size, per_step):
         fail(f"{name}: card vs CPU on {CHECK_CLOUDS} clouds (loss within "
              f"{LOSS_RTOL}, cosine at least {GRAD_COS}, norm within "
              f"{GRAD_NORM[name]}): {check['failures']}")
+    return launches
+
+
+# ------------------------------------------------- part segmentation
+
+
+def _seg_data(n_clouds):
+    """``(xyz [n, 2048, 3], labels [n], one-hot [n, 16])`` of the
+    synthetic ShapeNet-part set, seed 0."""
+    xyz, labels, _ = SyntheticShapeNetPart(
+        n_points=SEG_POINTS, size=n_clouds, seed=0).batch(0, n_clouds)
+    return xyz, labels, np.eye(16, dtype=np.float32)[labels]
+
+
+def _three_interp_case(name, query, points, feats, timed, self_pairs=0):
+    """The 3-NN interpolation kernel against its plain version: idx
+    bit-identical, w and out within TI_TOL·max|plain|. ``self_pairs``:
+    how many queries at least must equal a support point; each such row
+    must then be a hard copy of that point's features (the support holds
+    no duplicates)."""
+    out, idx, w = kti.three_interp_fwd(query, points, feats)
+    pout, pidx, pw = kti.three_interp_plain(query, points, feats)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, pidx):
+        fail(f"three_interp {name}: {(idx != pidx).sum().item()} indices "
+             f"differ from the plain version")
+    errs = [_check_sums(f"three_interp {name} {what}", a, b_, TI_TOL)
+            for a, b_, what in ((w, pw, "w"), (out, pout, "out"))]
+    match = (query[:, :, None, :] == points[:, None, :, :]).all(-1)
+    exact = match.any(-1)
+    if int(exact.sum()) < self_pairs:
+        fail(f"three_interp {name}: {int(exact.sum())} self-pairs, expected "
+             f"at least {self_pairs}")
+    if self_pairs:
+        copy = geometry.index_points(feats, match.int().argmax(-1))
+        dev = (out - copy).abs()[exact].max().item()
+        if not dev <= 1e-4 * feats.abs().max().item():
+            fail(f"three_interp {name}: a self-pair is no hard copy "
+                 f"(|Δ| {dev})")
+    b, m, _ = query.shape
+    n, c = feats.shape[1:]
+    rec = {"case": name, "B": b, "M": m, "N": n, "C": c,
+           "idx_bit_identical": True, "self_pairs": int(exact.sum()),
+           **_errs(errs)}
+    if timed:
+        rec["ms"] = time_ms(lambda: kti.three_interp_fwd(query, points,
+                                                         feats), 20)
+        rec["plain_ms"] = time_ms(
+            lambda: kti.three_interp_plain(query, points, feats), 3, 1)
+        # ~10 f32 operations a (query, point) pair, 5 an output element
+        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
+            0.0, 10.0 * b * m * n + 5.0 * b * m * c,
+            12.0 * b * (m + n) + 4.0 * b * n * c + 4.0 * b * m * c
+            + 24.0 * b * m)
+    emit("kernel three_interp", rec)
+    return rec, (idx, w)
+
+
+def _scatter_case(name, g, idx, n, timed):
+    """The row scatter-add kernel against its plain version within
+    SCATTER_TOL·max|plain|, with ``index_add_`` timed beside it."""
+    got = kga.scatter_rows(g, idx, n)
+    want = kga.scatter_rows_plain(g, idx, n)
+    torch.cuda.synchronize()
+    err = _check_sums(f"scatter_rows {name}", got, want, SCATTER_TOL)
+    b, c = g.shape[0], g.shape[-1]
+    rows = idx[0].numel()
+    dropped = int(((idx < 0) | (idx >= n)).sum())
+    rec = {"case": name, "B": b, "rows": rows, "n": n, "C": c,
+           "dropped_rows": dropped, **_errs([err])}
+    if timed:
+        rec["ms"] = time_ms(lambda: kga.scatter_rows(g, idx, n), 20)
+        rec["plain_ms"] = time_ms(
+            lambda: kga.scatter_rows_plain(g, idx, n), 5, 1)
+        target = (idx.reshape(b, -1).long()
+                  + n * torch.arange(b, device=DEV)[:, None]).reshape(-1)
+        g2 = g.reshape(-1, c)
+        acc = torch.zeros((b * n, c), device=DEV)
+        rec["library_ms"] = time_ms(
+            lambda: acc.zero_().index_add_(0, target, g2), 20)
+        # one f32 add an element of g
+        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
+            0.0, 1.0 * b * rows * c,
+            4.0 * b * rows * c + 4.0 * b * rows + 4.0 * b * n * c)
+    emit("kernel scatter_rows", rec)
+    return rec
+
+
+def phase_seg_kernels(model, xyz):
+    """``{kernel: [records]}`` of every kernel on the part-segmentation
+    path at its shapes (B=16, N=2048, xyz as features), timed, and the
+    edge cases of the two decoder kernels, untimed."""
+    recs = {}
+    sa = _sa_inputs(model, xyz, xyz)
+    nx1 = sa[0][2][0]
+    recs["fps"] = [_fps_case("partseg SA1 2048->512", xyz, 512, True, True),
+                   _fps_case("partseg SA2 512->128", nx1, 128, True, True)]
+    recs["fused_sa_bq_eval"] = [
+        _bq_case(f"partseg {name} serving", mod, args, True)
+        for name, mod, args in sa]
+    for kernel, rs in phase_train_kernels(model, xyz, xyz,
+                                          "partseg ").items():
+        recs.setdefault(kernel, []).extend(rs)
+
+    with torch.no_grad():  # the decoders' inputs in eval mode
+        l1_xyz, l1_f = model.sa1(xyz, xyz)
+        l2_xyz, l2_f = model.sa2(l1_xyz, l1_f)
+        l3_xyz, l3_f = model.sa3(l2_xyz, l2_f)
+        l2_f = model.fp3(l2_xyz, l3_xyz, l2_f, l3_f)
+        l1_up = model.fp2(l1_xyz, l2_xyz, l1_f, l2_f)
+    g = torch.Generator(device=DEV).manual_seed(6)
+    ti, sc = [], []
+    # FPS picks its centers among the queries: FP2's 128 support points
+    # are all among its 512 queries, FP1's 512 among its 2048
+    for name, q, p, f in (("FP2", l1_xyz, l2_xyz, l2_f),
+                          ("FP1", xyz, l1_xyz, l1_up)):
+        rec, (idx, w) = _three_interp_case(
+            f"partseg {name}", q, p, f, True,
+            self_pairs=p.shape[0] * p.shape[1])
+        ti.append(rec)
+        dout = torch.randn(f.shape[:1] + q.shape[1:2] + f.shape[2:],
+                           generator=g, device=DEV)
+        dg = (w[..., None] * dout[:, :, None, :]).contiguous()
+        sc.append(_scatter_case(f"partseg {name} backward", dg, idx,
+                                p.shape[1], True))
+
+    # edge cases: supports of 36 and 100 points (the PointConv decoders'
+    # coarse levels), duplicate support points, queries equal to the
+    # support, scatter indices at and beyond n
+    rng = np.random.default_rng(7)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(DEV)
+
+    for n, (b, m, c) in ((36, (1, 40, 64)), (100, (2, 16, 3))):
+        p = t(b, n, 3)
+        _three_interp_case(f"N={n}", t(b, m, 3), p, t(b, n, c), False)
+        _three_interp_case(f"N={n} queries = support", p, p, t(b, n, c),
+                           False, self_pairs=b * n)
+        idx = torch.from_numpy(rng.integers(0, n + 8, (b, m, 3)).astype(
+            np.int32)).to(DEV)
+        idx[0, 0, 0] = n
+        rec = _scatter_case(f"n={n} indices at and beyond n",
+                            t(b, m, 3, c), idx, n, False)
+        if rec["dropped_rows"] < 1:
+            fail(f"scatter_rows n={n}: the case drops no row")
+    base = t(2, 64, 3)
+    dup = base[:, torch.from_numpy(rng.integers(0, 64, 128)).to(DEV)]
+    _three_interp_case("duplicate support points", t(2, 256, 3), dup,
+                       t(2, 128, 32), False)
+    # exact ties at d² = 0: the lower index first
+    _three_interp_case("duplicate support points, queries = support", dup,
+                       dup, t(2, 128, 32), False)
+    recs["three_interp"], recs["scatter_rows"] = ti, sc
+    return recs
+
+
+def phase_seg_serving(variables, power):
+    clouds, labels, _ = _seg_data(SEG_CLOUDS)
+    pred = SegPredictor.from_variables("pointnet2", variables,
+                                       batch_size=SEG_BATCH)
+    pred.predict(clouds[:SEG_BATCH], labels[:SEG_BATCH])  # warm-up
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    secs, outs = [], []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        outs.append(pred.predict(clouds, labels))
+        secs.append(time.perf_counter() - t0)
+    batches = REPEATS * (SEG_CLOUDS // SEG_BATCH)
+    launches = _read_counts("partseg serving", SEG_SERVE, batches)
+    peak = torch.cuda.max_memory_allocated()
+
+    ids = outs[0]
+    if ids.shape != (SEG_CLOUDS, SEG_POINTS) or ids.min() < 0 \
+            or ids.max() >= 50:
+        fail(f"part ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
+    if any(not np.array_equal(o, ids) for o in outs[1:]):
+        fail("repeated requests gave different part ids")
+    probs = pred.predict_proba(clouds[:2], labels[:2])
+    if (probs.shape != (2, SEG_POINTS, 50) or not np.isfinite(probs).all()
+            or np.abs(probs.sum(-1) - 1.0).max() > 1e-4):
+        fail(f"probabilities not finite rows summing to 1: {probs.shape}")
+    if not np.array_equal(probs.argmax(-1), ids[:2]):
+        fail("predict and predict_proba disagree")
+    cpu = SegPredictor.from_variables("pointnet2", variables, batch_size=2,
+                                      device="cpu")
+    ref = cpu.predict_proba(clouds[:2], labels[:2])
+    diff = float(np.abs(ref - probs).max())
+    if diff > PROB_ATOL:
+        fail(f"partseg: card vs CPU probabilities differ by {diff} > "
+             f"{PROB_ATOL}")
+    top2 = np.sort(ref, -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 1e-2
+    if not np.array_equal(ref.argmax(-1)[clear], probs.argmax(-1)[clear]):
+        fail("partseg: card and CPU part ids differ where the top two "
+             "probabilities are more than 1e-2 apart")
+    rates = [SEG_CLOUDS / x for x in secs]
+    emit("serving pointnet2_partseg", {
+        "clouds_per_s": rates, "median_clouds_per_s": float(np.median(rates)),
+        "batch": SEG_BATCH, "n_points": SEG_POINTS, "clouds": SEG_CLOUDS,
+        "card": power, "launches": launches, "served_batches": batches,
+        "peak_device_bytes": peak, "max_abs_prob_diff_vs_cpu": diff,
+        "ids_agree_vs_cpu": float((ref.argmax(-1)
+                                   == probs.argmax(-1)).mean()),
+        "clear_points": int(clear.sum())})
     return launches
 
 
@@ -837,6 +1093,10 @@ KERNELS = (
     ("sa_tail_out", "fused_sa_tail.cu", FUSED_SA + ":635", "sa_tail_4"),
     ("sa_bwd_p1", "fused_sa_bwd_p1.cu", FUSED_SA + ":752", "sa_bwd_p1"),
     ("sa_bwd_p2", "fused_sa_bwd_p2.cu", FUSED_SA + ":824", "sa_bwd_p2"),
+    ("three_interp", "three_interp.cu", PALLAS + "neighbors.py:448",
+     "three_interp"),
+    ("scatter_rows", "scatter_rows.cu", PALLAS + "gather.py:57",
+     "scatter_rows"),
 )
 
 
@@ -847,6 +1107,8 @@ def _kernel_entry(name, source, replaces, recs, paths):
     timed = [r for r in recs if "ms" in r]
     ops = sum(r["ops_ms"] for r in timed)
     byt = sum(r["bytes_ms"] for r in timed)
+    library = ([r.get("library_ms") for r in timed]
+               if all("library_ms" in r for r in timed) else None)
     return {"name": name, "route": "cuda", "source": CSRC + source,
             "replaces": replaces, "launches": sum(paths.values()),
             "launches_by_path": paths,
@@ -855,11 +1117,12 @@ def _kernel_entry(name, source, replaces, recs, paths):
             "plain_ms": sum(r["plain_ms"] for r in timed),
             "bound_ms": sum(r["bound_ms"] for r in timed),
             "bound_by": "operations" if ops >= byt else "bytes",
-            "library_ms": None, "timed_cases": [r["case"] for r in timed]}
+            "library_ms": None if library is None else sum(library),
+            "timed_cases": [r["case"] for r in timed]}
 
 
 def _model_on_card(name, variables):
-    model = get_cls_model(name)
+    model = build_model(name)
     from_jax_variables(model, variables)
     return model.to(DEV).eval()
 
@@ -885,9 +1148,14 @@ def main() -> None:
                                  xyz[:MSG_BATCH], nrm[:MSG_BATCH])
     for kernel, rs in msg_recs.items():
         recs.setdefault(kernel, []).extend(rs)
+    seg_vars = random_jax_variables(build_model(SEG), seed=0)
+    seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
+    seg_recs = phase_seg_kernels(_model_on_card(SEG, seg_vars), seg_xyz)
+    for kernel, rs in seg_recs.items():
+        recs.setdefault(kernel, []).extend(rs)
     torch.cuda.empty_cache()
 
-    cnt = {"ball_query_cnt": {r["case"].split()[0]: {
+    cnt = {"ball_query_cnt": {r["case"].replace(" serving", ""): {
         "mean": r["cnt_mean"], "max": r["cnt_max"]} for r in bq_recs}}
     paths = {
         "ssg_serving": phase_serving("pointnet2", ssg_vars,
@@ -900,6 +1168,9 @@ def main() -> None:
                                  SSG_STEP),
         "msg_train": phase_train("pointnet2_msg", msg_vars, power,
                                  MSG_BATCH, MSG_STEP),
+        "partseg_serving": phase_seg_serving(seg_vars, power),
+        "partseg_train": phase_train(SEG, seg_vars, power, SEG_BATCH,
+                                     SEG_STEP),
     }
 
     kernels = []

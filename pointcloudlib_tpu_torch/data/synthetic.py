@@ -1,5 +1,6 @@
 """Procedural synthetic point clouds (counterpart of
-``pointcloudlib_tpu/data/synthetic.py``; classification, eval split).
+``pointcloudlib_tpu/data/synthetic.py``): classification without
+augmentation, and ShapeNet-part-shaped segmentation.
 
 Parametric surface primitives (sphere, cube, cylinder, cone, torus,
 plane, helix, two spheres) with per-class deformation, normalized to the
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from pointcloudlib_tpu_torch.data.augment import normalize_unit_sphere
+from pointcloudlib_tpu_torch.train.metrics import INDEX_START, SEG_NUM
 
 _SHAPES = [
     "sphere", "cube", "cylinder", "cone", "torus",
@@ -128,3 +130,47 @@ class SyntheticModelNet:
         return (np.stack([p for p, _, _ in items]),
                 np.stack([n for _, n, _ in items]),
                 np.array([l for _, _, l in items], np.int32))
+
+
+class SyntheticShapeNetPart:
+    """ShapeNet-part-shaped synthetic segmentation set: per item ``(pts
+    [N,3] f32, label int (16 categories, in turn), seg [N] int32 (50
+    parts))``, the parts being bands of the shape along a
+    category-dependent axis. The same arguments give the same items as
+    the JAX package's ``SyntheticShapeNetPart``."""
+
+    def __init__(self, n_points: int = 2048, size: int = 256,
+                 train: bool = True, seed: int = 0):
+        self.n_points = n_points
+        self.size = size
+        self.train = train
+        rng = np.random.default_rng(seed + (0 if train else 20_000))
+        self._seeds = rng.integers(0, 2**31 - 1, size)
+        self._labels = (np.arange(size) % len(SEG_NUM)).astype(np.int32)
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, i: int):
+        rng = np.random.default_rng(self._seeds[i])
+        label = int(self._labels[i])
+        kind = _SHAPES[label % len(_SHAPES)]
+        pts, _ = _sample_shape(kind, self.n_points, rng)
+        pts = pts.astype(np.float32)
+        n_parts = SEG_NUM[label]
+        coord = pts[:, label % 3]
+        edges = np.quantile(coord, np.linspace(0, 1, n_parts + 1)[1:-1])
+        seg = np.searchsorted(edges, coord).astype(np.int32)
+        seg = seg + INDEX_START[label]
+        if self.train:
+            perm = rng.permutation(self.n_points)
+            pts, seg = pts[perm], seg[perm]
+        return pts, label, seg
+
+    def batch(self, start: int, count: int):
+        """Items ``[start, start+count)`` stacked: ``(pts [count,N,3],
+        labels [count], seg [count,N])``."""
+        items = [self[i] for i in range(start, start + count)]
+        return (np.stack([p for p, _, _ in items]),
+                np.array([l for _, l, _ in items], np.int32),
+                np.stack([s for _, _, s in items]))

@@ -1,6 +1,7 @@
 """Serving API (counterpart of ``pointcloudlib_tpu/inference.py``).
 
-``Predictor`` wraps a classification model in eval mode on one device:
+``Predictor`` wraps a classification model and ``SegPredictor`` a
+part-segmentation model, in eval mode on one device:
 
 * shape bucketing — a cloud's N is padded up to the next bucket by
   repeating real points (cyclic resample), so the kernels see a handful
@@ -11,15 +12,18 @@
 
 The device defaults to the card and raises when there is none; pass
 ``device="cpu"`` for the plain PyTorch versions on the CPU. Orbax
-checkpoint restore and the part-segmentation predictor come with later
-slices (ROADMAP.md); weights arrive through :meth:`Predictor.from_variables`.
+checkpoint restore comes with a later slice (ROADMAP.md); weights arrive
+through ``from_variables``.
 
 Example::
 
     p = Predictor.from_variables("pointnet2", jax_variables)
     probs = p.predict_proba(clouds, normals)      # [B, 40]
+    s = SegPredictor.from_variables("pointnet2", jax_seg_variables)
+    parts = s.predict(clouds, categories)         # [B, N] part ids
 
-``"pointnet2"`` (SSG) and ``"pointnet2_msg"`` are the ported models.
+``"pointnet2"`` (SSG) and ``"pointnet2_msg"`` are the ported
+classification models, ``"pointnet2"`` the ported part segmentation.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
-from pointcloudlib_tpu_torch.models import get_cls_model
+from pointcloudlib_tpu_torch.models import get_cls_model, get_seg_model
+from pointcloudlib_tpu_torch.models.pointnet2 import N_CATEGORIES
 from pointcloudlib_tpu_torch.ops.dispatch import resolve_device
 from pointcloudlib_tpu_torch.utils.interop import from_jax_variables
 
@@ -45,6 +50,14 @@ def _bucket(n: int) -> int:
         if n <= b:
             return b
     return n
+
+
+def _check_bucket(n: int) -> None:
+    if _bucket(n) > _MAX_BUCKET:
+        raise NotImplementedError(
+            f"N={n} pads to bucket {_bucket(n)}: buckets of 4096 and up "
+            "take Hilbert canonicalization and the windowed fused kernel, "
+            "not ported yet (ROADMAP.md)")
 
 
 def _pad_points(arrays, n):
@@ -130,11 +143,7 @@ class Predictor:
                 "construct the Predictor with with_normals=False for a "
                 "checkpoint trained without them")
         b, n, _ = clouds.shape
-        if _bucket(n) > _MAX_BUCKET:
-            raise NotImplementedError(
-                f"N={n} pads to bucket {_bucket(n)}: buckets of 4096 and "
-                "up take Hilbert canonicalization and the windowed fused "
-                "kernel, not ported yet (ROADMAP.md)")
+        _check_bucket(n)
         if normals is not None:
             normals = np.asarray(normals, np.float32)
         clouds, normals = _pad_points([clouds, normals], n)
@@ -148,3 +157,70 @@ class Predictor:
 
     def predict(self, clouds, normals=None) -> np.ndarray:
         return self.predict_proba(clouds, normals).argmax(-1)
+
+
+class SegPredictor:
+    """Part-segmentation serving (``inference.py:183``): per-point part
+    probabilities and ids, with the bucket and batch padding of
+    :class:`Predictor`. The object category conditions the model through
+    its one-hot, as in training; ``with_xyz_feats`` passes xyz again as
+    the input features (PointNet++)."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        with_xyz_feats: bool = False,
+        batch_size: int = 16,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.with_xyz_feats = with_xyz_feats
+        self.batch_size = batch_size
+
+    @classmethod
+    def from_variables(
+        cls,
+        model_name: str,
+        variables: Mapping,
+        part_num: int = 50,
+        batch_size: int = 16,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "SegPredictor":
+        """Build ``model_name`` and load the JAX package's fused-layout
+        ``variables`` (numpy leaves) through the weight bridge."""
+        with_xyz = model_name.startswith("pointnet2")
+        model = get_seg_model(model_name, part_num=part_num,
+                              feat_channels=3 if with_xyz else 0)
+        from_jax_variables(model, variables)
+        return cls(model, with_xyz_feats=with_xyz, batch_size=batch_size,
+                   device=device)
+
+    @torch.no_grad()
+    def _serve(self, clouds, labels, finish) -> np.ndarray:
+        """``finish(probs [b, nb, part_num])`` on the device for each
+        batch, its real rows and points copied back."""
+        clouds = np.asarray(clouds, np.float32)
+        n = clouds.shape[1]
+        _check_bucket(n)
+        [clouds] = _pad_points([clouds], n)
+        onehot = np.eye(N_CATEGORIES, dtype=np.float32)[np.asarray(labels)]
+        outs = []
+        for (chunk, oh), real in _batches([clouds, onehot], self.batch_size):
+            x = torch.from_numpy(chunk).to(self.device)
+            logits = self.model(x, torch.from_numpy(oh).to(self.device),
+                                x if self.with_xyz_feats else None)
+            out = finish(torch.softmax(logits, dim=-1))
+            outs.append(out[:real, :n].cpu().numpy())
+        return np.concatenate(outs)
+
+    def predict_proba(self, clouds: np.ndarray, labels: np.ndarray
+                      ) -> np.ndarray:
+        """``clouds [B, N, 3]``, ``labels [B]`` category ids → per-point
+        part probabilities ``[B, N, part_num]``."""
+        return self._serve(clouds, labels, lambda p: p)
+
+    def predict(self, clouds: np.ndarray, labels: np.ndarray) -> np.ndarray:
+        """Per-point part ids ``[B, N]`` (the argmax taken on the device,
+        only the ids copied back)."""
+        return self._serve(clouds, labels, lambda p: p.argmax(-1))

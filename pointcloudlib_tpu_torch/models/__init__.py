@@ -1,16 +1,19 @@
 """Model registry (counterpart of ``pointcloudlib_tpu/models``).
 
-PointNet++ SSG and MSG classification are ported so far; the other
-entries of the JAX registry follow in later slices (ROADMAP.md)."""
+PointNet++ SSG and MSG classification and PointNet++ part segmentation
+are ported so far; the other entries of the JAX registry follow in later
+slices (ROADMAP.md)."""
 
 from __future__ import annotations
 
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     PointNet2MSG,
+    PointNet2PartSeg,
     PointNet2SSG,
 )
 
 CLS_MODELS = {"pointnet2": PointNet2SSG, "pointnet2_msg": PointNet2MSG}
+SEG_MODELS = {"pointnet2": PointNet2PartSeg}
 
 
 def get_cls_model(name: str, n_classes: int = 40, **kw):
@@ -19,3 +22,11 @@ def get_cls_model(name: str, n_classes: int = 40, **kw):
             f"cls model {name!r} is not yet ported; ported: "
             f"{sorted(CLS_MODELS)}")
     return CLS_MODELS[name](n_classes=n_classes, **kw)
+
+
+def get_seg_model(name: str, part_num: int = 50, **kw):
+    if name not in SEG_MODELS:
+        raise NotImplementedError(
+            f"seg model {name!r} is not yet ported; ported: "
+            f"{sorted(SEG_MODELS)}")
+    return SEG_MODELS[name](part_num=part_num, **kw)

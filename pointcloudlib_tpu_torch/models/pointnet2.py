@@ -1,5 +1,5 @@
-"""PointNet++ SSG and MSG classification (counterpart of
-``pointcloudlib_tpu/models/pointnet2.py``).
+"""PointNet++ SSG and MSG classification and SSG part segmentation
+(counterpart of ``pointcloudlib_tpu/models/pointnet2.py``).
 
 SSG: SA(512, r=.2, k=64, [64,64,128]) → SA(128, r=.4, k=64,
 [128,128,256]) → SA(all, [256,512,1024]) → the head.
@@ -8,6 +8,10 @@ MSG: MSG(512, r=(.1,.2,.4), k=(16,32,128), [32,32,64], [64,64,128],
 [128,128,256], [128,128,256]) → SA(all, [256,512,1024]) → the head.
 The head is FC 512→256→n_classes with dropout (0.5, the reference rate;
 0 for deterministic comparisons). Input features are the raw normals.
+Part segmentation: the SSG encoder, then FP [256,256], FP [256,128] and
+FP [128,128,128] with the object one-hot, xyz and the input features
+joined at the last, and the head DenseBNAct(128, no ReLU) → dropout →
+Dense(part_num).
 """
 
 from __future__ import annotations
@@ -19,19 +23,29 @@ from torch import nn
 
 from pointcloudlib_tpu_torch.nn.layers import (
     DenseBNAct,
+    FeaturePropagation,
     SetAbstraction,
     SetAbstractionMSG,
     reference_linear_init,
 )
 
 
-class ClsHead(nn.Module):
-    """DenseBNAct(512) → DenseBNAct(256) → dropout → Dense(n_classes).
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: in training keep a unit
+    where ``rand < 1 − rate`` and scale it by ``1/(1 − rate)``; the
+    uniform draws come from ``generator`` (the train step's own), never
+    from the global RNG."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(draw < keep, x / keep, 0.0)
 
-    Dropout in training keeps a unit where ``rand < 1 − rate`` and scales
-    it by ``1/(1 − rate)``, as flax's ``nn.Dropout`` does; the uniform
-    draws come from the ``generator`` the caller passes (the train step's
-    own), never from the global RNG."""
+
+class ClsHead(nn.Module):
+    """DenseBNAct(512) → DenseBNAct(256) → :func:`dropout` →
+    Dense(n_classes)."""
 
     def __init__(self, in_features: int, n_classes: int,
                  dropout: float = 0.5):
@@ -46,11 +60,7 @@ class ClsHead(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.fc2(self.fc1(x))
-        if self.training and self.dropout > 0.0:
-            keep = 1.0 - self.dropout
-            draw = torch.rand(x.shape, generator=generator, device=x.device)
-            x = torch.where(draw < keep, x / keep, 0.0)
-        return self.out(x)
+        return self.out(dropout(x, self.dropout, self.training, generator))
 
 
 class PointNet2SSG(nn.Module):
@@ -106,3 +116,51 @@ class PointNet2MSG(nn.Module):
         xyz, f = self.sa2(xyz, f)
         _, f = self.sa3(xyz, f)
         return self.head(f[:, 0], generator)
+
+
+N_CATEGORIES = 16  # ShapeNet part's object categories, one-hot
+
+
+class PointNet2PartSeg(nn.Module):
+    """PointNet++ SSG part segmentation (``models/pointnet2.py:77``).
+    ``feat_channels``: per-point input features (3 when xyz is passed
+    again as features, as the reference's training does). The JAX model
+    fixes the head's dropout at 0.5; here it is an argument, for
+    deterministic comparisons."""
+
+    def __init__(self, part_num: int = 50, feat_channels: int = 3,
+                 dropout: float = 0.5):
+        super().__init__()
+        self.sa1 = SetAbstraction(feat_channels, [64, 64, 128], n_points=512,
+                                  radius=0.2, n_samples=64)
+        self.sa2 = SetAbstraction(128, [128, 128, 256], n_points=128,
+                                  radius=0.4, n_samples=64)
+        self.sa3 = SetAbstraction(256, [256, 512, 1024])
+        self.fp3 = FeaturePropagation(256, 1024, [256, 256])
+        self.fp2 = FeaturePropagation(128, 256, [256, 128])
+        self.fp1 = FeaturePropagation(N_CATEGORIES + 3 + feat_channels, 128,
+                                      [128, 128, 128])
+        self.head = DenseBNAct(128, 128, act=None, use_bias=True)
+        self.dropout = dropout
+        self.out = nn.Linear(128, part_num)
+        reference_linear_init(self.out.weight, 128)
+        nn.init.zeros_(self.out.bias)
+
+    def forward(self, xyz: torch.Tensor, cls_label: torch.Tensor,
+                feats: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Per-point logits ``[B, N, part_num]`` for ``xyz [B, N, 3]`` and
+        the object one-hot ``cls_label [B, 16]``; ``generator``
+        draws the head's dropout mask in training."""
+        b, n, _ = xyz.shape
+        l1_xyz, l1_f = self.sa1(xyz, feats)
+        l2_xyz, l2_f = self.sa2(l1_xyz, l1_f)
+        l3_xyz, l3_f = self.sa3(l2_xyz, l2_f)
+        l2_f = self.fp3(l2_xyz, l3_xyz, l2_f, l3_f)
+        l1_f = self.fp2(l1_xyz, l2_xyz, l1_f, l2_f)
+        one_hot = cls_label[:, None, :].to(xyz.dtype).expand(
+            b, n, cls_label.shape[-1])
+        skip = torch.cat([one_hot, xyz] + ([] if feats is None else [feats]),
+                         dim=-1)
+        f = self.head(self.fp1(xyz, l1_xyz, skip, l1_f))
+        return self.out(dropout(f, self.dropout, self.training, generator))

@@ -2,6 +2,7 @@
 
 from pointcloudlib_tpu_torch.nn.layers import (
     DenseBNAct,
+    FeaturePropagation,
     FusedSetAbstraction,
     PointMLP,
     SetAbstraction,
@@ -12,6 +13,7 @@ from pointcloudlib_tpu_torch.nn.layers import (
 
 __all__ = [
     "DenseBNAct",
+    "FeaturePropagation",
     "FusedSetAbstraction",
     "PointMLP",
     "SetAbstraction",

@@ -15,7 +15,7 @@ the JAX package does off the TPU. BatchNorm is always f32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +26,7 @@ from pointcloudlib_tpu_torch.ops import (
     fps,
     group_all,
     index_points,
+    three_nn_interpolate,
 )
 from pointcloudlib_tpu_torch.ops.kernels.fused_sa import (
     SAParams,
@@ -102,19 +103,30 @@ class BatchNorm(nn.Module):
 
 
 class DenseBNAct(nn.Module):
-    """Dense (no bias) → BatchNorm → ReLU over the last axis."""
+    """Dense → BatchNorm → activation over the last axis
+    (``nn/layers.py:70``). ``act`` is ReLU by default or ``None``; the
+    Dense has a bias only with ``use_bias`` (zero-initialized, as flax's)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 act: Optional[Callable[[torch.Tensor],
+                                        torch.Tensor]] = F.relu,
+                 use_bias: bool = False):
         super().__init__()
-        self.dense = nn.Linear(in_features, features, bias=False)
+        self.dense = nn.Linear(in_features, features, bias=use_bias)
         reference_linear_init(self.dense.weight, in_features)
+        if use_bias:
+            nn.init.zeros_(self.dense.bias)
         self.bn = BatchNorm(features)
+        self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(x.device)
-        x = F.linear(x.to(dt), self.dense.weight.to(dt)).float()
+        bias = self.dense.bias
+        x = F.linear(x.to(dt), self.dense.weight.to(dt),
+                     None if bias is None else bias.to(dt)).float()
         shape = x.shape
-        return F.relu(self.bn(x.reshape(-1, shape[-1])).reshape(shape))
+        x = self.bn(x.reshape(-1, shape[-1])).reshape(shape)
+        return x if self.act is None else self.act(x)
 
 
 class PointMLP(nn.Sequential):
@@ -290,3 +302,27 @@ class SetAbstractionMSG(nn.Module):
         outs = [scale(xyz, feats, new_xyz=new_xyz)[1]
                 for scale in self.scales]
         return new_xyz, torch.cat(outs, dim=-1)
+
+
+class FeaturePropagation(nn.Module):
+    """PointNet++ feature propagation, the decoder layer
+    (``nn/layers.py:419``): the coarse features interpolated up to the fine
+    points (3-NN, inverse squared distance; a single coarse point is
+    broadcast), ``[feats_fine ‖ up]`` when fine features are given, then
+    a :class:`PointMLP`."""
+
+    def __init__(self, in_fine: int, in_coarse: int, mlp: Sequence[int]):
+        super().__init__()
+        self.mlp = PointMLP(in_fine + in_coarse, mlp)
+
+    def forward(self, xyz_fine: torch.Tensor, xyz_coarse: torch.Tensor,
+                feats_fine: Optional[torch.Tensor],
+                feats_coarse: torch.Tensor) -> torch.Tensor:
+        b, n = xyz_fine.shape[:2]
+        if xyz_coarse.shape[1] == 1:
+            up = feats_coarse.expand(b, n, feats_coarse.shape[-1])
+        else:
+            up = three_nn_interpolate(xyz_fine, xyz_coarse, feats_coarse)
+        if feats_fine is not None:
+            up = torch.cat([feats_fine, up], dim=-1)
+        return self.mlp(up)

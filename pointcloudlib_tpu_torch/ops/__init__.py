@@ -4,13 +4,18 @@ from pointcloudlib_tpu_torch.ops.dispatch import (
     ball_query,
     fps,
     resolve_device,
+    scatter_rows,
+    three_interp,
 )
 from pointcloudlib_tpu_torch.ops.geometry import (
     farthest_point_sample,
     group_all,
     group_points,
     index_points,
+    knn,
     square_distance,
+    three_nn,
+    three_nn_interpolate,
 )
 
 __all__ = [
@@ -20,6 +25,11 @@ __all__ = [
     "group_all",
     "group_points",
     "index_points",
+    "knn",
     "resolve_device",
+    "scatter_rows",
     "square_distance",
+    "three_interp",
+    "three_nn",
+    "three_nn_interpolate",
 ]

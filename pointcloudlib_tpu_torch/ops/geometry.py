@@ -26,6 +26,9 @@ __all__ = [
     "farthest_point_sample",
     "group_points",
     "group_all",
+    "knn",
+    "three_nn",
+    "three_nn_interpolate",
 ]
 
 
@@ -119,6 +122,56 @@ def farthest_point_sample(
         last = torch.where(eligible, min_d2, neg).argmax(-1)
         out[:, j] = last.to(torch.int32)
     return out
+
+
+def knn(query: torch.Tensor, points: torch.Tensor, k: int
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours → ``(d² [B, M, k], idx [B, M, k] int32)``,
+    ascending by :func:`square_distance` with the lower index first on
+    ties, as ``lax.top_k`` orders them (``geometry.py:181``); for
+    ``k > N`` the last neighbour repeats."""
+    n = points.shape[1]
+    d2 = square_distance(query, points)
+    d2, idx = torch.sort(d2, dim=-1, stable=True)
+    d2, idx = d2[..., :min(k, n)], idx[..., :min(k, n)]
+    if k > n:
+        d2 = torch.cat([d2, d2[..., -1:].expand(*d2.shape[:-1], k - n)], -1)
+        idx = torch.cat([idx, idx[..., -1:].expand(*idx.shape[:-1], k - n)],
+                        -1)
+    return d2, idx.to(torch.int32)
+
+
+def _inverse_distance_weights(d2: torch.Tensor) -> torch.Tensor:
+    """``1/(d²+1e-8)`` over the last axis of 3, normalized as
+    ``inv_j / ((inv_0 + inv_1) + inv_2)`` (``geometry.py:315``)."""
+    inv = 1.0 / (d2 + 1e-8)
+    return inv / ((inv[..., 0:1] + inv[..., 1:2]) + inv[..., 2:3])
+
+
+def three_nn(query: torch.Tensor, points: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3 nearest support points of each query and their weights →
+    ``(idx [B, M, 3] int32, w [B, M, 3])`` (``geometry.py:324``). The
+    weights take d² recomputed exactly as ``Σ(q − p)²`` from the selected
+    coordinates, so a query equal to a support point gets d² = 0 and a
+    hard copy of its features."""
+    _, idx = knn(query, points, 3)
+    g = index_points(points.float(), idx)                  # [B, M, 3, 3]
+    return idx, _inverse_distance_weights(
+        _sumsq(query.float()[:, :, None, :] - g))
+
+
+def three_nn_interpolate(query: torch.Tensor, points: torch.Tensor,
+                         feats: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance-weighted 3-NN interpolation ``query [B, M, 3]``,
+    ``points [B, N, 3]``, ``feats [B, N, C]`` → ``[B, M, C]``
+    (``geometry.py:349``): the ``three_interp`` kernel for CUDA tensors,
+    its plain version for CPU ones, with the scatter-add backward to
+    ``feats``. No gradient flows to ``query`` or ``points``."""
+    # the kernel wrappers import this module
+    from pointcloudlib_tpu_torch.ops.kernels.three_interp import ThreeInterp
+
+    return ThreeInterp.apply(query.detach(), points.detach(), feats)
 
 
 def group_points(

@@ -1,17 +1,21 @@
 """Where the serving time goes: the port's Predictor under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_serving \
-        [--model pointnet2|pointnet2_msg] [--out DIR]
+        [--model pointnet2|pointnet2_msg|pointnet2_partseg] [--out DIR]
 
-Serves PointNet++ SSG at B=64 or MSG at B=32 (full width, seeded random
-weights, normals as features), N=1024, on 256 synthetic surface clouds
-after a warm-up request, and prints one JSON line with:
+Serves PointNet++ SSG at B=64 or MSG at B=32 (``Predictor``, normals as
+features, N=1024, 256 synthetic surface clouds), or PointNet++ part
+segmentation at B=16 (``SegPredictor.predict``, xyz as features, N=2048,
+64 ShapeNet-part-shaped synthetic clouds), full width with seeded random
+weights, after a warm-up request, and prints one JSON line with:
 
 * ``wall_ms_per_batch`` — host clock per served batch without the
-  profiler (median of 5 requests of 256 clouds), and with it;
+  profiler (median of 5 requests), and with it;
 * ``device_busy_ms_per_batch`` and ``device_busy_share`` — the union of
   the device's kernel and copy intervals over the profiled window, per
   batch and as a share of that window's wall time;
+* ``device_ops_per_batch`` — the kernels and copies the host issued per
+  batch (each costs it a launch);
 * ``stages`` — device milliseconds per batch by kernel-name group
   (the ported kernels, dense matmuls, BatchNorm, copies, …).
 
@@ -33,17 +37,24 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pointcloudlib_tpu_torch.data.synthetic import SyntheticModelNet
-from pointcloudlib_tpu_torch.inference import Predictor
-from pointcloudlib_tpu_torch.models import get_cls_model
+from pointcloudlib_tpu_torch.data.synthetic import (
+    SyntheticModelNet,
+    SyntheticShapeNetPart,
+)
+from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
+from pointcloudlib_tpu_torch.tools.grad_check import SEG, build_model
 from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
 
-N_POINTS, N_CLOUDS = 1024, 256
-BATCH = {"pointnet2": 64, "pointnet2_msg": 32}  # the JAX package's rows
+# the JAX package's rows: batch, points, clouds a request
+BATCH = {"pointnet2": 64, "pointnet2_msg": 32, SEG: 16}
+N_POINTS = {"pointnet2": 1024, "pointnet2_msg": 1024, SEG: 2048}
+N_CLOUDS = {"pointnet2": 256, "pointnet2_msg": 256, SEG: 64}
 
 # kernel-name pattern -> stage, first match wins
 STAGES = (
     (r"fps_kernel", "fps kernel"),
+    (r"three_interp_kernel", "three_interp kernel"),
+    (r"scatter_rows_kernel", "scatter_rows kernel"),
     (r"ball_query_kernel", "ball_query kernel"),
     (r"bq_eval_kernel", "fused_sa_bq_eval kernel"),
     (r"eval_kernel", "fused_sa_eval kernel"),
@@ -95,17 +106,31 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
 
-    variables = random_jax_variables(get_cls_model(args.model), seed=0)
-    pred = Predictor.from_variables(args.model, variables, batch_size=batch)
-    clouds, normals, _ = SyntheticModelNet(
-        n_points=N_POINTS, size=N_CLOUDS, seed=0).batch(0, N_CLOUDS)
-    pred.predict_proba(clouds, normals)  # warm-up: kernels built, caches
-    batches = N_CLOUDS // batch
+    n_points, n_clouds = N_POINTS[args.model], N_CLOUDS[args.model]
+    variables = random_jax_variables(build_model(args.model), seed=0)
+    if args.model == SEG:
+        pred = SegPredictor.from_variables("pointnet2", variables,
+                                           batch_size=batch)
+        clouds, labels, _ = SyntheticShapeNetPart(
+            n_points=n_points, size=n_clouds, seed=0).batch(0, n_clouds)
+
+        def request():
+            pred.predict(clouds, labels)
+    else:
+        pred = Predictor.from_variables(args.model, variables,
+                                        batch_size=batch)
+        clouds, normals, _ = SyntheticModelNet(
+            n_points=n_points, size=n_clouds, seed=0).batch(0, n_clouds)
+
+        def request():
+            pred.predict_proba(clouds, normals)
+    request()  # warm-up: kernels built, caches
+    batches = n_clouds // batch
 
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        pred.predict_proba(clouds, normals)
+        request()
         walls.append((time.perf_counter() - t0) * 1e3 / batches)
 
     from torch.profiler import ProfilerActivity, profile
@@ -114,7 +139,7 @@ def main(argv=None) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict_proba(clouds, normals)
+        request()
         window_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -130,13 +155,14 @@ def main(argv=None) -> None:
     prof.export_chrome_trace(str(out / f"serving_trace_{args.model}.json"))
     print(json.dumps({
         "model": args.model, "card": power, "batch": batch,
-        "n_points": N_POINTS,
+        "n_points": n_points,
         "batches": batches,
         "wall_ms_per_batch": float(np.median(walls)),
         "wall_ms_per_batch_runs": walls,
         "profiled_wall_ms_per_batch": window_us / 1e3 / batches,
         "device_busy_ms_per_batch": busy_us / 1e3 / batches,
         "device_busy_share": busy_us / window_us,
+        "device_ops_per_batch": len(dev) / batches,
         "stages": {k: v / 1e3 / batches for k, v in
                    sorted(stages.items(), key=lambda kv: -kv[1])},
         "kernel_names": sorted({e.name[:80] for e in dev}),

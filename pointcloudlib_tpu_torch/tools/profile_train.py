@@ -1,19 +1,23 @@
-"""Where the train step's time goes: ``make_cls_train_step`` under
-torch.profiler.
+"""Where the train step's time goes: ``make_cls_train_step`` or
+``make_seg_train_step`` under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_train \
-        [--model pointnet2|pointnet2_msg] [--out DIR]
+        [--model pointnet2|pointnet2_msg|pointnet2_partseg] [--out DIR]
 
-Trains PointNet++ SSG at B=64 or MSG at B=32 (full width, seeded random
-weights, normals as features, dropout 0.5), N=1024, on one batch of
-labelled synthetic surface clouds with SGD (momentum 0.9, lr 0.02), after
-3 warm-up steps, and prints one JSON line with:
+Trains PointNet++ SSG at B=64 or MSG at B=32 (normals as features,
+N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
+0.02), or PointNet++ part segmentation at B=16 (xyz as features,
+N=2048, ShapeNet-part-shaped synthetic clouds, lr 0.01), full width with
+seeded random weights and dropout 0.5, on one batch, after 3 warm-up
+steps, and prints one JSON line with:
 
 * ``wall_ms_per_step`` — host clock per step, ending in a synchronize,
   without the profiler (median of 10 steps), and with it;
 * ``device_busy_ms_per_step`` and ``device_busy_share`` — the union of
   the device's kernel and copy intervals over 5 profiled steps, per step
   and as a share of that window's wall time;
+* ``device_ops_per_step`` — the kernels and copies the host issued per
+  step (each costs it a launch);
 * ``stages`` — device milliseconds per step by kernel-name group (the
   ported kernels, dense matmuls, BatchNorm, optimizer, …);
 * ``peak_device_bytes`` — ``torch.cuda.max_memory_allocated`` over the
@@ -36,20 +40,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pointcloudlib_tpu_torch.data.synthetic import SyntheticModelNet
-from pointcloudlib_tpu_torch.models import get_cls_model
+from pointcloudlib_tpu_torch.tools.grad_check import (
+    SEG,
+    build_model,
+    synthetic_batch,
+)
 from pointcloudlib_tpu_torch.tools.profile_serving import (
     BATCH,
+    N_POINTS,
     _stage,
     _union_us,
 )
-from pointcloudlib_tpu_torch.train import make_cls_train_step, sgd_momentum
+from pointcloudlib_tpu_torch.train import (
+    make_cls_train_step,
+    make_seg_train_step,
+    sgd_momentum,
+)
 from pointcloudlib_tpu_torch.utils.interop import (
     from_jax_variables,
     random_jax_variables,
 )
 
-N_POINTS, LR = 1024, 0.02
+LR = {"pointnet2": 0.02, "pointnet2_msg": 0.02, SEG: 0.01}
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 
@@ -67,15 +79,13 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
 
-    model = get_cls_model(args.model)
+    model = build_model(args.model)
     from_jax_variables(model, random_jax_variables(model, seed=0))
-    step = make_cls_train_step(model, sgd_momentum(model.parameters(), LR))
-    clouds, normals, labels = SyntheticModelNet(
-        n_points=N_POINTS, size=bsz, seed=5).batch(0, bsz)
+    make = make_seg_train_step if args.model == SEG else make_cls_train_step
+    step = make(model, sgd_momentum(model.parameters(), LR[args.model]))
     dev = torch.device("cuda")
-    batch = {"xyz": torch.from_numpy(clouds).to(dev),
-             "feats": torch.from_numpy(normals).to(dev),
-             "label": torch.from_numpy(labels).long().to(dev)}
+    batch = {k: v.to(dev) for k, v in synthetic_batch(
+        args.model, bsz, 5, N_POINTS[args.model]).items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(WARMUP):
         step(batch, gen)
@@ -115,13 +125,15 @@ def main(argv=None) -> None:
     prof.export_chrome_trace(str(out / f"train_trace_{args.model}.json"))
     print(json.dumps({
         "model": args.model, "card": power, "batch": bsz,
-        "n_points": N_POINTS, "steps": PROFILED, "peak_device_bytes": peak,
+        "n_points": N_POINTS[args.model], "steps": PROFILED,
+        "peak_device_bytes": peak,
         "wall_ms_per_step": float(np.median(walls)),
         "wall_ms_per_step_runs": walls,
         "samples_per_s": bsz * 1e3 / float(np.median(walls)),
         "profiled_wall_ms_per_step": window_us / 1e3 / PROFILED,
         "device_busy_ms_per_step": busy_us / 1e3 / PROFILED,
         "device_busy_share": busy_us / window_us,
+        "device_ops_per_step": len(events) / PROFILED,
         "stages": {k: v / 1e3 / PROFILED for k, v in
                    sorted(stages.items(), key=lambda kv: -kv[1])},
         "kernel_names": sorted({e.name[:80] for e in events}),

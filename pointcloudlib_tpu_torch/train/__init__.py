@@ -12,9 +12,12 @@ from pointcloudlib_tpu_torch.train.schedules import (
     step_decay,
 )
 from pointcloudlib_tpu_torch.train.state import sgd_momentum
+from pointcloudlib_tpu_torch.train.metrics import shape_ious
 from pointcloudlib_tpu_torch.train.trainer import (
     make_cls_eval_step,
     make_cls_train_step,
+    make_seg_eval_step,
+    make_seg_train_step,
 )
 
 __all__ = [
@@ -23,8 +26,11 @@ __all__ = [
     "cross_entropy_seg",
     "make_cls_eval_step",
     "make_cls_train_step",
+    "make_seg_eval_step",
+    "make_seg_train_step",
     "reference_flat_lr",
     "sgd_momentum",
+    "shape_ious",
     "soft_cross_entropy",
     "step_decay",
 ]

@@ -17,23 +17,35 @@ import numpy as np
 import torch
 
 from pointcloudlib_tpu_torch.ops import resolve_device
-from pointcloudlib_tpu_torch.train.losses import accuracy, soft_cross_entropy
+from pointcloudlib_tpu_torch.train.losses import (
+    accuracy,
+    cross_entropy_seg,
+    soft_cross_entropy,
+)
 
 Device = Optional[Union[str, torch.device]]
 
 
+def _put(x, dev: torch.device, dtype: torch.dtype):
+    """An array or tensor as a tensor on ``dev``; ``None`` passes."""
+    if x is None:
+        return None
+    t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+    return t.to(device=dev, dtype=dtype)
+
+
 def _inputs(batch: Mapping, dev: torch.device):
     """``(xyz, feats or None, label)`` as tensors on ``dev``."""
+    return (_put(batch["xyz"], dev, torch.float32),
+            _put(batch.get("feats"), dev, torch.float32),
+            _put(batch.get("label"), dev, torch.int64))
 
-    def put(x, dtype):
-        if x is None:
-            return None
-        t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-        return t.to(device=dev, dtype=dtype)
 
-    return (put(batch["xyz"], torch.float32),
-            put(batch.get("feats"), torch.float32),
-            put(batch.get("label"), torch.int64))
+def _seg_inputs(batch: Mapping, dev: torch.device):
+    """``(xyz, cls_onehot, feats or None)`` as tensors on ``dev``."""
+    return (_put(batch["xyz"], dev, torch.float32),
+            _put(batch["cls_onehot"], dev, torch.float32),
+            _put(batch.get("feats"), dev, torch.float32))
 
 
 def make_cls_train_step(model: torch.nn.Module,
@@ -82,5 +94,57 @@ def make_cls_eval_step(model: torch.nn.Module, device: Device = None
                  else torch.as_tensor(valid, device=dev).bool())
         correct = ((pred == label) & valid).sum()
         return correct, valid.sum()
+
+    return step
+
+
+def make_seg_train_step(model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer,
+                        device: Device = None
+                        ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``step(batch, generator=None) -> {"loss", "acc"}`` for part
+    segmentation (``trainer.py:215``). ``batch = {"xyz" [B,N,3],
+    "cls_onehot" [B,16], "feats" (optional), "seg" [B,N], "valid"
+    (optional) [B]}`` as arrays or tensors. Plain per-point CE; loss and
+    accuracy are means over the points of the valid clouds. The model
+    moves to ``device`` (the card by default) in place; ``generator``
+    draws the dropout mask and must live on the same device."""
+    dev = resolve_device(device)
+    model.to(dev)
+
+    def step(batch: Mapping, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        xyz, onehot, feats = _seg_inputs(batch, dev)
+        seg = _put(batch["seg"], dev, torch.int64)
+        model.train()
+        logits = model(xyz, onehot, feats, generator=generator)
+        valid = batch.get("valid")
+        w = (torch.ones(logits.shape[0], device=dev) if valid is None
+             else _put(valid, dev, torch.float32))[:, None]
+        per = cross_entropy_seg(logits, seg, reduce=False)
+        denom = torch.clamp_min(w.sum() * per.shape[1], 1.0)
+        loss = (per * w).sum() / denom
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        correct = (logits.detach().argmax(-1) == seg).float()
+        return {"loss": loss.detach(), "acc": (correct * w).sum() / denom}
+
+    return step
+
+
+def make_seg_eval_step(model: torch.nn.Module, device: Device = None
+                       ) -> Callable[[Mapping], torch.Tensor]:
+    """``eval_step(batch) -> pred [B, N]`` part ids on the device, for
+    ``batch = {"xyz", "cls_onehot", "feats" (optional)}``; the caller
+    computes IoUs over the epoch (``train/metrics.shape_ious``)."""
+    dev = resolve_device(device)
+    model.to(dev)
+
+    @torch.no_grad()
+    def step(batch: Mapping) -> torch.Tensor:
+        xyz, onehot, feats = _seg_inputs(batch, dev)
+        model.eval()
+        return model(xyz, onehot, feats).argmax(-1)
 
     return step

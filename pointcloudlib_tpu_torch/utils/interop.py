@@ -13,7 +13,12 @@ abstraction is on:
 * ``SetAbstraction_2`` (SSG) or ``SetAbstraction_0`` (MSG: flax numbers
   each class on its own) ``/PointMLP_0/DenseBNAct_i/{Dense_0/kernel,
   BatchNorm_0/{scale,bias}}`` with batch stats ``BatchNorm_0/{mean,var}``;
-* ``_ClsHead_0/DenseBNAct_{0,1}/…`` and ``_ClsHead_0/Dense_0/{kernel,bias}``.
+* ``_ClsHead_0/DenseBNAct_{0,1}/…`` and ``_ClsHead_0/Dense_0/{kernel,bias}``;
+* part segmentation: ``SetAbstraction_{0,1}/FusedSetAbstraction_0``,
+  ``SetAbstraction_2/PointMLP_0/…``,
+  ``FeaturePropagation_{0,1,2}/PointMLP_0/DenseBNAct_i/…`` (FP3, FP2,
+  FP1 in that order), a top-level ``DenseBNAct_0`` whose ``Dense_0`` has
+  a kernel and a bias, and ``Dense_0/{kernel,bias}``.
 
 A checkpoint in the unfused layout goes through the JAX package's own
 ``pointcloudlib_tpu.utils.interop.convert_variables`` first, with an
@@ -33,6 +38,7 @@ import torch
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     ClsHead,
     PointNet2MSG,
+    PointNet2PartSeg,
     PointNet2SSG,
 )
 from pointcloudlib_tpu_torch.nn.layers import (
@@ -48,6 +54,8 @@ _Entries = Dict[Tuple[str, ...], Tuple[torch.Tensor, bool]]
 
 def _dense_bn(blk: DenseBNAct, path: Tuple[str, ...], out: _Entries):
     out[("params", *path, "Dense_0", "kernel")] = (blk.dense.weight, True)
+    if blk.dense.bias is not None:
+        out[("params", *path, "Dense_0", "bias")] = (blk.dense.bias, False)
     bn = (*path, "BatchNorm_0")
     out[("params", *bn, "scale")] = (blk.bn.weight, False)
     out[("params", *bn, "bias")] = (blk.bn.bias, False)
@@ -76,14 +84,33 @@ def _set_abstraction(sa: SetAbstraction, path, out: _Entries):
         _dense_bn(blk, (*path, "PointMLP_0", f"DenseBNAct_{i}"), out)
 
 
+def _dense(dense, path, out: _Entries):
+    out[("params", *path, "Dense_0", "kernel")] = (dense.weight, True)
+    out[("params", *path, "Dense_0", "bias")] = (dense.bias, False)
+
+
 def _head(head: ClsHead, path, out: _Entries):
     _dense_bn(head.fc1, (*path, "DenseBNAct_0"), out)
     _dense_bn(head.fc2, (*path, "DenseBNAct_1"), out)
-    out[("params", *path, "Dense_0", "kernel")] = (head.out.weight, True)
-    out[("params", *path, "Dense_0", "bias")] = (head.out.bias, False)
+    _dense(head.out, path, out)
+
+
+def _partseg(model: PointNet2PartSeg) -> _Entries:
+    out: _Entries = {}
+    for i, sa in enumerate((model.sa1, model.sa2, model.sa3)):
+        _set_abstraction(sa, (f"SetAbstraction_{i}",), out)
+    for i, fp in enumerate((model.fp3, model.fp2, model.fp1)):
+        for j, blk in enumerate(fp.mlp):
+            _dense_bn(blk, (f"FeaturePropagation_{i}", "PointMLP_0",
+                            f"DenseBNAct_{j}"), out)
+    _dense_bn(model.head, ("DenseBNAct_0",), out)
+    _dense(model.out, (), out)
+    return out
 
 
 def _entries(model) -> _Entries:
+    if isinstance(model, PointNet2PartSeg):
+        return _partseg(model)
     if not isinstance(model, (PointNet2SSG, PointNet2MSG)):
         raise NotImplementedError(
             f"no JAX weight mapping for {type(model).__name__} yet")

@@ -449,3 +449,145 @@ def test_train_step_card_matches_cpu(card, model_name):
     if model_name == "pointnet2_msg":
         allowed |= {"sa1.scales.2.bn3_bias", "sa2.scales.2.bn3_bias"}
     assert set(got["not_compared"]) <= allowed, got["not_compared"]
+
+
+# --------------------------------------- part-segmentation decoder kernels
+
+THREE_INTERP_SHAPES = {  # B, M (queries), N (support), C
+    "fp2": (16, 512, 128, 256),    # PointNet++ part segmentation, B=16
+    "fp1": (16, 2048, 512, 128),
+    "n36": (1, 40, 36, 64),        # PointConv decoders' coarse levels
+    "n100": (2, 16, 100, 3),
+}
+
+
+def _three_interp_inputs(card, name):
+    """Support points picked by FPS from a cloud four times as dense, as
+    on the model's path (so no two lie within a hair of each other), and
+    queries of which the first ones are support points."""
+    b, m, n, c = THREE_INTERP_SHAPES[name]
+    rng = np.random.default_rng(m + n + c)
+    cloud = _sphere(rng, b, 4 * n, card)
+    pts = cloud[torch.arange(b, device=card)[:, None],
+                kfps.fps_plain(cloud, n).long()]
+    q = _sphere(rng, b, m, card) * 0.9
+    q[:, : min(m, n) // 2] = pts[:, : min(m, n) // 2]  # self-pairs
+    f = torch.from_numpy(rng.standard_normal((b, n, c)).astype(
+        np.float32)).to(card)
+    return q, pts, f
+
+
+@pytest.mark.parametrize("name", sorted(THREE_INTERP_SHAPES))
+def test_three_interp_matches_plain(card, name):
+    """idx bit-identical; w and out within 1e-6 of the largest plain
+    element (the same round-to-nearest operations in the same order);
+    queries equal to support points get a hard copy of its features."""
+    from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+
+    q, pts, f = _three_interp_inputs(card, name)
+    before = kti.three_interp_fwd.launches
+    out, idx, w = kti.three_interp_fwd(q, pts, f)
+    torch.cuda.synchronize()
+    assert kti.three_interp_fwd.launches == before + 1
+    pout, pidx, pw = kti.three_interp_plain(q, pts, f)
+    assert torch.equal(idx, pidx)
+    for got, want in ((w, pw), (out, pout)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-6 * want.abs().max().item())
+    half = min(q.shape[1], pts.shape[1]) // 2
+    torch.testing.assert_close(out[:, :half], f[:, :half], rtol=0,
+                               atol=1e-4 * f.abs().max().item())
+
+
+def test_three_interp_duplicate_support(card):
+    """Duplicate support points give exact d² ties, at 0 for queries on
+    them: the lower index comes first, as in three masked argmins."""
+    from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+
+    rng = np.random.default_rng(5)
+    base = _sphere(rng, 2, 64, card)
+    dup = base[:, torch.from_numpy(rng.integers(0, 64, 128)).to(card)]
+    f = torch.from_numpy(rng.standard_normal((2, 128, 32)).astype(
+        np.float32)).to(card)
+    for q in (dup, _sphere(rng, 2, 256, card)):
+        out, idx, w = kti.three_interp_fwd(q, dup, f)
+        pout, pidx, pw = kti.three_interp_plain(q, dup, f)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, pidx)
+        torch.testing.assert_close(out, pout, rtol=0,
+                                   atol=1e-6 * pout.abs().max().item())
+
+
+def test_three_interp_rejects_what_it_cannot_run(card):
+    from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+
+    q = torch.zeros((1, 4, 3), device=card)
+    with pytest.raises(ValueError, match="N <="):
+        kti.three_interp_fwd(q, torch.zeros((1, 2, 3), device=card),
+                             torch.zeros((1, 2, 8), device=card))
+    n = kti.MAX_POINTS + 1
+    with pytest.raises(ValueError, match="N <="):
+        kti.three_interp_fwd(q, torch.zeros((1, n, 3), device=card),
+                             torch.zeros((1, n, 8), device=card))
+
+
+SCATTER_SHAPES = {  # B, M, K, C, n
+    "fp1_bwd": (16, 2048, 3, 128, 512),
+    "fp2_bwd": (16, 512, 3, 256, 128),
+    "n36": (1, 40, 3, 64, 36),
+    "n100": (2, 16, 3, 3, 100),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCATTER_SHAPES))
+def test_scatter_rows_matches_plain(card, name):
+    """Within 1e-5 of the largest plain element: f32 atomics add a
+    target's rows in another order; indices at or beyond n add
+    nothing."""
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+
+    b, m, k, c, n = SCATTER_SHAPES[name]
+    rng = np.random.default_rng(b + m + n)
+    g = torch.from_numpy(rng.standard_normal((b, m, k, c)).astype(
+        np.float32)).to(card)
+    idx = torch.from_numpy(rng.integers(0, n + 8, (b, m, k)).astype(
+        np.int32)).to(card)
+    idx[0, 0, 0] = n
+    before = kga.scatter_rows.launches
+    got = kga.scatter_rows(g, idx, n)
+    torch.cuda.synchronize()
+    assert kga.scatter_rows.launches == before + 1
+    want = kga.scatter_rows_plain(g, idx, n)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_partseg_train_step_card_matches_cpu(card):
+    """One train-mode forward and backward of PointNet++ part
+    segmentation on 8 synthetic clouds at N=2048 (xyz as features), on
+    the card and on the CPU from the same weights with dropout 0, under
+    ``tools/grad_check.py``'s bounds (cosine ≥ 0.85, norm within 15 %).
+    Not compared, as exactly 0: the head's Dense bias (its own
+    train-mode BatchNorm removes the shift), SA3's last BN bias, and a
+    fused scale's last BN bias where every pooled output is positive."""
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        SEG,
+        build_model,
+        grad_agreement,
+        synthetic_batch,
+    )
+
+    variables = random_jax_variables(build_model(SEG), seed=5)
+    got = grad_agreement(SEG, variables, synthetic_batch(SEG, 8, 11, 2048),
+                         card)
+    agree = got["agree"]
+    print(SEG, "card against CPU: least cosine",
+          min(agree.items(), key=lambda kv: kv[1][0]),
+          "largest norm deviation",
+          max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)),
+          "not compared", got["not_compared"])
+    assert not got["failures"], got["failures"]
+    assert "head.dense.bias" in got["not_compared"]
+    allowed = {"head.dense.bias", "sa3.mlp.2.bn.bias", "sa1.fused.bn3_bias",
+               "sa2.fused.bn3_bias"}
+    assert set(got["not_compared"]) <= allowed, got["not_compared"]
