@@ -8,7 +8,7 @@ once:
 
 1. device — the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
-2. build — the eleven kernel sources of ``pointcloudlib_tpu_torch/csrc``
+2. build — the fifteen kernel sources of ``pointcloudlib_tpu_torch/csrc``
    compiled (one ``nvcc`` per source, started together), with seconds and
    the ``-Xptxas -v`` registers, shared memory and spills of each kernel;
 3. kernels — the SSG serving kernels against their plain PyTorch versions
@@ -87,11 +87,29 @@ once:
    exactly 2 launches of FPS, f1, p1, p2, the 3-NN interpolation and the
    scatter-add, 6 of the tail; losses finite, parameters and running
    statistics moved, peak memory; then the card-vs-CPU loss and gradient
-   check on 8 clouds.
+   check on 8 clouds;
+11. DGCNN kernels — DGCNN classification at full width (B=32, N=1024,
+   k=20, xyz only, seeded random weights): each of its four EdgeConvs'
+   inputs, from a served batch and from a train step, into the four
+   fused EdgeConv kernels against their plain versions: the kNN inside
+   ``edge_knn_eval`` and ``edge_knn_f1`` bit-identical (f1's idx and
+   bf16 h), ``edge_knn_eval`` and ``edge_out`` within 1e-5·max|plain|,
+   f1's Σ/Σ² and ``edge_bwd``'s sums, scatter and assembled dq, doff, dγ,
+   dβ within 1e-3·max|plain| (f32 atomics in another order), its scatter
+   counts exact; ``torch.topk`` of the same d² timed as a yardstick of
+   the selection alone; edge cases: duplicate points (exact kNN and
+   max-pool ties) and N = 65, one past the 64-point candidate tile;
+12. DGCNN serving — ``Predictor(batch_size=32)`` as in phase 6: exactly
+   4 launches of ``edge_knn_eval`` per served batch;
+13. DGCNN train — ``make_cls_train_step`` at B=32 with SGD (momentum 0.9,
+   lr 0.1 flat, ``bench.py:168``) as in phase 7: per step exactly 4
+   launches of ``edge_knn_f1``, ``edge_out`` and ``edge_bwd``; then the
+   card-vs-CPU loss and gradient check on 8 clouds.
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
-entry per TPU kernel replaced (thirteen; the three forward tails share
-one source and one wrapper, counted per stage); the last line is
+entry per TPU kernel replaced (seventeen; the three forward tails share
+one source and one wrapper, counted per stage; ``edge_knn_eval``'s entry
+adds the ``torch.topk`` yardstick); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -117,6 +135,7 @@ from pointcloudlib_tpu_torch.ops import geometry
 from pointcloudlib_tpu_torch.ops.kernels import _build
 from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
 from pointcloudlib_tpu_torch.ops.kernels import fps as kfps
+from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa as kfs
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as kft
 from pointcloudlib_tpu_torch.ops.kernels import gather as kga
@@ -156,11 +175,14 @@ TRAIN_STEPS, WARMUP_STEPS, CHECK_CLOUDS = 10, 2, 8
 SEG_BATCH, SEG_POINTS, SEG_CLOUDS = 16, 2048, 64  # bench.py:201-243
 SEG_LR = 0.01                                      # bench.py:233
 TI_TOL, SCATTER_TOL = 1e-6, 1e-5                   # × max|plain|
+DGCNN_BATCH, DGCNN_LR = 32, 0.1    # bench.py:341 (xyz only), bench.py:168
+EDGE_TOL = 1e-5                    # edge_knn_eval and edge_out, × max|plain|
 CSRC = "pointcloudlib_tpu_torch/csrc/"
 SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
-           "three_interp", "scatter_rows") + kft.SOURCES
+           "three_interp", "scatter_rows") + kft.SOURCES + kfe.SOURCES
 PALLAS = "pointcloudlib_tpu/ops/pallas/"
 FUSED_SA = PALLAS + "fused_sa.py"
+FUSED_EDGE = PALLAS + "fused_edge.py"
 
 
 def fail(msg: str) -> None:
@@ -349,7 +371,9 @@ COUNTED = {"fps": kfps.fps, "ball_query": kbq.ball_query,
            "sa_f1": kft.sa_f1, "sa_tail": kft.sa_tail,
            "sa_bwd_p1": kft.sa_bwd_p1, "sa_bwd_p2": kft.sa_bwd_p2,
            "three_interp": kti.three_interp_fwd,
-           "scatter_rows": kga.scatter_rows}
+           "scatter_rows": kga.scatter_rows,
+           "edge_knn_eval": kfe.edge_knn_eval, "edge_knn_f1": kfe.edge_knn_f1,
+           "edge_out": kfe.edge_out, "edge_bwd": kfe.edge_bwd}
 # launches per served batch and per train step; a kernel not named: none
 SSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 2}
 MSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 4, "ball_query": 2,
@@ -360,6 +384,8 @@ MSG_STEP = {"fps": 2, "bq_f1": 4, "ball_query": 2, "sa_f1": 2,
             "sa_tail": 18, "sa_bwd_p1": 6, "sa_bwd_p2": 6}
 SEG_SERVE = {"fps": 2, "fused_sa_bq_eval": 2, "three_interp": 2}
 SEG_STEP = {**SSG_STEP, "three_interp": 2, "scatter_rows": 2}
+DGCNN_SERVE = {"edge_knn_eval": 4}
+DGCNN_STEP = {"edge_knn_f1": 4, "edge_out": 4, "edge_bwd": 4}
 
 
 def _zero_counts() -> None:
@@ -812,6 +838,8 @@ def phase_train(name, variables, power, batch_size, per_step):
     from_jax_variables(model, variables)
     if name == SEG:
         lr, make = SEG_LR, make_seg_train_step
+    elif name == "dgcnn":
+        lr, make = DGCNN_LR, make_cls_train_step
     else:  # ModelNet40's training set
         lr, make = reference_flat_lr(0.02, 9840, batch_size), \
             make_cls_train_step
@@ -839,9 +867,9 @@ def phase_train(name, variables, power, batch_size, per_step):
              and torch.equal(v, after[k])]
     # gradients that are exactly 0 (a train-mode BN removes the shift)
     # may leave a parameter where it was: SA3's last BN bias and the
-    # part-segmentation head's Dense bias
+    # Dense bias of a DenseBNAct (the part-segmentation head, DGCNN's fc2)
     if [k for k in still if k not in ("sa3.mlp.2.bn.bias",
-                                      "head.dense.bias")]:
+                                      "head.dense.bias", "fc2.dense.bias")]:
         fail(f"train steps left these unchanged: {still}")
 
     check = grad_agreement(name, variables,
@@ -1076,6 +1104,143 @@ def phase_seg_serving(variables, power):
     return launches
 
 
+# ------------------------------------------------------------- DGCNN
+
+
+def _edge_inputs(model, xyz):
+    """``(name, layer, x_serving, x_train)`` of the four EdgeConvs on the
+    main path's data: each layer's input in a served batch (the eval
+    chain, running statistics) and in a train step (batch statistics)."""
+    out, xe, xt = [], xyz, xyz
+    with torch.no_grad():
+        for i, ec in enumerate(model.edge):
+            f = ec.fused
+            out.append((f"EC{i + 1}", f, xe, xt))
+            q, off = f.prepare(xe)
+            xe = kfe.fused_edge_eval_knn(xe, q, off, f.bn_scale, f.bn_bias,
+                                         kfe.EdgeStats(f.mean, f.var), f.k)
+            q, off = f.prepare(xt)
+            xt, _ = kfe.fused_edge_conv_knn(xt, q, off, f.bn_scale,
+                                            f.bn_bias, f.k)
+    return out
+
+
+def _edge_case(name, f, xe, xt, g, timed):
+    """The four EdgeConv kernels of one layer against their plain
+    versions: ``edge_knn_eval`` on the serving input, ``edge_knn_f1``,
+    ``edge_out`` and ``edge_bwd`` on the train input, each from the plain
+    version's results of the pass before. Returns ``{kernel: record}``."""
+    k = f.k
+    b, n, cin = xt.shape
+    c = f.bn_scale.shape[0]
+    shape = {"B": b, "N": n, "k": k, "C_in": cin, "C": c}
+    pairs = float(b * n * n)
+    knn_ops = pairs * (2 * cin + 3)       # d² of every (query, point) pair
+    edges = float(b * n * k * c)
+    recs = {}
+
+    def record(kernel, rec, fn, plain, flops_f32, nbytes):
+        if timed:
+            rec["ms"] = time_ms(fn, 10)
+            rec["plain_ms"] = time_ms(plain, 2, 1)
+            rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
+                0.0, flops_f32, nbytes)
+        emit(f"kernel {kernel}", rec)
+        recs[kernel] = rec
+
+    with torch.no_grad():
+        q, off = f.prepare(xe)
+        qb = q.bfloat16()
+        st = kfs._stack_stats(f.mean, f.var, f.bn_scale, f.bn_bias)
+        ev = (xe, qb, off, st, k)
+        err = _check_sums(f"edge_knn_eval {name}", kfe.edge_knn_eval(*ev),
+                          kfe.edge_knn_eval_plain(*ev), EDGE_TOL)
+        rec = {"case": name, **shape, **_errs([err])}
+        if timed:  # the selection alone, by the library, on the same d²
+            d2 = geometry.square_distance(xe, xe)
+            rec["topk_selection_yardstick_ms"] = time_ms(
+                lambda: torch.topk(d2, k, dim=-1, largest=False), 10)
+            del d2
+        # gather, BN, LeakyReLU and max: ~5 operations an edge element
+        record("edge_knn_eval", rec, lambda: kfe.edge_knn_eval(*ev),
+               lambda: kfe.edge_knn_eval_plain(*ev), knn_ops + 5.0 * edges,
+               4.0 * b * n * cin + 2.0 * b * n * c + 8.0 * b * n * c
+               + 16.0 * c)
+
+        q, off = f.prepare(xt)
+        qb = q.bfloat16()
+        f1 = (xt, qb, off, k)
+        idx, h, psum = kfe.edge_knn_f1(*f1)
+        widx, wh, wpsum = kfe.edge_knn_f1_plain(*f1)
+        torch.cuda.synchronize()
+        if not torch.equal(idx, widx):
+            fail(f"edge_knn_f1 {name}: {(idx != widx).sum().item()} "
+                 f"neighbour indices differ from the plain version")
+        if not torch.equal(h.view(torch.int16), wh.view(torch.int16)):
+            fail(f"edge_knn_f1 {name}: h not bit-identical to the plain "
+                 f"version")
+        rec = {"case": name, **shape, "idx_h_bit_identical": True,
+               **_errs([_check_sums(f"edge_knn_f1 {name}", psum, wpsum)])}
+        del idx, h
+        # h, its sum and its square: 4 operations an edge element
+        record("edge_knn_f1", rec, lambda: kfe.edge_knn_f1(*f1),
+               lambda: kfe.edge_knn_f1_plain(*f1), knn_ops + 4.0 * edges,
+               4.0 * b * n * cin + 6.0 * b * n * c + 4.0 * b * n * k
+               + 2.0 * edges + 8.0 * c)
+
+        r = float(b * n * k)
+        st = kfs._stack_stats(*kft._moments(wpsum, r), f.bn_scale, f.bn_bias)
+        err = _check_sums(f"edge_out {name}", kfe.edge_out(wh, st),
+                          kfe.edge_out_plain(wh, st), EDGE_TOL)
+        record("edge_out", {"case": name, **shape, **_errs([err])},
+               lambda: kfe.edge_out(wh, st),
+               lambda: kfe.edge_out_plain(wh, st), 5.0 * edges,
+               2.0 * edges + 4.0 * b * n * c + 16.0 * c)
+
+        dout = torch.randn((b, n, c), generator=g, device=DEV)
+        bw = (wh, dout, widx, st, 0.2, n)
+        got, want = kfe.edge_bwd(*bw), kfe.edge_bwd_plain(*bw)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1][..., 2 * c], want[1][..., 2 * c]):
+            fail(f"edge_bwd {name}: scatter counts differ")
+        errs = [_check_sums(f"edge_bwd {name} {w}", a, b_)
+                for a, b_, w in zip(got, want, ("ps", "scat", "d1", "d2"))]
+        errs += [_check_sums(f"edge_bwd {name} {w}", a, b_) for a, b_, w in
+                 zip(kfe.assemble_grads(*got, st, k),
+                     kfe.assemble_grads(*want, st, k),
+                     ("dq", "doff", "dgamma", "dbeta"))]
+        # the row pass (BN, LeakyReLU, tie count, dz, x̂, the sums): ~15
+        # operations an edge element; scat written once
+        record("edge_bwd", {"case": name, **shape, **_errs(errs)},
+               lambda: kfe.edge_bwd(*bw), lambda: kfe.edge_bwd_plain(*bw),
+               15.0 * edges,
+               2.0 * edges + 4.0 * b * n * c + 4.0 * b * n * k + 16.0 * c
+               + 8.0 * c + 4.0 * b * n * (2 * c + 1) + 8.0 * b * n * c)
+    return recs
+
+
+def phase_dgcnn_kernels(model, xyz):
+    """``{kernel: [records]}`` of the four EdgeConv kernels at the four
+    layers' shapes of the DGCNN path (B=32, N=1024, k=20), timed, and at
+    edge cases, untimed: duplicate points (exact kNN ties at d² = 0 and
+    exact max-pool ties) and N one past the candidate tile (65)."""
+    g = torch.Generator(device=DEV).manual_seed(8)
+    recs = {}
+    for name, f, xe, xt in _edge_inputs(model, xyz):
+        for kernel, rec in _edge_case(name, f, xe, xt, g, True).items():
+            recs.setdefault(kernel, []).append(rec)
+    dup = xyz[:4].clone()
+    dup[:, N_POINTS // 2:] = dup[:, :N_POINTS // 2]
+    _edge_case("EC1 duplicate points", model.edge[0].fused, dup, dup, g,
+               False)
+    x64 = torch.randn((2, 65, 64), generator=g, device=DEV)
+    _edge_case("EC2 N=65", model.edge[1].fused, x64, x64, g, False)
+    x64[:, 40:] = x64[:, :25]
+    _edge_case("EC2 N=65 duplicate points", model.edge[1].fused, x64, x64, g,
+               False)
+    return recs
+
+
 # TPU kernel replaced: (entry name, source, file:line, key of its records
 # and of its launch count)
 KERNELS = (
@@ -1097,6 +1262,11 @@ KERNELS = (
      "three_interp"),
     ("scatter_rows", "scatter_rows.cu", PALLAS + "gather.py:57",
      "scatter_rows"),
+    ("edge_knn_eval", "edge_knn_eval.cu", FUSED_EDGE + ":246",
+     "edge_knn_eval"),
+    ("edge_knn_f1", "edge_knn_f1.cu", FUSED_EDGE + ":188", "edge_knn_f1"),
+    ("edge_out", "edge_out.cu", FUSED_EDGE + ":96", "edge_out"),
+    ("edge_bwd", "edge_bwd.cu", FUSED_EDGE + ":133", "edge_bwd"),
 )
 
 
@@ -1109,6 +1279,10 @@ def _kernel_entry(name, source, replaces, recs, paths):
     byt = sum(r["bytes_ms"] for r in timed)
     library = ([r.get("library_ms") for r in timed]
                if all("library_ms" in r for r in timed) else None)
+    extra = {}
+    if all("topk_selection_yardstick_ms" in r for r in timed):
+        extra["topk_selection_yardstick_ms"] = sum(
+            r["topk_selection_yardstick_ms"] for r in timed)
     return {"name": name, "route": "cuda", "source": CSRC + source,
             "replaces": replaces, "launches": sum(paths.values()),
             "launches_by_path": paths,
@@ -1118,7 +1292,7 @@ def _kernel_entry(name, source, replaces, recs, paths):
             "bound_ms": sum(r["bound_ms"] for r in timed),
             "bound_by": "operations" if ops >= byt else "bytes",
             "library_ms": None if library is None else sum(library),
-            "timed_cases": [r["case"] for r in timed]}
+            **extra, "timed_cases": [r["case"] for r in timed]}
 
 
 def _model_on_card(name, variables):
@@ -1153,6 +1327,9 @@ def main() -> None:
     seg_recs = phase_seg_kernels(_model_on_card(SEG, seg_vars), seg_xyz)
     for kernel, rs in seg_recs.items():
         recs.setdefault(kernel, []).extend(rs)
+    dg_vars = random_jax_variables(get_cls_model("dgcnn"), seed=0)
+    recs.update(phase_dgcnn_kernels(_model_on_card("dgcnn", dg_vars),
+                                    xyz[:DGCNN_BATCH]))
     torch.cuda.empty_cache()
 
     cnt = {"ball_query_cnt": {r["case"].replace(" serving", ""): {
@@ -1171,6 +1348,10 @@ def main() -> None:
         "partseg_serving": phase_seg_serving(seg_vars, power),
         "partseg_train": phase_train(SEG, seg_vars, power, SEG_BATCH,
                                      SEG_STEP),
+        "dgcnn_serving": phase_serving("dgcnn", dg_vars, (clouds, normals),
+                                       power, DGCNN_BATCH, DGCNN_SERVE, {}),
+        "dgcnn_train": phase_train("dgcnn", dg_vars, power, DGCNN_BATCH,
+                                   DGCNN_STEP),
     }
 
     kernels = []

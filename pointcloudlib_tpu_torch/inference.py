@@ -22,8 +22,9 @@ Example::
     s = SegPredictor.from_variables("pointnet2", jax_seg_variables)
     parts = s.predict(clouds, categories)         # [B, N] part ids
 
-``"pointnet2"`` (SSG) and ``"pointnet2_msg"`` are the ported
-classification models, ``"pointnet2"`` the ported part segmentation.
+``"pointnet2"`` (SSG), ``"pointnet2_msg"`` and ``"dgcnn"`` (xyz only) are
+the ported classification models, ``"pointnet2"`` the ported part
+segmentation.
 """
 
 from __future__ import annotations

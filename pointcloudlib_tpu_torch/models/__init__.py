@@ -1,18 +1,20 @@
 """Model registry (counterpart of ``pointcloudlib_tpu/models``).
 
-PointNet++ SSG and MSG classification and PointNet++ part segmentation
-are ported so far; the other entries of the JAX registry follow in later
-slices (ROADMAP.md)."""
+PointNet++ SSG and MSG classification, PointNet++ part segmentation and
+DGCNN classification are ported so far; the other entries of the JAX
+registry follow in later slices (ROADMAP.md)."""
 
 from __future__ import annotations
 
+from pointcloudlib_tpu_torch.models.dgcnn import DGCNN
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     PointNet2MSG,
     PointNet2PartSeg,
     PointNet2SSG,
 )
 
-CLS_MODELS = {"pointnet2": PointNet2SSG, "pointnet2_msg": PointNet2MSG}
+CLS_MODELS = {"pointnet2": PointNet2SSG, "pointnet2_msg": PointNet2MSG,
+              "dgcnn": DGCNN}
 SEG_MODELS = {"pointnet2": PointNet2PartSeg}
 
 

@@ -1,10 +1,12 @@
 """Where the serving time goes: the port's Predictor under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_serving \
-        [--model pointnet2|pointnet2_msg|pointnet2_partseg] [--out DIR]
+        [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg] \
+        [--out DIR]
 
-Serves PointNet++ SSG at B=64 or MSG at B=32 (``Predictor``, normals as
-features, N=1024, 256 synthetic surface clouds), or PointNet++ part
+Serves PointNet++ SSG at B=64, MSG at B=32 (``Predictor``, normals as
+features, N=1024, 256 synthetic surface clouds) or DGCNN at B=32 (the
+same clouds, xyz only), or PointNet++ part
 segmentation at B=16 (``SegPredictor.predict``, xyz as features, N=2048,
 64 ShapeNet-part-shaped synthetic clouds), full width with seeded random
 weights, after a warm-up request, and prints one JSON line with:
@@ -46,12 +48,17 @@ from pointcloudlib_tpu_torch.tools.grad_check import SEG, build_model
 from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
 
 # the JAX package's rows: batch, points, clouds a request
-BATCH = {"pointnet2": 64, "pointnet2_msg": 32, SEG: 16}
-N_POINTS = {"pointnet2": 1024, "pointnet2_msg": 1024, SEG: 2048}
-N_CLOUDS = {"pointnet2": 256, "pointnet2_msg": 256, SEG: 64}
+BATCH = {"pointnet2": 64, "pointnet2_msg": 32, "dgcnn": 32, SEG: 16}
+N_POINTS = {"pointnet2": 1024, "pointnet2_msg": 1024, "dgcnn": 1024,
+            SEG: 2048}
+N_CLOUDS = {"pointnet2": 256, "pointnet2_msg": 256, "dgcnn": 256, SEG: 64}
 
 # kernel-name pattern -> stage, first match wins
 STAGES = (
+    (r"edge_knn_eval_kernel", "edge_knn_eval kernel"),
+    (r"edge_knn_f1_kernel", "edge_knn_f1 kernel"),
+    (r"edge_out_kernel", "edge_out kernel"),
+    (r"edge_bwd_kernel", "edge_bwd kernel"),
     (r"fps_kernel", "fps kernel"),
     (r"three_interp_kernel", "three_interp kernel"),
     (r"scatter_rows_kernel", "scatter_rows kernel"),

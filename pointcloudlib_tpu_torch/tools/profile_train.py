@@ -2,11 +2,13 @@
 ``make_seg_train_step`` under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_train \
-        [--model pointnet2|pointnet2_msg|pointnet2_partseg] [--out DIR]
+        [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg] \
+        [--out DIR]
 
 Trains PointNet++ SSG at B=64 or MSG at B=32 (normals as features,
 N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
-0.02), or PointNet++ part segmentation at B=16 (xyz as features,
+0.02), DGCNN at B=32 (the same clouds, xyz only, lr 0.1, ``bench.py:168``),
+or PointNet++ part segmentation at B=16 (xyz as features,
 N=2048, ShapeNet-part-shaped synthetic clouds, lr 0.01), full width with
 seeded random weights and dropout 0.5, on one batch, after 3 warm-up
 steps, and prints one JSON line with:
@@ -61,7 +63,7 @@ from pointcloudlib_tpu_torch.utils.interop import (
     random_jax_variables,
 )
 
-LR = {"pointnet2": 0.02, "pointnet2_msg": 0.02, SEG: 0.01}
+LR = {"pointnet2": 0.02, "pointnet2_msg": 0.02, "dgcnn": 0.1, SEG: 0.01}
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 

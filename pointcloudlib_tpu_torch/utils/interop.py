@@ -18,7 +18,11 @@ abstraction is on:
   ``SetAbstraction_2/PointMLP_0/…``,
   ``FeaturePropagation_{0,1,2}/PointMLP_0/DenseBNAct_i/…`` (FP3, FP2,
   FP1 in that order), a top-level ``DenseBNAct_0`` whose ``Dense_0`` has
-  a kernel and a bias, and ``Dense_0/{kernel,bias}``.
+  a kernel and a bias, and ``Dense_0/{kernel,bias}``;
+* DGCNN: ``EdgeConv_{0..3}/FusedEdgeConv_0/{w,bn_scale,bn_bias}`` with
+  batch stats ``mean``/``var``, ``DenseBNAct_{0,1,2}/…`` (conv5 and the
+  head; ``DenseBNAct_2``'s ``Dense_0`` has a bias) and
+  ``Dense_0/{kernel,bias}``.
 
 A checkpoint in the unfused layout goes through the JAX package's own
 ``pointcloudlib_tpu.utils.interop.convert_variables`` first, with an
@@ -35,6 +39,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from pointcloudlib_tpu_torch.models.dgcnn import DGCNN
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     ClsHead,
     PointNet2MSG,
@@ -108,9 +113,26 @@ def _partseg(model: PointNet2PartSeg) -> _Entries:
     return out
 
 
+def _dgcnn(model: DGCNN) -> _Entries:
+    out: _Entries = {}
+    for i, ec in enumerate(model.edge):
+        path = (f"EdgeConv_{i}", "FusedEdgeConv_0")
+        for leaf in ("w", "bn_scale", "bn_bias"):
+            out[("params", *path, leaf)] = (getattr(ec.fused, leaf), False)
+        for leaf in ("mean", "var"):
+            out[("batch_stats", *path, leaf)] = (getattr(ec.fused, leaf),
+                                                 False)
+    for i, blk in enumerate((model.conv5, model.fc1, model.fc2)):
+        _dense_bn(blk, (f"DenseBNAct_{i}",), out)
+    _dense(model.out, (), out)
+    return out
+
+
 def _entries(model) -> _Entries:
     if isinstance(model, PointNet2PartSeg):
         return _partseg(model)
+    if isinstance(model, DGCNN):
+        return _dgcnn(model)
     if not isinstance(model, (PointNet2SSG, PointNet2MSG)):
         raise NotImplementedError(
             f"no JAX weight mapping for {type(model).__name__} yet")
@@ -198,13 +220,14 @@ def to_jax_variables(model) -> Dict:
 
 def random_jax_variables(model, seed: int = 0) -> Dict:
     """A seeded numpy tree in the layout :func:`from_jax_variables`
-    takes: kernels U(±1/√fan_in), BN scales U(0.8, 1.2), biases and
+    takes: kernels (Dense ``kernel``, the fused layers' ``w`` and
+    ``w1``–``w3``) U(±1/√fan_in), BN scales U(0.8, 1.2), biases and
     running means N(0, 0.05²), running variances U(0.05, 0.5). For
     tests and the chip smoke run, where no trained checkpoint exists."""
     rng = np.random.default_rng(seed)
 
     def leaf(name: str, shape):
-        if name in ("kernel", "w1", "w2", "w3"):
+        if name in ("kernel", "w", "w1", "w2", "w3"):
             bound = 1.0 / np.sqrt(shape[0])
             return rng.uniform(-bound, bound, shape)
         if name.endswith("scale"):

@@ -591,3 +591,165 @@ def test_partseg_train_step_card_matches_cpu(card):
     allowed = {"head.dense.bias", "sa3.mlp.2.bn.bias", "sa1.fused.bn3_bias",
                "sa2.fused.bn3_bias"}
     assert set(got["not_compared"]) <= allowed, got["not_compared"]
+
+
+# ------------------------------------------------ DGCNN EdgeConv kernels
+
+EDGE_SHAPES = {  # B, N, k, C_in, C: DGCNN's four EdgeConvs, and edge cases
+    "ec1": (4, 1024, 20, 3, 64),
+    "ec2": (4, 1024, 20, 64, 64),
+    "ec3": (4, 1024, 20, 64, 128),
+    "ec4": (4, 1024, 20, 128, 256),
+    "n65": (2, 65, 20, 64, 64),          # one past the 64-point tile
+    "ec1_duplicates": (4, 1024, 20, 3, 64),
+    "k8_n128": (2, 128, 8, 16, 32),
+}
+
+
+def _edge_inputs(card, name, seed=0):
+    """``x``, ``q`` (bf16), ``off``, the folded BN rows of random running
+    statistics and an output gradient; the duplicates case repeats the
+    first half of each cloud (exact kNN ties at d² = 0, exact max-pool
+    ties)."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    b, n, k, cin, c = EDGE_SHAPES[name]
+    rng = np.random.default_rng(seed + n + cin + c)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(card)
+
+    x = t(b, n, cin)
+    if "duplicates" in name:
+        x[:, n // 2:] = x[:, : n // 2]
+    wa, wb = t(cin, c, scale=cin ** -0.5), t(cin, c, scale=cin ** -0.5)
+    q = (x.bfloat16().float() @ wa.bfloat16().float()).bfloat16()
+    off = x.bfloat16().float() @ (wa - wb).bfloat16().float()
+    st = kfs._stack_stats(t(c, scale=0.1), t(c).abs() + 0.5,
+                          t(c, scale=0.2) + 1.0, t(c, scale=0.1))
+    return kfe, dict(x=x, q=q, off=off, st=st, k=k, dout=t(b, n, c))
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+def test_edge_knn_eval_matches_plain(card, name):
+    """The same neighbours (d² formed without FMA, channel by channel) and
+    the plain version's rounded operations: within 1e-5 of the largest
+    plain element (bit-identical in practice)."""
+    kfe, a = _edge_inputs(card, name)
+    args = (a["x"], a["q"], a["off"], a["st"], a["k"])
+    before = kfe.edge_knn_eval.launches
+    got = kfe.edge_knn_eval(*args)
+    torch.cuda.synchronize()
+    assert kfe.edge_knn_eval.launches == before + 1
+    want = kfe.edge_knn_eval_plain(*args)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+def test_edge_knn_f1_and_out_match_plain(card, name):
+    """Pass 1: idx and the bf16 h bit-identical, Σ/Σ² within 1e-3 of the
+    largest (f32 atomics in another order); pass 2 within 1e-5."""
+    kfe, a = _edge_inputs(card, name, seed=1)
+    f1 = (a["x"], a["q"], a["off"], a["k"])
+    before = kfe.edge_knn_f1.launches, kfe.edge_out.launches
+    idx, h, psum = kfe.edge_knn_f1(*f1)
+    out = kfe.edge_out(h, a["st"])
+    torch.cuda.synchronize()
+    assert (kfe.edge_knn_f1.launches, kfe.edge_out.launches) == (
+        before[0] + 1, before[1] + 1)
+    widx, wh, wpsum = kfe.edge_knn_f1_plain(*f1)
+    assert torch.equal(idx, widx)
+    assert torch.equal(h.view(torch.int16), wh.view(torch.int16))
+    _close_sums(psum, wpsum, "psum")
+    want = kfe.edge_out_plain(wh, a["st"])
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    if "duplicates" in name:  # a point and its twin, both at d² = 0
+        n = idx.shape[1]
+        pts = torch.arange(n, device=card)
+        assert torch.equal(idx[:, :, 0].long(), (pts % (n // 2)).expand(
+            idx.shape[0], -1))
+        assert torch.equal(idx[:, :, 1].long(), (pts % (n // 2) + n // 2
+                                                 ).expand(idx.shape[0], -1))
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+def test_edge_bwd_matches_plain(card, name):
+    """The backward's sums and scatter within 1e-3 of the largest element
+    (f32 atomics in another order), the scatter's count column exact, and
+    the assembled dq, doff, dγ, dβ within 1e-3."""
+    kfe, a = _edge_inputs(card, name, seed=2)
+    idx, h, _ = kfe.edge_knn_f1_plain(a["x"], a["q"], a["off"], a["k"])
+    args = (h, a["dout"], idx, a["st"], 0.2, h.shape[1])
+    before = kfe.edge_bwd.launches
+    got = kfe.edge_bwd(*args)
+    torch.cuda.synchronize()
+    assert kfe.edge_bwd.launches == before + 1
+    want = kfe.edge_bwd_plain(*args)
+    c = h.shape[-1]
+    assert torch.equal(got[1][..., 2 * c], want[1][..., 2 * c])
+    for g, w, what in zip(got, want, ("ps", "scat", "d1", "d2")):
+        _close_sums(g, w, what)
+    for g, w, what in zip(kfe.assemble_grads(*got, a["st"], a["k"]),
+                          kfe.assemble_grads(*want, a["st"], a["k"]),
+                          ("dq", "doff", "dgamma", "dbeta")):
+        _close_sums(g, w, what)
+
+
+def test_edge_kernels_reject_what_they_cannot_run(card):
+    kfe, a = _edge_inputs(card, "k8_n128")
+    with pytest.raises(ValueError, match="k <= min"):
+        kfe.edge_knn_eval(a["x"], a["q"], a["off"], a["st"], 65)
+    with pytest.raises(ValueError, match="width C=6"):
+        kfe.edge_knn_f1(a["x"], a["q"][..., :6], a["off"][..., :6], 8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kfe.edge_knn_f1(a["x"], a["q"].float(), a["off"], 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kfe.edge_knn_eval(torch.zeros((1, 128, 1024), device=card),
+                          a["q"][:1], a["off"][:1], a["st"], 8)
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+def test_dgcnn_predictor_card_matches_cpu(card, n):
+    """DGCNN served on the card (the eval kernel, bf16 dense operands)
+    and on the CPU (plain versions, f32 dense layers) from the same
+    weights: probabilities within 5e-3."""
+    variables = random_jax_variables(get_cls_model("dgcnn"), seed=3)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((6, n, 3)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    before = kfe.edge_knn_eval.launches
+    got = Predictor.from_variables("dgcnn", variables,
+                                   batch_size=4).predict_proba(x)
+    assert kfe.edge_knn_eval.launches == before + 2 * 4
+    want = Predictor.from_variables("dgcnn", variables, batch_size=4,
+                                    device="cpu").predict_proba(x)
+    assert np.abs(got - want).max() <= 5e-3, np.abs(got - want).max()
+
+
+def test_dgcnn_train_step_card_matches_cpu(card):
+    """One train-mode forward and backward of DGCNN on 8 synthetic clouds
+    at N=1024, on the card and on the CPU from the same weights with
+    dropout 0, under ``tools/grad_check.py``'s bounds. Not compared, as
+    exactly 0: ``fc2``'s Dense bias (its own train-mode BatchNorm removes
+    the shift)."""
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        grad_agreement,
+        synthetic_batch,
+    )
+
+    variables = random_jax_variables(get_cls_model("dgcnn"), seed=5)
+    got = grad_agreement("dgcnn", variables,
+                         synthetic_batch("dgcnn", 8, 11, 1024), card)
+    agree = got["agree"]
+    print("dgcnn card against CPU: least cosine",
+          min(agree.items(), key=lambda kv: kv[1][0]),
+          "largest norm deviation",
+          max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)),
+          "not compared", got["not_compared"])
+    assert not got["failures"], got["failures"]
+    assert set(got["not_compared"]) == {"fc2.dense.bias"}, got["not_compared"]

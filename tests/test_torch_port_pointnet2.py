@@ -100,4 +100,4 @@ def test_fused_training_not_ported():
 
 def test_only_ported_models():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_cls_model("dgcnn")
+        get_cls_model("pointcnn")
