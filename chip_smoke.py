@@ -8,7 +8,7 @@ once:
 
 1. device — the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
-2. build — the fifteen kernel sources of ``pointcloudlib_tpu_torch/csrc``
+2. build — the eighteen kernel sources of ``pointcloudlib_tpu_torch/csrc``
    compiled (one ``nvcc`` per source, started together), with seconds and
    the ``-Xptxas -v`` registers, shared memory and spills of each kernel;
 3. kernels — the SSG serving kernels against their plain PyTorch versions
@@ -104,11 +104,42 @@ once:
 13. DGCNN train — ``make_cls_train_step`` at B=32 with SGD (momentum 0.9,
    lr 0.1 flat, ``bench.py:168``) as in phase 7: per step exactly 4
    launches of ``edge_knn_f1``, ``edge_out`` and ``edge_bwd``; then the
-   card-vs-CPU loss and gradient check on 8 clouds.
+   card-vs-CPU loss and gradient check on 8 clouds;
+14. N=4096 kernels — PointNet++ SSG at B=32, N=4096 with normals
+   (``bench.py:336-337``), the batch Hilbert-sorted as the step sorts it:
+   the keys and order on the card bit-identical to the CPU's (also on
+   clouds of 3,000 points padded to 4096); FPS, the ball query, the
+   given-index pass 1, eval kernel and p2 at SA1 (which stand for the
+   JAX package's windowed ``_k_f1w``, ``_k_evalw``, ``_k_p2w``), the
+   tails and p1 at SA1, SA2's kernels with the ball query inside, under
+   the bounds above;
+15. kNN-route kernels — DGCNN's four EdgeConvs at N % 128 ≠ 0 (serving
+   B=32, N=10,000; training B=32, N=1,000): ``knn`` idx and d²
+   bit-identical to the plain version (``torch.cdist`` + ``torch.topk``
+   timed as the library's yardstick, two calls), ``edge_eval`` within
+   1e-5·max|plain| (its plain version taken 8 clouds at a time),
+   ``edge_f1``'s h bit-identical, ``edge_out`` and ``edge_bwd`` as in
+   phase 11; edge cases: duplicate points, k = N, a query cloud of its
+   own, N=16,384 at C=128;
+16. main paths at N=4096 and N % 128 ≠ 0 — ``Predictor(batch_size=32)``
+   serving SSG on 96 clouds of 4096 points and 32 of 3,000, per batch
+   exactly 2 launches of FPS and 1 of the ball query, the eval kernel
+   that takes its idx and the ball-query eval kernel; SSG's train step at
+   B=32, N=4096: per step 2 of FPS, 1 of the ball query, ``sa_f1`` and
+   ``bq_f1``, 6 of the tail, 2 of p1 and p2; DGCNN serving 64 clouds of
+   10,000 points: 4 of ``knn`` and ``edge_eval`` a batch; DGCNN's train
+   step at N=1,000: 4 of ``knn``, ``edge_f1``, ``edge_out`` and
+   ``edge_bwd`` a step; card against CPU as in phases 6 and 7;
+17. N=4096 checks, untimed — MSG, part segmentation (ids back in the
+   caller's point order) and DGCNN (kNN inside the kernels) on 2 clouds:
+   exact launch counts, probabilities within 5e-3 of the CPU's.
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
-entry per TPU kernel replaced (seventeen; the three forward tails share
-one source and one wrapper, counted per stage; ``edge_knn_eval``'s entry
+entry per TPU kernel replaced (twenty-three; the three forward tails
+share one source and one wrapper, counted per stage; the given-index
+``sa_f1``, ``fused_sa_eval`` and ``sa_bwd_p2`` have a second entry each
+for the windowed function they stand for at N ≥ 4096, with the N=4096
+cases and the launches of the N=4096 paths; ``edge_knn_eval``'s entry
 adds the ``torch.topk`` yardstick); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -131,7 +162,7 @@ from pointcloudlib_tpu_torch.data.synthetic import (
 )
 from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
 from pointcloudlib_tpu_torch.models import get_cls_model
-from pointcloudlib_tpu_torch.ops import geometry
+from pointcloudlib_tpu_torch.ops import geometry, spatial
 from pointcloudlib_tpu_torch.ops.kernels import _build
 from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
 from pointcloudlib_tpu_torch.ops.kernels import fps as kfps
@@ -139,6 +170,7 @@ from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa as kfs
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as kft
 from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
 from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
 from pointcloudlib_tpu_torch.tools.grad_check import (
     GRAD_COS,
@@ -177,9 +209,14 @@ SEG_LR = 0.01                                      # bench.py:233
 TI_TOL, SCATTER_TOL = 1e-6, 1e-5                   # × max|plain|
 DGCNN_BATCH, DGCNN_LR = 32, 0.1    # bench.py:341 (xyz only), bench.py:168
 EDGE_TOL = 1e-5                    # edge_knn_eval and edge_out, × max|plain|
+BIG_POINTS, BIG_BATCH = 4096, 32   # bench.py:336-337, SSG with normals
+BIG_CLOUDS, BIG_SHORT = 128, 3000  # 96 clouds at 4096, 32 padded up to it
+ODD_SERVE_POINTS, ODD_SERVE_CLOUDS = 10000, 64  # ModelNet40's resampling
+ODD_TRAIN_POINTS = 1000            # N % 128 != 0: the standalone kNN
+PLAIN_CLOUDS = 8                   # clouds a plain call takes at N=10,000
 CSRC = "pointcloudlib_tpu_torch/csrc/"
 SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
-           "three_interp", "scatter_rows") + kft.SOURCES + kfe.SOURCES
+           "three_interp", "scatter_rows", "knn") + kft.SOURCES + kfe.SOURCES
 PALLAS = "pointcloudlib_tpu/ops/pallas/"
 FUSED_SA = PALLAS + "fused_sa.py"
 FUSED_EDGE = PALLAS + "fused_edge.py"
@@ -373,7 +410,8 @@ COUNTED = {"fps": kfps.fps, "ball_query": kbq.ball_query,
            "three_interp": kti.three_interp_fwd,
            "scatter_rows": kga.scatter_rows,
            "edge_knn_eval": kfe.edge_knn_eval, "edge_knn_f1": kfe.edge_knn_f1,
-           "edge_out": kfe.edge_out, "edge_bwd": kfe.edge_bwd}
+           "edge_out": kfe.edge_out, "edge_bwd": kfe.edge_bwd,
+           "knn": kknn.knn, "edge_f1": kfe.edge_f1, "edge_eval": kfe.edge_eval}
 # launches per served batch and per train step; a kernel not named: none
 SSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 2}
 MSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 4, "ball_query": 2,
@@ -386,6 +424,14 @@ SEG_SERVE = {"fps": 2, "fused_sa_bq_eval": 2, "three_interp": 2}
 SEG_STEP = {**SSG_STEP, "three_interp": 2, "scatter_rows": 2}
 DGCNN_SERVE = {"edge_knn_eval": 4}
 DGCNN_STEP = {"edge_knn_f1": 4, "edge_out": 4, "edge_bwd": 4}
+# N=4096: SA1 takes the standalone ball query and the given-index kernels
+BIG_SERVE = {"fps": 2, "ball_query": 1, "fused_sa_eval": 1,
+             "fused_sa_bq_eval": 1}
+BIG_STEP = {"fps": 2, "ball_query": 1, "sa_f1": 1, "bq_f1": 1, "sa_tail": 6,
+            "sa_bwd_p1": 2, "sa_bwd_p2": 2}
+# N % 128 != 0: DGCNN's standalone kNN and the given-index EdgeConv
+ODD_SERVE = {"knn": 4, "edge_eval": 4}
+ODD_STEP = {"knn": 4, "edge_f1": 4, "edge_out": 4, "edge_bwd": 4}
 
 
 def _zero_counts() -> None:
@@ -773,7 +819,8 @@ def _eval_idx_case(name, sa, q, off, idx, cnt, timed):
 
 def phase_msg_kernels(model, xyz, nrm):
     """``{kernel: [records]}`` of every kernel on the MSG path at the six
-    scales' shapes, timed, plus the edge cases, untimed."""
+    scales' shapes and of FPS at its two, timed, plus the edge cases,
+    untimed."""
     g = torch.Generator(device=DEV).manual_seed(4)
     recs = {}
 
@@ -785,7 +832,12 @@ def phase_msg_kernels(model, xyz, nrm):
         nx[0, 0] = 50.0  # a center with no neighbour: cnt == 0
         return nx
 
-    for name, sa, nx, pts, q, off in _msg_scales(model, xyz, nrm):
+    scales = _msg_scales(model, xyz, nrm)
+    add("fps", _fps_case("MSG1 1024->512", xyz, model.sa1.n_points, True,
+                         True))
+    add("fps", _fps_case("MSG2 512->128", scales[0][2], model.sa2.n_points,
+                         True, True))
+    for name, sa, nx, pts, q, off in scales:
         r, k = sa.radius, sa.n_samples
         route = "bq" if sa.fuses_ball_query(pts.shape[1]) else "idx"
         qb = q.bfloat16()
@@ -827,11 +879,15 @@ def phase_msg_kernels(model, xyz, nrm):
 # -------------------------------------------------------------- train
 
 
-def phase_train(name, variables, power, batch_size, per_step):
+def phase_train(name, variables, power, batch_size, per_step,
+                n_points=None):
     """``name`` trains at ``batch_size``: a classification model on
-    ModelNet40-shaped clouds at N=1024 with the reference's flat lr, or
-    :data:`SEG` on ShapeNet-part-shaped clouds at N=2048 with lr 0.01."""
-    n_points = SEG_POINTS if name == SEG else N_POINTS
+    ModelNet40-shaped clouds at N=1024 (or ``n_points``) with the
+    reference's flat lr, or :data:`SEG` on ShapeNet-part-shaped clouds at
+    N=2048 with lr 0.01."""
+    tag = name if n_points is None else f"{name} N={n_points}"
+    if n_points is None:
+        n_points = SEG_POINTS if name == SEG else N_POINTS
     batch = {k: v.to(DEV) for k, v in synthetic_batch(
         name, batch_size, 5, n_points).items()}
     model = build_model(name)
@@ -856,7 +912,7 @@ def phase_train(name, variables, power, batch_size, per_step):
         losses.append(step(batch, gen)["loss"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = _read_counts(f"{name} train", per_step, TRAIN_STEPS)
+    launches = _read_counts(f"{tag} train", per_step, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
 
     losses = [x.item() for x in losses]
@@ -876,7 +932,7 @@ def phase_train(name, variables, power, batch_size, per_step):
                            {k: v[:CHECK_CLOUDS] for k, v in batch.items()},
                            DEV)
     agree = check["agree"]
-    emit(f"train {name}", {
+    emit(f"train {tag}", {
         "samples_per_s": batch_size * TRAIN_STEPS / secs,
         "step_ms": 1e3 * secs / TRAIN_STEPS, "batch": batch_size,
         "n_points": n_points, "steps": TRAIN_STEPS, "lr": lr, "card": power,
@@ -1188,6 +1244,16 @@ def _edge_case(name, f, xe, xt, g, timed):
                4.0 * b * n * cin + 6.0 * b * n * c + 4.0 * b * n * k
                + 2.0 * edges + 8.0 * c)
 
+        _edge_tail_cases(name, f, wh, wpsum, widx, g, shape, record)
+    return recs
+
+
+def _edge_tail_cases(name, f, wh, wpsum, widx, g, shape, record):
+    """``edge_out`` and ``edge_bwd`` against their plain versions, from
+    pass 1's plain ``h``, sums and neighbour index (either route's)."""
+    b, n, k, c = wh.shape
+    edges = float(b * n * k * c)
+    with torch.no_grad():
         r = float(b * n * k)
         st = kfs._stack_stats(*kft._moments(wpsum, r), f.bn_scale, f.bn_bias)
         err = _check_sums(f"edge_out {name}", kfe.edge_out(wh, st),
@@ -1216,7 +1282,6 @@ def _edge_case(name, f, xe, xt, g, timed):
                15.0 * edges,
                2.0 * edges + 4.0 * b * n * c + 4.0 * b * n * k + 16.0 * c
                + 8.0 * c + 4.0 * b * n * (2 * c + 1) + 8.0 * b * n * c)
-    return recs
 
 
 def phase_dgcnn_kernels(model, xyz):
@@ -1241,8 +1306,342 @@ def phase_dgcnn_kernels(model, xyz):
     return recs
 
 
+# ------------------------------------------------------------ N = 4096
+
+
+def _big_layers(model, xyz, nrm):
+    """SA1's and SA2's train-kernel inputs of PointNet++ SSG at N=4096 on
+    the main path's data, sorted as the train step sorts it: SA1 from the
+    ball query's idx, SA2 (source N=512) with the ball query inside,
+    taking SA1's train-mode output."""
+    g = torch.Generator(device=DEV).manual_seed(9)
+    sa1, sa2 = model.sa1.fused, model.sa2.fused
+    with torch.no_grad():
+        xyz, nrm, _ = spatial.canonicalize(xyz, nrm)
+        nx1, q1, off1 = sa1.prepare(xyz, nrm)
+        idx, _ = kbq.ball_query_plain(nx1, xyz, sa1.radius, sa1.n_samples)
+        out1, _ = kft.fused_sa_train(q1, off1, idx, sa1.sa_params())
+        nx2, q2, off2 = sa2.prepare(nx1, out1)
+        l1 = _train_inputs(sa1, nx1, xyz, q1, off1, g)
+        l2 = _train_inputs(sa2, nx2, nx1, q2, off2, g)
+    return xyz, l1, l2
+
+
+def _keys_case(name, xyz):
+    """The Hilbert keys and sort order of ``xyz`` on the card bit-identical
+    to the CPU's."""
+    keys = spatial.hilbert_keys(xyz)
+    order = spatial.canonicalize(xyz)[-1]
+    if not (torch.equal(keys.cpu(), spatial.hilbert_keys(xyz.cpu()))
+            and torch.equal(order.cpu(), spatial.canonicalize(xyz.cpu())[-1])):
+        fail(f"{name}: Hilbert keys or order differ between card and CPU")
+    return {"case": name, "shape": list(xyz.shape),
+            "keys_and_order_bit_identical_to_cpu": True}
+
+
+def phase_big_kernels(model, xyz, nrm, short):
+    """``{kernel: [records]}`` of every kernel on PointNet++ SSG's path at
+    N=4096 (B=32, normals), timed: FPS 4096→512 and 512→128, the
+    standalone ball query at SA1, the given-index pass 1, eval kernel and
+    p2 at SA1 (under the keys of the windowed TPU functions they stand
+    for, ``*_4096``), the tails and p1 at SA1, SA2's kernels with the ball
+    query inside; and the Hilbert keys on the card against the CPU's, on
+    the batch and on clouds of ``short`` points padded to 4096."""
+    recs = {}
+
+    def add(key, rs):
+        recs.setdefault(key, []).extend(rs)
+
+    sa1, sa2 = model.sa1.fused, model.sa2.fused
+    keys = [_keys_case("N=4096", xyz),
+            _keys_case(f"N={BIG_SHORT} padded to 4096", short)]
+    emit("hilbert keys", keys)
+    xyz, l1, l2 = _big_layers(model, xyz, nrm)
+    nx1 = l1["nx"]
+    add("fps", [_fps_case("SSG4096 SA1 4096->512", xyz, 512, True, True),
+                _fps_case("SSG4096 SA2 512->128", nx1, 128, True, True)])
+    add("ball_query", [_ball_query_case("SSG4096 SA1", nx1, xyz, sa1.radius,
+                                        sa1.n_samples, True,
+                                        want=("short",))])
+    idx, cnt = kbq.ball_query_plain(nx1, xyz, sa1.radius, sa1.n_samples)
+    add("fused_sa_eval_4096", [_eval_idx_case(
+        "SSG4096 SA1", sa1, l1["q"], l1["off"], idx, cnt, True)])
+    window = {"sa_f1": "sa_f1_4096", "sa_bwd_p2": "sa_bwd_p2_4096"}
+    for key, rs in _train_case("SSG4096 SA1", l1, True, route="idx").items():
+        add(window.get(key, key), rs)
+    for key, rs in _train_case("SSG4096 SA2", l2, True).items():
+        add(key, rs)
+    with torch.no_grad():  # SA2's serving input: SA1 in eval mode
+        out1 = kfs.fused_sa_eval(l1["q"], l1["off"], idx, sa1.sa_params(),
+                                 sa1.sa_stats(), cnt=cnt)
+        nx2, q2, off2 = sa2.prepare(nx1, out1)
+    add("fused_sa_bq_eval", [_bq_case("SSG4096 SA2 serving", sa2,
+                                      (nx2, nx1, q2.bfloat16(), off2),
+                                      True)])
+    return recs
+
+
+def _check_probs(what, probs, rows):
+    if (probs.shape != (rows, 40) or not np.isfinite(probs).all()
+            or np.abs(probs.sum(-1) - 1.0).max() > 1e-4):
+        fail(f"{what}: probabilities not finite rows of shape ({rows}, 40) "
+             f"summing to 1: {probs.shape}")
+
+
+def phase_large_serving(tag, name, variables, requests, power, per_batch,
+                        check):
+    """``Predictor(batch_size=32)`` for model ``name`` on ``requests``
+    (``(clouds, normals or None)``, one N each) :data:`REPEATS` times:
+    exactly ``per_batch`` launches a served batch, finite probabilities,
+    repeated requests equal, and ``check`` clouds of each request on the
+    card against the CPU within 5e-3."""
+    pred = Predictor.from_variables(name, variables, batch_size=BIG_BATCH)
+    pred.predict_proba(*(a if a is None else a[:BIG_BATCH]
+                         for a in requests[0]))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    secs, outs = [], []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        outs.append([pred.predict_proba(c, nr) for c, nr in requests])
+        secs.append(time.perf_counter() - t0)
+    batches = REPEATS * sum(-(-len(c) // BIG_BATCH) for c, _ in requests)
+    launches = _read_counts(f"{tag} serving", per_batch, batches)
+    peak = torch.cuda.max_memory_allocated()
+
+    for (c, _), p in zip(requests, outs[0]):
+        _check_probs(tag, p, len(c))
+    if any(not all(np.array_equal(a, b) for a, b in zip(o, outs[0]))
+           for o in outs[1:]):
+        fail(f"{tag}: repeated requests gave different probabilities")
+    cpu = Predictor.from_variables(name, variables, batch_size=check,
+                                   device="cpu")
+    diff, agree = 0.0, 0
+    for (c, nr), p in zip(requests, outs[0]):
+        ref = cpu.predict_proba(c[:check], None if nr is None else nr[:check])
+        diff = max(diff, float(np.abs(ref - p[:check]).max()))
+        agree += int((ref.argmax(-1) == p[:check].argmax(-1)).sum())
+    if diff > PROB_ATOL:
+        fail(f"{tag}: card vs CPU probabilities differ by {diff} > "
+             f"{PROB_ATOL}")
+    clouds = sum(len(c) for c, _ in requests)
+    rates = [clouds / x for x in secs]
+    emit(f"serving {tag}", {
+        "clouds_per_s": rates, "median_clouds_per_s": float(np.median(rates)),
+        "batch": BIG_BATCH, "requests": [list(c.shape) for c, _ in requests],
+        "card": power, "launches": launches, "served_batches": batches,
+        "peak_device_bytes": peak, "check_clouds": check * len(requests),
+        "max_abs_prob_diff_vs_cpu": diff, "argmax_agree_vs_cpu": agree})
+    return launches
+
+
+def phase_big_checks(msg_vars, seg_vars, dg_vars):
+    """Untimed, at N=4096 on 2 clouds: PointNet++ MSG (every MSG1 scale
+    from the ball query's idx), part segmentation (its ids back in the
+    caller's point order) and DGCNN (the kNN built inside the kernels),
+    each with exact launch counts and card against CPU within 5e-3."""
+    clouds, normals, _ = SyntheticModelNet(
+        n_points=BIG_POINTS, size=2, seed=7).batch(0, 2)
+    out = {}
+    for name, variables, per in (
+            ("pointnet2_msg", msg_vars, {"fps": 2, "ball_query": 4,
+                                         "fused_sa_eval": 4,
+                                         "fused_sa_bq_eval": 2}),
+            ("dgcnn", dg_vars, {"edge_knn_eval": 4})):
+        probs = []
+        for dev in ("cuda", "cpu"):
+            pred = Predictor.from_variables(name, variables, batch_size=2,
+                                            device=dev)
+            _zero_counts()
+            probs.append(pred.predict_proba(clouds, normals))
+            if dev == "cuda":
+                out[name] = {"launches": _read_counts(
+                    f"{name} N=4096", per, 1)}
+        _check_probs(f"{name} N=4096", probs[0], 2)
+        out[name]["max_abs_prob_diff_vs_cpu"] = diff = float(
+            np.abs(probs[0] - probs[1]).max())
+        if diff > PROB_ATOL:
+            fail(f"{name} N=4096: card vs CPU probabilities differ by {diff}")
+
+    xyz, labels, _ = SyntheticShapeNetPart(
+        n_points=BIG_POINTS, size=2, seed=7).batch(0, 2)
+    probs = []
+    for dev in ("cuda", "cpu"):
+        pred = SegPredictor.from_variables("pointnet2", seg_vars,
+                                           batch_size=2, device=dev)
+        _zero_counts()
+        probs.append(pred.predict_proba(xyz, labels))
+        if dev == "cuda":
+            out["pointnet2_partseg"] = {"launches": _read_counts(
+                "partseg N=4096", {"fps": 2, "ball_query": 1,
+                                   "fused_sa_eval": 1, "fused_sa_bq_eval": 1,
+                                   "three_interp": 2}, 1)}
+    diff = float(np.abs(probs[0] - probs[1]).max())
+    if probs[0].shape != (2, BIG_POINTS, 50) or diff > PROB_ATOL:
+        fail(f"partseg N=4096: shape {probs[0].shape}, card vs CPU "
+             f"probabilities differ by {diff}")
+    out["pointnet2_partseg"]["max_abs_prob_diff_vs_cpu"] = diff
+    emit("checks N=4096", out)
+
+
+# ------------------------------------------------------ N % 128 != 0
+
+
+def _odd_inputs(model, x_serve, x_train):
+    """``(name, layer, x_serving, x_train)`` of DGCNN's four EdgeConvs on
+    the route of N % 128 ≠ 0: the standalone kNN, then the eval chain
+    (running statistics) on ``x_serve`` and the train chain (batch
+    statistics) on ``x_train``."""
+    out, xe, xt = [], x_serve, x_train
+    with torch.no_grad():
+        for i, ec in enumerate(model.edge):
+            f = ec.fused
+            out.append((f"EC{i + 1}", f, xe, xt))
+            q, off = f.prepare(xe)
+            idx = kknn.knn(xe, xe, f.k)[1]
+            xe = kfe.fused_edge_eval(q, off, idx, f.bn_scale, f.bn_bias,
+                                     kfe.EdgeStats(f.mean, f.var))
+            q, off = f.prepare(xt)
+            idx = kknn.knn(xt, xt, f.k)[1]
+            xt, _ = kfe.fused_edge_conv(q, off, idx, f.bn_scale, f.bn_bias)
+    return out
+
+
+def _per_clouds(fn, *args):
+    """``fn`` on :data:`PLAIN_CLOUDS` clouds at a time (its 3-D
+    arguments split on the batch axis), outputs joined on it: a plain
+    version at N=10,000 within the card's memory (its ``[B, N, k, C]``
+    f32 edges are 6.5 GB at B=32)."""
+    b = args[0].shape[0]
+    return torch.cat([fn(*(a[s:s + PLAIN_CLOUDS] if torch.is_tensor(a)
+                           and a.dim() == 3 else a for a in args))
+                      for s in range(0, b, PLAIN_CLOUDS)])
+
+
+def _knn_case(name, query, points, k, timed):
+    """The kNN kernel against its plain version: idx and d² bit-identical;
+    with ``timed``, ``torch.cdist`` + ``torch.topk`` (two calls) timed as
+    the library's yardstick."""
+    d2, idx = kknn.knn(query, points, k)
+    wd2, widx = kknn.knn_plain(query, points, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, widx) and torch.equal(d2, wd2)):
+        fail(f"knn {name}: {(idx != widx).sum().item()} indices and "
+             f"{(d2 != wd2).sum().item()} distances differ from the plain "
+             f"version")
+    b, m, c = query.shape
+    n = points.shape[1]
+    rec = {"case": name, "B": b, "M": m, "N": n, "C": c, "k": k,
+           "idx_d2_bit_identical": True, "max_abs_err": 0.0}
+    if timed:
+        rec["ms"] = time_ms(lambda: kknn.knn(query, points, k), 5)
+        rec["plain_ms"] = time_ms(lambda: kknn.knn_plain(query, points, k),
+                                  1, 1)
+        rec["library_ms"] = time_ms(lambda: torch.topk(
+            torch.cdist(query, points), k, dim=-1, largest=False), 3, 1)
+        # d² of every (query, point) pair: 2·C + 3 f32 operations
+        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
+            0.0, b * m * n * (2.0 * c + 3.0),
+            4.0 * b * (m + n) * c + 8.0 * b * m * k)
+    emit("kernel knn", rec)
+    return rec
+
+
+def _edge_idx_case(name, f, xe, xt, g, timed):
+    """DGCNN's route at N % 128 ≠ 0 at one layer: the kNN kernel on the
+    serving and the train input, ``edge_eval`` on the serving input (at
+    N=10,000, its plain version taken :data:`PLAIN_CLOUDS` clouds at a
+    time), ``edge_f1`` (h bit-identical), ``edge_out`` and ``edge_bwd``
+    on the train input. Returns ``{kernel: [records]}``."""
+    k = f.k
+    c = f.bn_scale.shape[0]
+    recs = {}
+
+    def record(kernel, rec, fn, plain, flops_f32, nbytes):
+        if timed:
+            rec["ms"] = time_ms(fn, 10)
+            rec["plain_ms"] = time_ms(plain, 2, 1)
+            rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
+                0.0, flops_f32, nbytes)
+        emit(f"kernel {kernel}", rec)
+        recs.setdefault(kernel, []).append(rec)
+
+    with torch.no_grad():
+        for x in (xe, xt):
+            recs.setdefault("knn", []).append(_knn_case(
+                f"{name} N={x.shape[1]}", x, x, k, timed))
+        b, n, cin = xe.shape
+        edges = float(b * n * k * c)
+        q, off = f.prepare(xe)
+        qb = q.bfloat16()
+        idx = kknn.knn(xe, xe, k)[1]
+        st = kfs._stack_stats(f.mean, f.var, f.bn_scale, f.bn_bias)
+        ev = (qb, off, idx, st)
+        err = _check_sums(f"edge_eval {name}", kfe.edge_eval(*ev),
+                          _per_clouds(kfe.edge_eval_plain, *ev), EDGE_TOL)
+        # gather, BN, LeakyReLU and max: ~5 operations an edge element
+        record("edge_eval", {"case": f"{name} N={n}", "B": b, "N": n, "k": k,
+                             "C": c, **_errs([err])},
+               lambda: kfe.edge_eval(*ev),
+               lambda: _per_clouds(kfe.edge_eval_plain, *ev), 5.0 * edges,
+               2.0 * b * n * c + 4.0 * b * n * k + 8.0 * b * n * c
+               + 16.0 * c)
+
+        b, n, cin = xt.shape
+        edges = float(b * n * k * c)
+        shape = {"B": b, "N": n, "k": k, "C_in": cin, "C": c}
+        q, off = f.prepare(xt)
+        f1 = (q.bfloat16(), off, kknn.knn(xt, xt, k)[1])
+        h, psum = kfe.edge_f1(*f1)
+        wh, wpsum = kfe.edge_f1_plain(*f1)
+        torch.cuda.synchronize()
+        if not torch.equal(h.view(torch.int16), wh.view(torch.int16)):
+            fail(f"edge_f1 {name}: h not bit-identical to the plain version")
+        rec = {"case": f"{name} N={n}", **shape, "h_bit_identical": True,
+               **_errs([_check_sums(f"edge_f1 {name}", psum, wpsum)])}
+        del h
+        # h, its sum and its square: 4 operations an edge element
+        record("edge_f1", rec, lambda: kfe.edge_f1(*f1),
+               lambda: kfe.edge_f1_plain(*f1), 4.0 * edges,
+               6.0 * b * n * c + 4.0 * b * n * k + 2.0 * edges + 8.0 * c)
+        _edge_tail_cases(f"{name} N={n}", f, wh, wpsum, f1[2], g,
+                         shape, record)
+    return recs
+
+
+def phase_odd_kernels(model, x_serve, x_train):
+    """``{kernel: [records]}`` of the kernels of DGCNN's route at N % 128
+    ≠ 0 at the four layers' shapes (serving B=32, N=10,000; training
+    B=32, N=1,000; k=20), timed, and edge cases, untimed: duplicate points
+    (exact kNN and max-pool ties), k = N, a query cloud other than the
+    points, N one past the 64-point tile and N=16,384 at C=128."""
+    g = torch.Generator(device=DEV).manual_seed(10)
+    recs = {}
+    for name, f, xe, xt in _odd_inputs(model, x_serve, x_train):
+        for kernel, rs in _edge_idx_case(name, f, xe, xt, g, True).items():
+            recs.setdefault(kernel, []).extend(rs)
+    dup = x_train[:4].clone()
+    dup[:, ODD_TRAIN_POINTS // 2:] = dup[:, :ODD_TRAIN_POINTS // 2]
+    _edge_idx_case("EC1 duplicate points", model.edge[0].fused, dup, dup, g,
+                   False)
+    x = torch.randn((2, 20, 64), generator=g, device=DEV)
+    _knn_case("k = N = 20", x, x, 20, False)
+    x[:, 10:] = x[:, :10]
+    _knn_case("k = N = 20, duplicate points", x, x, 20, False)
+    x = torch.randn((2, 65, 3), generator=g, device=DEV)
+    _knn_case("N=65, 77 queries", torch.randn((2, 77, 3), generator=g,
+                                              device=DEV), x, 40, False)
+    x = torch.randn((1, 16384, 128), generator=g, device=DEV)
+    _knn_case("N=16384 C=128", x, x, 20, False)
+    return recs
+
+
 # TPU kernel replaced: (entry name, source, file:line, key of its records
-# and of its launch count)
+# and of its launch count[, key of its launch count, prefix of the paths
+# counted]). The JAX package's windowed functions run only at N ≥ 4096;
+# the port's given-index kernels stand for them there, so their entries
+# take the N=4096 cases and the launches of the N=4096 paths.
 KERNELS = (
     ("fps", "fps.cu", PALLAS + "fps.py:39", "fps"),
     ("ball_query", "ball_query.cu", PALLAS + "neighbors.py:104",
@@ -1267,6 +1666,15 @@ KERNELS = (
     ("edge_knn_f1", "edge_knn_f1.cu", FUSED_EDGE + ":188", "edge_knn_f1"),
     ("edge_out", "edge_out.cu", FUSED_EDGE + ":96", "edge_out"),
     ("edge_bwd", "edge_bwd.cu", FUSED_EDGE + ":133", "edge_bwd"),
+    ("knn", "knn.cu", PALLAS + "neighbors.py:155", "knn"),
+    ("edge_f1", "edge_f1.cu", FUSED_EDGE + ":72", "edge_f1"),
+    ("edge_eval", "edge_eval.cu", FUSED_EDGE + ":111", "edge_eval"),
+    ("sa_f1 for _k_f1w", "fused_sa_f1.cu", FUSED_SA + ":525", "sa_f1_4096",
+     "sa_f1", "ssg4096"),
+    ("fused_sa_eval for _k_evalw", "fused_sa_eval.cu", FUSED_SA + ":702",
+     "fused_sa_eval_4096", "fused_sa_eval", "ssg4096"),
+    ("sa_bwd_p2 for _k_p2w", "fused_sa_bwd_p2.cu", FUSED_SA + ":964",
+     "sa_bwd_p2_4096", "sa_bwd_p2", "ssg4096"),
 )
 
 
@@ -1328,8 +1736,31 @@ def main() -> None:
     for kernel, rs in seg_recs.items():
         recs.setdefault(kernel, []).extend(rs)
     dg_vars = random_jax_variables(get_cls_model("dgcnn"), seed=0)
-    recs.update(phase_dgcnn_kernels(_model_on_card("dgcnn", dg_vars),
-                                    xyz[:DGCNN_BATCH]))
+    dg_model = _model_on_card("dgcnn", dg_vars)
+    recs.update(phase_dgcnn_kernels(dg_model, xyz[:DGCNN_BATCH]))
+    big, big_n, _ = SyntheticModelNet(
+        n_points=BIG_POINTS, size=BIG_CLOUDS - BIG_BATCH, seed=0).batch(
+        0, BIG_CLOUDS - BIG_BATCH)
+    short, short_n, _ = SyntheticModelNet(
+        n_points=BIG_SHORT, size=BIG_BATCH, seed=1).batch(0, BIG_BATCH)
+    short_pad = torch.from_numpy(np.concatenate(
+        [short, short[:, np.arange(BIG_POINTS - BIG_SHORT) % BIG_SHORT]],
+        axis=1)).to(DEV)
+    for kernel, rs in phase_big_kernels(
+            _model_on_card("pointnet2", ssg_vars),
+            torch.from_numpy(big[:BIG_BATCH]).to(DEV),
+            torch.from_numpy(big_n[:BIG_BATCH]).to(DEV), short_pad).items():
+        recs.setdefault(kernel, []).extend(rs)
+    odd_clouds = SyntheticModelNet(
+        n_points=ODD_SERVE_POINTS, size=ODD_SERVE_CLOUDS, seed=0).batch(
+        0, ODD_SERVE_CLOUDS)[0]
+    odd_train = synthetic_batch("dgcnn", DGCNN_BATCH, 5,
+                                ODD_TRAIN_POINTS)["xyz"].to(DEV)
+    for kernel, rs in phase_odd_kernels(
+            dg_model, torch.from_numpy(odd_clouds[:DGCNN_BATCH]).to(DEV),
+            odd_train).items():
+        recs.setdefault(kernel, []).extend(rs)
+    del dg_model
     torch.cuda.empty_cache()
 
     cnt = {"ball_query_cnt": {r["case"].replace(" serving", ""): {
@@ -1352,12 +1783,25 @@ def main() -> None:
                                        power, DGCNN_BATCH, DGCNN_SERVE, {}),
         "dgcnn_train": phase_train("dgcnn", dg_vars, power, DGCNN_BATCH,
                                    DGCNN_STEP),
+        "ssg4096_serving": phase_large_serving(
+            "pointnet2 N=4096", "pointnet2", ssg_vars,
+            [(big, big_n), (short, short_n)], power, BIG_SERVE, 2),
+        "ssg4096_train": phase_train("pointnet2", ssg_vars, power,
+                                     BIG_BATCH, BIG_STEP, BIG_POINTS),
+        "dgcnn10k_serving": phase_large_serving(
+            "dgcnn N=10000", "dgcnn", dg_vars, [(odd_clouds, None)], power,
+            ODD_SERVE, 2),
+        "dgcnn1000_train": phase_train("dgcnn", dg_vars, power, DGCNN_BATCH,
+                                       ODD_STEP, ODD_TRAIN_POINTS),
     }
+    phase_big_checks(msg_vars, seg_vars, dg_vars)
 
     kernels = []
-    for name, source, replaces, key in KERNELS:
+    for name, source, replaces, key, *counted in KERNELS:
+        count, prefix = counted if counted else (key, "")
         entry = _kernel_entry(name, source, replaces, recs[key],
-                              {p: c[key] for p, c in paths.items()})
+                              {p: c[count] for p, c in paths.items()
+                               if p.startswith(prefix)})
         if entry["launches"] < 1 or not entry["timed_cases"]:
             fail(f"{name}: never launched on a main path, or never timed")
         kernels.append(entry)

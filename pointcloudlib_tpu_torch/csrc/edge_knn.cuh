@@ -1,9 +1,12 @@
-// Self-kNN selection of one block of queries, shared by the two fused
-// EdgeConv kernels that build the DGCNN graph inside (edge_knn_eval.cu,
-// edge_knn_f1.cu).
+// kNN selection of one block of queries, shared by the two fused EdgeConv
+// kernels that build the DGCNN graph inside (edge_knn_eval.cu,
+// edge_knn_f1.cu) and the standalone kNN (knn.cu); and the EdgeConv row
+// passes that follow a selection or a given index (edge_eval.cu,
+// edge_f1.cu).
 //
-// The block takes kKnnQ queries of one cloud x [n, cin] (f32) and keeps,
-// for each, the k points of the cloud with the smallest
+// The block takes kKnnQ queries of a query cloud [m, cin] (f32; the cloud
+// itself for a self-kNN) and keeps, for each, the k points of a cloud
+// x [n, cin] with the smallest
 //   d2 = max((|x_q|^2 - 2 x_q.x_j) + |x_j|^2, 0)
 // in (d2, j) lexicographic order: ascending d2, the lower index first on
 // ties. That is the order of the TPU kernels' k argmin rounds and of the
@@ -99,16 +102,20 @@ __device__ __forceinline__ void list_insert(float (&ld)[KP], int (&li)[KP],
   }
 }
 
-// The k nearest points of queries q0 .. q0 + kKnnQ - 1 of the cloud xb
-// [n, cin] (queries past n are computed and ignored). Returns the lists
-// in shared memory, nbr[kk * kKnnQ + q] the kk-th neighbour of query
-// q0 + q. Needs k <= n, k <= KP <= kKnnMaxK and knn_smem_words(cin, k)
-// words at sm. Every thread of the block must call it; it ends with a
-// barrier.
+// The k nearest points in the cloud xb [n, cin] of queries q0 .. q0 +
+// kKnnQ - 1 of the query cloud qb [m, cin] (queries past m are computed
+// and ignored). Returns the lists in shared memory, nbr[kk * kKnnQ + q]
+// the kk-th neighbour of query q0 + q; with nbrd, its d2 goes to
+// nbrd[kk * kKnnQ + q]. Needs k <= n, k <= KP <= kKnnMaxK and
+// knn_smem_words(cin, k) words at sm. Every thread of the block must call
+// it; it ends with a barrier.
 template <int KP>
-__device__ __forceinline__ const int* knn_block(const float* __restrict__ xb,
+__device__ __forceinline__ const int* knn_block(const float* __restrict__ qb,
+                                                int m,
+                                                const float* __restrict__ xb,
                                                 int n, int cin, int q0, int k,
-                                                float* sm) {
+                                                float* sm,
+                                                float* nbrd = nullptr) {
   float* qs = sm;                           // [cin][kKnnQ], tile_slot order
   float* xs = qs + (size_t)cin * kKnnQ;     // [cin][kKnnT], tile_slot order
   float* d2s = xs + (size_t)cin * kKnnT;    // [kKnnQ][kKnnD2]
@@ -117,7 +124,7 @@ __device__ __forceinline__ const int* knn_block(const float* __restrict__ xb,
   int* nbr = reinterpret_cast<int*>(p2s + kKnnT);  // [k][kKnnQ]
   const int tid = threadIdx.x;
 
-  load_tile(xb, n, cin, q0, qs);
+  load_tile(qb, m, cin, q0, qs);
   __syncthreads();
   if (tid < kKnnQ) q2s[tid] = sumsq_strided(qs + tile_slot(tid), cin, kKnnQ);
 
@@ -208,7 +215,10 @@ __device__ __forceinline__ const int* knn_block(const float* __restrict__ xb,
       ld[KP - 1] = INFINITY;
       li[KP - 1] = 0x7fffffff;
     }
-    if (ws == 0) nbr[kk * kKnnQ + wq] = bj;
+    if (ws == 0) {
+      nbr[kk * kKnnQ + wq] = bj;
+      if (nbrd) nbrd[kk * kKnnQ + wq] = bd;
+    }
   }
   __syncthreads();
   return nbr;
@@ -227,6 +237,86 @@ __device__ __forceinline__ float leaky(float z, float slope) {
 // channel pairs divide the block, so that each thread keeps one pair.
 __host__ __device__ inline bool edge_width_ok(int c) {
   return c >= 2 && c % 2 == 0 && kThreads % (c / 2) == 0;
+}
+
+// The neighbour lists of rows q0 .. q0 + nq - 1 from a given index
+// idx [m, k] (one cloud) into nbr[kk * kKnnQ + q], the layout knn_block
+// returns; ends with a barrier.
+__device__ __forceinline__ void load_nbr(const int* __restrict__ idx, int q0,
+                                         int nq, int k, int* nbr) {
+  const int* ib = idx + (size_t)q0 * k;
+  for (int e = threadIdx.x; e < nq * k; e += kThreads) {
+    const int ql = e / k;
+    nbr[(e - ql * k) * kKnnQ + ql] = ib[e];
+  }
+  __syncthreads();
+}
+
+// Eval rows q0 .. q0 + nq - 1 of one cloud, with Q [n, c] (bf16) and Off,
+// out [m, c] of the cloud:
+//   out[i, c] = max_k leaky(sc[c] * (float(Q[nbr(i, kk), c]) - Off[i, c])
+//                           + bi[c])
+// One channel pair a thread; each neighbour's Q row comes from L2 in
+// 128-byte pieces a warp, the running max stays in registers. The
+// operations are the plain version's, rounded one by one in its order.
+__device__ __forceinline__ void edge_eval_rows(
+    const int* nbr, const __nv_bfloat16* __restrict__ q,
+    const float* __restrict__ off, const float* __restrict__ st,
+    float* __restrict__ out, int c, int k, float slope, int q0, int nq) {
+  const int ncp = c / 2;
+  const int cc = 2 * (threadIdx.x % ncp);
+  const float sc0 = st[cc], sc1 = st[cc + 1];
+  const float bi0 = st[c + cc], bi1 = st[c + cc + 1];
+  const __nv_bfloat16* qc = q + cc;
+  for (int ql = threadIdx.x / ncp; ql < nq; ql += kThreads / ncp) {
+    const size_t row = (size_t)q0 + ql;
+    const float o0 = off[row * c + cc], o1 = off[row * c + cc + 1];
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll 4
+    for (int kk = 0; kk < k; ++kk) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+          qc + (size_t)nbr[kk * kKnnQ + ql] * c);
+      m0 = fmaxf(m0, leaky(bn_z(__fsub_rn(bf_lo(w), o0), sc0, bi0), slope));
+      m1 = fmaxf(m1, leaky(bn_z(__fsub_rn(bf_hi(w), o1), sc1, bi1), slope));
+    }
+    *reinterpret_cast<float2*>(out + row * c + cc) = make_float2(m0, m1);
+  }
+}
+
+// Train rows q0 .. q0 + nq - 1 of one cloud, pass 1: the checkpoint
+//   h[i, kk, c] = bf16(float(Q[nbr(i, kk), c]) - Off[i, c])   (h [m, k, c])
+// and the block's share of [sum h, sum h^2] of the f32 h, added into
+// red[2c] in shared memory (the caller zeroes it and adds it into the
+// global sums after a barrier).
+__device__ __forceinline__ void edge_f1_rows(
+    const int* nbr, const __nv_bfloat16* __restrict__ q,
+    const float* __restrict__ off, __nv_bfloat16* __restrict__ h,
+    float* red, int c, int k, int q0, int nq) {
+  const int ncp = c / 2;
+  const int cc = 2 * (threadIdx.x % ncp);
+  const __nv_bfloat16* qc = q + cc;
+  float s0 = 0.0f, s1 = 0.0f, ss0 = 0.0f, ss1 = 0.0f;
+  for (int ql = threadIdx.x / ncp; ql < nq; ql += kThreads / ncp) {
+    const size_t row = (size_t)q0 + ql;
+    const float o0 = off[row * c + cc], o1 = off[row * c + cc + 1];
+    __nv_bfloat16* hr = h + row * k * c + cc;
+#pragma unroll 4
+    for (int kk = 0; kk < k; ++kk) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+          qc + (size_t)nbr[kk * kKnnQ + ql] * c);
+      const float h0 = __fsub_rn(bf_lo(w), o0);
+      const float h1 = __fsub_rn(bf_hi(w), o1);
+      *reinterpret_cast<uint32_t*>(hr + (size_t)kk * c) = pack2(h0, h1);
+      s0 += h0;
+      s1 += h1;
+      ss0 += h0 * h0;
+      ss1 += h1 * h1;
+    }
+  }
+  atomicAdd(red + cc, s0);
+  atomicAdd(red + cc + 1, s1);
+  atomicAdd(red + c + cc, ss0);
+  atomicAdd(red + c + cc + 1, ss1);
 }
 
 }  // namespace pcl

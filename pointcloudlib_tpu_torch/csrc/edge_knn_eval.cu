@@ -40,28 +40,12 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kKnnQ;
-  const int* nbr = knn_block<KP>(x + (size_t)b * n * cin, n, cin, q0, k,
+  const float* xb = x + (size_t)b * n * cin;
+  const int* nbr = knn_block<KP>(xb, n, xb, n, cin, q0, k,
                                  reinterpret_cast<float*>(smem));
-
-  const int ncp = c / 2;
-  const int cc = 2 * (threadIdx.x % ncp);
-  const float sc0 = st[cc], sc1 = st[cc + 1];
-  const float bi0 = st[c + cc], bi1 = st[c + cc + 1];
-  const __nv_bfloat16* qb = q + (size_t)b * n * c + cc;
-  for (int ql = threadIdx.x / ncp; ql < kKnnQ && q0 + ql < n;
-       ql += kThreads / ncp) {
-    const size_t row = (size_t)b * n + q0 + ql;
-    const float o0 = off[row * c + cc], o1 = off[row * c + cc + 1];
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll 4
-    for (int kk = 0; kk < k; ++kk) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(
-          qb + (size_t)nbr[kk * kKnnQ + ql] * c);
-      m0 = fmaxf(m0, leaky(bn_z(__fsub_rn(bf_lo(w), o0), sc0, bi0), slope));
-      m1 = fmaxf(m1, leaky(bn_z(__fsub_rn(bf_hi(w), o1), sc1, bi1), slope));
-    }
-    *reinterpret_cast<float2*>(out + row * c + cc) = make_float2(m0, m1);
-  }
+  const size_t cb = (size_t)b * n * c;
+  edge_eval_rows(nbr, q + cb, off + cb, st, out + cb, c, k, slope, q0,
+                 min(kKnnQ, n - q0));
 }
 
 template <int KP>

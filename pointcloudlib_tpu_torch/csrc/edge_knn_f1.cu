@@ -44,7 +44,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < 2 * c; i += kThreads) red[i] = 0.0f;
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kKnnQ;
-  const int* nbr = knn_block<KP>(x + (size_t)b * n * cin, n, cin, q0, k, sm);
+  const float* xb = x + (size_t)b * n * cin;
+  const int* nbr = knn_block<KP>(xb, n, xb, n, cin, q0, k, sm);
 
   const int nq = min(kKnnQ, n - q0);
   int* ib = idx + ((size_t)b * n + q0) * k;
@@ -52,32 +53,8 @@ __global__ void __launch_bounds__(kThreads)
     const int ql = e / k;
     ib[e] = nbr[(e - ql * k) * kKnnQ + ql];
   }
-
-  const int ncp = c / 2;
-  const int cc = 2 * (tid % ncp);
-  const __nv_bfloat16* qb = q + (size_t)b * n * c + cc;
-  float s0 = 0.0f, s1 = 0.0f, ss0 = 0.0f, ss1 = 0.0f;
-  for (int ql = tid / ncp; ql < nq; ql += kThreads / ncp) {
-    const size_t row = (size_t)b * n + q0 + ql;
-    const float o0 = off[row * c + cc], o1 = off[row * c + cc + 1];
-    __nv_bfloat16* hr = h + row * k * c + cc;
-#pragma unroll 4
-    for (int kk = 0; kk < k; ++kk) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(
-          qb + (size_t)nbr[kk * kKnnQ + ql] * c);
-      const float h0 = __fsub_rn(bf_lo(w), o0);
-      const float h1 = __fsub_rn(bf_hi(w), o1);
-      *reinterpret_cast<uint32_t*>(hr + (size_t)kk * c) = pack2(h0, h1);
-      s0 += h0;
-      s1 += h1;
-      ss0 += h0 * h0;
-      ss1 += h1 * h1;
-    }
-  }
-  atomicAdd(red + cc, s0);
-  atomicAdd(red + cc + 1, s1);
-  atomicAdd(red + c + cc, ss0);
-  atomicAdd(red + c + cc + 1, ss1);
+  const size_t cb = (size_t)b * n * c;
+  edge_f1_rows(nbr, q + cb, off + cb, h + cb * k, red, c, k, q0, nq);
   __syncthreads();
   for (int i = tid; i < 2 * c; i += kThreads) atomicAdd(psum + i, red[i]);
 }

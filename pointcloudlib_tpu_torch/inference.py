@@ -8,6 +8,9 @@ part-segmentation model, in eval mode on one device:
   of shapes;
 * fixed serving batches — the last batch is filled by repeating its last
   row, and only real rows are returned;
+* Hilbert canonicalization where the JAX predictors sort
+  (``ops/spatial.canonicalize_batch``: buckets of N % 128 == 0 from 4096
+  up); per-point outputs return in the caller's point order;
 * softmax on the device, only the probabilities copied back.
 
 The device defaults to the card and raises when there is none; pass
@@ -37,13 +40,12 @@ import torch
 from pointcloudlib_tpu_torch.models import get_cls_model, get_seg_model
 from pointcloudlib_tpu_torch.models.pointnet2 import N_CATEGORIES
 from pointcloudlib_tpu_torch.ops.dispatch import resolve_device
+from pointcloudlib_tpu_torch.ops.spatial import canonicalize_batch, unsort_rows
 from pointcloudlib_tpu_torch.utils.interop import from_jax_variables
 
-# power-of-two-ish point-count buckets: few shapes, bounded padding
+# power-of-two-ish point-count buckets: few shapes, bounded padding;
+# above 4096 a cloud keeps its own N (``inference.py:35,58-62``)
 _BUCKETS = (128, 256, 512, 1024, 2048, 4096)
-# largest bucket this slice serves: from 4096 up the JAX Predictor
-# Hilbert-canonicalizes and takes the windowed fused kernel (_k_evalw)
-_MAX_BUCKET = 2048
 
 
 def _bucket(n: int) -> int:
@@ -51,14 +53,6 @@ def _bucket(n: int) -> int:
         if n <= b:
             return b
     return n
-
-
-def _check_bucket(n: int) -> None:
-    if _bucket(n) > _MAX_BUCKET:
-        raise NotImplementedError(
-            f"N={n} pads to bucket {_bucket(n)}: buckets of 4096 and up "
-            "take Hilbert canonicalization and the windowed fused kernel, "
-            "not ported yet (ROADMAP.md)")
 
 
 def _pad_points(arrays, n):
@@ -128,6 +122,7 @@ class Predictor:
                  ) -> torch.Tensor:
         x = torch.from_numpy(xyz).to(self.device)
         f = None if feats is None else torch.from_numpy(feats).to(self.device)
+        x, f, _ = canonicalize_batch(x, f)  # classes: nothing to un-sort
         return torch.softmax(self.model(x, f), dim=-1)
 
     def predict_proba(
@@ -144,7 +139,6 @@ class Predictor:
                 "construct the Predictor with with_normals=False for a "
                 "checkpoint trained without them")
         b, n, _ = clouds.shape
-        _check_bucket(n)
         if normals is not None:
             normals = np.asarray(normals, np.float32)
         clouds, normals = _pad_points([clouds, normals], n)
@@ -203,15 +197,18 @@ class SegPredictor:
         batch, its real rows and points copied back."""
         clouds = np.asarray(clouds, np.float32)
         n = clouds.shape[1]
-        _check_bucket(n)
         [clouds] = _pad_points([clouds], n)
         onehot = np.eye(N_CATEGORIES, dtype=np.float32)[np.asarray(labels)]
         outs = []
         for (chunk, oh), real in _batches([clouds, onehot], self.batch_size):
-            x = torch.from_numpy(chunk).to(self.device)
+            x, order = canonicalize_batch(
+                torch.from_numpy(chunk).to(self.device))
             logits = self.model(x, torch.from_numpy(oh).to(self.device),
                                 x if self.with_xyz_feats else None)
-            out = finish(torch.softmax(logits, dim=-1))
+            probs = torch.softmax(logits, dim=-1)
+            if order is not None:
+                probs = unsort_rows(probs, order)
+            out = finish(probs)
             outs.append(out[:real, :n].cpu().numpy())
         return np.concatenate(outs)
 

@@ -7,10 +7,10 @@ on their 512-wide concatenation, global max ‖ mean, then the head
 512 → 256 (with a Dense bias) → n_classes with dropout after each of the
 first two; LeakyReLU(0.2) throughout.
 
-Every EdgeConv takes the fused route with the graph built inside the
-kernels (``ops/kernels/fused_edge.py``), as the JAX model does with its
-fused path on at N % 128 == 0. Other N take the JAX model's separate
-``knn_pallas`` route, which is not ported (ROADMAP.md).
+Every EdgeConv takes the fused route of the JAX model
+(``ops/kernels/fused_edge.py``): at N % 128 == 0 with the graph built
+inside the kernels, at other N the standalone kNN (``ops/kernels/knn.py``)
+and then the kernels that take its index.
 """
 
 from __future__ import annotations
@@ -31,7 +31,9 @@ from pointcloudlib_tpu_torch.nn.layers import (
 from pointcloudlib_tpu_torch.ops import index_points, knn
 from pointcloudlib_tpu_torch.ops.kernels.fused_edge import (
     EdgeStats,
+    fused_edge_conv,
     fused_edge_conv_knn,
+    fused_edge_eval,
     fused_edge_eval_knn,
 )
 
@@ -57,11 +59,14 @@ class FusedEdgeConv(nn.Module):
     """One EdgeConv through the fused kernels (``FusedEdgeConv``,
     ``models/dgcnn.py:65``): ``q = x·Wa`` and ``off = x·(Wa − Wb)`` from
     bf16-rounded operands with f32 sums, ``Wa − Wb`` formed in f32 and then
-    rounded, as the JAX layer does. Eval runs one kernel with the running
-    statistics; training runs the train kernels with batch statistics over
-    every edge, then updates the running ones (biased variance, momentum
-    0.9). Parameters keep the JAX names and layouts: ``w [2C, F]``,
-    ``bn_scale``, ``bn_bias``; buffers ``mean``, ``var``."""
+    rounded, as the JAX layer does. At N % 128 == 0 the kernels build the
+    kNN graph inside; at other N the graph comes from :func:`knn` first,
+    with no gradient through it (``models/dgcnn.py:93-96``). Eval runs one
+    kernel with the running statistics; training runs the train kernels
+    with batch statistics over every edge, then updates the running ones
+    (biased variance, momentum 0.9). Parameters keep the JAX names and
+    layouts: ``w [2C, F]``, ``bn_scale``, ``bn_bias``; buffers ``mean``,
+    ``var``."""
 
     def __init__(self, in_channels: int, features: int, k: int):
         super().__init__()
@@ -80,20 +85,24 @@ class FusedEdgeConv(nn.Module):
         return _bf16_mm(x, wa), _bf16_mm(x, wa - wb)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = x.shape[1]
-        if n % 128:
-            raise NotImplementedError(
-                f"DGCNN at N={n}: N not a multiple of 128 takes the JAX "
-                "model's separate kNN kernel (knn_pallas) and fused_edge_conv"
-                ", not ported yet (ROADMAP.md)")
+        idx = None
+        if x.shape[1] % 128:
+            _, idx = knn(x.detach(), x.detach(), self.k)
         q, off = self.prepare(x)
         if not self.training:
-            return fused_edge_eval_knn(x, q, off, self.bn_scale,
-                                       self.bn_bias,
-                                       EdgeStats(self.mean, self.var),
-                                       self.k, SLOPE)
-        out, batch = fused_edge_conv_knn(x, q, off, self.bn_scale,
-                                         self.bn_bias, self.k, SLOPE)
+            stats = EdgeStats(self.mean, self.var)
+            if idx is None:
+                return fused_edge_eval_knn(x, q, off, self.bn_scale,
+                                           self.bn_bias, stats, self.k,
+                                           SLOPE)
+            return fused_edge_eval(q, off, idx, self.bn_scale, self.bn_bias,
+                                   stats, SLOPE)
+        if idx is None:
+            out, batch = fused_edge_conv_knn(x, q, off, self.bn_scale,
+                                             self.bn_bias, self.k, SLOPE)
+        else:
+            out, batch = fused_edge_conv(q, off, idx, self.bn_scale,
+                                         self.bn_bias, SLOPE)
         update_running(self.mean, batch.mean)
         update_running(self.var, batch.var)
         return out

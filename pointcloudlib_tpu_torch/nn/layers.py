@@ -38,6 +38,7 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
     fused_sa_bq_train,
     fused_sa_train,
 )
+from pointcloudlib_tpu_torch.ops.spatial import window_width
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
@@ -147,7 +148,9 @@ class FusedSetAbstraction(nn.Module):
 
     Routing follows the JAX layer (``nn/layers.py:265-290``): the kernels
     with the ball query inside when no neighbour index is given, N is a
-    multiple of 128 and ``n_samples`` ≤ 64; else the standalone ball
+    multiple of 128 below 4096 (from 4096 up the JAX layer takes its
+    windowed kernels, ``ops/spatial.window_width``) and ``n_samples`` ≤ 64;
+    else the standalone ball
     query, then the kernels that take its index.
 
     Parameters keep the JAX names and layouts (``w1 [3+C, C1]``,
@@ -200,7 +203,8 @@ class FusedSetAbstraction(nn.Module):
     def fuses_ball_query(self, n: int) -> bool:
         """Whether a cloud of ``n`` points takes the kernels with the ball
         query inside (``fuse_bq``, ``nn/layers.py:278``)."""
-        return n % 128 == 0 and self.n_samples <= _BQ_KMAX
+        return (window_width(n) is None and n % 128 == 0
+                and self.n_samples <= _BQ_KMAX)
 
     def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor], *,
                 new_xyz: Optional[torch.Tensor] = None,

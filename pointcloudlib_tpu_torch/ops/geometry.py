@@ -3,9 +3,11 @@
 
 Conventions are the JAX package's: channel-last ``[B, N, C]`` float32
 clouds, ``int32`` neighbour indices of static width, repeat-first
-padding. Every function here runs on any device as ordinary tensor ops;
-the sequential and hot pieces of the serving path have CUDA kernels in
-``ops/kernels`` that these functions are the plain versions of.
+padding. Every function here runs on any device as ordinary tensor ops,
+except ``knn`` and ``three_nn_interpolate``, which send CUDA tensors to
+their kernels; the sequential and hot pieces of the model paths have
+CUDA kernels in ``ops/kernels`` that these functions are the plain
+versions of.
 
 Distances are summed channel by channel in index order, one rounding per
 operation: no fused multiply-add and no reordered reduction, so the CPU,
@@ -27,6 +29,7 @@ __all__ = [
     "group_points",
     "group_all",
     "knn",
+    "knn_plain",
     "three_nn",
     "three_nn_interpolate",
 ]
@@ -46,9 +49,19 @@ def square_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (``geometry.py:71``), clamped at 0, in float32."""
     a = a.float()
     b = b.float()
-    inner = a[:, :, None, 0] * b[:, None, :, 0]
+    # channel-major copies: each channel's product broadcasts over
+    # contiguous rows; without gradients the products reuse one buffer
+    at = a.permute(2, 0, 1).contiguous()
+    bt = b.permute(2, 0, 1).contiguous()
+    inner = at[0][:, :, None] * bt[0][:, None, :]
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    prod = None if grad else torch.empty_like(inner)
     for c in range(1, a.shape[-1]):
-        inner = inner + a[:, :, None, c] * b[:, None, :, c]
+        if grad:
+            inner = inner + at[c][:, :, None] * bt[c][:, None, :]
+        else:
+            torch.mul(at[c][:, :, None], bt[c][:, None, :], out=prod)
+            inner.add_(prod)
     d2 = (_sumsq(a)[:, :, None] - 2.0 * inner) + _sumsq(b)[:, None, :]
     return torch.clamp_min(d2, 0.0)
 
@@ -124,21 +137,51 @@ def farthest_point_sample(
     return out
 
 
-def knn(query: torch.Tensor, points: torch.Tensor, k: int
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def repeat_last(d2: torch.Tensor, idx: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(d², idx)`` of fewer than ``k`` neighbours widened to ``k`` by
+    repeating the last, as the JAX ``knn`` does for ``k > N``."""
+    short = k - d2.shape[-1]
+    if short > 0:
+        d2 = torch.cat([d2, d2[..., -1:].expand(*d2.shape[:-1], short)], -1)
+        idx = torch.cat([idx, idx[..., -1:].expand(*idx.shape[:-1], short)],
+                        -1)
+    return d2, idx
+
+
+# most d² elements the plain kNN holds at once (1 GB of float32): a
+# DGCNN layer at B=32, N=10,000 is 3.2·10⁹ pairs
+_KNN_CHUNK = 1 << 28
+
+
+def knn_plain(query: torch.Tensor, points: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbours → ``(d² [B, M, k], idx [B, M, k] int32)``,
     ascending by :func:`square_distance` with the lower index first on
     ties, as ``lax.top_k`` orders them (``geometry.py:181``); for
-    ``k > N`` the last neighbour repeats."""
+    ``k > N`` the last neighbour repeats. Query rows go in chunks of at
+    most ``_KNN_CHUNK`` pairs; each row's result is the same."""
+    b, m = query.shape[:2]
     n = points.shape[1]
-    d2 = square_distance(query, points)
-    d2, idx = torch.sort(d2, dim=-1, stable=True)
-    d2, idx = d2[..., :min(k, n)], idx[..., :min(k, n)]
-    if k > n:
-        d2 = torch.cat([d2, d2[..., -1:].expand(*d2.shape[:-1], k - n)], -1)
-        idx = torch.cat([idx, idx[..., -1:].expand(*idx.shape[:-1], k - n)],
-                        -1)
-    return d2, idx.to(torch.int32)
+    rows = max(1, _KNN_CHUNK // max(1, b * n))
+    d2s, idxs = [], []
+    for s in range(0, m, rows):
+        d2, idx = torch.sort(square_distance(query[:, s:s + rows], points),
+                             dim=-1, stable=True)
+        d2s.append(d2[..., :min(k, n)])
+        idxs.append(idx[..., :min(k, n)].to(torch.int32))
+    return repeat_last(torch.cat(d2s, 1), torch.cat(idxs, 1), k)
+
+
+def knn(query: torch.Tensor, points: torch.Tensor, k: int
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`knn_plain` for CPU tensors, the ``knn`` kernel
+    (``ops/kernels/knn.py``, bit-identical, its d² carrying no gradient)
+    for CUDA tensors."""
+    # the kernel wrappers import this module
+    from pointcloudlib_tpu_torch.ops.kernels.knn import knn as knn_kernel
+
+    return knn_kernel(query, points, k)
 
 
 def _inverse_distance_weights(d2: torch.Tensor) -> torch.Tensor:
@@ -155,7 +198,7 @@ def three_nn(query: torch.Tensor, points: torch.Tensor
     weights take d² recomputed exactly as ``Σ(q − p)²`` from the selected
     coordinates, so a query equal to a support point gets d² = 0 and a
     hard copy of its features."""
-    _, idx = knn(query, points, 3)
+    _, idx = knn_plain(query, points, 3)
     g = index_points(points.float(), idx)                  # [B, M, 3, 3]
     return idx, _inverse_distance_weights(
         _sumsq(query.float()[:, :, None, :] - g))

@@ -1,13 +1,16 @@
-"""Fused DGCNN EdgeConv with the kNN graph built inside the kernels: the
-CUDA kernels of ``csrc/edge_knn_eval.cu``, ``edge_knn_f1.cu``,
-``edge_out.cu`` and ``edge_bwd.cu``, their plain versions, and the
-autograd function that chains them.
+"""Fused DGCNN EdgeConv: the CUDA kernels of ``csrc/edge_knn_eval.cu``,
+``edge_knn_f1.cu``, ``edge_eval.cu``, ``edge_f1.cu``, ``edge_out.cu`` and
+``edge_bwd.cu``, their plain versions, and the autograd functions that
+chain them.
 
-Replaces ``pointcloudlib_tpu/ops/pallas/fused_edge.py`` where the JAX
-model builds the graph inside its kernels (N % 128 == 0):
-``fused_edge_eval_knn`` → ``_ke_knn_eval``, and ``fused_edge_conv_knn``
-with its custom VJP: forward ``_ke_knn_f1`` then ``_ke_out``, backward
-``_ke_bwd``.
+Replaces ``pointcloudlib_tpu/ops/pallas/fused_edge.py`` on both of the
+JAX model's routes. Where it builds the graph inside its kernels (N % 128
+== 0): ``fused_edge_eval_knn`` → ``_ke_knn_eval``, and
+``fused_edge_conv_knn`` with its custom VJP: forward ``_ke_knn_f1`` then
+``_ke_out``, backward ``_ke_bwd``. Where it takes the standalone kNN
+first (N % 128 ≠ 0, ``ops/kernels/knn.py``): ``fused_edge_eval`` →
+``_ke_eval``, and ``fused_edge_conv``: forward ``_call_ef1`` → ``_ke_f1``
+then ``_ke_out``, backward ``_ke_bwd``.
 
 One EdgeConv is ``max_k leaky(BN(concat(x_j − x_i, x_i)·W))`` over the k
 nearest points j of x_i in feature space. With ``W = [Wa; Wb]`` the
@@ -45,8 +48,7 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
     _xhat,
     _z,
 )
-
-MAX_K = 40  # longest neighbour list of the kNN kernels (csrc/edge_knn.cuh)
+from pointcloudlib_tpu_torch.ops.kernels.knn import MAX_K
 
 
 class EdgeStats(NamedTuple):
@@ -71,10 +73,10 @@ def _edges(q, off, idx) -> torch.Tensor:
 
 def edge_knn_eval_plain(x, q, off, st, k: int, slope: float = 0.2):
     """``out [B, N, C]`` as ``_ke_knn_eval`` computes it: the k nearest
-    points of each point of ``x`` (``geometry.knn``: ascending d², the
+    points of each point of ``x`` (``geometry.knn_plain``: ascending d², the
     lower index first on ties), then ``max_k leaky(sc·(float(bf16
     q)[j] − off_i) + bi)``."""
-    _, idx = geometry.knn(x, x, k)
+    _, idx = geometry.knn_plain(x, x, k)
     return _leaky(_z(_edges(q, off, idx), st), slope).amax(dim=2)
 
 
@@ -83,9 +85,24 @@ def edge_knn_f1_plain(x, q, off, k: int):
     ``_ke_knn_f1`` computes them: the kNN of ``x``, ``h = bf16(float(bf16
     q)[idx] − off)`` and ``psum = [Σh, Σh²]`` of the f32 h before its
     rounding."""
-    _, idx = geometry.knn(x, x, k)
+    _, idx = geometry.knn_plain(x, x, k)
     h = _edges(q, off, idx)
     return idx, h.bfloat16(), _sums(h)
+
+
+def edge_eval_plain(q, off, idx, st, slope: float = 0.2):
+    """``out [B, M, C]`` as ``_ke_eval`` computes it from a given index
+    ``idx [B, M, k]``: ``max_k leaky(sc·(float(bf16 q)[idx] − off) +
+    bi)``."""
+    return _leaky(_z(_edges(q, off, idx), st), slope).amax(dim=2)
+
+
+def edge_f1_plain(q, off, idx):
+    """``(h [B,M,k,C] bf16, psum [2,C])`` as ``_ke_f1`` computes them from
+    a given index: ``h = bf16(float(bf16 q)[idx] − off)`` and ``psum =
+    [Σh, Σh²]`` of the f32 h before its rounding."""
+    h = _edges(q, off, idx)
+    return h.bfloat16(), _sums(h)
 
 
 def edge_out_plain(h, st, slope: float = 0.2):
@@ -132,6 +149,17 @@ _SIGNATURES = {
         "edge_knn_f1_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                                + [ctypes.c_void_p], ctypes.c_int),
         "edge_knn_f1_smem": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    },
+    "edge_eval": {
+        "edge_eval_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                             + [ctypes.c_float, ctypes.c_void_p],
+                             ctypes.c_int),
+        "edge_eval_smem": ([ctypes.c_int], ctypes.c_longlong),
+    },
+    "edge_f1": {
+        "edge_f1_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p], ctypes.c_int),
+        "edge_f1_smem": ([ctypes.c_int] * 2, ctypes.c_longlong),
     },
     "edge_out": {
         "edge_out_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
@@ -238,6 +266,74 @@ def edge_knn_f1(x, q, off, k: int):
 edge_knn_f1.launches = 0
 
 
+def _given_idx(what: str, q, off, idx, smem: int):
+    """``(b, m, n, c, k)`` of a given-index EdgeConv kernel's inputs
+    (``q`` bfloat16, ``off`` float32, ``idx`` int32); raise on what the
+    kernel does not take."""
+    b, n, c = q.shape
+    m, k = idx.shape[1:]
+    _width_ok(what, c)
+    _expect(what, q.device, q=(q, (b, n, c), torch.bfloat16),
+            off=(off, (b, m, c), torch.float32),
+            idx=(idx, (b, m, k), torch.int32))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{what}: k={k} needs {smem} bytes of shared "
+                         f"memory, above one block's {_SMEM_LIMIT}")
+    return b, m, n, c, k
+
+
+def edge_eval(q, off, idx, st, slope: float = 0.2):
+    """Eval-mode EdgeConv from a given index → ``out [B, M, C]`` float32,
+    as :func:`edge_eval_plain`. ``q [B, N, C]`` bfloat16, ``off [B, M,
+    C]`` float32, ``idx [B, M, k]`` int32 with every entry in ``[0, N)``,
+    ``st [4, C]`` the folded BN rows. The kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not _on_card("edge_eval", q):
+        return edge_eval_plain(q, off, idx, st, slope)
+    lib = _lib("edge_eval")
+    b, m, n, c, k = _given_idx("edge_eval", q, off, idx,
+                               lib.edge_eval_smem(idx.shape[-1]))
+    _expect("edge_eval", q.device, st=(st, (4, c), torch.float32))
+    dev = q.device
+    out = torch.empty((b, m, c), dtype=torch.float32, device=dev)
+    q, idx, off, st = map(_aligned, (q, idx, off, st))
+    with torch.cuda.device(dev):
+        err = lib.edge_eval_launch(
+            q.data_ptr(), idx.data_ptr(), off.data_ptr(), st.data_ptr(),
+            out.data_ptr(), b, m, n, c, k, slope, _stream(dev))
+    _build.check(err, "edge_eval")
+    edge_eval.launches += 1
+    return out
+
+
+edge_eval.launches = 0
+
+
+def edge_f1(q, off, idx):
+    """Forward pass 1 from a given index → ``(h, psum)`` as
+    :func:`edge_f1_plain`: the kernel for CUDA tensors (as
+    :func:`edge_eval` takes them), the plain version for CPU tensors."""
+    if not _on_card("edge_f1", q):
+        return edge_f1_plain(q, off, idx)
+    lib = _lib("edge_f1")
+    b, m, n, c, k = _given_idx("edge_f1", q, off, idx,
+                               lib.edge_f1_smem(q.shape[-1], idx.shape[-1]))
+    dev = q.device
+    h = torch.empty((b, m, k, c), dtype=torch.bfloat16, device=dev)
+    psum = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    q, idx, off = map(_aligned, (q, idx, off))
+    with torch.cuda.device(dev):
+        err = lib.edge_f1_launch(
+            q.data_ptr(), idx.data_ptr(), off.data_ptr(), h.data_ptr(),
+            psum.data_ptr(), b, m, n, c, k, _stream(dev))
+    _build.check(err, "edge_f1")
+    edge_f1.launches += 1
+    return h, psum
+
+
+edge_f1.launches = 0
+
+
 def edge_out(h, st, slope: float = 0.2):
     """Forward pass 2 → ``out [B, N, C]`` as :func:`edge_out_plain`: the
     kernel for CUDA tensors, the plain version for CPU tensors."""
@@ -329,22 +425,26 @@ def assemble_grads(ps, scat, d1, d2, st, k: int):
     return dq, doff, ps[1], ps[0]
 
 
-class FusedEdgeKnnTrain(torch.autograd.Function):
-    """Train-mode EdgeConv with the graph built inside
-    (``fused_edge_conv_knn`` and its custom VJP). Inputs ``x [B,N,Cin]``,
-    ``q [B,N,C]`` and ``off [B,N,C]`` float32, ``gamma``/``beta [C]``, k
-    and the LeakyReLU slope. Returns ``out [B,N,C]`` and the batch mean and
-    biased variance over all B·N·k edges (not differentiable). ``q`` is
-    rounded to bf16 inside, so ``dq`` comes back float32. The graph carries
-    no gradient: ``x`` gets none here, and reaches its gradient through
-    ``q`` and ``off``, computed from it outside."""
+def fused_edge_eval(q, off, idx, gamma, beta, stats: EdgeStats,
+                    slope: float = 0.2) -> torch.Tensor:
+    """Eval-mode EdgeConv from a given neighbour index → ``out [B, M, C]``
+    (``fused_edge_eval``, ``fused_edge.py:536``); ``q`` is rounded to bf16
+    here, as the JAX function does."""
+    st = _stack_stats(stats.mean, stats.var, gamma, beta)
+    return edge_eval(q.bfloat16(), off.float(), idx.int(), st, slope)
+
+
+class _EdgeTrain(torch.autograd.Function):
+    """The train-mode EdgeConv's tail and backward, shared by its two
+    routes: from pass 1's ``(idx, h, psum)``, the batch moments over all
+    B·M·k edges, the folded rows, ``edge_out``; backward ``edge_bwd`` and
+    the dq/doff assembly. ``q`` is rounded to bf16 before pass 1, so
+    ``dq`` comes back float32; the graph carries no gradient."""
 
     @staticmethod
-    def forward(ctx, x, q, off, gamma, beta, k, slope):
-        b, n, _ = q.shape
-        idx, h, psum = edge_knn_f1(x.detach().float(), q.bfloat16(),
-                                   off.float(), k)
-        mean, var = _moments(psum, float(b * n * k))
+    def _tail(ctx, idx, h, psum, gamma, beta, slope):
+        b, m, k, _ = h.shape
+        mean, var = _moments(psum, float(b * m * k))
         st = _stack_stats(mean, var, gamma, beta)
         out = edge_out(h, st, slope)
         ctx.save_for_backward(idx, h, st)
@@ -353,12 +453,50 @@ class FusedEdgeKnnTrain(torch.autograd.Function):
         return out, mean, var
 
     @staticmethod
-    def backward(ctx, dout, _dmean, _dvar):
+    def _grads(ctx, dout):
+        """``(dq, doff, dγ, dβ)``."""
         idx, h, st = ctx.saved_tensors
         sums = edge_bwd(h, dout.float().contiguous(), idx, st, ctx.slope,
                         h.shape[1])
-        dq, doff, dgamma, dbeta = assemble_grads(*sums, st, h.shape[2])
-        return None, dq, doff, dgamma, dbeta, None, None
+        return assemble_grads(*sums, st, h.shape[2])
+
+
+class FusedEdgeKnnTrain(_EdgeTrain):
+    """Train-mode EdgeConv with the graph built inside
+    (``fused_edge_conv_knn`` and its custom VJP). Inputs ``x [B,N,Cin]``,
+    ``q [B,N,C]`` and ``off [B,N,C]`` float32, ``gamma``/``beta [C]``, k
+    and the LeakyReLU slope. Returns ``out [B,N,C]`` and the batch mean and
+    biased variance over all B·N·k edges (not differentiable). ``x`` gets
+    no gradient here, and reaches its gradient through ``q`` and ``off``,
+    computed from it outside."""
+
+    @staticmethod
+    def forward(ctx, x, q, off, gamma, beta, k, slope):
+        idx, h, psum = edge_knn_f1(x.detach().float(), q.bfloat16(),
+                                   off.float(), k)
+        return _EdgeTrain._tail(ctx, idx, h, psum, gamma, beta, slope)
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        return (None, *_EdgeTrain._grads(ctx, dout), None, None)
+
+
+class FusedEdgeTrain(_EdgeTrain):
+    """Train-mode EdgeConv from a given self-kNN index ``idx [B,N,k]``
+    (``fused_edge_conv`` and its custom VJP): inputs ``q``, ``off``,
+    ``idx``, ``gamma``, ``beta``, the slope; returns as
+    :class:`FusedEdgeKnnTrain`."""
+
+    @staticmethod
+    def forward(ctx, q, off, idx, gamma, beta, slope):
+        idx = idx.int()
+        h, psum = edge_f1(q.bfloat16(), off.float(), idx)
+        return _EdgeTrain._tail(ctx, idx, h, psum, gamma, beta, slope)
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        dq, doff, dgamma, dbeta = _EdgeTrain._grads(ctx, dout)
+        return dq, doff, None, dgamma, dbeta, None
 
 
 def fused_edge_conv_knn(x, q, off, gamma, beta, k: int, slope: float = 0.2
@@ -368,4 +506,13 @@ def fused_edge_conv_knn(x, q, off, gamma, beta, k: int, slope: float = 0.2
     with its hand-written backward."""
     out, mean, var = FusedEdgeKnnTrain.apply(x, q, off, gamma, beta, k,
                                              slope)
+    return out, EdgeStats(mean, var)
+
+
+def fused_edge_conv(q, off, idx, gamma, beta, slope: float = 0.2
+                    ) -> Tuple[torch.Tensor, EdgeStats]:
+    """``(out [B, N, C], EdgeStats)`` of the train-mode EdgeConv from a
+    given self-kNN index (``fused_edge_conv``, ``fused_edge.py:387``), with
+    its hand-written backward."""
+    out, mean, var = FusedEdgeTrain.apply(q, off, idx, gamma, beta, slope)
     return out, EdgeStats(mean, var)

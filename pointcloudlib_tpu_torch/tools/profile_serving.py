@@ -2,14 +2,17 @@
 
     python -m pointcloudlib_tpu_torch.tools.profile_serving \
         [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg] \
-        [--out DIR]
+        [--n-points N] [--out DIR]
 
 Serves PointNet++ SSG at B=64, MSG at B=32 (``Predictor``, normals as
 features, N=1024, 256 synthetic surface clouds) or DGCNN at B=32 (the
 same clouds, xyz only), or PointNet++ part
 segmentation at B=16 (``SegPredictor.predict``, xyz as features, N=2048,
 64 ShapeNet-part-shaped synthetic clouds), full width with seeded random
-weights, after a warm-up request, and prints one JSON line with:
+weights, after a warm-up request. ``--n-points`` serves clouds of N
+points instead (4096: the sorted route of the given-index kernels; above
+4096 and not a multiple of 128, e.g. 10000: DGCNN's standalone kNN).
+Prints one JSON line with:
 
 * ``wall_ms_per_batch`` — host clock per served batch without the
   profiler (median of 5 requests), and with it;
@@ -21,7 +24,7 @@ weights, after a warm-up request, and prints one JSON line with:
 * ``stages`` — device milliseconds per batch by kernel-name group
   (the ported kernels, dense matmuls, BatchNorm, copies, …).
 
-The Chrome trace goes to ``DIR/serving_trace_MODEL.json`` (default
+The Chrome trace goes to ``DIR/serving_trace_MODEL_nN.json`` (default
 ``build/profile``). Needs a CUDA device; exits non-zero without one or
 when the profiler records no device time.
 """
@@ -59,6 +62,9 @@ STAGES = (
     (r"edge_knn_f1_kernel", "edge_knn_f1 kernel"),
     (r"edge_out_kernel", "edge_out kernel"),
     (r"edge_bwd_kernel", "edge_bwd kernel"),
+    (r"edge_eval_kernel", "edge_eval kernel"),
+    (r"edge_f1_kernel", "edge_f1 kernel"),
+    (r"knn_kernel", "knn kernel"),
     (r"fps_kernel", "fps kernel"),
     (r"three_interp_kernel", "three_interp kernel"),
     (r"scatter_rows_kernel", "scatter_rows kernel"),
@@ -104,6 +110,8 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=str(
         Path(__file__).resolve().parents[2] / "build" / "profile"))
     ap.add_argument("--model", default="pointnet2", choices=sorted(BATCH))
+    ap.add_argument("--n-points", type=int, default=None,
+                    help="points a cloud (default: the model's row)")
     args = ap.parse_args(argv)
     batch = BATCH[args.model]
     if not torch.cuda.is_available():
@@ -113,7 +121,8 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
 
-    n_points, n_clouds = N_POINTS[args.model], N_CLOUDS[args.model]
+    n_points = args.n_points or N_POINTS[args.model]
+    n_clouds = N_CLOUDS[args.model]
     variables = random_jax_variables(build_model(args.model), seed=0)
     if args.model == SEG:
         pred = SegPredictor.from_variables("pointnet2", variables,
@@ -159,7 +168,8 @@ def main(argv=None) -> None:
     busy_us = _union_us((e.time_range.start, e.time_range.end) for e in dev)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / f"serving_trace_{args.model}.json"))
+    prof.export_chrome_trace(
+        str(out / f"serving_trace_{args.model}_n{n_points}.json"))
     print(json.dumps({
         "model": args.model, "card": power, "batch": batch,
         "n_points": n_points,

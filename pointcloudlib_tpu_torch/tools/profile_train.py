@@ -3,7 +3,7 @@
 
     python -m pointcloudlib_tpu_torch.tools.profile_train \
         [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg] \
-        [--out DIR]
+        [--n-points N] [--out DIR]
 
 Trains PointNet++ SSG at B=64 or MSG at B=32 (normals as features,
 N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
@@ -11,7 +11,9 @@ N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
 or PointNet++ part segmentation at B=16 (xyz as features,
 N=2048, ShapeNet-part-shaped synthetic clouds, lr 0.01), full width with
 seeded random weights and dropout 0.5, on one batch, after 3 warm-up
-steps, and prints one JSON line with:
+steps; ``--n-points`` trains on clouds of N points instead (4096: the
+sorted route of the given-index kernels; 1000: DGCNN's standalone kNN).
+Prints one JSON line with:
 
 * ``wall_ms_per_step`` — host clock per step, ending in a synchronize,
   without the profiler (median of 10 steps), and with it;
@@ -25,7 +27,7 @@ steps, and prints one JSON line with:
 * ``peak_device_bytes`` — ``torch.cuda.max_memory_allocated`` over the
   timed steps.
 
-The Chrome trace goes to ``DIR/train_trace_MODEL.json`` (default
+The Chrome trace goes to ``DIR/train_trace_MODEL_nN.json`` (default
 ``build/profile``). Needs a CUDA device; exits non-zero without one or
 when the profiler records no device time.
 """
@@ -72,8 +74,11 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=str(
         Path(__file__).resolve().parents[2] / "build" / "profile"))
     ap.add_argument("--model", default="pointnet2", choices=sorted(BATCH))
+    ap.add_argument("--n-points", type=int, default=None,
+                    help="points a cloud (default: the model's row)")
     args = ap.parse_args(argv)
     bsz = BATCH[args.model]
+    n_points = args.n_points or N_POINTS[args.model]
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA device")
     power = subprocess.run(
@@ -87,7 +92,7 @@ def main(argv=None) -> None:
     step = make(model, sgd_momentum(model.parameters(), LR[args.model]))
     dev = torch.device("cuda")
     batch = {k: v.to(dev) for k, v in synthetic_batch(
-        args.model, bsz, 5, N_POINTS[args.model]).items()}
+        args.model, bsz, 5, n_points).items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(WARMUP):
         step(batch, gen)
@@ -124,10 +129,11 @@ def main(argv=None) -> None:
                         for e in events)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / f"train_trace_{args.model}.json"))
+    prof.export_chrome_trace(
+        str(out / f"train_trace_{args.model}_n{n_points}.json"))
     print(json.dumps({
         "model": args.model, "card": power, "batch": bsz,
-        "n_points": N_POINTS[args.model], "steps": PROFILED,
+        "n_points": n_points, "steps": PROFILED,
         "peak_device_bytes": peak,
         "wall_ms_per_step": float(np.median(walls)),
         "wall_ms_per_step_runs": walls,

@@ -4,9 +4,11 @@ A step runs on the model's device: the card unless the caller asks for
 ``"cpu"``, and it raises when there is no card. Metrics stay on the
 device as tensors; the caller fetches them when it wants them.
 
-The JAX step Hilbert-sorts each batch first (``_canon_batch``) only where
-a windowed kernel would run, at N ≥ 4096; the ported sizes never reach
-it, so the port does not sort.
+Every step first Hilbert-sorts the batch's points where the JAX step
+does (``ops/spatial.canonicalize_batch``: N % 128 == 0 and N ≥ 4096,
+whatever the model). Per-point features and part
+labels ride along, and the part-segmentation eval step returns its ids in
+the caller's point order.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from pointcloudlib_tpu_torch.ops import resolve_device
+from pointcloudlib_tpu_torch.ops.spatial import canonicalize_batch, unsort_rows
 from pointcloudlib_tpu_torch.train.losses import (
     accuracy,
     cross_entropy_seg,
@@ -35,17 +38,24 @@ def _put(x, dev: torch.device, dtype: torch.dtype):
 
 
 def _inputs(batch: Mapping, dev: torch.device):
-    """``(xyz, feats or None, label)`` as tensors on ``dev``."""
-    return (_put(batch["xyz"], dev, torch.float32),
-            _put(batch.get("feats"), dev, torch.float32),
-            _put(batch.get("label"), dev, torch.int64))
+    """``(xyz, feats or None, label)`` as tensors on ``dev``, the points
+    canonicalized."""
+    xyz, feats, _ = canonicalize_batch(
+        _put(batch["xyz"], dev, torch.float32),
+        _put(batch.get("feats"), dev, torch.float32))
+    return xyz, feats, _put(batch.get("label"), dev, torch.int64)
 
 
 def _seg_inputs(batch: Mapping, dev: torch.device):
-    """``(xyz, cls_onehot, feats or None)`` as tensors on ``dev``."""
-    return (_put(batch["xyz"], dev, torch.float32),
-            _put(batch["cls_onehot"], dev, torch.float32),
-            _put(batch.get("feats"), dev, torch.float32))
+    """``(xyz, cls_onehot, feats or None, seg or None, order or None)`` as
+    tensors on ``dev``, the points canonicalized with their features and
+    part labels."""
+    xyz, feats, seg, order = canonicalize_batch(
+        _put(batch["xyz"], dev, torch.float32),
+        _put(batch.get("feats"), dev, torch.float32),
+        _put(batch.get("seg"), dev, torch.int64))
+    return (xyz, _put(batch["cls_onehot"], dev, torch.float32), feats, seg,
+            order)
 
 
 def make_cls_train_step(model: torch.nn.Module,
@@ -114,8 +124,7 @@ def make_seg_train_step(model: torch.nn.Module,
 
     def step(batch: Mapping, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        xyz, onehot, feats = _seg_inputs(batch, dev)
-        seg = _put(batch["seg"], dev, torch.int64)
+        xyz, onehot, feats, seg, _ = _seg_inputs(batch, dev)
         model.train()
         logits = model(xyz, onehot, feats, generator=generator)
         valid = batch.get("valid")
@@ -136,15 +145,17 @@ def make_seg_train_step(model: torch.nn.Module,
 def make_seg_eval_step(model: torch.nn.Module, device: Device = None
                        ) -> Callable[[Mapping], torch.Tensor]:
     """``eval_step(batch) -> pred [B, N]`` part ids on the device, for
-    ``batch = {"xyz", "cls_onehot", "feats" (optional)}``; the caller
-    computes IoUs over the epoch (``train/metrics.shape_ious``)."""
+    ``batch = {"xyz", "cls_onehot", "feats" (optional)}``, in the
+    caller's point order; the caller computes IoUs over the epoch
+    (``train/metrics.shape_ious``)."""
     dev = resolve_device(device)
     model.to(dev)
 
     @torch.no_grad()
     def step(batch: Mapping) -> torch.Tensor:
-        xyz, onehot, feats = _seg_inputs(batch, dev)
+        xyz, onehot, feats, _, order = _seg_inputs(batch, dev)
         model.eval()
-        return model(xyz, onehot, feats).argmax(-1)
+        pred = model(xyz, onehot, feats).argmax(-1)
+        return pred if order is None else unsort_rows(pred, order)
 
     return step

@@ -18,7 +18,10 @@ from pointcloudlib_tpu_torch.models import get_cls_model
 from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
 from pointcloudlib_tpu_torch.ops.kernels import fps as kfps
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa as kfs
-from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
+from pointcloudlib_tpu_torch.utils.interop import (
+    from_jax_variables,
+    random_jax_variables,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -168,6 +171,9 @@ IDX_SHAPES = {  # widths, B, N, M, radius, k
     "msg1_k128": ((64, 96, 128), 4, 1024, 512, 0.4, 128),
     "msg2_k128": ((128, 128, 256), 4, 512, 128, 0.8, 128),
     "c32_k16": ((32, 32, 64), 2, 300, 70, 0.3, 16),   # ragged center tile
+    # SSG's SA1 at N=4096, where the JAX package runs its windowed
+    # kernels (_k_f1w, _k_evalw) and the port these
+    "ssg4096_k64": ((64, 64, 128), 4, 4096, 512, 0.2, 64),
 }
 
 
@@ -276,6 +282,8 @@ TRAIN_SHAPES = {  # widths, B, N, M, radius, k
     "msg1_k128": ((64, 96, 128), 2, 1024, 512, 0.4, 128),
     "msg2_k128": ((128, 128, 256), 4, 512, 128, 0.8, 128),
 }
+# SSG's SA1 at N=4096: p2 where the JAX package runs _k_p2w
+WINDOW_SHAPES = {"ssg4096_sa1": ((64, 64, 128), 4, 4096, 512, 0.2, 64)}
 
 
 def _train_layer(card, name, seed=0):
@@ -284,7 +292,7 @@ def _train_layer(card, name, seed=0):
     bf16 h1, folded BN rows from its statistics, an output gradient."""
     from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as ft
 
-    widths, b, n, m, radius, k = TRAIN_SHAPES[name]
+    widths, b, n, m, radius, k = {**TRAIN_SHAPES, **WINDOW_SHAPES}[name]
     c1, c2, c3 = widths
     rng = np.random.default_rng(seed)
     pts = _sphere(rng, b, n, card)
@@ -380,7 +388,7 @@ def test_bwd_p1_matches_plain(card, name):
         _tie_robust(a, b_, what)
 
 
-@pytest.mark.parametrize("name", sorted(TRAIN_SHAPES))
+@pytest.mark.parametrize("name", sorted(TRAIN_SHAPES) + sorted(WINDOW_SHAPES))
 def test_bwd_p2_matches_plain(card, name):
     L = _train_layer(card, name, seed=3)
     ft, p, (st1, st2, st3) = L["ft"], L["p"], L["st"]
@@ -751,5 +759,251 @@ def test_dgcnn_train_step_card_matches_cpu(card):
           "largest norm deviation",
           max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)),
           "not compared", got["not_compared"])
+    assert not got["failures"], got["failures"]
+    assert set(got["not_compared"]) == {"fc2.dense.bias"}, got["not_compared"]
+
+
+# ------------------------------------------- N = 4096: sorting and SSG
+
+
+def test_hilbert_keys_card_matches_cpu(card):
+    """Keys and sort order on the card bit-identical to the CPU's (true
+    divisions and separate f32 operations on both), at N=4096 with
+    duplicate points and a flat cloud."""
+    from pointcloudlib_tpu_torch.ops import spatial
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4, 4096, 3)).astype(
+        np.float32))
+    x[1, 2048:] = x[1, :2048]
+    x[2, :, 2] = 0.5
+    for a in (x, x * 37.0 + 5.0):
+        assert torch.equal(spatial.hilbert_keys(a.to(card)).cpu(),
+                           spatial.hilbert_keys(a))
+        assert torch.equal(spatial.canonicalize(a.to(card))[-1].cpu(),
+                           spatial.canonicalize(a)[-1])
+
+
+def test_ssg_predictor_4096_card_matches_cpu(card):
+    """PointNet++ SSG served at the 4096 bucket (3 clouds of 3,000 points:
+    padding, then sorting): per batch FPS 2, the ball query and the eval
+    kernel that takes its idx at SA1, the ball-query eval kernel at SA2;
+    probabilities within 5e-3 of the CPU's."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as ft
+
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((3, 3000, 3)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    nrm = rng.standard_normal((3, 3000, 3)).astype(np.float32)
+    variables = random_jax_variables(get_cls_model("pointnet2"), seed=6)
+    counted = (kfps.fps, kbq.ball_query, kfs.fused_sa_eval,
+               kfs.fused_sa_bq_eval, ft.sa_f1)
+    before = [f.launches for f in counted]
+    got = Predictor.from_variables("pointnet2", variables, batch_size=2,
+                                   device=card).predict_proba(x, nrm)
+    assert [f.launches - b for f, b in zip(counted, before)] == [
+        4, 2, 2, 2, 0]
+    want = Predictor.from_variables("pointnet2", variables, batch_size=2,
+                                    device="cpu").predict_proba(x, nrm)
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+
+
+def test_ssg_train_step_4096_card_matches_cpu(card):
+    """One train-mode forward and backward of PointNet++ SSG on 8 clouds
+    at N=4096 (SA1 from the ball query's idx), card against CPU under
+    ``tools/grad_check.py``'s bounds. (On 4 clouds the head's train-mode
+    BatchNorm makes the comparison ill-conditioned: on the CPU, bf16
+    dense operands against f32 move head gradients to cosine 0.58 at
+    N=1024.)"""
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        grad_agreement,
+        synthetic_batch,
+    )
+
+    variables = random_jax_variables(get_cls_model("pointnet2"), seed=5)
+    got = grad_agreement("pointnet2", variables,
+                         synthetic_batch("pointnet2", 8, 12, 4096), card)
+    agree = got["agree"]
+    print("SSG N=4096 card against CPU: least cosine",
+          min(agree.items(), key=lambda kv: kv[1][0]),
+          "largest norm deviation",
+          max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)),
+          "not compared", got["not_compared"])
+    assert not got["failures"], got["failures"]
+    assert set(got["not_compared"]) <= {"sa3.mlp.2.bn.bias"}
+
+
+# --------------------------------------- N % 128 != 0: DGCNN's kNN route
+
+KNN_SHAPES = {  # B, M (queries), N, C, k
+    "ec1_n1000": (4, 1000, 1000, 3, 20),
+    "ec2_n1000": (4, 1000, 1000, 64, 20),
+    "ec4_n1000": (4, 1000, 1000, 128, 20),
+    "ec1_n10000": (2, 10000, 10000, 3, 20),
+    "ec4_n10000": (1, 10000, 10000, 128, 20),
+    "k_eq_n": (2, 20, 20, 64, 20),
+    "m_ne_n": (2, 77, 65, 3, 40),       # a query cloud of its own
+    "n16384_c128": (1, 16384, 16384, 128, 8),
+    "ec1_duplicates": (4, 1000, 1000, 3, 20),
+}
+
+
+def _knn_inputs(card, name):
+    b, m, n, c, k = KNN_SHAPES[name]
+    rng = np.random.default_rng(m + n + c)
+    p = torch.from_numpy(rng.standard_normal((b, n, c)).astype(
+        np.float32)).to(card)
+    if "duplicates" in name:
+        p[:, n // 2:] = p[:, : n // 2]
+    q = p if m == n else torch.from_numpy(rng.standard_normal(
+        (b, m, c)).astype(np.float32)).to(card)
+    return q, p, k
+
+
+@pytest.mark.parametrize("name", sorted(KNN_SHAPES))
+def test_knn_bit_identical(card, name):
+    """idx and d² equal to the plain version's (d² without FMA, channel
+    by channel, ties to the lower index)."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    q, p, k = _knn_inputs(card, name)
+    before = kknn.knn.launches
+    d2, idx = kknn.knn(q, p, k)
+    torch.cuda.synchronize()
+    assert kknn.knn.launches == before + 1
+    wd2, widx = kknn.knn_plain(q, p, k)
+    assert idx.dtype == torch.int32 and torch.equal(idx, widx)
+    assert torch.equal(d2, wd2)
+    if "duplicates" in name:  # a point and its twin, both at d² = 0
+        n = idx.shape[1]
+        pts = torch.arange(n, device=card) % (n // 2)
+        assert torch.equal(idx[:, :, 0].long(), pts.expand(idx.shape[0], -1))
+        assert torch.equal(idx[:, :, 1].long(),
+                           (pts + n // 2).expand(idx.shape[0], -1))
+
+
+def test_knn_rejects_what_it_cannot_run(card):
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    x = torch.zeros((1, 64, 3), device=card)
+    with pytest.raises(ValueError, match="1 to 40"):
+        kknn.knn(x, x, 41)
+    with pytest.raises(ValueError, match="shared memory"):
+        kknn.knn(torch.zeros((1, 64, 500), device=card),
+                 torch.zeros((1, 64, 500), device=card), 8)
+    with pytest.raises(ValueError, match="float32"):
+        kknn.knn(x.double(), x.double(), 8)
+    d2, idx = kknn.knn(x[:, :5], x[:, :5], 8)  # k > N: the last repeats
+    assert idx.shape == (1, 5, 8) and torch.equal(idx[..., 5:],
+                                                  idx[..., 4:5].expand(
+                                                      1, 5, 3))
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+def test_edge_f1_eval_out_match_plain(card, name):
+    """The EdgeConv kernels that take a given index (the kNN's): pass 1's
+    bf16 h bit-identical and Σ/Σ² within 1e-3 of the largest; eval and
+    pass 2 within 1e-5 of the largest plain element."""
+    kfe, a = _edge_inputs(card, name, seed=3)
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    idx = kknn.knn(a["x"], a["x"], a["k"])[1]
+    before = kfe.edge_f1.launches, kfe.edge_eval.launches
+    h, psum = kfe.edge_f1(a["q"], a["off"], idx)
+    got = kfe.edge_eval(a["q"], a["off"], idx, a["st"])
+    torch.cuda.synchronize()
+    assert (kfe.edge_f1.launches, kfe.edge_eval.launches) == (
+        before[0] + 1, before[1] + 1)
+    wh, wpsum = kfe.edge_f1_plain(a["q"], a["off"], idx)
+    assert torch.equal(h.view(torch.int16), wh.view(torch.int16))
+    _close_sums(psum, wpsum, "psum")
+    want = kfe.edge_eval_plain(a["q"], a["off"], idx, a["st"])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    # the kNN-inside kernels give the same from the same neighbours
+    torch.testing.assert_close(got, kfe.edge_knn_eval(
+        a["x"], a["q"], a["off"], a["st"], a["k"]), rtol=0,
+        atol=1e-5 * want.abs().max().item())
+
+
+def test_given_index_edge_kernels_reject_what_they_cannot_run(card):
+    kfe, a = _edge_inputs(card, "k8_n128")
+    idx = torch.zeros((2, 128, 8), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="width C=6"):
+        kfe.edge_f1(a["q"][..., :6], a["off"][..., :6], idx)
+    with pytest.raises(ValueError, match="int32"):
+        kfe.edge_eval(a["q"], a["off"], idx.long(), a["st"])
+    with pytest.raises(ValueError, match="shared memory"):
+        kfe.edge_eval(a["q"], a["off"], torch.zeros(
+            (2, 128, 1000), dtype=torch.int32, device=card), a["st"])
+
+
+@pytest.mark.parametrize("n", [100, 1000])
+def test_dgcnn_knn_route_card_matches_cpu(card, n):
+    """DGCNN in eval mode at N % 128 ≠ 0 on the card (4 launches of the
+    kNN and of ``edge_eval``, none of the kNN-inside kernels) and on the
+    CPU: probabilities within 5e-3. (The Predictor pads these N to a
+    bucket of a multiple of 128; it takes this route above 4096.)"""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    variables = random_jax_variables(get_cls_model("dgcnn"), seed=3)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((6, n, 3)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    counted = (kknn.knn, kfe.edge_eval, kfe.edge_knn_eval)
+    probs = []
+    for dev in (card, torch.device("cpu")):
+        model = get_cls_model("dgcnn")
+        from_jax_variables(model, variables)
+        model = model.to(dev).eval()
+        before = [f.launches for f in counted]
+        with torch.no_grad():
+            probs.append(torch.softmax(model(torch.from_numpy(x).to(dev)),
+                                       -1).cpu().numpy())
+        if dev == card:
+            assert [f.launches - b for f, b in zip(counted, before)] == [
+                4, 4, 0]
+    assert np.abs(probs[0] - probs[1]).max() <= 5e-3
+
+
+def test_dgcnn_predictor_above_4096_card_matches_cpu(card):
+    """2 clouds of 4,200 points keep N (no padding, no sort) and take the
+    kNN and ``edge_eval`` on the card: 4 launches each; probabilities
+    within 5e-3 of the CPU's."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    variables = random_jax_variables(get_cls_model("dgcnn"), seed=4)
+    rng = np.random.default_rng(4200)
+    x = rng.standard_normal((2, 4200, 3)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    before = kknn.knn.launches, kfe.edge_eval.launches
+    got = Predictor.from_variables("dgcnn", variables,
+                                   batch_size=2).predict_proba(x)
+    assert (kknn.knn.launches, kfe.edge_eval.launches) == (
+        before[0] + 4, before[1] + 4)
+    want = Predictor.from_variables("dgcnn", variables, batch_size=2,
+                                    device="cpu").predict_proba(x)
+    assert np.abs(got - want).max() <= 5e-3, np.abs(got - want).max()
+
+
+def test_dgcnn_knn_route_train_step_card_matches_cpu(card):
+    """One train-mode forward and backward of DGCNN on 8 synthetic clouds
+    at N=1000 (the kNN, ``edge_f1``, ``edge_out``, ``edge_bwd``), card
+    against CPU under ``tools/grad_check.py``'s bounds."""
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        grad_agreement,
+        synthetic_batch,
+    )
+
+    variables = random_jax_variables(get_cls_model("dgcnn"), seed=5)
+    got = grad_agreement("dgcnn", variables,
+                         synthetic_batch("dgcnn", 8, 11, 1000), card)
+    agree = got["agree"]
+    print("dgcnn N=1000 card against CPU: least cosine",
+          min(agree.items(), key=lambda kv: kv[1][0]),
+          "largest norm deviation",
+          max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)))
     assert not got["failures"], got["failures"]
     assert set(got["not_compared"]) == {"fc2.dense.bias"}, got["not_compared"]

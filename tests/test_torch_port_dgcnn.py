@@ -335,13 +335,17 @@ def test_fused_layer_matches_the_edge_features_layer():
 
 def test_entry_points_need_a_card_and_a_multiple_of_128():
     """Without a card the steps and the Predictor raise unless the caller
-    passes ``device="cpu"``; an N that is not a multiple of 128 raises
-    (the separate-kNN route is not ported)."""
+    passes ``device="cpu"``. An N that is not a multiple of 128 takes the
+    standalone kNN and the EdgeConv kernels that take its index, in eval
+    and in training (``tests/test_torch_port_knn_route.py`` holds that
+    route against JAX)."""
     model = DGCNN()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_cls_train_step(model, sgd_momentum(model.parameters(), LR))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Predictor(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.eval()(torch.zeros((1, 100, 3)))
+    x = torch.from_numpy(_batch(2)["xyz"][:2, :100])
+    for training in (False, True):
+        logits = model.train(training)(x)
+        assert logits.shape == (2, 40) and torch.isfinite(logits).all()

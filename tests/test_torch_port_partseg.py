@@ -386,7 +386,11 @@ def test_synthetic_shapenet_part_matches_jax(train):
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     """Without a card the seg steps and the SegPredictor raise unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"``. On the CPU a request of 4,096 points
+    is Hilbert-sorted and its probabilities come back in the caller's
+    point order: a permuted request gives the permuted probabilities,
+    with a stand-in model whose output depends on the point order (a
+    running mean), so that a missing sort or un-sort shows."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     model = get_seg_model("pointnet2")
@@ -396,6 +400,19 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         make_seg_eval_step(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SegPredictor(model)
-    with pytest.raises(NotImplementedError, match="4096"):
-        SegPredictor(model, device="cpu").predict(
-            np.zeros((1, 3000, 3), np.float32), np.zeros(1, np.int64))
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((6, 50)).astype(np.float32))
+
+    class OrderDependent(torch.nn.Module):
+        def forward(self, xyz, onehot, feats):
+            steps = torch.arange(1, xyz.shape[1] + 1)[:, None]
+            return torch.cat([feats, xyz.cumsum(1) / steps], -1) @ w
+
+    x = rng.standard_normal((1, 4096, 3)).astype(np.float32)
+    perm = rng.permutation(4096)
+    pred = SegPredictor(OrderDependent(), with_xyz_feats=True, device="cpu")
+    probs = pred.predict_proba(x, np.zeros(1, np.int64))
+    assert probs.shape == (1, 4096, 50)
+    np.testing.assert_array_equal(
+        pred.predict_proba(x[:, perm], np.zeros(1, np.int64)),
+        probs[:, perm])

@@ -49,16 +49,39 @@ def test_predictor_matches_jax(monkeypatch):
 
 
 def test_predictor_requests():
-    assert [_bucket(n) for n in (100, 128, 129, 5000)] == [128, 128, 256,
-                                                           5000]
-    pp = Predictor(get_cls_model("pointnet2"), with_normals=True,
-                   batch_size=2, device="cpu")
+    """Buckets up to 4096, then N itself; a cloud of 3,000 points pads to
+    the 4096 bucket and is Hilbert-sorted there (as the JAX Predictor
+    sorts, ``inference.py:111-118``): the probabilities are the model's
+    on the padded cloud in the JAX package's sorted order."""
+    from pointcloudlib_tpu.ops.spatial import canonicalize as jax_canon
+
+    from pointcloudlib_tpu_torch.inference import _pad_points
+
+    assert [_bucket(n) for n in (100, 128, 129, 3000, 4096, 4200, 10000)
+            ] == [128, 128, 256, 4096, 4096, 4200, 10000]
+    variables = random_jax_variables(get_cls_model("pointnet2"), seed=2)
+    pp = Predictor.from_variables("pointnet2", variables, batch_size=2,
+                                  device="cpu")
+    model = pp.model
     clouds, normals = _request(1, 1, 100)
     with pytest.raises(ValueError, match="normals"):
         pp.predict_proba(clouds)
     big, big_n = _request(1, 1, 3000)
-    with pytest.raises(NotImplementedError, match="4096"):
-        pp.predict_proba(big, big_n)
+    got = pp.predict_proba(big, big_n)
+    xyz, nrm = _pad_points([big, big_n], 3000)
+    assert xyz.shape == (1, 4096, 3)
+    sx, sn, _ = map(np.array, jax_canon(xyz, nrm))
+    assert not np.array_equal(sx, xyz)
+
+    def pair(a):  # the served batch: the last row repeated up to 2
+        return torch.from_numpy(np.concatenate([a, a]))
+
+    with torch.no_grad():
+        logits = model(pair(sx), pair(sn))[:1]
+        unsorted = model(pair(xyz), pair(nrm))[:1]
+    np.testing.assert_array_equal(got, torch.softmax(logits, -1).numpy())
+    # the order reaches the output: FPS seeds from the first point
+    assert (unsorted - logits).abs().max() > 1e-3 * logits.abs().max()
 
 
 def test_no_cpu_fallback(monkeypatch):
