@@ -8,7 +8,7 @@ once:
 
 1. device — the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
-2. build — the eighteen kernel sources of ``pointcloudlib_tpu_torch/csrc``
+2. build — the twenty-three kernel sources of ``pointcloudlib_tpu_torch/csrc``
    compiled (one ``nvcc`` per source, started together), with seconds and
    the ``-Xptxas -v`` registers, shared memory and spills of each kernel;
 3. kernels — the SSG serving kernels against their plain PyTorch versions
@@ -130,12 +130,39 @@ once:
    10,000 points: 4 of ``knn`` and ``edge_eval`` a batch; DGCNN's train
    step at N=1,000: 4 of ``knn``, ``edge_f1``, ``edge_out`` and
    ``edge_bwd`` a step; card against CPU as in phases 6 and 7;
-17. N=4096 checks, untimed — MSG, part segmentation (ids back in the
-   caller's point order) and DGCNN (kNN inside the kernels) on 2 clouds:
-   exact launch counts, probabilities within 5e-3 of the CPU's.
+17. DGCNN part-segmentation kernels — DGCNN part segmentation at full
+   width (B=16, N=2048, k=40, xyz only, 16 synthetic ShapeNet-part clouds,
+   seeded random weights): both two-layer EdgeConv pairs' inputs (C_in 3
+   and 64), from a served batch and from a train step, into the six
+   two-layer kernels and pass 1 against their plain versions:
+   ``edge2_knn_eval`` and ``edge2_out`` within 1e-5·max|plain| (the
+   neighbour lists and y1 are bit-identical, h2 sums in another order),
+   pass 1's idx and h bit-identical, ``edge2_stats2``'s Σ/Σ² and
+   ``edge2_p1``'s ps2, vecs and mats within 1e-3·max|plain|, ``edge2_p2``'s
+   dq and doff tie-robust; EC3's four EdgeConv kernels at k=40 as in phase
+   11; edge cases: duplicate points, and the route at N % 128 ≠ 0 (N=1,000:
+   the kNN, ``edge2_eval`` timed, ``edge_f1`` and the train kernels);
+18. DGCNN part-segmentation serving — ``SegPredictor(batch_size=16)`` on
+   64 clouds at N=2048, three requests: per served batch exactly 2
+   launches of ``edge2_knn_eval`` and 1 of ``edge_knn_eval``; 4 clouds on
+   the card against the CPU (probabilities within 5e-3, ids equal where
+   the top two differ by more than 1e-2); then, untimed, 2 clouds of
+   5,000 points (kept N, the kNN route): exactly 3 launches of ``knn``, 2
+   of ``edge2_eval`` and 1 of ``edge_eval``, card against CPU;
+19. DGCNN part-segmentation train — ``make_seg_train_step`` at B=16,
+   N=2048 with SGD (momentum 0.9, lr 0.01): 2 warm-up and 10 timed steps,
+   per step exactly 3 launches of ``edge_knn_f1``, 2 of ``edge2_stats2``,
+   ``edge2_out``, ``edge2_p1`` and ``edge2_p2``, 1 of ``edge_out`` and
+   ``edge_bwd``; the card-vs-CPU gradient check on 8 clouds; then B=4 at
+   N=1,000 (the kNN, ``edge_f1`` and the same train kernels), with its
+   launch counts;
+20. N=4096 checks, untimed — MSG, PointNet++ and DGCNN part segmentation
+   (Hilbert-sorted, ids back in the caller's point order) and DGCNN (kNN
+   inside the kernels) on 2 clouds: exact launch counts, probabilities
+   within 5e-3 of the CPU's.
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
-entry per TPU kernel replaced (twenty-three; the three forward tails
+entry per TPU kernel replaced (twenty-nine; the three forward tails
 share one source and one wrapper, counted per stage; the given-index
 ``sa_f1``, ``fused_sa_eval`` and ``sa_bwd_p2`` have a second entry each
 for the windowed function they stand for at N ≥ 4096, with the N=4096
@@ -162,6 +189,7 @@ from pointcloudlib_tpu_torch.data.synthetic import (
 )
 from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
 from pointcloudlib_tpu_torch.models import get_cls_model
+from pointcloudlib_tpu_torch.models.dgcnn import Fused2EdgeConv
 from pointcloudlib_tpu_torch.ops import geometry, spatial
 from pointcloudlib_tpu_torch.ops.kernels import _build
 from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
@@ -214,6 +242,11 @@ BIG_CLOUDS, BIG_SHORT = 128, 3000  # 96 clouds at 4096, 32 padded up to it
 ODD_SERVE_POINTS, ODD_SERVE_CLOUDS = 10000, 64  # ModelNet40's resampling
 ODD_TRAIN_POINTS = 1000            # N % 128 != 0: the standalone kNN
 PLAIN_CLOUDS = 8                   # clouds a plain call takes at N=10,000
+PN2_SEG, DSEG = "pointnet2_partseg", "dgcnn_partseg"  # grad_check's names
+DSEG_CHECK = 4                     # DGCNN part-seg clouds served on the CPU too
+DSEG_ODD_POINTS, DSEG_ODD_CLOUDS = 5000, 2  # above 4096, N % 128 != 0
+DSEG_ODD_TRAIN, DSEG_ODD_BATCH = 1000, 4    # the kNN route in training
+SLOPE = 0.2                        # LeakyReLU of the DGCNN models
 CSRC = "pointcloudlib_tpu_torch/csrc/"
 SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
            "three_interp", "scatter_rows", "knn") + kft.SOURCES + kfe.SOURCES
@@ -411,7 +444,10 @@ COUNTED = {"fps": kfps.fps, "ball_query": kbq.ball_query,
            "scatter_rows": kga.scatter_rows,
            "edge_knn_eval": kfe.edge_knn_eval, "edge_knn_f1": kfe.edge_knn_f1,
            "edge_out": kfe.edge_out, "edge_bwd": kfe.edge_bwd,
-           "knn": kknn.knn, "edge_f1": kfe.edge_f1, "edge_eval": kfe.edge_eval}
+           "knn": kknn.knn, "edge_f1": kfe.edge_f1, "edge_eval": kfe.edge_eval,
+           "edge2_stats2": kfe.edge2_stats2, "edge2_out": kfe.edge2_out,
+           "edge2_p1": kfe.edge2_p1, "edge2_p2": kfe.edge2_p2,
+           "edge2_eval": kfe.edge2_eval, "edge2_knn_eval": kfe.edge2_knn_eval}
 # launches per served batch and per train step; a kernel not named: none
 SSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 2}
 MSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 4, "ball_query": 2,
@@ -432,6 +468,14 @@ BIG_STEP = {"fps": 2, "ball_query": 1, "sa_f1": 1, "bq_f1": 1, "sa_tail": 6,
 # N % 128 != 0: DGCNN's standalone kNN and the given-index EdgeConv
 ODD_SERVE = {"knn": 4, "edge_eval": 4}
 ODD_STEP = {"knn": 4, "edge_f1": 4, "edge_out": 4, "edge_bwd": 4}
+# DGCNN part segmentation: two pairs of two-layer EdgeConvs, then one
+# EdgeConv; at N % 128 != 0 the standalone kNN and the given-index kernels
+DSEG_SERVE = {"edge2_knn_eval": 2, "edge_knn_eval": 1}
+DSEG_STEP = {"edge_knn_f1": 3, "edge2_stats2": 2, "edge2_out": 2,
+             "edge2_p1": 2, "edge2_p2": 2, "edge_out": 1, "edge_bwd": 1}
+DSEG_ODD_SERVE = {"knn": 3, "edge2_eval": 2, "edge_eval": 1}
+DSEG_ODD_STEP = {"knn": 3, "edge_f1": 3, "edge2_stats2": 2, "edge2_out": 2,
+                 "edge2_p1": 2, "edge2_p2": 2, "edge_out": 1, "edge_bwd": 1}
 
 
 def _zero_counts() -> None:
@@ -880,19 +924,20 @@ def phase_msg_kernels(model, xyz, nrm):
 
 
 def phase_train(name, variables, power, batch_size, per_step,
-                n_points=None):
+                n_points=None, grad_check=True):
     """``name`` trains at ``batch_size``: a classification model on
     ModelNet40-shaped clouds at N=1024 (or ``n_points``) with the
-    reference's flat lr, or :data:`SEG` on ShapeNet-part-shaped clouds at
-    N=2048 with lr 0.01."""
+    reference's flat lr, or a part-segmentation model (:data:`SEG`) on
+    ShapeNet-part-shaped clouds at N=2048 with lr 0.01; with
+    ``grad_check`` the card-vs-CPU gradient check follows."""
     tag = name if n_points is None else f"{name} N={n_points}"
     if n_points is None:
-        n_points = SEG_POINTS if name == SEG else N_POINTS
+        n_points = SEG_POINTS if name in SEG else N_POINTS
     batch = {k: v.to(DEV) for k, v in synthetic_batch(
         name, batch_size, 5, n_points).items()}
     model = build_model(name)
     from_jax_variables(model, variables)
-    if name == SEG:
+    if name in SEG:
         lr, make = SEG_LR, make_seg_train_step
     elif name == "dgcnn":
         lr, make = DGCNN_LR, make_cls_train_step
@@ -922,22 +967,27 @@ def phase_train(name, variables, power, batch_size, per_step,
     still = [k for k, v in before.items() if v.dtype.is_floating_point
              and torch.equal(v, after[k])]
     # gradients that are exactly 0 (a train-mode BN removes the shift)
-    # may leave a parameter where it was: SA3's last BN bias and the
-    # Dense bias of a DenseBNAct (the part-segmentation head, DGCNN's fc2)
-    if [k for k in still if k not in ("sa3.mlp.2.bn.bias",
-                                      "head.dense.bias", "fc2.dense.bias")]:
+    # may leave a parameter where it was: SA3's last BN bias, the Dense
+    # bias of a DenseBNAct (the part-segmentation head, DGCNN's fc2) and
+    # DGCNN part segmentation's conv6 BN bias
+    if [k for k in still if k not in ("sa3.mlp.2.bn.bias", "head.dense.bias",
+                                      "fc2.dense.bias", "conv6.bn.bias")]:
         fail(f"train steps left these unchanged: {still}")
+    rec = {"samples_per_s": batch_size * TRAIN_STEPS / secs,
+           "step_ms": 1e3 * secs / TRAIN_STEPS, "batch": batch_size,
+           "n_points": n_points, "steps": TRAIN_STEPS, "lr": lr,
+           "card": power, "launches": launches, "peak_device_bytes": peak,
+           "losses": losses, "unchanged": still}
+    if not grad_check:
+        emit(f"train {tag}", rec)
+        return launches
 
     check = grad_agreement(name, variables,
                            {k: v[:CHECK_CLOUDS] for k, v in batch.items()},
                            DEV)
     agree = check["agree"]
     emit(f"train {tag}", {
-        "samples_per_s": batch_size * TRAIN_STEPS / secs,
-        "step_ms": 1e3 * secs / TRAIN_STEPS, "batch": batch_size,
-        "n_points": n_points, "steps": TRAIN_STEPS, "lr": lr, "card": power,
-        "launches": launches, "peak_device_bytes": peak, "losses": losses,
-        "check_clouds": CHECK_CLOUDS, "loss_card": check["loss"],
+        **rec, "check_clouds": CHECK_CLOUDS, "loss_card": check["loss"],
         "loss_cpu": check["loss_cpu"],
         "worst_grad_cos": min(agree.items(), key=lambda kv: kv[1][0]),
         "worst_grad_norm_ratio": max(agree.items(),
@@ -1106,9 +1156,15 @@ def phase_seg_kernels(model, xyz):
     return recs
 
 
-def phase_seg_serving(variables, power):
+def phase_seg_serving(name, variables, power, per_batch, check):
+    """``SegPredictor(batch_size=16)`` for part-segmentation model
+    ``name`` (:data:`SEG`) on 64 clouds, three requests: exactly
+    ``per_batch`` launches a served batch, the same ids each time; then
+    ``check`` clouds on the card and on the CPU: probabilities within
+    5e-3 and part ids equal wherever the top two probabilities differ by
+    more than 1e-2."""
     clouds, labels, _ = _seg_data(SEG_CLOUDS)
-    pred = SegPredictor.from_variables("pointnet2", variables,
+    pred = SegPredictor.from_variables(SEG[name], variables,
                                        batch_size=SEG_BATCH)
     pred.predict(clouds[:SEG_BATCH], labels[:SEG_BATCH])  # warm-up
 
@@ -1121,7 +1177,7 @@ def phase_seg_serving(variables, power):
         outs.append(pred.predict(clouds, labels))
         secs.append(time.perf_counter() - t0)
     batches = REPEATS * (SEG_CLOUDS // SEG_BATCH)
-    launches = _read_counts("partseg serving", SEG_SERVE, batches)
+    launches = _read_counts(f"{name} serving", per_batch, batches)
     peak = torch.cuda.max_memory_allocated()
 
     ids = outs[0]
@@ -1130,34 +1186,45 @@ def phase_seg_serving(variables, power):
         fail(f"part ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
     if any(not np.array_equal(o, ids) for o in outs[1:]):
         fail("repeated requests gave different part ids")
-    probs = pred.predict_proba(clouds[:2], labels[:2])
-    if (probs.shape != (2, SEG_POINTS, 50) or not np.isfinite(probs).all()
-            or np.abs(probs.sum(-1) - 1.0).max() > 1e-4):
-        fail(f"probabilities not finite rows summing to 1: {probs.shape}")
-    if not np.array_equal(probs.argmax(-1), ids[:2]):
-        fail("predict and predict_proba disagree")
-    cpu = SegPredictor.from_variables("pointnet2", variables, batch_size=2,
-                                      device="cpu")
-    ref = cpu.predict_proba(clouds[:2], labels[:2])
-    diff = float(np.abs(ref - probs).max())
-    if diff > PROB_ATOL:
-        fail(f"partseg: card vs CPU probabilities differ by {diff} > "
-             f"{PROB_ATOL}")
-    top2 = np.sort(ref, -1)[..., -2:]
-    clear = top2[..., 1] - top2[..., 0] > 1e-2
-    if not np.array_equal(ref.argmax(-1)[clear], probs.argmax(-1)[clear]):
-        fail("partseg: card and CPU part ids differ where the top two "
-             "probabilities are more than 1e-2 apart")
+    probs = pred.predict_proba(clouds[:check], labels[:check])
+    if not np.array_equal(probs.argmax(-1), ids[:check]):
+        fail(f"{name}: predict and predict_proba disagree")
+    rec = _seg_against_cpu(name, variables, clouds[:check], labels[:check],
+                           probs)
     rates = [SEG_CLOUDS / x for x in secs]
-    emit("serving pointnet2_partseg", {
+    emit(f"serving {name}", {
         "clouds_per_s": rates, "median_clouds_per_s": float(np.median(rates)),
         "batch": SEG_BATCH, "n_points": SEG_POINTS, "clouds": SEG_CLOUDS,
         "card": power, "launches": launches, "served_batches": batches,
-        "peak_device_bytes": peak, "max_abs_prob_diff_vs_cpu": diff,
-        "ids_agree_vs_cpu": float((ref.argmax(-1)
-                                   == probs.argmax(-1)).mean()),
-        "clear_points": int(clear.sum())})
+        "peak_device_bytes": peak, **rec})
     return launches
+
+
+def _seg_against_cpu(name, variables, clouds, labels, probs):
+    """Fails unless ``probs`` (from the card) are finite rows summing to 1
+    within 5e-3 of the CPU SegPredictor's for the same clouds, with the
+    same part ids wherever the CPU's top two differ by more than 1e-2."""
+    rows = (len(clouds), clouds.shape[1], 50)
+    if (probs.shape != rows or not np.isfinite(probs).all()
+            or np.abs(probs.sum(-1) - 1.0).max() > 1e-4):
+        fail(f"{name}: probabilities not finite rows summing to 1 of shape "
+             f"{rows}: {probs.shape}")
+    cpu = SegPredictor.from_variables(SEG[name], variables,
+                                      batch_size=len(clouds), device="cpu")
+    ref = cpu.predict_proba(clouds, labels)
+    diff = float(np.abs(ref - probs).max())
+    if diff > PROB_ATOL:
+        fail(f"{name} N={clouds.shape[1]}: card vs CPU probabilities differ "
+             f"by {diff} > {PROB_ATOL}")
+    top2 = np.sort(ref, -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 1e-2
+    if not np.array_equal(ref.argmax(-1)[clear], probs.argmax(-1)[clear]):
+        fail(f"{name} N={clouds.shape[1]}: card and CPU part ids differ "
+             f"where the top two probabilities are more than 1e-2 apart")
+    return {"check_clouds": len(clouds), "max_abs_prob_diff_vs_cpu": diff,
+            "ids_agree_vs_cpu": float((ref.argmax(-1)
+                                       == probs.argmax(-1)).mean()),
+            "clear_points": int(clear.sum())}
 
 
 # ------------------------------------------------------------- DGCNN
@@ -1436,11 +1503,12 @@ def phase_large_serving(tag, name, variables, requests, power, per_batch,
     return launches
 
 
-def phase_big_checks(msg_vars, seg_vars, dg_vars):
+def phase_big_checks(msg_vars, seg_vars, dg_vars, dseg_vars):
     """Untimed, at N=4096 on 2 clouds: PointNet++ MSG (every MSG1 scale
-    from the ball query's idx), part segmentation (its ids back in the
-    caller's point order) and DGCNN (the kNN built inside the kernels),
-    each with exact launch counts and card against CPU within 5e-3."""
+    from the ball query's idx), PointNet++ and DGCNN part segmentation
+    (Hilbert-sorted, their ids back in the caller's point order) and DGCNN
+    (the kNN built inside the kernels), each with exact launch counts and
+    card against CPU within 5e-3."""
     clouds, normals, _ = SyntheticModelNet(
         n_points=BIG_POINTS, size=2, seed=7).batch(0, 2)
     out = {}
@@ -1466,22 +1534,17 @@ def phase_big_checks(msg_vars, seg_vars, dg_vars):
 
     xyz, labels, _ = SyntheticShapeNetPart(
         n_points=BIG_POINTS, size=2, seed=7).batch(0, 2)
-    probs = []
-    for dev in ("cuda", "cpu"):
-        pred = SegPredictor.from_variables("pointnet2", seg_vars,
-                                           batch_size=2, device=dev)
+    for name, variables, per in (
+            (PN2_SEG, seg_vars, {"fps": 2, "ball_query": 1,
+                                 "fused_sa_eval": 1, "fused_sa_bq_eval": 1,
+                                 "three_interp": 2}),
+            (DSEG, dseg_vars, DSEG_SERVE)):
+        pred = SegPredictor.from_variables(SEG[name], variables,
+                                           batch_size=2)
         _zero_counts()
-        probs.append(pred.predict_proba(xyz, labels))
-        if dev == "cuda":
-            out["pointnet2_partseg"] = {"launches": _read_counts(
-                "partseg N=4096", {"fps": 2, "ball_query": 1,
-                                   "fused_sa_eval": 1, "fused_sa_bq_eval": 1,
-                                   "three_interp": 2}, 1)}
-    diff = float(np.abs(probs[0] - probs[1]).max())
-    if probs[0].shape != (2, BIG_POINTS, 50) or diff > PROB_ATOL:
-        fail(f"partseg N=4096: shape {probs[0].shape}, card vs CPU "
-             f"probabilities differ by {diff}")
-    out["pointnet2_partseg"]["max_abs_prob_diff_vs_cpu"] = diff
+        probs = pred.predict_proba(xyz, labels)
+        out[name] = {"launches": _read_counts(f"{name} N=4096", per, 1),
+                     **_seg_against_cpu(name, variables, xyz, labels, probs)}
     emit("checks N=4096", out)
 
 
@@ -1637,6 +1700,232 @@ def phase_odd_kernels(model, x_serve, x_train):
     return recs
 
 
+# ------------------------------------------- DGCNN part segmentation
+
+
+def _pair_params(layer):
+    return (layer.w2, layer.bn1_scale, layer.bn1_bias, layer.bn2_scale,
+            layer.bn2_bias)
+
+
+def _dseg_layers(model, xyz):
+    """``(name, layer, x_serving, x_train)`` of DGCNN part segmentation's
+    three EdgeConvs (the two pairs, then EC3) on the main path's data:
+    each layer's input in a served batch (the eval chain, running
+    statistics) and in a train step (batch statistics), on the route the
+    model takes at this N."""
+    out, xe, xt = [], xyz, xyz
+    with torch.no_grad():
+        for name, layer in (("pair1", model.edge1), ("pair2", model.edge2),
+                            ("EC3", model.edge3)):
+            out.append((name, layer, xe, xt))
+            if not isinstance(layer, Fused2EdgeConv):
+                break
+            xe = layer(xe)  # the model is in eval mode
+            q, off = layer.prepare(xt)
+            if xt.shape[1] % 128:
+                xt = kfe.fused_edge2_conv(q, off, kknn.knn(xt, xt, layer.k)[1],
+                                          *_pair_params(layer))[0]
+            else:
+                xt = kfe.fused_edge2_conv_knn(xt, q, off, *_pair_params(layer),
+                                              layer.k)[0]
+    return out
+
+
+def _edge2_case(name, layer, xe, xt, g, timed):
+    """The kernels of one two-layer EdgeConv against their plain versions,
+    on the route the model takes at this N: ``edge2_knn_eval`` on the
+    serving input, or at N % 128 ≠ 0 the kNN kernel's index into
+    ``edge2_eval``; pass 1 on the train input (``edge_knn_f1`` or
+    ``edge_f1``: idx and h bit-identical), then ``edge2_stats2``,
+    ``edge2_out``, ``edge2_p1`` and ``edge2_p2`` from pass 1's plain
+    results. Bounds: the eval kernels and ``edge2_out`` within
+    1e-5·max|plain| (y1 is bit-identical, h2 sums in another order), every
+    Σ, ``ps2``, ``vecs`` and ``mats`` within 1e-3·max|plain|, ``dq`` and
+    ``doff`` tie-robust. Returns ``{kernel: [records]}``."""
+    k = layer.k
+    c1, c2 = layer.w2.shape
+    w2 = layer.w2
+    recs = {}
+
+    def record(kernel, rec, fn, plain, ops_bf16, ops_f32, nbytes):
+        if timed:
+            rec["ms"] = time_ms(fn, 10)
+            rec["plain_ms"] = time_ms(plain, 2, 1)
+            rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
+                ops_bf16, ops_f32, nbytes)
+        emit(f"kernel {kernel}", rec)
+        recs.setdefault(kernel, []).append(rec)
+
+    wbytes = 2.0 * c1 * c2 + 32.0 * (c1 + c2)  # W2 (bf16), the folded rows
+    with torch.no_grad():
+        b, n, cin = xe.shape
+        e = float(b * n * k)
+        # the chain: gather, BN1, LeakyReLU (4 an element of y1), the
+        # product (bf16 operands), BN2, LeakyReLU and the max (4 an
+        # element of y2)
+        prod, elem = 2.0 * c1 * c2 * e, (4.0 * c1 + 4.0 * c2) * e
+        io = 6.0 * b * n * c1 + 4.0 * b * n * c2 + wbytes
+        q, off = layer.prepare(xe)
+        st1, st2 = kfe._folded2(*_pair_params(layer)[1:], layer.stats())
+        rec = {"case": f"{name} N={n}", "B": b, "N": n, "k": k, "C_in": cin,
+               "C1": c1, "C2": c2}
+        if n % 128:
+            ev = (q.bfloat16(), off, kknn.knn(xe, xe, k)[1], st1, st2, w2)
+            kernel, fn, plain = ("edge2_eval", kfe.edge2_eval,
+                                 kfe.edge2_eval_plain)
+            io += 4.0 * e
+        else:
+            ev = (xe, q.bfloat16(), off, st1, st2, w2, k)
+            kernel, fn, plain = ("edge2_knn_eval", kfe.edge2_knn_eval,
+                                 kfe.edge2_knn_eval_plain)
+            elem += float(b * n * n) * (2 * cin + 3)  # d² of every pair
+            io += 4.0 * b * n * cin
+        err = _check_sums(f"{kernel} {name}", fn(*ev), plain(*ev), EDGE_TOL)
+        record(kernel, {**rec, **_errs([err])}, lambda: fn(*ev),
+               lambda: plain(*ev), prod, elem, io)
+
+        b, n, cin = xt.shape
+        e = float(b * n * k)
+        shape = {"B": b, "N": n, "k": k, "C_in": cin, "C1": c1, "C2": c2}
+        q, off = layer.prepare(xt)
+        qb = q.bfloat16()
+        if n % 128:
+            f1 = (qb, off, kknn.knn(xt, xt, k)[1])
+            h, psum = kfe.edge_f1(*f1)
+            (wh, wpsum), widx = kfe.edge_f1_plain(*f1), f1[2]
+            kernel, fn, plain, ops = ("edge_f1", kfe.edge_f1,
+                                      kfe.edge_f1_plain, 0.0)
+            same_idx = True
+        else:
+            f1 = (xt, qb, off, k)
+            idx, h, psum = kfe.edge_knn_f1(*f1)
+            widx, wh, wpsum = kfe.edge_knn_f1_plain(*f1)
+            kernel, fn, plain = ("edge_knn_f1", kfe.edge_knn_f1,
+                                 kfe.edge_knn_f1_plain)
+            ops = float(b * n * n) * (2 * cin + 3)
+            same_idx = torch.equal(idx, widx)
+        torch.cuda.synchronize()
+        if not same_idx or not torch.equal(h.view(torch.int16),
+                                           wh.view(torch.int16)):
+            fail(f"{kernel} {name}: idx or h not bit-identical to the plain "
+                 f"version")
+        del h
+        # h, its sum and its square: 4 operations an edge element
+        record(kernel, {"case": f"{name} N={n}", **shape,
+                        "idx_h_bit_identical": True,
+                        **_errs([_check_sums(f"{kernel} {name}", psum,
+                                             wpsum)])},
+               lambda: fn(*f1), lambda: plain(*f1), 0.0,
+               ops + 4.0 * e * c1,
+               (4.0 * b * n * cin if ops else 0.0) + 6.0 * b * n * c1
+               + 4.0 * e + 2.0 * e * c1 + 8.0 * c1)
+        _edge2_train_cases(f"{name} N={n}", layer, wh, wpsum, widx, g, shape,
+                           record)
+    return recs
+
+
+def _edge2_train_cases(case, layer, h1, psum, idx, g, shape, record):
+    """``edge2_stats2``, ``edge2_out``, ``edge2_p1`` and ``edge2_p2``
+    against their plain versions from pass 1's plain ``h1``, sums and
+    neighbour index, each from the plain results of the pass before."""
+    b, m, k, c1 = h1.shape
+    c2 = layer.w2.shape[1]
+    w2 = layer.w2
+    r = e = float(b * m * k)
+    hb = 2.0 * e * c1 + 2.0 * c1 * c2 + 32.0 * (c1 + c2)  # h1, W2, rows
+    prod = 2.0 * c1 * c2 * e
+    st1 = kfs._stack_stats(*kft._moments(psum, r), layer.bn1_scale,
+                           layer.bn1_bias)
+    a = (h1, st1, w2)
+    want = kfe.edge2_stats2_plain(*a)
+    err = _check_sums(f"edge2_stats2 {case}", kfe.edge2_stats2(*a), want)
+    # BN1, LeakyReLU (3 an element of y1); the sum and square of h2
+    record("edge2_stats2", {"case": case, **shape, **_errs([err])},
+           lambda: kfe.edge2_stats2(*a), lambda: kfe.edge2_stats2_plain(*a),
+           prod, (3.0 * c1 + 3.0 * c2) * e, hb + 8.0 * c2)
+    st2 = kfs._stack_stats(*kft._moments(want, r), layer.bn2_scale,
+                           layer.bn2_bias)
+    a = (h1, st1, st2, w2)
+    err = _check_sums(f"edge2_out {case}", kfe.edge2_out(*a),
+                      kfe.edge2_out_plain(*a), EDGE_TOL)
+    # BN2, LeakyReLU and the max: 4 an element of y2
+    record("edge2_out", {"case": case, **shape, **_errs([err])},
+           lambda: kfe.edge2_out(*a), lambda: kfe.edge2_out_plain(*a), prod,
+           (3.0 * c1 + 4.0 * c2) * e, hb + 4.0 * b * m * c2)
+
+    dout = torch.randn((b, m, c2), generator=g, device=DEV)
+    a = (h1, dout, st1, st2, w2)
+    got, want = kfe.edge2_p1(*a), kfe.edge2_p1_plain(*a)
+    errs = [_check_sums(f"edge2_p1 {case} {w}", x, y)
+            for x, y, w in zip(got, want, ("ps2", "vecs", "mats"))]
+    # the chain, the tie split, dz2, x̂2, [y1‖m1‖m1·x̂1] and their sums:
+    # ~8 an element of y1 and ~12 of y2; the mats product (bf16)
+    record("edge2_p1", {"case": case, **shape, **_errs(errs)},
+           lambda: kfe.edge2_p1(*a), lambda: kfe.edge2_p1_plain(*a),
+           prod + 2.0 * e * (3 * c1) * (2 * c2), (8.0 * c1 + 12.0 * c2) * e,
+           hb + 4.0 * b * m * c2 + 4.0 * (2 * c2 + 3 * c1 + 6 * c1 * c2))
+    ps2, vecs, mats = want
+    _, s1 = kft._combine_p1(ps2, vecs, mats, st2, w2, r)
+    a = (h1, dout, idx, st1, st2, w2, ps2 / r, s1 / r, SLOPE, m)
+    got, want = kfe.edge2_p2(*a), kfe.edge2_p2_plain(*a)
+    errs = [_check_tie_robust(f"edge2_p2 {case} {w}", x, y)
+            for x, y, w in zip(got, want, ("dq", "doff"))]
+    # the chain and dz2 as in p1, dh2, the product dh2·W2ᵀ (bf16), dh1,
+    # doff's sums and dq's scatter: ~9 an element of y1, ~12 of y2
+    record("edge2_p2", {"case": case, **shape, **_errs(errs)},
+           lambda: kfe.edge2_p2(*a), lambda: kfe.edge2_p2_plain(*a),
+           2.0 * prod, (9.0 * c1 + 12.0 * c2) * e,
+           hb + 4.0 * b * m * c2 + 4.0 * e + 8.0 * b * m * c1
+           + 16.0 * (c1 + c2))
+
+
+def phase_dseg_kernels(model, xyz, x_odd):
+    """``{kernel: [records]}`` of DGCNN part segmentation's kernels at its
+    shapes (B=16, N=2048, k=40, xyz only): the two pairs' two-layer
+    kernels and pass 1, and EC3's four EdgeConv kernels
+    (:func:`_edge_case`), timed; the route at N % 128 ≠ 0 (N=1,000,
+    B=16: the kNN, ``edge2_eval``, ``edge_f1`` and the train kernels),
+    ``edge2_eval`` timed; duplicate points (exact kNN and max-pool ties),
+    untimed."""
+    g = torch.Generator(device=DEV).manual_seed(11)
+    recs = {}
+
+    def add(found):
+        for kernel, rs in found.items():
+            recs.setdefault(kernel, []).extend(rs)
+
+    for name, layer, xe, xt in _dseg_layers(model, xyz):
+        if isinstance(layer, Fused2EdgeConv):
+            add(_edge2_case(f"partseg {name}", layer, xe, xt, g, True))
+        else:
+            add({kernel: [rec] for kernel, rec in _edge_case(
+                f"partseg {name} k={layer.k}", layer, xe, xt, g,
+                True).items()})
+    dup = xyz[:4].clone()
+    dup[:, SEG_POINTS // 2:] = dup[:, :SEG_POINTS // 2]
+    _edge2_case("pair1 duplicate points", model.edge1, dup, dup, g, False)
+    for name, layer, xe, xt in _dseg_layers(model, x_odd)[:2]:
+        found = _edge2_case(f"partseg {name}", layer, xe, xt, g,
+                            name == "pair2")
+        recs.setdefault("edge2_eval", []).extend(found["edge2_eval"])
+    return recs
+
+
+def phase_seg_request(tag, name, variables, clouds, labels, per_batch):
+    """One untimed request of ``clouds`` to ``SegPredictor(batch_size=16)``
+    for model ``name``: exactly ``per_batch`` launches for its one served
+    batch, and the card against the CPU (:func:`_seg_against_cpu`)."""
+    pred = SegPredictor.from_variables(SEG[name], variables,
+                                       batch_size=SEG_BATCH)
+    _zero_counts()
+    probs = pred.predict_proba(clouds, labels)
+    launches = _read_counts(tag, per_batch, 1)
+    rec = _seg_against_cpu(name, variables, clouds, labels, probs)
+    return launches, {"launches": launches, "n_points": clouds.shape[1],
+                      **rec}
+
+
 # TPU kernel replaced: (entry name, source, file:line, key of its records
 # and of its launch count[, key of its launch count, prefix of the paths
 # counted]). The JAX package's windowed functions run only at N ≥ 4096;
@@ -1669,6 +1958,13 @@ KERNELS = (
     ("knn", "knn.cu", PALLAS + "neighbors.py:155", "knn"),
     ("edge_f1", "edge_f1.cu", FUSED_EDGE + ":72", "edge_f1"),
     ("edge_eval", "edge_eval.cu", FUSED_EDGE + ":111", "edge_eval"),
+    ("edge2_stats2", "edge2_tail.cu", FUSED_EDGE + ":574", "edge2_stats2"),
+    ("edge2_out", "edge2_tail.cu", FUSED_EDGE + ":595", "edge2_out"),
+    ("edge2_p1", "edge2_bwd_p1.cu", FUSED_EDGE + ":615", "edge2_p1"),
+    ("edge2_p2", "edge2_bwd_p2.cu", FUSED_EDGE + ":669", "edge2_p2"),
+    ("edge2_eval", "edge2_eval.cu", FUSED_EDGE + ":902", "edge2_eval"),
+    ("edge2_knn_eval", "edge2_knn_eval.cu", FUSED_EDGE + ":995",
+     "edge2_knn_eval"),
     ("sa_f1 for _k_f1w", "fused_sa_f1.cu", FUSED_SA + ":525", "sa_f1_4096",
      "sa_f1", "ssg4096"),
     ("fused_sa_eval for _k_evalw", "fused_sa_eval.cu", FUSED_SA + ":702",
@@ -1730,11 +2026,19 @@ def main() -> None:
                                  xyz[:MSG_BATCH], nrm[:MSG_BATCH])
     for kernel, rs in msg_recs.items():
         recs.setdefault(kernel, []).extend(rs)
-    seg_vars = random_jax_variables(build_model(SEG), seed=0)
+    seg_vars = random_jax_variables(build_model(PN2_SEG), seed=0)
     seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
-    seg_recs = phase_seg_kernels(_model_on_card(SEG, seg_vars), seg_xyz)
+    seg_recs = phase_seg_kernels(_model_on_card(PN2_SEG, seg_vars), seg_xyz)
     for kernel, rs in seg_recs.items():
         recs.setdefault(kernel, []).extend(rs)
+    dseg_vars = random_jax_variables(build_model(DSEG), seed=0)
+    x_odd = SyntheticShapeNetPart(n_points=DSEG_ODD_TRAIN, size=SEG_BATCH,
+                                  seed=3).batch(0, SEG_BATCH)[0]
+    for kernel, rs in phase_dseg_kernels(
+            _model_on_card(DSEG, dseg_vars), seg_xyz,
+            torch.from_numpy(x_odd).to(DEV)).items():
+        recs.setdefault(kernel, []).extend(rs)
+    torch.cuda.empty_cache()
     dg_vars = random_jax_variables(get_cls_model("dgcnn"), seed=0)
     dg_model = _model_on_card("dgcnn", dg_vars)
     recs.update(phase_dgcnn_kernels(dg_model, xyz[:DGCNN_BATCH]))
@@ -1776,8 +2080,9 @@ def main() -> None:
                                  SSG_STEP),
         "msg_train": phase_train("pointnet2_msg", msg_vars, power,
                                  MSG_BATCH, MSG_STEP),
-        "partseg_serving": phase_seg_serving(seg_vars, power),
-        "partseg_train": phase_train(SEG, seg_vars, power, SEG_BATCH,
+        "partseg_serving": phase_seg_serving(PN2_SEG, seg_vars, power,
+                                             SEG_SERVE, 2),
+        "partseg_train": phase_train(PN2_SEG, seg_vars, power, SEG_BATCH,
                                      SEG_STEP),
         "dgcnn_serving": phase_serving("dgcnn", dg_vars, (clouds, normals),
                                        power, DGCNN_BATCH, DGCNN_SERVE, {}),
@@ -1794,7 +2099,21 @@ def main() -> None:
         "dgcnn1000_train": phase_train("dgcnn", dg_vars, power, DGCNN_BATCH,
                                        ODD_STEP, ODD_TRAIN_POINTS),
     }
-    phase_big_checks(msg_vars, seg_vars, dg_vars)
+    odd, odd_labels, _ = SyntheticShapeNetPart(
+        n_points=DSEG_ODD_POINTS, size=DSEG_ODD_CLOUDS, seed=5).batch(
+        0, DSEG_ODD_CLOUDS)
+    paths["dgcnn_partseg_serving"] = phase_seg_serving(
+        DSEG, dseg_vars, power, DSEG_SERVE, DSEG_CHECK)
+    paths["dgcnn_partseg5000_serving"], rec = phase_seg_request(
+        f"{DSEG} N={DSEG_ODD_POINTS}", DSEG, dseg_vars, odd, odd_labels,
+        DSEG_ODD_SERVE)
+    emit(f"serving {DSEG} N={DSEG_ODD_POINTS}", rec)
+    paths["dgcnn_partseg_train"] = phase_train(DSEG, dseg_vars, power,
+                                               SEG_BATCH, DSEG_STEP)
+    paths["dgcnn_partseg1000_train"] = phase_train(
+        DSEG, dseg_vars, power, DSEG_ODD_BATCH, DSEG_ODD_STEP,
+        DSEG_ODD_TRAIN, grad_check=False)
+    phase_big_checks(msg_vars, seg_vars, dg_vars, dseg_vars)
 
     kernels = []
     for name, source, replaces, key, *counted in KERNELS:

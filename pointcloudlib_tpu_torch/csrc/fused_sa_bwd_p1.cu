@@ -18,16 +18,14 @@
 // The TPU kernel keeps mats in VMEM across its sequential grid; here
 // blocks run in parallel and a [3*C2, 2*C3] f32 accumulator does not fit
 // one block's registers (196,608 values at SA2), so the work is split in
-// two kernels of this source: (a) resident blocks walk 64-row tiles,
+// two kernels: (a) resident blocks walk 64-row tiles,
 // recompute the chain from h1 as the forward tails do, reduce the
 // per-center max and tie count in shared memory, accumulate ps3 and vecs
 // in registers and write left and right as bf16 rows to a scratch the
-// caller allocates; (b) a split-row product: each block owns a 64 x 128
-// tile of mats (the last row of tiles may be ragged: 3*96 = 288 rows)
-// for one range of rows, sums 32-row chunks staged in shared memory, and
-// adds its tile into mats (zeroed by the caller) with one atomicAdd per
-// element. All sums are f32 in another order than the plain version
-// (atomics across blocks).
+// caller allocates; (b) the split-row product of split_mats.cuh (each
+// block a 64 x 128 tile of mats for one range of rows; the last row of
+// tiles may be ragged: 3*96 = 288 rows). All sums are f32 in another
+// order than the plain version (atomics across blocks).
 //
 // A center with k > 64 slots spans k/64 tiles, and its max and tie count
 // are known only after the last of them. One block then walks the
@@ -38,6 +36,7 @@
 // sequence in both passes.
 
 #include "fused_sa_common.cuh"
+#include "split_mats.cuh"
 
 namespace pcl {
 
@@ -205,71 +204,6 @@ __global__ void __launch_bounds__(kThreads) p1_rows_kernel(const P1Args a) {
   flush_sum<C2>(vx, cg2, red, a.vecs + 2 * C2, act2);
 }
 
-// mats[I, J] += left[r0:r1, I]^T . right[r0:r1, J] for one 64 x 128 tile
-// of mats per block (blockIdx.x, blockIdx.y) and one range of rows
-// (blockIdx.z). Thread (ig, jg) owns rows ig*4..+4 and columns jg*8..+8.
-constexpr int kMI = 64, kMJ = 128, kMR = 32;
-
-template <int I, int J>
-__global__ void __launch_bounds__(kThreads)
-    p1_mats_kernel(const __nv_bfloat16* left, const __nv_bfloat16* right,
-                   float* mats, long long rows, long long per_block) {
-  __shared__ __align__(16) __nv_bfloat16 ls[kMR][kMI + 8];
-  __shared__ __align__(16) __nv_bfloat16 rs[kMR][kMJ + 8];
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kMI, j0 = blockIdx.y * kMJ;
-  const int ig = tid / 16, jg = tid % 16;
-  const long long r0 = blockIdx.z * per_block;
-  const long long r1 = min(rows, r0 + per_block);
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
-
-  for (long long base = r0; base < r1; base += kMR) {
-    // 32 rows x 64 left values = 256 uint4; 32 x 128 right = 512 uint4
-    {
-      const int r = tid / 8, v = tid % 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (base + r < r1 && i0 + v * 8 < I)
-        val = *reinterpret_cast<const uint4*>(left + (base + r) * I + i0 +
-                                              v * 8);
-      *reinterpret_cast<uint4*>(&ls[r][v * 8]) = val;
-    }
-    for (int e = tid; e < kMR * kMJ / 8; e += kThreads) {
-      const int r = e / 16, v = e % 16;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (base + r < r1)
-        val = *reinterpret_cast<const uint4*>(right + (base + r) * J + j0 +
-                                              v * 8);
-      *reinterpret_cast<uint4*>(&rs[r][v * 8]) = val;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kMR; ++r) {
-      const uint2 lv = *reinterpret_cast<const uint2*>(&ls[r][ig * 4]);
-      const uint4 rv = *reinterpret_cast<const uint4*>(&rs[r][jg * 8]);
-      const float l[4] = {bf_lo(lv.x), bf_hi(lv.x), bf_lo(lv.y), bf_hi(lv.y)};
-      float w[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) w[c] = bf_at(rv, c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(l[i], w[c], acc[i][c]);
-    }
-    __syncthreads();
-  }
-  if (i0 + ig * 4 >= I) return;  // ragged last row of tiles (I % 4 == 0)
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      atomicAdd(mats + (size_t)(i0 + ig * 4 + i) * J + j0 + jg * 8 + c,
-                acc[i][c]);
-}
-
 template <int C1, int C2, int C3>
 cudaError_t launch_p1(const P1Args& a, cudaStream_t stream) {
   constexpr size_t smem = P1Layout<C1, C2, C3>::bytes;
@@ -287,22 +221,8 @@ cudaError_t launch_p1(const P1Args& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int I = 3 * C2, J = 2 * C3;
-  static_assert(I % 8 == 0 && J % kMJ == 0, "mats tiling");
-  auto mats_kernel = p1_mats_kernel<I, J>;
-  int resident = 0;
-  err = resident_blocks(mats_kernel, 0, 1LL << 40, &resident);
-  if (err != cudaSuccess) return err;
-  constexpr int ITILES = (I + kMI - 1) / kMI;
-  const int tiles = ITILES * (J / kMJ);
-  long long splits = (2LL * resident + tiles - 1) / tiles;
-  long long per_block = (a.rows + splits - 1) / splits;
-  per_block = (per_block + kMR - 1) / kMR * kMR;
-  splits = (a.rows + per_block - 1) / per_block;
-  const dim3 grid(ITILES, J / kMJ, (unsigned)splits);
-  mats_kernel<<<grid, kThreads, 0, stream>>>(a.left, a.right, a.mats, a.rows,
-                                             per_block);
-  return cudaGetLastError();
+  return launch_mats<3 * C2, 2 * C3>(a.left, a.right, a.mats, a.rows,
+                                     stream);
 }
 
 }  // namespace pcl

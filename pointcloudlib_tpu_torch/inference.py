@@ -26,8 +26,8 @@ Example::
     parts = s.predict(clouds, categories)         # [B, N] part ids
 
 ``"pointnet2"`` (SSG), ``"pointnet2_msg"`` and ``"dgcnn"`` (xyz only) are
-the ported classification models, ``"pointnet2"`` the ported part
-segmentation.
+the ported classification models, ``"pointnet2"`` (xyz as features) and
+``"dgcnn"`` (xyz only) the ported part segmentation models.
 """
 
 from __future__ import annotations

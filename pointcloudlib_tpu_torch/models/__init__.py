@@ -1,12 +1,12 @@
 """Model registry (counterpart of ``pointcloudlib_tpu/models``).
 
-PointNet++ SSG and MSG classification, PointNet++ part segmentation and
-DGCNN classification are ported so far; the other entries of the JAX
-registry follow in later slices (ROADMAP.md)."""
+PointNet++ SSG and MSG classification, DGCNN classification, and
+PointNet++ and DGCNN part segmentation are ported so far; the other
+entries of the JAX registry follow in later slices (ROADMAP.md)."""
 
 from __future__ import annotations
 
-from pointcloudlib_tpu_torch.models.dgcnn import DGCNN
+from pointcloudlib_tpu_torch.models.dgcnn import DGCNN, DGCNNPartSeg
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     PointNet2MSG,
     PointNet2PartSeg,
@@ -15,7 +15,7 @@ from pointcloudlib_tpu_torch.models.pointnet2 import (
 
 CLS_MODELS = {"pointnet2": PointNet2SSG, "pointnet2_msg": PointNet2MSG,
               "dgcnn": DGCNN}
-SEG_MODELS = {"pointnet2": PointNet2PartSeg}
+SEG_MODELS = {"pointnet2": PointNet2PartSeg, "dgcnn": DGCNNPartSeg}
 
 
 def get_cls_model(name: str, n_classes: int = 40, **kw):

@@ -2,7 +2,8 @@
 train-mode forward and backward from the same weights, with dropout 0.
 
     python -m pointcloudlib_tpu_torch.tools.grad_check \
-        [--model pointnet2|pointnet2_msg|pointnet2_partseg|dgcnn] \
+        [--model pointnet2|pointnet2_msg|pointnet2_partseg|dgcnn|
+                 dgcnn_partseg] \
         [--clouds 8 ...] [--seeds 5 ...] [--n-points N] [--jitter REL]
 
 On the card the model runs the hand-written kernels with bf16 dense
@@ -26,14 +27,20 @@ exact arithmetic and hold rounding residue:
   every output of its channel by the same amount, and the next layer's
   train-mode BatchNorm removes that shift;
 * the Dense bias of a ``DenseBNAct`` (part segmentation's head, DGCNN's
-  ``fc2``): its own train-mode BatchNorm removes the shift.
+  ``fc2``): its own train-mode BatchNorm removes the shift;
+* the BN bias of DGCNN part segmentation's ``conv6`` when every cloud's
+  global max of it is positive in the CPU run: the bias then moves every
+  max by the same amount, which reaches the decoder as a constant of all
+  clouds and points, and the decoder's first train-mode BatchNorm
+  removes it.
 
-The last two must stay below :data:`CANCELLED_NORM` of the largest
+The last three must stay below :data:`CANCELLED_NORM` of the largest
 gradient's norm on both sides.
 
 ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py`` call
 :func:`grad_agreement`. ``pointnet2_partseg`` is PointNet++ part
-segmentation with xyz as features and plain per-point cross entropy; the
+segmentation with xyz as features and ``dgcnn_partseg`` DGCNN part
+segmentation on xyz alone, both with plain per-point cross entropy; the
 classification models take the label-smoothed loss (DGCNN ignores the
 normals it is given). The command line
 prints one JSON line per seed and cloud count (synthetic surface clouds,
@@ -61,6 +68,7 @@ from pointcloudlib_tpu_torch.data.synthetic import (
     SyntheticShapeNetPart,
 )
 from pointcloudlib_tpu_torch.models import get_cls_model, get_seg_model
+from pointcloudlib_tpu_torch.models.dgcnn import DGCNNPartSeg
 from pointcloudlib_tpu_torch.models.pointnet2 import N_CATEGORIES
 from pointcloudlib_tpu_torch.nn.layers import DenseBNAct, FusedSetAbstraction
 from pointcloudlib_tpu_torch.train import cross_entropy_seg, soft_cross_entropy
@@ -78,14 +86,16 @@ from pointcloudlib_tpu_torch.utils.interop import (
 # chip_smoke.py and the card test): cosine ≥ 0.955, norms within 10.4 %.
 LOSS_RTOL, GRAD_COS = 1e-2, 0.85
 GRAD_NORM = {"pointnet2": 0.15, "pointnet2_msg": 0.25,
-             "pointnet2_partseg": 0.15, "dgcnn": 0.15}
+             "pointnet2_partseg": 0.15, "dgcnn": 0.15,
+             "dgcnn_partseg": 0.15}
 FLOOR, CANCELLED_NORM = 1e-6, 1e-3
-SEG = "pointnet2_partseg"
+# the part-segmentation models by this tool's name -> the seg registry's
+SEG = {"pointnet2_partseg": "pointnet2", "dgcnn_partseg": "dgcnn"}
 
 
 def build_model(name: str, **kw) -> torch.nn.Module:
-    """Model ``name``: a classification model, or :data:`SEG`."""
-    return get_seg_model("pointnet2", **kw) if name == SEG else \
+    """Model ``name``: a classification model, or one of :data:`SEG`."""
+    return get_seg_model(SEG[name], **kw) if name in SEG else \
         get_cls_model(name, **kw)
 
 
@@ -93,16 +103,18 @@ def synthetic_batch(name: str, clouds: int, seed: int, n_points: int
                     ) -> Dict[str, torch.Tensor]:
     """A batch of labelled synthetic clouds for model ``name`` on the
     CPU: surface clouds with normals and class labels, or for
-    :data:`SEG` ShapeNet-part-shaped clouds with xyz as features, the
-    category one-hot and part labels."""
-    if name == SEG:
+    :data:`SEG` ShapeNet-part-shaped clouds, the category one-hot and
+    part labels, with xyz as features for PointNet++."""
+    if name in SEG:
         xyz, labels, seg = SyntheticShapeNetPart(
             n_points=n_points, size=clouds, seed=seed).batch(0, clouds)
         x = torch.from_numpy(xyz)
-        return {"xyz": x, "feats": x,
-                "cls_onehot": torch.from_numpy(
-                    np.eye(N_CATEGORIES, dtype=np.float32)[labels]),
-                "seg": torch.from_numpy(seg).long()}
+        batch = {"xyz": x, "cls_onehot": torch.from_numpy(
+                     np.eye(N_CATEGORIES, dtype=np.float32)[labels]),
+                 "seg": torch.from_numpy(seg).long()}
+        if name == "pointnet2_partseg":
+            batch["feats"] = x
+        return batch
     xyz, normals, labels = SyntheticModelNet(
         n_points=n_points, size=clouds, seed=seed).batch(0, clouds)
     return {"xyz": torch.from_numpy(xyz), "feats": torch.from_numpy(normals),
@@ -115,7 +127,9 @@ def loss_and_grads(name: str, variables, batch: Dict[str, torch.Tensor],
     """``(loss, gradients, cancelled)`` of one train-mode forward and
     backward of model ``name`` on ``dev`` with dropout 0. ``cancelled``
     names the last BN bias of every fused set abstraction whose pooled
-    output was positive throughout and every ``DenseBNAct``'s Dense bias.
+    output was positive throughout, every ``DenseBNAct``'s Dense bias and
+    DGCNN part segmentation's ``conv6`` BN bias where every global max of
+    it was positive.
     ``jitter`` scales every weight by ``1 + jitter·N(0, 1)`` first."""
     model = build_model(name, dropout=0.0)
     from_jax_variables(model, variables)
@@ -133,14 +147,20 @@ def loss_and_grads(name: str, variables, batch: Dict[str, torch.Tensor],
                 cancelled.add(f"{layer}.bn3_bias")
         return hook
 
+    def note_max(_module, _inputs, output):
+        if bool((output.amax(dim=1) > 0).all()):
+            cancelled.add("conv6.bn.bias")
+
+    if isinstance(model, DGCNNPartSeg):
+        model.conv6.register_forward_hook(note_max)
     for layer, module in model.named_modules():
         if isinstance(module, FusedSetAbstraction):
             module.register_forward_hook(note(layer))
         if isinstance(module, DenseBNAct) and module.dense.bias is not None:
             cancelled.add(f"{layer}.dense.bias")
     put = {k: v.to(dev) for k, v in batch.items()}
-    if name == SEG:
-        logits = model(put["xyz"], put["cls_onehot"], put["feats"])
+    if name in SEG:
+        logits = model(put["xyz"], put["cls_onehot"], put.get("feats"))
         loss = cross_entropy_seg(logits, put["seg"])
     else:
         logits = model(put["xyz"], put.get("feats"))
@@ -207,7 +227,7 @@ def main(argv=None) -> None:
         dev = torch.device("cuda")
     else:
         sys.exit("grad_check: needs a CUDA device (or --jitter)")
-    n_points = args.n_points or (2048 if args.model == SEG else 1024)
+    n_points = args.n_points or (2048 if args.model in SEG else 1024)
     variables = random_jax_variables(build_model(args.model), seed=0)
     failed = False
     for seed in args.seeds:

@@ -1,14 +1,16 @@
 """Where the serving time goes: the port's Predictor under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_serving \
-        [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg] \
+        [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg|
+                 dgcnn_partseg] \
         [--n-points N] [--out DIR]
 
 Serves PointNet++ SSG at B=64, MSG at B=32 (``Predictor``, normals as
 features, N=1024, 256 synthetic surface clouds) or DGCNN at B=32 (the
-same clouds, xyz only), or PointNet++ part
-segmentation at B=16 (``SegPredictor.predict``, xyz as features, N=2048,
-64 ShapeNet-part-shaped synthetic clouds), full width with seeded random
+same clouds, xyz only), or part
+segmentation at B=16 (``SegPredictor.predict``, N=2048, 64
+ShapeNet-part-shaped synthetic clouds; PointNet++ with xyz as features,
+DGCNN on xyz alone at k=40), full width with seeded random
 weights, after a warm-up request. ``--n-points`` serves clouds of N
 points instead (4096: the sorted route of the given-index kernels; above
 4096 and not a multiple of 128, e.g. 10000: DGCNN's standalone kNN).
@@ -51,13 +53,21 @@ from pointcloudlib_tpu_torch.tools.grad_check import SEG, build_model
 from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
 
 # the JAX package's rows: batch, points, clouds a request
-BATCH = {"pointnet2": 64, "pointnet2_msg": 32, "dgcnn": 32, SEG: 16}
+BATCH = {"pointnet2": 64, "pointnet2_msg": 32, "dgcnn": 32,
+         **{name: 16 for name in SEG}}
 N_POINTS = {"pointnet2": 1024, "pointnet2_msg": 1024, "dgcnn": 1024,
-            SEG: 2048}
-N_CLOUDS = {"pointnet2": 256, "pointnet2_msg": 256, "dgcnn": 256, SEG: 64}
+            **{name: 2048 for name in SEG}}
+N_CLOUDS = {"pointnet2": 256, "pointnet2_msg": 256, "dgcnn": 256,
+            **{name: 64 for name in SEG}}
 
 # kernel-name pattern -> stage, first match wins
 STAGES = (
+    (r"edge2_knn_eval_kernel", "edge2_knn_eval kernel"),
+    (r"edge2_eval_kernel", "edge2_eval kernel"),
+    (r"edge2_tail_kernel<64, 64, false>", "edge2_stats2 kernel"),
+    (r"edge2_tail_kernel<64, 64, true>", "edge2_out kernel"),
+    (r"edge2_p1_rows_kernel|p1_mats_kernel<192, 128>", "edge2_p1 kernel"),
+    (r"edge2_p2_kernel", "edge2_p2 kernel"),
     (r"edge_knn_eval_kernel", "edge_knn_eval kernel"),
     (r"edge_knn_f1_kernel", "edge_knn_f1 kernel"),
     (r"edge_out_kernel", "edge_out kernel"),
@@ -124,8 +134,8 @@ def main(argv=None) -> None:
     n_points = args.n_points or N_POINTS[args.model]
     n_clouds = N_CLOUDS[args.model]
     variables = random_jax_variables(build_model(args.model), seed=0)
-    if args.model == SEG:
-        pred = SegPredictor.from_variables("pointnet2", variables,
+    if args.model in SEG:
+        pred = SegPredictor.from_variables(SEG[args.model], variables,
                                            batch_size=batch)
         clouds, labels, _ = SyntheticShapeNetPart(
             n_points=n_points, size=n_clouds, seed=0).batch(0, n_clouds)

@@ -2,14 +2,16 @@
 ``make_seg_train_step`` under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_train \
-        [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg] \
+        [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg|
+                 dgcnn_partseg] \
         [--n-points N] [--out DIR]
 
 Trains PointNet++ SSG at B=64 or MSG at B=32 (normals as features,
 N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
 0.02), DGCNN at B=32 (the same clouds, xyz only, lr 0.1, ``bench.py:168``),
-or PointNet++ part segmentation at B=16 (xyz as features,
-N=2048, ShapeNet-part-shaped synthetic clouds, lr 0.01), full width with
+or part segmentation at B=16 (N=2048, ShapeNet-part-shaped synthetic
+clouds, lr 0.01, ``bench.py:233``; PointNet++ with xyz as features, DGCNN
+on xyz alone at k=40), full width with
 seeded random weights and dropout 0.5, on one batch, after 3 warm-up
 steps; ``--n-points`` trains on clouds of N points instead (4096: the
 sorted route of the given-index kernels; 1000: DGCNN's standalone kNN).
@@ -65,7 +67,8 @@ from pointcloudlib_tpu_torch.utils.interop import (
     random_jax_variables,
 )
 
-LR = {"pointnet2": 0.02, "pointnet2_msg": 0.02, "dgcnn": 0.1, SEG: 0.01}
+LR = {"pointnet2": 0.02, "pointnet2_msg": 0.02, "dgcnn": 0.1,
+      **{name: 0.01 for name in SEG}}
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 
@@ -88,7 +91,7 @@ def main(argv=None) -> None:
 
     model = build_model(args.model)
     from_jax_variables(model, random_jax_variables(model, seed=0))
-    make = make_seg_train_step if args.model == SEG else make_cls_train_step
+    make = make_seg_train_step if args.model in SEG else make_cls_train_step
     step = make(model, sgd_momentum(model.parameters(), LR[args.model]))
     dev = torch.device("cuda")
     batch = {k: v.to(dev) for k, v in synthetic_batch(

@@ -22,7 +22,12 @@ abstraction is on:
 * DGCNN: ``EdgeConv_{0..3}/FusedEdgeConv_0/{w,bn_scale,bn_bias}`` with
   batch stats ``mean``/``var``, ``DenseBNAct_{0,1,2}/…`` (conv5 and the
   head; ``DenseBNAct_2``'s ``Dense_0`` has a bias) and
-  ``Dense_0/{kernel,bias}``.
+  ``Dense_0/{kernel,bias}``;
+* DGCNN part segmentation: ``Fused2EdgeConv_{0,1}/{w,w2,
+  bn{1,2}_scale,bn{1,2}_bias}`` with batch stats ``mean{1,2}``/``var{1,2}``,
+  ``FusedEdgeConv_0`` as in DGCNN, ``DenseBNAct_{0..4}`` (conv6, the
+  label embedding, the three decoder layers) and a bias-free
+  ``Dense_0/kernel``.
 
 A checkpoint in the unfused layout goes through the JAX package's own
 ``pointcloudlib_tpu.utils.interop.convert_variables`` first, with an
@@ -39,7 +44,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from pointcloudlib_tpu_torch.models.dgcnn import DGCNN
+from pointcloudlib_tpu_torch.models.dgcnn import DGCNN, DGCNNPartSeg
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     ClsHead,
     PointNet2MSG,
@@ -116,15 +121,33 @@ def _partseg(model: PointNet2PartSeg) -> _Entries:
 def _dgcnn(model: DGCNN) -> _Entries:
     out: _Entries = {}
     for i, ec in enumerate(model.edge):
-        path = (f"EdgeConv_{i}", "FusedEdgeConv_0")
-        for leaf in ("w", "bn_scale", "bn_bias"):
-            out[("params", *path, leaf)] = (getattr(ec.fused, leaf), False)
-        for leaf in ("mean", "var"):
-            out[("batch_stats", *path, leaf)] = (getattr(ec.fused, leaf),
-                                                 False)
+        _leaves(ec.fused, (f"EdgeConv_{i}", "FusedEdgeConv_0"),
+                ("w", "bn_scale", "bn_bias"), ("mean", "var"), out)
     for i, blk in enumerate((model.conv5, model.fc1, model.fc2)):
         _dense_bn(blk, (f"DenseBNAct_{i}",), out)
     _dense(model.out, (), out)
+    return out
+
+
+def _leaves(module, path, params, stats, out: _Entries):
+    for leaf in params:
+        out[("params", *path, leaf)] = (getattr(module, leaf), False)
+    for leaf in stats:
+        out[("batch_stats", *path, leaf)] = (getattr(module, leaf), False)
+
+
+def _dgcnn_partseg(model: DGCNNPartSeg) -> _Entries:
+    out: _Entries = {}
+    for i, ec in enumerate((model.edge1, model.edge2)):
+        _leaves(ec, (f"Fused2EdgeConv_{i}",),
+                ("w", "w2", "bn1_scale", "bn1_bias", "bn2_scale", "bn2_bias"),
+                ("mean1", "var1", "mean2", "var2"), out)
+    _leaves(model.edge3, ("FusedEdgeConv_0",), ("w", "bn_scale", "bn_bias"),
+            ("mean", "var"), out)
+    for i, blk in enumerate((model.conv6, model.label, model.dec1,
+                             model.dec2, model.dec3)):
+        _dense_bn(blk, (f"DenseBNAct_{i}",), out)
+    out[("params", "Dense_0", "kernel")] = (model.out.weight, True)
     return out
 
 
@@ -133,6 +156,8 @@ def _entries(model) -> _Entries:
         return _partseg(model)
     if isinstance(model, DGCNN):
         return _dgcnn(model)
+    if isinstance(model, DGCNNPartSeg):
+        return _dgcnn_partseg(model)
     if not isinstance(model, (PointNet2SSG, PointNet2MSG)):
         raise NotImplementedError(
             f"no JAX weight mapping for {type(model).__name__} yet")

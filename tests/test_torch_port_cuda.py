@@ -579,11 +579,12 @@ def test_partseg_train_step_card_matches_cpu(card):
     train-mode BatchNorm removes the shift), SA3's last BN bias, and a
     fused scale's last BN bias where every pooled output is positive."""
     from pointcloudlib_tpu_torch.tools.grad_check import (
-        SEG,
         build_model,
         grad_agreement,
         synthetic_batch,
     )
+
+    SEG = "pointnet2_partseg"
 
     variables = random_jax_variables(build_model(SEG), seed=5)
     got = grad_agreement(SEG, variables, synthetic_batch(SEG, 8, 11, 2048),
@@ -1007,3 +1008,201 @@ def test_dgcnn_knn_route_train_step_card_matches_cpu(card):
           max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)))
     assert not got["failures"], got["failures"]
     assert set(got["not_compared"]) == {"fc2.dense.bias"}, got["not_compared"]
+
+
+# ----------------------------- DGCNN part segmentation: two-layer EdgeConv
+
+EDGE2_SHAPES = {  # B, N, k, C_in: the two pairs at k=40, and edge cases
+    "pair1": (4, 2048, 40, 3),
+    "pair2": (4, 2048, 40, 64),
+    "pair1_duplicates": (4, 1024, 40, 3),
+    "n1000": (2, 1000, 40, 64),          # the given-index route's N
+    "n65": (2, 65, 20, 64),              # one past the 64-point tile
+    "k8_n128": (2, 128, 8, 3),
+}
+
+
+def _edge2_inputs(card, name, seed=0):
+    """The two-layer kernels' inputs at C1 = C2 = 64: ``x``, ``q``
+    (bf16), ``off``, W2, the plain pass 1's neighbour index and bf16
+    checkpoint ``h1``, the folded BN rows of h1's and h2's own batch
+    moments (random γ, β) and an output gradient. The duplicates case
+    repeats the first half of each cloud (exact kNN and max-pool
+    ties)."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+    from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import _moments
+
+    b, n, k, cin = EDGE2_SHAPES[name]
+    rng = np.random.default_rng(seed + n + cin + k)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(card)
+
+    x = t(b, n, cin)
+    if "duplicates" in name:
+        x[:, n // 2:] = x[:, : n // 2]
+    wa, wb = t(cin, 64, scale=cin ** -0.5), t(cin, 64, scale=cin ** -0.5)
+    q = (x.bfloat16().float() @ wa.bfloat16().float()).bfloat16()
+    off = x.bfloat16().float() @ (wa - wb).bfloat16().float()
+    w2 = t(64, 64, scale=1 / 8)
+    idx, h1, psum = kfe.edge_knn_f1_plain(x, q, off, k)
+    r = float(b * n * k)
+    st1 = kfs._stack_stats(*_moments(psum, r), t(64, scale=0.2) + 1.0,
+                           t(64, scale=0.1))
+    st2 = kfs._stack_stats(*_moments(kfe.edge2_stats2_plain(h1, st1, w2),
+                                     r), t(64, scale=0.2) + 1.0,
+                           t(64, scale=0.1))
+    return kfe, dict(x=x, q=q, off=off, w2=w2, idx=idx, h1=h1, st1=st1,
+                     st2=st2, k=k, r=r, dout=t(b, n, 64))
+
+
+@pytest.mark.parametrize("name", sorted(EDGE2_SHAPES))
+def test_edge2_eval_kernels_match_plain(card, name):
+    """``edge2_knn_eval`` (the kNN inside) and ``edge2_eval`` (the plain
+    kNN's index given): the same neighbours and a bit-identical y1, then
+    h2 summed in another order: within 1e-5 of the largest plain
+    element."""
+    kfe, a = _edge2_inputs(card, name)
+    st = (a["st1"], a["st2"], a["w2"])
+    before = kfe.edge2_knn_eval.launches, kfe.edge2_eval.launches
+    got = kfe.edge2_knn_eval(a["x"], a["q"], a["off"], *st, a["k"])
+    got_idx = kfe.edge2_eval(a["q"], a["off"], a["idx"], *st)
+    torch.cuda.synchronize()
+    assert (kfe.edge2_knn_eval.launches, kfe.edge2_eval.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = kfe.edge2_knn_eval_plain(a["x"], a["q"], a["off"], *st, a["k"])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    torch.testing.assert_close(got_idx, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("name", sorted(EDGE2_SHAPES))
+def test_edge2_tail_matches_plain(card, name):
+    """``edge2_stats2``: Σ/Σ² within 1e-3 of the largest (f32 atomics in
+    another order); ``edge2_out`` within 1e-5 of the largest plain
+    element."""
+    kfe, a = _edge2_inputs(card, name, seed=1)
+    before = kfe.edge2_stats2.launches, kfe.edge2_out.launches
+    ps = kfe.edge2_stats2(a["h1"], a["st1"], a["w2"])
+    out = kfe.edge2_out(a["h1"], a["st1"], a["st2"], a["w2"])
+    torch.cuda.synchronize()
+    assert (kfe.edge2_stats2.launches, kfe.edge2_out.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close_sums(ps, kfe.edge2_stats2_plain(a["h1"], a["st1"], a["w2"]),
+                "stats2")
+    want = kfe.edge2_out_plain(a["h1"], a["st1"], a["st2"], a["w2"])
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("name", sorted(EDGE2_SHAPES))
+def test_edge2_bwd_matches_plain(card, name):
+    """``edge2_p1``: ps2, vecs and mats within 1e-3 of the largest;
+    ``edge2_p2`` from the plain pass 1's sums (``_combine_p1``): dq and
+    doff tie-robust (a last-bit change of h2 may move a max-pool tie
+    share)."""
+    from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
+        _combine_p1,
+    )
+
+    kfe, a = _edge2_inputs(card, name, seed=2)
+    p1 = (a["h1"], a["dout"], a["st1"], a["st2"], a["w2"])
+    before = kfe.edge2_p1.launches, kfe.edge2_p2.launches
+    got = kfe.edge2_p1(*p1)
+    want = kfe.edge2_p1_plain(*p1)
+    for g, w, what in zip(got, want, ("ps2", "vecs", "mats")):
+        _close_sums(g, w, what)
+    ps2, vecs, mats = want
+    _, s1 = _combine_p1(ps2, vecs, mats, a["st2"], a["w2"], a["r"])
+    p2 = (a["h1"], a["dout"], a["idx"], a["st1"], a["st2"], a["w2"],
+          ps2 / a["r"], s1 / a["r"], 0.2, a["h1"].shape[1])
+    got = kfe.edge2_p2(*p2)
+    torch.cuda.synchronize()
+    assert (kfe.edge2_p1.launches, kfe.edge2_p2.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w, what in zip(got, kfe.edge2_p2_plain(*p2), ("dq", "doff")):
+        _tie_robust(g, w, what)
+
+
+def test_edge2_kernels_reject_what_they_cannot_run(card):
+    kfe, a = _edge2_inputs(card, "k8_n128")
+    st = (a["st1"], a["st2"], a["w2"])
+    with pytest.raises(ValueError, match="k <= min"):
+        kfe.edge2_knn_eval(a["x"], a["q"], a["off"], *st, 41)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        kfe.edge2_out(a["h1"][..., :32].contiguous(), a["st1"][:, :32],
+                      a["st2"][:, :32], a["w2"][:32, :32])
+    with pytest.raises(ValueError, match="bfloat16"):
+        kfe.edge2_eval(a["q"].float(), a["off"], a["idx"], *st)
+
+
+def _partseg_clouds(n, clouds=4, seed=0):
+    from pointcloudlib_tpu_torch.data.synthetic import SyntheticShapeNetPart
+
+    xyz, labels, _ = SyntheticShapeNetPart(n_points=n, size=clouds,
+                                           seed=seed).batch(0, clouds)
+    return xyz, labels
+
+
+@pytest.mark.parametrize("n,counts", [
+    (2048, {"edge2_knn_eval": 2, "edge_knn_eval": 1}),
+    (1000, {"knn": 3, "edge2_eval": 2, "edge_eval": 1})])
+def test_dgcnn_partseg_eval_card_matches_cpu(card, n, counts):
+    """DGCNN part segmentation in eval mode on 4 clouds, on the card and on
+    the CPU from the same weights: N=2048 builds the graph inside the
+    kernels, N=1000 takes the standalone kNN and the given-index kernels,
+    with exactly these launches; probabilities within 5e-3."""
+    from pointcloudlib_tpu_torch.models import get_seg_model
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    counted = {"edge2_knn_eval": kfe.edge2_knn_eval,
+               "edge2_eval": kfe.edge2_eval, "edge_knn_eval":
+               kfe.edge_knn_eval, "edge_eval": kfe.edge_eval,
+               "knn": kknn.knn}
+    variables = random_jax_variables(get_seg_model("dgcnn"), seed=3)
+    xyz, labels = _partseg_clouds(n)
+    onehot = np.eye(16, dtype=np.float32)[labels]
+    probs = []
+    for dev in (card, torch.device("cpu")):
+        model = get_seg_model("dgcnn")
+        from_jax_variables(model, variables)
+        model = model.to(dev).eval()
+        before = {k: f.launches for k, f in counted.items()}
+        with torch.no_grad():
+            probs.append(torch.softmax(model(
+                torch.from_numpy(xyz).to(dev),
+                torch.from_numpy(onehot).to(dev)), -1).cpu().numpy())
+        if dev == card:
+            assert {k: f.launches - before[k] for k, f in counted.items()
+                    } == {k: counts.get(k, 0) for k in counted}
+    assert np.abs(probs[0] - probs[1]).max() <= 5e-3
+
+
+@pytest.mark.parametrize("n", [2048, 1000])
+def test_dgcnn_partseg_train_step_card_matches_cpu(card, n):
+    """One train-mode forward and backward of DGCNN part segmentation on
+    8 synthetic ShapeNet-part clouds, on the card and on the CPU from the
+    same weights with dropout 0, under ``tools/grad_check.py``'s bounds:
+    the kernels with the graph inside at N=2048, the standalone kNN and
+    the given-index kernels at N=1000. Not compared where exactly 0:
+    conv6's BN bias when every global max is positive."""
+    from pointcloudlib_tpu_torch.models import get_seg_model
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        grad_agreement,
+        synthetic_batch,
+    )
+
+    variables = random_jax_variables(get_seg_model("dgcnn"), seed=5)
+    got = grad_agreement("dgcnn_partseg", variables,
+                         synthetic_batch("dgcnn_partseg", 8, 11, n), card)
+    agree = got["agree"]
+    print(f"dgcnn_partseg N={n} card against CPU: least cosine",
+          min(agree.items(), key=lambda kv: kv[1][0]),
+          "largest norm deviation",
+          max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)),
+          "not compared", got["not_compared"])
+    assert not got["failures"], got["failures"]
+    assert set(got["not_compared"]) <= {"conv6.bn.bias"}, got["not_compared"]
