@@ -8,7 +8,7 @@ once:
 
 1. device — the card's name, the device count and ``nvidia-smi``'s name
    and power limit;
-2. build — the twenty-three kernel sources of ``pointcloudlib_tpu_torch/csrc``
+2. build — the twenty-five kernel sources of ``pointcloudlib_tpu_torch/csrc``
    compiled (one ``nvcc`` per source, started together), with seconds and
    the ``-Xptxas -v`` registers, shared memory and spills of each kernel;
 3. kernels — the SSG serving kernels against their plain PyTorch versions
@@ -159,10 +159,37 @@ once:
 20. N=4096 checks, untimed — MSG, PointNet++ and DGCNN part segmentation
    (Hilbert-sorted, ids back in the caller's point order) and DGCNN (kNN
    inside the kernels) on 2 clouds: exact launch counts, probabilities
-   within 5e-3 of the CPU's.
+   within 5e-3 of the CPU's;
+21. PointConv kernels — the row gather and the fused kNN + gather at the
+   shapes of PointConv classification (B=32, N=1024, normals: SA1's two
+   gathers, SA2's k=64 kNN + gather) and part segmentation (B=16, N=2048:
+   SA2's and SA3's kNN + gather, the three decoders' gathers), their
+   inputs recorded from the models' own eval forward with seeded weights,
+   against their plain versions: idx and values bit-identical;
+   ``torch.gather`` and ``torch.cdist`` + ``torch.topk`` +
+   ``torch.gather`` timed as the library's yardsticks; kernel, plain and
+   library times are device times, from CUDA graphs of repeated calls
+   (the kernels are shorter than a launch's host cost; the event loop's
+   launch rate is kept beside them); edge cases:
+   sentinel indices, a 2-D idx, M = 13, C = 1, 4 and 5 (gather),
+   duplicate points, k·stride = N, stride 2 and N = 4096 (kNN + gather);
+22. PointConv classification serving — ``Predictor(batch_size=32,
+   with_normals=True)`` as in phase 6: per served batch exactly 2
+   launches of FPS and of the row gather, 1 of ``knn`` and of the fused
+   kNN + gather;
+23. PointConv classification train — ``make_cls_train_step`` at B=32
+   with SGD (momentum 0.9, lr 0.1 flat, ``bench.py:168``) and dropout 0.4
+   as in phase 7: per step the serving launches and 2 of the scatter-add;
+   the card-vs-CPU loss and gradient check on 8 clouds;
+24. PointConv part segmentation — ``SegPredictor(batch_size=16)`` on 64
+   clouds at N=2048 as in phase 9 (per batch 4 launches of FPS, 6 of
+   ``knn``, 2 of the fused kNN + gather, 3 of the row gather, 4 of the
+   3-NN interpolation; 2 clouds against the CPU) and
+   ``make_seg_train_step`` at B=16, lr 0.01, as in phase 10 (per step
+   those and 9 scatter-adds).
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
-entry per TPU kernel replaced (twenty-nine; the three forward tails
+entry per TPU kernel replaced (thirty-one; the three forward tails
 share one source and one wrapper, counted per stage; the given-index
 ``sa_f1``, ``fused_sa_eval`` and ``sa_bwd_p2`` have a second entry each
 for the windowed function they stand for at N ≥ 4096, with the N=4096
@@ -199,11 +226,13 @@ from pointcloudlib_tpu_torch.ops.kernels import fused_sa as kfs
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as kft
 from pointcloudlib_tpu_torch.ops.kernels import gather as kga
 from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
 from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
 from pointcloudlib_tpu_torch.tools.grad_check import (
     GRAD_COS,
     GRAD_NORM,
     LOSS_RTOL,
+    NORMALS,
     SEG,
     build_model,
     grad_agreement,
@@ -247,9 +276,13 @@ DSEG_CHECK = 4                     # DGCNN part-seg clouds served on the CPU too
 DSEG_ODD_POINTS, DSEG_ODD_CLOUDS = 5000, 2  # above 4096, N % 128 != 0
 DSEG_ODD_TRAIN, DSEG_ODD_BATCH = 1000, 4    # the kNN route in training
 SLOPE = 0.2                        # LeakyReLU of the DGCNN models
+PC_BATCH, PC_LR = 32, 0.1          # bench.py:344-345 (normals), bench.py:168
+PC_SEG = "pointconv_partseg"       # grad_check's name; B=16, N=2048, lr 0.01
+PC_CHECK = 2                       # PointConv part-seg clouds on the CPU too
 CSRC = "pointcloudlib_tpu_torch/csrc/"
 SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
-           "three_interp", "scatter_rows", "knn") + kft.SOURCES + kfe.SOURCES
+           "three_interp", "scatter_rows", "knn", "gather_rows",
+           "knn_gather") + kft.SOURCES + kfe.SOURCES
 PALLAS = "pointcloudlib_tpu/ops/pallas/"
 FUSED_SA = PALLAS + "fused_sa.py"
 FUSED_EDGE = PALLAS + "fused_edge.py"
@@ -277,6 +310,36 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of ``fn``: ``iters`` calls
+    captured in one CUDA graph, the graph replayed and timed by CUDA
+    events, so that the host's cost of a launch (the wrapper's checks,
+    ``ctypes``) stays out of a short kernel's reading. A wrapper's launch
+    count moves during the capture only."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def bound(flops_bf16: float, flops_f32: float, nbytes: float):
@@ -447,7 +510,9 @@ COUNTED = {"fps": kfps.fps, "ball_query": kbq.ball_query,
            "knn": kknn.knn, "edge_f1": kfe.edge_f1, "edge_eval": kfe.edge_eval,
            "edge2_stats2": kfe.edge2_stats2, "edge2_out": kfe.edge2_out,
            "edge2_p1": kfe.edge2_p1, "edge2_p2": kfe.edge2_p2,
-           "edge2_eval": kfe.edge2_eval, "edge2_knn_eval": kfe.edge2_knn_eval}
+           "edge2_eval": kfe.edge2_eval, "edge2_knn_eval": kfe.edge2_knn_eval,
+           "gather_neighbors": kga.gather_neighbors,
+           "knn_gather": kkg.knn_gather}
 # launches per served batch and per train step; a kernel not named: none
 SSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 2}
 MSG_SERVE = {"fps": 2, "fused_sa_bq_eval": 4, "ball_query": 2,
@@ -476,6 +541,17 @@ DSEG_STEP = {"edge_knn_f1": 3, "edge2_stats2": 2, "edge2_out": 2,
 DSEG_ODD_SERVE = {"knn": 3, "edge2_eval": 2, "edge_eval": 1}
 DSEG_ODD_STEP = {"knn": 3, "edge_f1": 3, "edge2_stats2": 2, "edge2_out": 2,
                  "edge2_p1": 2, "edge2_p2": 2, "edge_out": 1, "edge_bwd": 1}
+# PointConv: SA1 by kNN and two row gathers ([xyz ‖ normals], density), SA2
+# by the fused kNN + gather; training adds the scatter-add of the density
+# gather and of SA2's values. Part segmentation: SA1 and SA4 by kNN (cv 4,
+# N=64), SA2 and SA3 fused, four decoders (3-NN, kNN, the row gather of
+# the upsampled features at N = 256, 1024, 2048); its step's scatter-adds:
+# 2 fused gathers, 3 row gathers, 4 interpolations.
+PC_SERVE = {"fps": 2, "knn": 1, "gather_neighbors": 2, "knn_gather": 1}
+PC_STEP = {**PC_SERVE, "scatter_rows": 2}
+PCSEG_SERVE = {"fps": 4, "knn": 6, "knn_gather": 2, "gather_neighbors": 3,
+               "three_interp": 4}
+PCSEG_STEP = {**PCSEG_SERVE, "scatter_rows": 9}
 
 
 def _zero_counts() -> None:
@@ -504,7 +580,8 @@ def _read_counts(what: str, per_unit: dict, units: int) -> dict:
 
 def phase_serving(name, variables, data, power, batch, per_batch, extra):
     clouds, normals = data
-    pred = Predictor.from_variables(name, variables, batch_size=batch)
+    pred = Predictor.from_variables(name, variables, batch_size=batch,
+                                    with_normals=name in NORMALS)
     pred.predict_proba(clouds[:batch], normals[:batch])  # warm-up
     odd = SyntheticModelNet(n_points=1000, size=8, seed=3).batch(0, 8)
 
@@ -531,6 +608,7 @@ def phase_serving(name, variables, data, power, batch, per_batch, extra):
         fail("repeated requests gave different probabilities")
 
     cpu = Predictor.from_variables(name, variables, batch_size=8,
+                                   with_normals=name in NORMALS,
                                    device="cpu")
     ref = cpu.predict_proba(clouds[:8], normals[:8])
     diff = float(np.abs(ref - probs[:8]).max())
@@ -939,8 +1017,9 @@ def phase_train(name, variables, power, batch_size, per_step,
     from_jax_variables(model, variables)
     if name in SEG:
         lr, make = SEG_LR, make_seg_train_step
-    elif name == "dgcnn":
-        lr, make = DGCNN_LR, make_cls_train_step
+    elif name in ("dgcnn", "pointconv"):
+        lr = DGCNN_LR if name == "dgcnn" else PC_LR
+        make = make_cls_train_step
     else:  # ModelNet40's training set
         lr, make = reference_flat_lr(0.02, 9840, batch_size), \
             make_cls_train_step
@@ -968,10 +1047,11 @@ def phase_train(name, variables, power, batch_size, per_step,
              and torch.equal(v, after[k])]
     # gradients that are exactly 0 (a train-mode BN removes the shift)
     # may leave a parameter where it was: SA3's last BN bias, the Dense
-    # bias of a DenseBNAct (the part-segmentation head, DGCNN's fc2) and
-    # DGCNN part segmentation's conv6 BN bias
-    if [k for k in still if k not in ("sa3.mlp.2.bn.bias", "head.dense.bias",
-                                      "fc2.dense.bias", "conv6.bn.bias")]:
+    # bias in front of a BatchNorm (a DenseBNAct's: the part-segmentation
+    # head, DGCNN's fc2, PointConv's; a PointConv layer's output Dense)
+    # and DGCNN part segmentation's conv6 BN bias
+    if [k for k in still if k not in ("sa3.mlp.2.bn.bias", "conv6.bn.bias")
+            and not k.endswith("dense.bias")]:
         fail(f"train steps left these unchanged: {still}")
     rec = {"samples_per_s": batch_size * TRAIN_STEPS / secs,
            "step_ms": 1e3 * secs / TRAIN_STEPS, "batch": batch_size,
@@ -993,6 +1073,7 @@ def phase_train(name, variables, power, batch_size, per_step,
         "worst_grad_norm_ratio": max(agree.items(),
                                      key=lambda kv: abs(kv[1][1] - 1)),
         "grads_not_compared": check["not_compared"],
+        "grads_cosine_only": check["cosine_only"],
         "grad_cos_and_norm_ratio": agree})
     if check["failures"]:
         fail(f"{name}: card vs CPU on {CHECK_CLOUDS} clouds (loss within "
@@ -1926,6 +2007,165 @@ def phase_seg_request(tag, name, variables, clouds, labels, per_batch):
                       **rec}
 
 
+# --------------------------------------------------------- PointConv
+
+
+def _gather_case(name, points, idx, timed):
+    """The row-gather kernel against its plain version: bit-identical,
+    zero rows at out-of-range indices; with ``timed``, ``torch.gather``
+    timed as the library's yardstick."""
+    got = kga.gather_neighbors(points, idx)
+    want = kga.gather_neighbors_plain(points, idx)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        fail(f"gather_neighbors {name}: differs from the plain version")
+    b, n, c = points.shape
+    rows = idx[0].numel()
+    sentinels = int(((idx < 0) | (idx >= n)).sum())
+    rec = {"case": name, "B": b, "N": n, "C": c, "idx": list(idx.shape),
+           "sentinel_rows": sentinels, "bit_identical": True,
+           "max_abs_err": 0.0}
+    if timed:  # device times: these kernels are shorter than a launch
+        rec["ms"] = graph_ms(lambda: kga.gather_neighbors(points, idx), 20)
+        rec["launch_rate_ms"] = time_ms(
+            lambda: kga.gather_neighbors(points, idx), 20)
+        rec["plain_ms"] = graph_ms(
+            lambda: kga.gather_neighbors_plain(points, idx), 10)
+        flat = idx.reshape(b, -1, 1).long().expand(-1, -1, c)
+        rec["library_ms"] = graph_ms(lambda: torch.gather(points, 1, flat),
+                                     20)
+        # a copy: the index and the source cloud read once, the rows written
+        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
+            0.0, 0.0, 4.0 * b * rows + 4.0 * b * n * c + 4.0 * b * rows * c)
+    emit("kernel gather_neighbors", rec)
+    return rec
+
+
+def _knn_gather_case(name, query, points, values, k, stride, timed):
+    """The fused kNN + gather kernel against its plain version: idx and
+    grouped bit-identical; with ``timed``, ``torch.cdist`` + ``torch.topk``
+    + ``torch.gather`` (three calls) timed as the library's yardstick."""
+    idx, grouped = kkg.knn_gather(query, points, values, k, stride)
+    widx, wgrouped = kkg.knn_gather_plain(query, points, values, k, stride)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, widx) and torch.equal(grouped, wgrouped)):
+        fail(f"knn_gather {name}: {(idx != widx).sum().item()} indices and "
+             f"{(grouped != wgrouped).sum().item()} values differ from the "
+             f"plain version")
+    b, m, c = query.shape
+    n, cv = values.shape[1:]
+    rec = {"case": name, "B": b, "M": m, "N": n, "C": c, "Cv": cv, "k": k,
+           "stride": stride, "bit_identical": True, "max_abs_err": 0.0}
+    if timed:  # device times, as the row gather's
+        rec["ms"] = graph_ms(
+            lambda: kkg.knn_gather(query, points, values, k, stride), 10)
+        rec["launch_rate_ms"] = time_ms(
+            lambda: kkg.knn_gather(query, points, values, k, stride), 10)
+        rec["plain_ms"] = graph_ms(lambda: kkg.knn_gather_plain(
+            query, points, values, k, stride), 3)
+
+        def library():
+            _, i = torch.topk(torch.cdist(query, points), k * stride, dim=-1,
+                              largest=False)
+            return torch.gather(values, 1, i[..., ::stride].reshape(
+                b, -1, 1).expand(-1, -1, cv))
+
+        rec["library_ms"] = graph_ms(library, 5)
+        # d² of every (query, point) pair at 2·C + 3 f32 operations; the
+        # values read once, idx and grouped written once
+        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
+            0.0, b * m * n * (2.0 * c + 3.0),
+            4.0 * b * n * cv + 4.0 * b * m * k + 4.0 * b * m * k * cv)
+    emit("kernel knn_gather", rec)
+    return rec
+
+
+def _record_calls(module, name, calls):
+    """Replace ``module.name`` by a recorder that keeps each call's
+    arguments (tensors cloned) in ``calls`` and then runs the original;
+    returns the original, for :func:`setattr` back. The original counts
+    its launches under its module name, the recorder's meanwhile."""
+    orig = getattr(module, name)
+
+    def rec(*args):
+        calls.append(tuple(a.detach().clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return orig(*args)
+
+    rec.launches = 0
+    setattr(module, name, rec)
+    return orig
+
+
+def _pointconv_calls(model, *inputs):
+    """``(gathers, knn_gathers)``: the arguments of every row gather and
+    fused kNN + gather of one eval forward of ``model`` on ``inputs``."""
+    gathers, fused = [], []
+    orig = (_record_calls(kga, "gather_neighbors", gathers),
+            _record_calls(kkg, "knn_gather", fused))
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        kga.gather_neighbors, kkg.knn_gather = orig
+    return gathers, fused
+
+
+def phase_pointconv_kernels(cls_model, seg_model, xyz, nrm, seg_xyz):
+    """``{kernel: [records]}`` of the two PointConv kernels at the shapes
+    of the main paths, their inputs taken from the models' own forward
+    (classification at B=32, N=1024 with normals; part segmentation at
+    B=16, N=2048), timed; and edge cases, untimed: sentinel indices and a
+    2-D idx, M not a multiple of 8, C = 1 and C = 5 (gather); duplicate
+    points, k·stride = N, stride 2 and N = 4096 (kNN + gather)."""
+    recs = {"gather_neighbors": [], "knn_gather": []}
+    onehot = torch.zeros((seg_xyz.shape[0], 16), device=DEV)
+    for tag, model, inputs in (("cls", cls_model, (xyz, nrm)),
+                               ("seg", seg_model, (seg_xyz, onehot))):
+        gathers, fused = _pointconv_calls(model, *inputs)
+        for points, idx in gathers:
+            recs["gather_neighbors"].append(_gather_case(
+                f"{tag} N={points.shape[1]} C={points.shape[2]}", points,
+                idx, True))
+        for query, points, values, k, stride in fused:
+            recs["knn_gather"].append(_knn_gather_case(
+                f"{tag} M={query.shape[1]} N={points.shape[1]} "
+                f"Cv={values.shape[2]} k={k}", query, points, values, k,
+                stride, True))
+    got = {k: len(v) for k, v in recs.items()}
+    if got != {"gather_neighbors": 5, "knn_gather": 3}:
+        fail(f"PointConv kernels: the forwards made {got} calls, expected "
+             f"5 row gathers and 3 fused kNN + gathers")
+
+    g = torch.Generator(device=DEV).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, device=DEV, generator=g)
+
+    pts = randn(4, 300, 5)
+    idx = torch.randint(0, 300, (4, 13, 7), device=DEV, generator=g,
+                        dtype=torch.int32)
+    idx[:, 0, :3] = torch.tensor([300, 305, -1], device=DEV)
+    for case, p, i in (("sentinels, M=13, C=5", pts, idx),
+                       ("2-D idx, C=1", pts[..., :1], idx[:, :, 0]),
+                       ("C=4 float4 rows", pts[..., :4], idx)):
+        rec = _gather_case(case, p.contiguous(), i, False)
+        if case.startswith("sentinels") and rec["sentinel_rows"] < 12:
+            fail("gather_neighbors: the sentinel case has no sentinels")
+    x = torch.nn.functional.normalize(randn(2, 4096, 3), dim=-1)
+    dup = x[:, :256].repeat(1, 4, 1)  # every point 4 times: exact ties
+    for case, q, p, cv, k, stride in (
+            ("duplicate points", dup[:, :40], dup, 16, 48, 1),
+            ("k·stride = N, stride 2", dup[:, :10, :], dup[:, :64], 20, 32,
+             2),
+            ("stride 2, M=13, Cv=7", x[:, :13], x[:, :256], 7, 16, 2),
+            ("N=4096", x[:, :64], x, 16, 32, 1)):
+        vals = torch.cat([p, randn(p.shape[0], p.shape[1], cv - 3)], -1)
+        _knn_gather_case(case, q.contiguous(), p.contiguous(), vals, k,
+                         stride, False)
+    return recs
+
+
 # TPU kernel replaced: (entry name, source, file:line, key of its records
 # and of its launch count[, key of its launch count, prefix of the paths
 # counted]). The JAX package's windowed functions run only at N ≥ 4096;
@@ -1965,6 +2205,10 @@ KERNELS = (
     ("edge2_eval", "edge2_eval.cu", FUSED_EDGE + ":902", "edge2_eval"),
     ("edge2_knn_eval", "edge2_knn_eval.cu", FUSED_EDGE + ":995",
      "edge2_knn_eval"),
+    ("gather_neighbors", "gather_rows.cu", PALLAS + "gather.py:39",
+     "gather_neighbors"),
+    ("knn_gather", "knn_gather.cu", PALLAS + "neighbors.py:306",
+     "knn_gather"),
     ("sa_f1 for _k_f1w", "fused_sa_f1.cu", FUSED_SA + ":525", "sa_f1_4096",
      "sa_f1", "ssg4096"),
     ("fused_sa_eval for _k_evalw", "fused_sa_eval.cu", FUSED_SA + ":702",
@@ -2065,6 +2309,12 @@ def main() -> None:
             odd_train).items():
         recs.setdefault(kernel, []).extend(rs)
     del dg_model
+    pc_vars = random_jax_variables(get_cls_model("pointconv"), seed=0)
+    pcseg_vars = random_jax_variables(build_model(PC_SEG), seed=0)
+    recs.update(phase_pointconv_kernels(
+        _model_on_card("pointconv", pc_vars),
+        _model_on_card(PC_SEG, pcseg_vars), xyz[:PC_BATCH], nrm[:PC_BATCH],
+        seg_xyz))
     torch.cuda.empty_cache()
 
     cnt = {"ball_query_cnt": {r["case"].replace(" serving", ""): {
@@ -2114,6 +2364,15 @@ def main() -> None:
         DSEG, dseg_vars, power, DSEG_ODD_BATCH, DSEG_ODD_STEP,
         DSEG_ODD_TRAIN, grad_check=False)
     phase_big_checks(msg_vars, seg_vars, dg_vars, dseg_vars)
+    paths["pointconv_serving"] = phase_serving(
+        "pointconv", pc_vars, (clouds, normals), power, PC_BATCH, PC_SERVE,
+        {})
+    paths["pointconv_train"] = phase_train("pointconv", pc_vars, power,
+                                           PC_BATCH, PC_STEP)
+    paths["pointconv_partseg_serving"] = phase_seg_serving(
+        PC_SEG, pcseg_vars, power, PCSEG_SERVE, PC_CHECK)
+    paths["pointconv_partseg_train"] = phase_train(
+        PC_SEG, pcseg_vars, power, SEG_BATCH, PCSEG_STEP)
 
     kernels = []
     for name, source, replaces, key, *counted in KERNELS:

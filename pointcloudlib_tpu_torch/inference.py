@@ -25,9 +25,11 @@ Example::
     s = SegPredictor.from_variables("pointnet2", jax_seg_variables)
     parts = s.predict(clouds, categories)         # [B, N] part ids
 
-``"pointnet2"`` (SSG), ``"pointnet2_msg"`` and ``"dgcnn"`` (xyz only) are
-the ported classification models, ``"pointnet2"`` (xyz as features) and
-``"dgcnn"`` (xyz only) the ported part segmentation models.
+``"pointnet2"`` (SSG), ``"pointnet2_msg"``, ``"dgcnn"`` (xyz only) and
+``"pointconv"`` (normals with ``with_normals=True``, as its bench row
+runs it) are the ported classification models, ``"pointnet2"`` (xyz as
+features), ``"dgcnn"`` and ``"pointconv"`` (xyz only) the ported part
+segmentation models.
 """
 
 from __future__ import annotations

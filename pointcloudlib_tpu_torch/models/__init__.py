@@ -1,12 +1,16 @@
 """Model registry (counterpart of ``pointcloudlib_tpu/models``).
 
-PointNet++ SSG and MSG classification, DGCNN classification, and
-PointNet++ and DGCNN part segmentation are ported so far; the other
-entries of the JAX registry follow in later slices (ROADMAP.md)."""
+PointNet++ SSG and MSG, DGCNN and PointConv classification, and
+PointNet++, DGCNN and PointConv part segmentation are ported so far; the
+other entries of the JAX registry follow in later slices (ROADMAP.md)."""
 
 from __future__ import annotations
 
 from pointcloudlib_tpu_torch.models.dgcnn import DGCNN, DGCNNPartSeg
+from pointcloudlib_tpu_torch.models.pointconv import (
+    PointConvDensityCls,
+    PointConvPartSeg,
+)
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     PointNet2MSG,
     PointNet2PartSeg,
@@ -14,8 +18,9 @@ from pointcloudlib_tpu_torch.models.pointnet2 import (
 )
 
 CLS_MODELS = {"pointnet2": PointNet2SSG, "pointnet2_msg": PointNet2MSG,
-              "dgcnn": DGCNN}
-SEG_MODELS = {"pointnet2": PointNet2PartSeg, "dgcnn": DGCNNPartSeg}
+              "dgcnn": DGCNN, "pointconv": PointConvDensityCls}
+SEG_MODELS = {"pointnet2": PointNet2PartSeg, "dgcnn": DGCNNPartSeg,
+              "pointconv": PointConvPartSeg}
 
 
 def get_cls_model(name: str, n_classes: int = 40, **kw):

@@ -106,13 +106,17 @@ class BatchNorm(nn.Module):
 class DenseBNAct(nn.Module):
     """Dense → BatchNorm → activation over the last axis
     (``nn/layers.py:70``). ``act`` is ReLU by default or ``None``; the
-    Dense has a bias only with ``use_bias`` (zero-initialized, as flax's)."""
+    Dense has a bias only with ``use_bias`` (zero-initialized, as flax's).
+    ``dtype`` fixes the Dense operands' type on every device; ``None``
+    takes :func:`compute_dtype`."""
 
     def __init__(self, in_features: int, features: int,
                  act: Optional[Callable[[torch.Tensor],
                                         torch.Tensor]] = F.relu,
-                 use_bias: bool = False):
+                 use_bias: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.dense = nn.Linear(in_features, features, bias=use_bias)
         reference_linear_init(self.dense.weight, in_features)
         if use_bias:
@@ -121,7 +125,7 @@ class DenseBNAct(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = compute_dtype(x.device)
+        dt = compute_dtype(x.device) if self.dtype is None else self.dtype
         bias = self.dense.bias
         x = F.linear(x.to(dt), self.dense.weight.to(dt),
                      None if bias is None else bias.to(dt)).float()
@@ -131,11 +135,14 @@ class DenseBNAct(nn.Module):
 
 
 class PointMLP(nn.Sequential):
-    """Stack of DenseBNAct blocks over the trailing channel axis."""
+    """Stack of DenseBNAct blocks over the trailing channel axis, their
+    Dense operands in ``dtype`` (``None``: :func:`compute_dtype`)."""
 
-    def __init__(self, in_features: int, features: Sequence[int]):
+    def __init__(self, in_features: int, features: Sequence[int],
+                 dtype: Optional[torch.dtype] = None):
         dims = [in_features, *features]
-        super().__init__(*[DenseBNAct(i, o) for i, o in zip(dims, dims[1:])])
+        super().__init__(*[DenseBNAct(i, o, dtype=dtype)
+                           for i, o in zip(dims, dims[1:])])
 
 
 class FusedSetAbstraction(nn.Module):

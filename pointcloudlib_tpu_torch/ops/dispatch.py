@@ -1,5 +1,5 @@
-"""Device resolution and the FPS, ball-query, 3-NN interpolation and
-row scatter-add entry points.
+"""Device resolution and the FPS, ball-query, 3-NN interpolation, row
+gather, fused kNN + gather and row scatter-add entry points.
 
 The JAX package picks Pallas or XLA per process from the backend. Here
 the choice follows the tensor: a CUDA tensor goes to the hand-written
@@ -17,6 +17,9 @@ import torch
 from pointcloudlib_tpu_torch.ops.kernels import ball_query as _bq_kernel
 from pointcloudlib_tpu_torch.ops.kernels import fps as _fps_kernel
 from pointcloudlib_tpu_torch.ops.kernels import gather as _gather_kernel
+from pointcloudlib_tpu_torch.ops.kernels import (
+    knn_gather as _knn_gather_kernel,
+)
 from pointcloudlib_tpu_torch.ops.kernels import (
     three_interp as _three_interp_kernel,
 )
@@ -58,6 +61,27 @@ def three_interp(query: torch.Tensor, points: torch.Tensor,
     the plain version for CPU tensors, ``idx`` bit-identical between
     them. ``geometry.three_nn_interpolate`` is the differentiable form."""
     return _three_interp_kernel.three_interp_fwd(query, points, feats)
+
+
+def gather_neighbors(points: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+    """``points[b, idx[b, ...], :]`` → ``[B, ..., C]``, zero rows for
+    indices outside ``[0, N)``, differentiable in ``points`` (scatter-add
+    backward) — the CUDA kernel for CUDA tensors, ``torch.gather`` for
+    CPU tensors, bit-identical. ``geometry.gather_points`` applies the
+    JAX package's cost gate in front of it."""
+    return _gather_kernel.GatherNeighbors.apply(points, idx)
+
+
+def knn_gather(query: torch.Tensor, points: torch.Tensor,
+               values: torch.Tensor, k: int, stride: int = 1
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kNN of ``query`` in ``points`` and the ``values`` rows of ranks 0,
+    ``stride``, 2·``stride``, … → ``(idx [B, M, k] int32, grouped [B, M,
+    k, Cv])``, differentiable in ``values`` — the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors, bit-identical."""
+    return _knn_gather_kernel.KnnGather.apply(query, points, values, k,
+                                              stride)
 
 
 def scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int

@@ -4,8 +4,9 @@
 Conventions are the JAX package's: channel-last ``[B, N, C]`` float32
 clouds, ``int32`` neighbour indices of static width, repeat-first
 padding. Every function here runs on any device as ordinary tensor ops,
-except ``knn`` and ``three_nn_interpolate``, which send CUDA tensors to
-their kernels; the sequential and hot pieces of the model paths have
+except ``knn``, ``three_nn_interpolate``, ``gather_points`` and
+``sample_and_group``, which send CUDA tensors to their kernels; the
+sequential and hot pieces of the model paths have
 CUDA kernels in ``ops/kernels`` that these functions are the plain
 versions of.
 
@@ -32,6 +33,10 @@ __all__ = [
     "knn_plain",
     "three_nn",
     "three_nn_interpolate",
+    "gather_takes_kernel",
+    "gather_points",
+    "compute_density",
+    "sample_and_group",
 ]
 
 
@@ -244,3 +249,81 @@ def group_all(xyz: torch.Tensor, feats: torch.Tensor,
     if use_xyz:
         feats = torch.cat([xyz, feats], dim=-1)
     return feats[:, None, :, :]
+
+
+def gather_takes_kernel(n: int, c: int, rows: int) -> bool:
+    """The cost gate of the JAX ``index_points`` (``geometry.py:123-173``)
+    for a float32 cloud of ``n`` points of ``c`` channels and an index of
+    ``rows`` entries: the row-gather kernel when ``n ≥ 128`` and
+    ``rows·(6e-6 + 4e-7·c − 3.5e-9·(n + pad)) > 1``, with
+    ``pad = −n % 128``."""
+    pad = -n % 128
+    return n >= 128 and rows * (6e-6 + 4e-7 * c - 3.5e-9 * (n + pad)) > 1.0
+
+
+def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """:func:`index_points` routed as the JAX ``index_points`` routes it:
+    a float32 ``points [B, N, C]`` with an ``idx [B, M]`` or ``[B, M, K]``
+    that passes :func:`gather_takes_kernel` goes through
+    ``dispatch.gather_neighbors`` (the kernel for CUDA tensors, its plain
+    version for CPU ones, the scatter-add backward), every other gather
+    through :func:`index_points`. PointConv's gathers call it; the plain
+    versions of the other kernels keep :func:`index_points`."""
+    if (points.dtype == torch.float32 and idx.dim() in (2, 3)
+            and points.dim() == 3
+            and gather_takes_kernel(points.shape[1], points.shape[2],
+                                    idx.numel())):
+        # the kernel wrappers import this module
+        from pointcloudlib_tpu_torch.ops.dispatch import gather_neighbors
+
+        return gather_neighbors(points, idx)
+    return index_points(points, idx)
+
+
+def compute_density(xyz: torch.Tensor, bandwidth: float) -> torch.Tensor:
+    """Gaussian-KDE point density ``[B, N]`` (``geometry.py:481``): the
+    mean over every point of ``exp(−d²/(2σ²))/(2.5σ)`` with d² from
+    :func:`square_distance`."""
+    d2 = square_distance(xyz, xyz)
+    g = torch.exp(-d2 / (2.0 * bandwidth * bandwidth)) / (2.5 * bandwidth)
+    return g.mean(-1)
+
+
+def sample_and_group(
+    xyz: torch.Tensor,
+    feats: Optional[torch.Tensor],
+    n_points: int,
+    k: int,
+    density: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """PointConv grouping (``geometry.py:416-467``) → ``(new_xyz [B,
+    n_points, 3], grouped [B, n_points, k, 3+C], grouped_density [B,
+    n_points, k, 1] or None)``, grouped as ``[local xyz ‖ feats]``. FPS
+    without the near-origin skip picks the centers; then, for float32 at
+    N % 128 == 0 with ``[xyz ‖ feats ‖ density]`` at least 16 wide, the
+    fused kNN + gather (``dispatch.knn_gather``), else :func:`knn` and
+    :func:`gather_points` of ``[xyz ‖ feats]`` and of the density. Only
+    ``feats`` and ``density`` carry gradients."""
+    # the kernel wrappers import this module
+    from pointcloudlib_tpu_torch.ops.dispatch import fps, knn_gather
+
+    new_xyz = gather_points(xyz, fps(xyz, n_points, skip_near_origin=False))
+    c = 0 if feats is None else feats.shape[-1]
+    cv = 3 + c + (0 if density is None else 1)
+    if xyz.shape[1] % 128 == 0 and cv >= 16 and xyz.dtype == torch.float32:
+        cols = [xyz] + ([] if feats is None else [feats]) + (
+            [] if density is None else [density[..., None]])
+        _, g = knn_gather(new_xyz, xyz, torch.cat(cols, dim=-1), k)
+        local = g[..., :3] - new_xyz[:, :, None, :]
+        grouped = torch.cat([local, g[..., 3:3 + c]], dim=-1) if c else local
+        return new_xyz, grouped, (None if density is None
+                                  else g[..., 3 + c:4 + c])
+    _, idx = knn(new_xyz, xyz, k)
+    if feats is None:
+        grouped = gather_points(xyz, idx) - new_xyz[:, :, None, :]
+    else:
+        both = gather_points(torch.cat([xyz, feats], dim=-1), idx)
+        grouped = torch.cat([both[..., :3] - new_xyz[:, :, None, :],
+                             both[..., 3:]], dim=-1)
+    return new_xyz, grouped, (None if density is None
+                              else gather_points(density[..., None], idx))

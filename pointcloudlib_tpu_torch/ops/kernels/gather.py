@@ -1,10 +1,14 @@
-"""Row scatter-add: the CUDA kernel ``csrc/scatter_rows.cu`` and its
-plain version.
+"""Row gather and row scatter-add: the CUDA kernels
+``csrc/gather_rows.cu`` and ``csrc/scatter_rows.cu`` and their plain
+versions.
 
-Replaces the TPU kernel ``pointcloudlib_tpu/ops/pallas/gather.py``
-(``scatter_rows`` → ``_gather_bwd_impl`` → ``_scatter_kernel``), the
-backward pass of the row gathers. The gather itself (``_gather_kernel``)
-is not ported yet.
+Replace the TPU kernels of ``pointcloudlib_tpu/ops/pallas/gather.py``:
+``gather_neighbors`` → ``_gather_fwd_impl`` → ``_gather_kernel`` (the row
+gather, exact copies here) and ``scatter_rows`` → ``_gather_bwd_impl`` →
+``_scatter_kernel`` (its backward, and that of every fused gather).
+:class:`GatherNeighbors` is the differentiable gather;
+``geometry.gather_points`` routes to it behind the JAX package's cost
+gate.
 """
 
 from __future__ import annotations
@@ -16,15 +20,98 @@ import torch
 from pointcloudlib_tpu_torch.ops.kernels import _build
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("scatter_rows")
-    fn = lib.scatter_rows_launch
+def _lib(name: str = "scatter_rows") -> ctypes.CDLL:
+    """``csrc/scatter_rows.cu`` or ``csrc/gather_rows.cu``: both launchers
+    take ``(a, idx, out, b, rows_per_batch, n, c, stream)``."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def gather_neighbors_plain(points: torch.Tensor, idx: torch.Tensor
+                           ) -> torch.Tensor:
+    """``points [B, N, C]``, ``idx [B, ...]`` → ``[B, ..., C]`` float32:
+    ``points[b, idx[b, ...], :]`` by ``torch.gather``, and a zero row
+    where the index lies outside ``[0, N)`` (``gather.py:127-129``)."""
+    b, n, c = points.shape
+    flat = idx.reshape(b, -1).long()
+    keep = (flat >= 0) & (flat < n)
+    rows = torch.gather(points.float(), 1,
+                        torch.where(keep, flat, 0)[..., None].expand(-1, -1,
+                                                                     c))
+    return torch.where(keep[..., None], rows, 0.0).reshape(*idx.shape, c)
+
+
+def gather_neighbors(points: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+    """The row gather of :func:`gather_neighbors_plain` for ``points [B,
+    N, C]`` float32 and an int ``idx [B, M]`` or ``[B, M, K]``: the kernel
+    for CUDA tensors (an exact copy, bit-identical to the plain version),
+    the plain version for CPU tensors. No gradient: see
+    :class:`GatherNeighbors`."""
+    if points.device.type == "cpu":
+        return gather_neighbors_plain(points, idx)
+    if points.device.type != "cuda":
+        raise ValueError(f"gather_neighbors: unsupported device "
+                         f"{points.device}")
+    if (points.dim() != 3 or idx.dim() not in (2, 3)
+            or idx.shape[0] != points.shape[0]):
+        raise ValueError(f"gather_neighbors: points [B, N, C] and idx "
+                         f"[B, M] or [B, M, K] expected, got "
+                         f"{tuple(points.shape)} and {tuple(idx.shape)}")
+    if points.dtype != torch.float32:
+        raise TypeError(f"gather_neighbors: points must be float32, got "
+                        f"{points.dtype}")
+    if idx.device != points.device or idx.dtype not in (torch.int32,
+                                                        torch.int64):
+        raise ValueError(f"gather_neighbors: idx must be an int tensor on "
+                         f"{points.device}, got {idx.dtype} on {idx.device}")
+    b, n, c = points.shape
+    per_batch = idx[0].numel()
+    if b < 1 or n < 1 or c < 1 or per_batch < 1:
+        raise ValueError(f"gather_neighbors: empty sizes B={b}, N={n}, "
+                         f"C={c}, rows {per_batch}")
+    if n >= 2 ** 31:
+        raise ValueError(f"gather_neighbors: N={n} is above the int32 "
+                         f"index range")
+    points = points.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    out = torch.empty((*idx.shape, c), dtype=torch.float32,
+                      device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib("gather_rows").gather_rows_launch(
+            points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, per_batch,
+            n, c, stream)
+    _build.check(err, "gather_neighbors")
+    gather_neighbors.launches += 1
+    return out
+
+
+gather_neighbors.launches = 0
+
+
+class GatherNeighbors(torch.autograd.Function):
+    """:func:`gather_neighbors` with its gradient to ``points``
+    (``gather.py:248-257``): the backward is :func:`scatter_rows` of the
+    output gradient at ``idx``, the sentinel rows adding nothing. No
+    gradient to ``idx``."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return gather_neighbors(points, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return scatter_rows(g, idx, ctx.n), None
 
 
 def scatter_rows_plain(g: torch.Tensor, idx: torch.Tensor, n: int

@@ -1,16 +1,16 @@
 """Where the serving time goes: the port's Predictor under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_serving \
-        [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg|
-                 dgcnn_partseg] \
+        [--model pointnet2|pointnet2_msg|dgcnn|pointconv|
+                 pointnet2_partseg|dgcnn_partseg|pointconv_partseg] \
         [--n-points N] [--out DIR]
 
-Serves PointNet++ SSG at B=64, MSG at B=32 (``Predictor``, normals as
-features, N=1024, 256 synthetic surface clouds) or DGCNN at B=32 (the
-same clouds, xyz only), or part
+Serves PointNet++ SSG at B=64, MSG and PointConv at B=32 (``Predictor``,
+normals as features, N=1024, 256 synthetic surface clouds) or DGCNN at
+B=32 (the same clouds, xyz only), or part
 segmentation at B=16 (``SegPredictor.predict``, N=2048, 64
 ShapeNet-part-shaped synthetic clouds; PointNet++ with xyz as features,
-DGCNN on xyz alone at k=40), full width with seeded random
+DGCNN at k=40 and PointConv on xyz alone), full width with seeded random
 weights, after a warm-up request. ``--n-points`` serves clouds of N
 points instead (4096: the sorted route of the given-index kernels; above
 4096 and not a multiple of 128, e.g. 10000: DGCNN's standalone kNN).
@@ -49,19 +49,25 @@ from pointcloudlib_tpu_torch.data.synthetic import (
     SyntheticShapeNetPart,
 )
 from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
-from pointcloudlib_tpu_torch.tools.grad_check import SEG, build_model
+from pointcloudlib_tpu_torch.tools.grad_check import (
+    NORMALS,
+    SEG,
+    build_model,
+)
 from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
 
 # the JAX package's rows: batch, points, clouds a request
-BATCH = {"pointnet2": 64, "pointnet2_msg": 32, "dgcnn": 32,
+BATCH = {"pointnet2": 64, "pointnet2_msg": 32, "dgcnn": 32, "pointconv": 32,
          **{name: 16 for name in SEG}}
 N_POINTS = {"pointnet2": 1024, "pointnet2_msg": 1024, "dgcnn": 1024,
-            **{name: 2048 for name in SEG}}
+            "pointconv": 1024, **{name: 2048 for name in SEG}}
 N_CLOUDS = {"pointnet2": 256, "pointnet2_msg": 256, "dgcnn": 256,
-            **{name: 64 for name in SEG}}
+            "pointconv": 256, **{name: 64 for name in SEG}}
 
 # kernel-name pattern -> stage, first match wins
 STAGES = (
+    (r"gather_rows_kernel", "gather_neighbors kernel"),
+    (r"knn_gather_kernel", "knn_gather kernel"),
     (r"edge2_knn_eval_kernel", "edge2_knn_eval kernel"),
     (r"edge2_eval_kernel", "edge2_eval kernel"),
     (r"edge2_tail_kernel<64, 64, false>", "edge2_stats2 kernel"),
@@ -144,6 +150,7 @@ def main(argv=None) -> None:
             pred.predict(clouds, labels)
     else:
         pred = Predictor.from_variables(args.model, variables,
+                                        with_normals=args.model in NORMALS,
                                         batch_size=batch)
         clouds, normals, _ = SyntheticModelNet(
             n_points=n_points, size=n_clouds, seed=0).batch(0, n_clouds)

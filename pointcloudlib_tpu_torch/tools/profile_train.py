@@ -2,17 +2,19 @@
 ``make_seg_train_step`` under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_train \
-        [--model pointnet2|pointnet2_msg|dgcnn|pointnet2_partseg|
-                 dgcnn_partseg] \
+        [--model pointnet2|pointnet2_msg|dgcnn|pointconv|
+                 pointnet2_partseg|dgcnn_partseg|pointconv_partseg] \
         [--n-points N] [--out DIR]
 
 Trains PointNet++ SSG at B=64 or MSG at B=32 (normals as features,
 N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
 0.02), DGCNN at B=32 (the same clouds, xyz only, lr 0.1, ``bench.py:168``),
-or part segmentation at B=16 (N=2048, ShapeNet-part-shaped synthetic
-clouds, lr 0.01, ``bench.py:233``; PointNet++ with xyz as features, DGCNN
-on xyz alone at k=40), full width with
-seeded random weights and dropout 0.5, on one batch, after 3 warm-up
+PointConv at B=32 (normals as features, lr 0.1), or part segmentation at
+B=16 (N=2048, ShapeNet-part-shaped synthetic clouds, lr 0.01,
+``bench.py:233``; PointNet++ with xyz as features, DGCNN at k=40 and
+PointConv on xyz alone), full width with
+seeded random weights and the models' dropout (0.5; PointConv 0.4), on
+one batch, after 3 warm-up
 steps; ``--n-points`` trains on clouds of N points instead (4096: the
 sorted route of the given-index kernels; 1000: DGCNN's standalone kNN).
 Prints one JSON line with:
@@ -68,7 +70,7 @@ from pointcloudlib_tpu_torch.utils.interop import (
 )
 
 LR = {"pointnet2": 0.02, "pointnet2_msg": 0.02, "dgcnn": 0.1,
-      **{name: 0.01 for name in SEG}}
+      "pointconv": 0.1, **{name: 0.01 for name in SEG}}
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 

@@ -27,7 +27,15 @@ abstraction is on:
   bn{1,2}_scale,bn{1,2}_bias}`` with batch stats ``mean{1,2}``/``var{1,2}``,
   ``FusedEdgeConv_0`` as in DGCNN, ``DenseBNAct_{0..4}`` (conv6, the
   label embedding, the three decoder layers) and a bias-free
-  ``Dense_0/kernel``.
+  ``Dense_0/kernel``;
+* PointConv: ``PointConvSA_{0,1,2}`` (classification; ``_{0..3}`` and
+  the decoders ``PointConvInterp_{0..3}`` for part segmentation), each
+  with ``DensityNet_0/DenseBNAct_{0,1,2}``, ``PointMLP_0/DenseBNAct_i``
+  and ``WeightNet_0/DenseBNAct_{0,1,2}`` (every ``DensityNet`` and
+  ``WeightNet`` Dense has a bias), ``Dense_0/{kernel,bias}`` and
+  ``BatchNorm_0/{scale,bias}`` with batch stats ``mean``/``var``; then
+  ``DenseBNAct_{0,1}`` (classification's head; part segmentation's
+  ``DenseBNAct_0``), each Dense with a bias, and ``Dense_0/{kernel,bias}``.
 
 A checkpoint in the unfused layout goes through the JAX package's own
 ``pointcloudlib_tpu.utils.interop.convert_variables`` first, with an
@@ -45,6 +53,10 @@ import numpy as np
 import torch
 
 from pointcloudlib_tpu_torch.models.dgcnn import DGCNN, DGCNNPartSeg
+from pointcloudlib_tpu_torch.models.pointconv import (
+    PointConvDensityCls,
+    PointConvPartSeg,
+)
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     ClsHead,
     PointNet2MSG,
@@ -151,7 +163,43 @@ def _dgcnn_partseg(model: DGCNNPartSeg) -> _Entries:
     return out
 
 
+def _pointconv_layer(layer, path, out: _Entries):
+    """A ``PointConvSA`` or ``PointConvInterp`` at ``path``."""
+    for sub, seq in (("DensityNet_0", layer.density_net),
+                     ("PointMLP_0", layer.mlp),
+                     ("WeightNet_0", layer.weight_net)):
+        for i, blk in enumerate(seq):
+            _dense_bn(blk, (*path, sub, f"DenseBNAct_{i}"), out)
+    _dense(layer.dense, path, out)
+    bn = (*path, "BatchNorm_0")
+    out[("params", *bn, "scale")] = (layer.bn.weight, False)
+    out[("params", *bn, "bias")] = (layer.bn.bias, False)
+    out[("batch_stats", *bn, "mean")] = (layer.bn.running_mean, False)
+    out[("batch_stats", *bn, "var")] = (layer.bn.running_var, False)
+
+
+def _pointconv(model) -> _Entries:
+    out: _Entries = {}
+    if isinstance(model, PointConvPartSeg):
+        sas = (model.sa1, model.sa2, model.sa3, model.sa4)
+        decoders = (model.fp4, model.fp3, model.fp2, model.fp1)
+        heads = (model.head,)
+    else:
+        sas, decoders = (model.sa1, model.sa2, model.sa3), ()
+        heads = (model.fc1, model.fc2)
+    for i, sa in enumerate(sas):
+        _pointconv_layer(sa, (f"PointConvSA_{i}",), out)
+    for i, fp in enumerate(decoders):
+        _pointconv_layer(fp, (f"PointConvInterp_{i}",), out)
+    for i, blk in enumerate(heads):
+        _dense_bn(blk, (f"DenseBNAct_{i}",), out)
+    _dense(model.out, (), out)
+    return out
+
+
 def _entries(model) -> _Entries:
+    if isinstance(model, (PointConvDensityCls, PointConvPartSeg)):
+        return _pointconv(model)
     if isinstance(model, PointNet2PartSeg):
         return _partseg(model)
     if isinstance(model, DGCNN):

@@ -1206,3 +1206,229 @@ def test_dgcnn_partseg_train_step_card_matches_cpu(card, n):
           "not compared", got["not_compared"])
     assert not got["failures"], got["failures"]
     assert set(got["not_compared"]) <= {"conv6.bn.bias"}, got["not_compared"]
+
+
+# ------------------------------------------- PointConv: gather, kNN+gather
+
+GATHER_SHAPES = {  # B, N, C, idx shape after B
+    "cls SA1 xyz+normals": (32, 1024, 6, (512, 32)),
+    "cls SA1 density": (32, 1024, 1, (512, 32)),
+    "seg decoder n=256": (16, 256, 512, (256, 16)),
+    "seg decoder n=1024": (16, 1024, 256, (1024, 16)),
+    "seg decoder n=2048": (16, 2048, 128, (2048, 16)),
+    "2-D idx": (4, 300, 8, (77,)),
+    "M=13, C=5": (3, 128, 5, (13, 7)),
+}
+
+
+def _gather_inputs(card, name):
+    """Random rows and indices, a few of them sentinels (N, N + 5, -1)."""
+    b, n, c, rows = GATHER_SHAPES[name]
+    rng = np.random.default_rng(n + c)
+    pts = torch.from_numpy(rng.standard_normal((b, n, c)).astype(
+        np.float32)).to(card)
+    idx = rng.integers(0, n, (b, *rows)).astype(np.int32)
+    flat = idx.reshape(-1)
+    flat[:: max(1, flat.size // 7)] = n
+    flat[1] = n + 5
+    flat[2] = -1
+    return pts, torch.from_numpy(idx).to(card)
+
+
+@pytest.mark.parametrize("name", sorted(GATHER_SHAPES))
+def test_gather_neighbors_bit_identical(card, name):
+    """The row gather is an exact copy: bit-identical to the plain
+    ``torch.gather``, zero rows at the sentinels; one launch."""
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+
+    pts, idx = _gather_inputs(card, name)
+    before = kga.gather_neighbors.launches
+    got = kga.gather_neighbors(pts, idx)
+    torch.cuda.synchronize()
+    assert kga.gather_neighbors.launches == before + 1
+    want = kga.gather_neighbors_plain(pts, idx)
+    assert got.shape == want.shape == (*idx.shape, pts.shape[-1])
+    assert torch.equal(got, want)
+    bad = (idx < 0) | (idx >= pts.shape[1])
+    assert bad.any() and not got[bad].any()
+
+
+@pytest.mark.parametrize("name", ["seg decoder n=1024", "2-D idx"])
+def test_gather_neighbors_gradient(card, name):
+    """``GatherNeighbors``' backward (the scatter-add kernel) against the
+    gradient of the plain gather on the card, within 1e-5·max|plain|
+    (f32 atomics in another order); sentinel rows add nothing."""
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+
+    pts, idx = _gather_inputs(card, name)
+    g = torch.randn((*idx.shape, pts.shape[-1]), device=card,
+                    generator=torch.Generator(device=card).manual_seed(0))
+    grads = []
+    for fn in (kga.GatherNeighbors.apply, kga.gather_neighbors_plain):
+        p = pts.clone().requires_grad_(True)
+        fn(p, idx).backward(g)
+        grads.append(p.grad)
+    err = (grads[0] - grads[1]).abs().max().item()
+    assert err <= 1e-5 * grads[1].abs().max().item()
+
+
+KNN_GATHER_SHAPES = {  # B, M, N, Cv, k, stride
+    "cls SA2": (32, 128, 512, 132, 64, 1),
+    "seg SA2": (16, 256, 1024, 68, 32, 1),
+    "seg SA3": (16, 64, 256, 132, 32, 1),
+    "k*stride = N": (2, 10, 64, 20, 32, 2),
+    "stride 2, M=13, Cv=7": (3, 13, 256, 7, 16, 2),
+    "N=4096": (2, 64, 4096, 16, 32, 1),
+    "duplicate points": (2, 40, 256, 16, 48, 1),
+}
+
+
+def _knn_gather_inputs(card, name):
+    b, m, n, cv, k, stride = KNN_GATHER_SHAPES[name]
+    rng = np.random.default_rng(n + cv)
+    pts = rng.standard_normal((b, n, 3)).astype(np.float32)
+    pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
+    if name == "duplicate points":  # every point four times: exact ties
+        pts[:, n // 4:] = np.tile(pts[:, :n // 4], (1, 3, 1))
+    query = pts[:, rng.permutation(n)[:m]].copy()
+    vals = rng.standard_normal((b, n, cv)).astype(np.float32)
+    vals[..., :3] = pts
+    return (torch.from_numpy(query).to(card), torch.from_numpy(pts).to(card),
+            torch.from_numpy(vals).to(card), k, stride)
+
+
+@pytest.mark.parametrize("name", sorted(KNN_GATHER_SHAPES))
+def test_knn_gather_bit_identical(card, name):
+    """idx and grouped bit-identical to ``knn_gather_plain`` (d² in the
+    plain order, ties to the lower index, exact copies); one launch."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+
+    query, pts, vals, k, stride = _knn_gather_inputs(card, name)
+    before = kkg.knn_gather.launches
+    idx, grouped = kkg.knn_gather(query, pts, vals, k, stride)
+    torch.cuda.synchronize()
+    assert kkg.knn_gather.launches == before + 1
+    pidx, pgrouped = kkg.knn_gather_plain(query, pts, vals, k, stride)
+    assert torch.equal(idx, pidx)
+    assert torch.equal(grouped, pgrouped)
+
+
+def test_knn_gather_gradient(card):
+    """``KnnGather``'s backward (the scatter-add kernel) against the
+    gradient of the plain version on the card within 1e-5·max|plain|;
+    no gradient to the query or the points."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+
+    query, pts, vals, k, stride = _knn_gather_inputs(card, "seg SA2")
+    g = torch.randn((*query.shape[:2], k, vals.shape[-1]), device=card,
+                    generator=torch.Generator(device=card).manual_seed(0))
+    grads = []
+    for fn in (kkg.KnnGather.apply,
+               lambda q, p, v, kk, s: kkg.knn_gather_plain(q, p, v, kk, s)):
+        v = vals.clone().requires_grad_(True)
+        q = query.clone().requires_grad_(True)
+        fn(q, pts, v, k, stride)[1].backward(g)
+        grads.append(v.grad)
+        if fn is kkg.KnnGather.apply:
+            assert q.grad is None
+    err = (grads[0] - grads[1]).abs().max().item()
+    assert err <= 1e-5 * grads[1].abs().max().item()
+
+
+def test_pointconv_kernels_reject_what_they_cannot_run(card):
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+
+    pts = torch.zeros((1, 64, 3), device=card)
+    idx = torch.zeros((1, 8, 4), device=card, dtype=torch.int32)
+    with pytest.raises(TypeError, match="float32"):
+        kga.gather_neighbors(pts.double(), idx)
+    with pytest.raises(ValueError, match="idx"):
+        kga.gather_neighbors(pts, idx[0])
+    with pytest.raises(ValueError, match="k·stride <= N"):
+        kkg.knn_gather(pts[:, :8], pts, pts, 33, 2)
+    big = torch.zeros((1, kkg.MAX_POINTS + 1, 3), device=card)
+    with pytest.raises(ValueError, match="above the kernel"):
+        kkg.knn_gather(big[:, :8], big, big, 4)
+
+
+@pytest.mark.parametrize("name,n,clouds,counts", [
+    ("pointconv", 1024, 32, {"fps": 2, "knn": 1, "gather_neighbors": 2,
+                             "knn_gather": 1}),
+    ("pointconv_partseg", 2048, 4, {"fps": 4, "knn": 6,
+                                    "gather_neighbors": 3, "knn_gather": 2,
+                                    "three_interp": 4})])
+def test_pointconv_eval_card_matches_cpu(card, name, n, clouds, counts):
+    """PointConv classification (normals as features, 32 clouds: below
+    that SA1's gathers fall under the cost gate) and part segmentation (4
+    clouds) in eval mode on the card, with exactly these launches, and 4
+    of the clouds on the CPU from the same weights: probabilities within
+    5e-3 (eval mode treats each cloud on its own)."""
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+    from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        SEG,
+        build_model,
+        synthetic_batch,
+    )
+
+    counted = {"fps": kfps.fps, "knn": kknn.knn,
+               "gather_neighbors": kga.gather_neighbors,
+               "knn_gather": kkg.knn_gather,
+               "three_interp": kti.three_interp_fwd,
+               "scatter_rows": kga.scatter_rows}
+    variables = random_jax_variables(build_model(name), seed=3)
+    batch = synthetic_batch(name, clouds, 7, n)
+    probs = []
+    for dev, rows in ((card, clouds), (torch.device("cpu"), 4)):
+        model = build_model(name)
+        from_jax_variables(model, variables)
+        model = model.to(dev).eval()
+        before = {k: f.launches for k, f in counted.items()}
+        x = batch["xyz"][:rows].to(dev)
+        with torch.no_grad():
+            logits = (model(x, batch["cls_onehot"][:rows].to(dev))
+                      if name in SEG
+                      else model(x, batch["feats"][:rows].to(dev)))
+        probs.append(torch.softmax(logits, -1)[:4].cpu().numpy())
+        if dev == card:
+            assert {k: f.launches - before[k] for k, f in counted.items()
+                    } == {k: counts.get(k, 0) for k in counted}
+    assert np.isfinite(probs[0]).all()
+    assert np.abs(probs[0] - probs[1]).max() <= 5e-3
+
+
+@pytest.mark.parametrize("name,n", [("pointconv", 1024),
+                                    ("pointconv_partseg", 2048)])
+def test_pointconv_train_step_card_matches_cpu(card, name, n):
+    """One train-mode forward and backward of PointConv classification
+    and part segmentation on 8 synthetic clouds, on the card and on the
+    CPU from the same weights with dropout 0, under
+    ``tools/grad_check.py``'s bounds; the Dense biases in front of a
+    train-mode BatchNorm are exactly 0, not compared, and the first Dense
+    weight of each DensityNet, a cancellation's residue, is held to the
+    cosine bound alone."""
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        build_model,
+        grad_agreement,
+        synthetic_batch,
+    )
+
+    variables = random_jax_variables(build_model(name), seed=5)
+    got = grad_agreement(name, variables, synthetic_batch(name, 8, 11, n),
+                         card)
+    agree = got["agree"]
+    print(f"{name} card against CPU: least cosine",
+          min(agree.items(), key=lambda kv: kv[1][0]),
+          "largest norm deviation",
+          max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)),
+          "not compared", got["not_compared"],
+          "cosine only", got["cosine_only"])
+    assert not got["failures"], got["failures"]
+    assert all(k.endswith("dense.bias") for k in got["not_compared"]), \
+        got["not_compared"]
+    assert got["cosine_only"] and all(
+        k.endswith("density_net.0.dense.weight")
+        for k in got["cosine_only"]), got["cosine_only"]

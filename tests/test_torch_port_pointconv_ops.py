@@ -1,0 +1,334 @@
+"""The port's PointConv pieces against the JAX package, on the CPU: the row
+gather (``gather_neighbors_plain``, ``GatherNeighbors``' gradient), the
+fused kNN + gather (``knn_gather_plain``, ``KnnGather``' gradient, at
+k=64, with a stride, over duplicate points), ``compute_density``,
+``sample_and_group`` on both routes and the gather's cost gate.
+
+Inputs are numpy arrays from a seed, handed to both frameworks. The JAX
+kernels run in Pallas interpret mode; the port runs the plain PyTorch
+versions its wrappers take for CPU tensors. Both JAX kernels gather
+through a hi/lo bf16 split, so their rows sit within ~2^-17 of the true
+ones (``gather.py:14-18``), where the port copies exactly: values are
+held to 2^-16·max|v|. The JAX ``knn_gather`` forms d² with an f32
+matrix product, the port channel by channel, so neighbour lists are
+compared row by row (a near-tied last neighbour may differ).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pointcloudlib_tpu.ops import dispatch as jdispatch
+from pointcloudlib_tpu.ops import geometry as jgeo
+from pointcloudlib_tpu.ops.pallas import gather as jgather
+from pointcloudlib_tpu.ops.pallas.neighbors import knn_gather as jknn_gather
+
+from pointcloudlib_tpu_torch import ops
+from pointcloudlib_tpu_torch.ops import geometry
+from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+
+GATHER_TOL = 2.0 ** -16  # × max|v|: the JAX kernels' hi/lo bf16 split
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _sphere(rng, b, n):
+    x = _normal(rng, b, n, 3)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _close_rows(got, want, scale):
+    np.testing.assert_allclose(got, want, rtol=0, atol=GATHER_TOL * scale)
+
+
+# ------------------------------------------------------------ row gather
+
+
+@pytest.mark.parametrize("b,n,c,rows", [
+    (2, 128, 5, (8, 4)),       # C not a multiple of 4, M below 8
+    (2, 256, 16, (13, 6)),     # M not a multiple of 8 (JAX pads rows)
+    (1, 128, 1, (40,)),        # C = 1, a 2-D idx
+])
+def test_gather_neighbors_matches_jax(b, n, c, rows):
+    """``gather_neighbors_plain`` against the JAX ``gather_neighbors`` in
+    interpret mode, sentinel indices (N, N + 3) giving zero rows."""
+    rng = np.random.default_rng(n + c)
+    pts = _normal(rng, b, n, c)
+    idx = rng.integers(0, n, (b, *rows)).astype(np.int32)
+    idx.reshape(-1)[::5] = n
+    idx.reshape(-1)[1] = n + 3
+    got = _np(kga.gather_neighbors_plain(torch.from_numpy(pts),
+                                         torch.from_numpy(idx)))
+    idx3 = idx[:, :, None] if idx.ndim == 2 else idx
+    want = np.asarray(jgather.gather_neighbors(
+        jnp.asarray(pts), jnp.asarray(idx3), True)).reshape(got.shape)
+    assert got.shape == (*idx.shape, c)
+    assert not got[idx >= n].any() and not want[idx >= n].any()
+    _close_rows(got, want, np.abs(pts).max())
+    exact = np.take_along_axis(pts, np.minimum(idx, n - 1).reshape(
+        b, -1, 1), axis=1).reshape(got.shape)
+    np.testing.assert_array_equal(got[idx < n], exact[idx < n])
+
+
+def test_gather_neighbors_gradient_matches_jax():
+    """``GatherNeighbors``' backward (``scatter_rows`` of the output
+    gradient; sentinel rows add nothing) against ``jax.vjp`` of the JAX
+    gather (its scatter-as-matmul kernel, interpret mode)."""
+    rng = np.random.default_rng(3)
+    b, n, c = 2, 128, 6
+    pts = _normal(rng, b, n, c)
+    idx = rng.integers(0, n, (b, 16, 8)).astype(np.int32)
+    idx[:, 0, :2] = n
+    g = _normal(rng, b, 16, 8, c)
+    p = torch.from_numpy(pts).requires_grad_(True)
+    out = kga.GatherNeighbors.apply(p, torch.from_numpy(idx))
+    out.backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(
+        lambda x: jgather.gather_neighbors(x, jnp.asarray(idx), True),
+        jnp.asarray(pts))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    _close_rows(_np(p.grad), want, np.abs(want).max())
+    assert ops.gather_neighbors(p, torch.from_numpy(idx)).requires_grad
+
+
+# ---------------------------------------------------------- kNN + gather
+
+
+def _knn_gather_inputs(rng, b, m, n, cv, duplicate=False):
+    pts = _sphere(rng, b, n)
+    if duplicate:  # every point twice: exact d² ties to the lower index
+        pts[:, n // 2:] = pts[:, :n // 2]
+    q = pts[:, rng.permutation(n)[:m]] + 0.01 * _normal(rng, b, m, 3)
+    vals = _normal(rng, b, n, cv)
+    return q, pts, vals
+
+
+def _rows_agree(got, want, min_share):
+    """Neighbour lists equal in at least ``min_share`` of the rows."""
+    same = (got == want).all(-1)
+    assert same.mean() >= min_share, same.mean()
+    return same
+
+
+KNN_GATHER_CASES = {  # B, M, N, Cv, k, stride, duplicate points
+    "k=64 over n=128": (2, 16, 128, 20, 64, 1, False),
+    "stride 2": (2, 16, 128, 17, 16, 2, False),
+    "duplicate points": (2, 16, 128, 16, 24, 1, True),
+}
+
+
+@pytest.fixture(scope="module")
+def knn_gather_runs():
+    """Each case through the port's plain version and the JAX kernel
+    (interpret mode), with the values' gradient of both."""
+    out = {}
+    for name, (b, m, n, cv, k, stride, dup) in KNN_GATHER_CASES.items():
+        rng = np.random.default_rng(n + cv)
+        q, pts, vals = _knn_gather_inputs(rng, b, m, n, cv, dup)
+        g = _normal(rng, b, m, k, cv)
+        v = torch.from_numpy(vals).requires_grad_(True)
+        idx, grouped = kkg.KnnGather.apply(torch.from_numpy(q),
+                                           torch.from_numpy(pts), v, k,
+                                           stride)
+        grouped.backward(torch.from_numpy(g))
+        (jidx, jgrouped), vjp = jax.vjp(
+            lambda x: jknn_gather(jnp.asarray(q), jnp.asarray(pts), x, k,
+                                  True, stride), jnp.asarray(vals))
+        (jdv,) = vjp((np.zeros((b, m, k), jax.dtypes.float0),
+                      jnp.asarray(g)))
+        out[name] = (idx.numpy(), _np(grouped), _np(v.grad),
+                     np.asarray(jidx), np.asarray(jgrouped), np.asarray(jdv),
+                     (q, pts, vals, k, stride))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(KNN_GATHER_CASES))
+def test_knn_gather_matches_jax(knn_gather_runs, name):
+    """idx row by row (all but a near-tied row or two), the grouped values
+    within 2^-16·max|v| on the rows whose lists agree, and every grouped
+    row an exact copy of ``values`` at the port's own idx."""
+    idx, grouped, _, jidx, jgrouped, _, (q, pts, vals, k, stride) = \
+        knn_gather_runs[name]
+    b, m = q.shape[:2]
+    assert idx.shape == (b, m, k) and idx.dtype == np.int32
+    same = _rows_agree(idx, jidx, 0.9)
+    _close_rows(grouped[same], jgrouped[same], np.abs(vals).max())
+    np.testing.assert_array_equal(grouped, np.take_along_axis(
+        vals, idx.reshape(b, -1, 1).astype(np.int64), axis=1).reshape(
+        grouped.shape))
+    # ranks 0, D, 2D, …: the plain kNN's order, every stride-th
+    _, full = geometry.knn_plain(torch.from_numpy(q), torch.from_numpy(pts),
+                                 k * stride)
+    np.testing.assert_array_equal(idx, full.numpy()[..., ::stride])
+    if name == "duplicate points":  # a tie takes the lower index first
+        n = pts.shape[1]
+        twin = np.where(idx >= n // 2, idx - n // 2, idx)
+        first = np.argmax(twin[..., :, None] == twin[..., None, :], -1)
+        assert (idx[first == np.arange(k)] < n // 2).all()
+
+
+@pytest.mark.parametrize("name", sorted(KNN_GATHER_CASES))
+def test_knn_gather_gradient_matches_jax(knn_gather_runs, name):
+    """``KnnGather``' values gradient (``scatter_rows`` at idx) against
+    ``jax.vjp`` of the JAX ``knn_gather``; every neighbour list of these
+    clouds agrees, so the two scatter the same rows."""
+    idx, _, dv, jidx, _, jdv, _ = knn_gather_runs[name]
+    np.testing.assert_array_equal(idx, jidx)
+    _close_rows(dv, jdv, np.abs(jdv).max())
+
+
+def test_knn_gather_rejects_too_many_ranks():
+    x = torch.zeros((1, 8, 3))
+    with pytest.raises(ValueError, match="k·stride <= N"):
+        kkg.knn_gather(x, x, x, 5, 2)
+
+
+# ------------------------------------------- density, grouping, the gate
+
+
+def test_compute_density_matches_jax():
+    rng = np.random.default_rng(5)
+    x = _sphere(rng, 2, 256)
+    for bw in (0.1, 0.4):
+        got = _np(ops.compute_density(torch.from_numpy(x), bw))
+        want = np.asarray(jgeo.compute_density(jnp.asarray(x), bw))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture
+def jax_pallas_route(monkeypatch):
+    """The JAX package's kernel routes on the CPU: ``USE_PALLAS`` on (its
+    kernels in interpret mode), FPS through its XLA version."""
+    monkeypatch.setattr(jdispatch, "USE_PALLAS", True)
+    monkeypatch.setattr(
+        jdispatch, "fps",
+        lambda xyz, n, skip_near_origin=True: jgeo.farthest_point_sample(
+            xyz, n, skip_near_origin))
+
+
+@pytest.mark.parametrize("c,route", [(12, "fused"), (3, "knn")])
+def test_sample_and_group_matches_jax(jax_pallas_route, c, route):
+    """Both routes of ``sample_and_group``: at N % 128 == 0 with
+    ``[xyz ‖ feats ‖ density]`` at least 16 wide the fused kNN + gather
+    (C=12: 3 + 12 + 1), else ``knn`` and the gathers (C=3). Centers
+    bit-identical, the grouping within 2^-16 of its largest element
+    where the neighbour lists agree; the port takes the route JAX
+    takes."""
+    rng = np.random.default_rng(c)
+    b, n, m, k = 2, 128, 32, 16
+    xyz = _sphere(rng, b, n)
+    feats = _normal(rng, b, n, c)
+    dens = rng.uniform(0.5, 2.0, (b, n)).astype(np.float32)
+    calls = []
+    orig = kkg.knn_gather
+
+    def spy(*args):
+        calls.append(args[3])
+        return orig(*args)
+
+    kkg.knn_gather = spy
+    try:
+        got = ops.sample_and_group(torch.from_numpy(xyz),
+                                   torch.from_numpy(feats), m, k,
+                                   density=torch.from_numpy(dens))
+    finally:
+        kkg.knn_gather = orig
+    want = jgeo.sample_and_group(jnp.asarray(xyz), jnp.asarray(feats), m, k,
+                                 density=jnp.asarray(dens))
+    assert len(calls) == (route == "fused")
+    np.testing.assert_array_equal(_np(got[0]), np.asarray(want[0]))
+    grouped, gd = _np(got[1]), _np(got[2])
+    jgrouped, jgd = np.asarray(want[1]), np.asarray(want[2])
+    assert grouped.shape == (b, m, k, 3 + c) and gd.shape == (b, m, k, 1)
+    # a row's list agrees when its grouped rows do; compare those
+    same = np.abs(grouped - jgrouped).max((-1, -2)) < 1e-3
+    assert same.mean() >= 0.9
+    _close_rows(grouped[same], jgrouped[same], np.abs(jgrouped).max())
+    _close_rows(gd[same], jgd[same], dens.max())
+
+
+# (name, N, C, idx shape): every gather of the two PointConv paths at
+# the bench rows, and gathers of the earlier ported paths
+GATE_SHAPES = [
+    ("pc SA1 [xyz‖normals]", 1024, 6, (32, 512, 32)),
+    ("pc SA1 density", 1024, 1, (32, 512, 32)),
+    ("pc SA1 centers", 1024, 3, (32, 512)),
+    ("pc SA2 centers", 512, 3, (32, 128)),
+    ("pcseg SA1 xyz", 2048, 3, (16, 1024, 32)),
+    ("pcseg SA1 density", 2048, 1, (16, 1024, 32)),
+    ("pcseg SA4 n=64", 64, 259, (16, 36, 32)),
+    ("pcseg dec n=64 up", 64, 512, (16, 64, 16)),
+    ("pcseg dec n=256 up", 256, 512, (16, 256, 16)),
+    ("pcseg dec n=256 xyz", 256, 3, (16, 256, 16)),
+    ("pcseg dec n=1024 up", 1024, 256, (16, 1024, 16)),
+    ("pcseg dec n=1024 xyz", 1024, 3, (16, 1024, 16)),
+    ("pcseg dec n=2048 up", 2048, 128, (16, 2048, 16)),
+    ("pcseg dec n=2048 xyz", 2048, 3, (16, 2048, 16)),
+    ("pcseg dec n=2048 density", 2048, 1, (16, 2048, 16)),
+    # earlier paths, which keep index_points
+    ("ssg centers", 1024, 3, (64, 512)),
+    ("ssg4096 centers", 4096, 3, (32, 512)),
+    ("canonicalize rows", 4096, 3, (32, 4096)),
+    ("partseg three_nn coords", 512, 3, (16, 2048, 3)),
+]
+
+
+def test_gather_gate_matches_jax(monkeypatch):
+    """The port's gate (``geometry.gather_takes_kernel``) decides as the
+    JAX ``index_points`` under ``USE_PALLAS`` at every shape above, traced
+    with ``jax.eval_shape`` (nothing computed) and a spy on the JAX
+    gather kernel."""
+    taken = []
+
+    def spy(points, idx, interpret=False):
+        taken.append(True)
+        return jnp.zeros((*idx.shape, points.shape[-1]), jnp.float32)
+
+    monkeypatch.setattr(jdispatch, "USE_PALLAS", True)
+    monkeypatch.setattr(jgather, "gather_neighbors", spy)
+    decisions = {}
+    for name, n, c, shape in GATE_SHAPES:
+        taken.clear()
+        jax.eval_shape(jgeo.index_points,
+                       jax.ShapeDtypeStruct((shape[0], n, c), jnp.float32),
+                       jax.ShapeDtypeStruct(shape, jnp.int32))
+        rows = int(np.prod(shape))
+        decisions[name] = geometry.gather_takes_kernel(n, c, rows)
+        assert decisions[name] == bool(taken), name
+    assert [k for k, v in decisions.items() if v] == [
+        "pc SA1 [xyz‖normals]", "pc SA1 density", "pcseg dec n=256 up",
+        "pcseg dec n=1024 up", "pcseg dec n=2048 up"]
+
+
+def test_earlier_paths_never_reach_the_gather():
+    """PointNet++ SSG and DGCNN forwards on the CPU make no call to the
+    row gather: their gathers stay ``index_points``."""
+    from pointcloudlib_tpu_torch.models import get_cls_model
+
+    calls = []
+    orig = kga.gather_neighbors
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(_sphere(rng, 2, 128))
+    kga.gather_neighbors = spy
+    try:
+        with torch.no_grad():
+            get_cls_model("pointnet2").eval()(x, x)
+            get_cls_model("dgcnn").eval()(x, x)
+    finally:
+        kga.gather_neighbors = orig
+    assert not calls
