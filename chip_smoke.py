@@ -26,7 +26,10 @@ once:
    1e-2 + 1e-2·|plain|, the backward passes tie-robust (fewer than 0.5 %
    of elements beyond 1e-2 + 1e-2·|plain|, mean deviation below 3e-3,
    both scaled by max|plain|: a last-bit change can move a max-pool tie
-   share); kernel and plain times;
+   share); kernel and plain times (``sa_bwd_p1`` and ``sa_bwd_p2``:
+   device times from CUDA graphs, the device times of the CUDA-core
+   versions they replaced at the same case beside them as
+   ``cuda_core_graph_ms``, from ``CUDA_CORE_BWD_MS``);
 5. MSG kernels — every kernel of the PointNet++ MSG path at the six
    scales' shapes (B=32, N=1024 into MSG1, its 512 centers into MSG2, from
    the model's own inputs) against its plain version under the same
@@ -72,7 +75,9 @@ once:
    the bounds above; the 3-NN interpolation at FP2 and FP1 (idx
    bit-identical, w and out within 1e-6·max|plain|) and the row
    scatter-add at both backward shapes (within 1e-5·max|plain|; f32
-   atomics in another order), with ``index_add_`` timed beside it; edge
+   atomics in another order), with ``index_add_`` timed beside it
+   (device times from CUDA graphs; the event loop's launch rate kept
+   beside them); edge
    cases: supports of 36 and 100 points, duplicate support points,
    queries equal to support points (a hard copy of the feature) and
    scatter indices at or beyond n (dropped);
@@ -173,6 +178,11 @@ once:
    launch rate is kept beside them); edge cases:
    sentinel indices, a 2-D idx, M = 13, C = 1, 4 and 5 (gather),
    duplicate points, k·stride = N, stride 2 and N = 4096 (kNN + gather);
+   then FPS, ``knn`` and the 3-NN interpolation at the shapes of both
+   models' eval forward and the row scatter-add at those of their
+   backward (arguments recorded from the models), each against its plain
+   version as in phases 3, 8 and 15, with device times (CUDA graphs)
+   beside the event loop's;
 22. PointConv classification serving — ``Predictor(batch_size=32,
    with_normals=True)`` as in phase 6: per served batch exactly 2
    launches of FPS and of the row gather, 1 of ``knn`` and of the fused
@@ -278,6 +288,22 @@ DSEG_ODD_TRAIN, DSEG_ODD_BATCH = 1000, 4    # the kNN route in training
 SLOPE = 0.2                        # LeakyReLU of the DGCNN models
 PC_BATCH, PC_LR = 32, 0.1          # bench.py:344-345 (normals), bench.py:168
 PC_SEG = "pointconv_partseg"       # grad_check's name; B=16, N=2048, lr 0.01
+# The CUDA-core sa_bwd_p1 / sa_bwd_p2 that the tensor-core kernels
+# replaced, at this script's train cases: device ms a call by graph_ms on
+# an NVIDIA H100 80GB HBM3 at 700 W, from bwd_times() run on the checkout
+# before the redesign (PERF.md §5)
+CUDA_CORE_BWD_MS = {
+    "sa_bwd_p1": {"SA1": 9.176, "SA2": 8.336, "MSG1/0": 0.553,
+                  "MSG1/1": 2.394, "MSG1/2": 19.515, "MSG2/0": 0.7,
+                  "MSG2/1": 4.237, "MSG2/2": 10.071, "partseg SA1": 2.394,
+                  "partseg SA2": 2.179, "SSG4096 SA1": 4.654,
+                  "SSG4096 SA2": 4.237},
+    "sa_bwd_p2": {"SA1": 9.291, "SA2": 5.76, "MSG1/0": 0.695,
+                  "MSG1/1": 2.29, "MSG1/2": 15.656, "MSG2/0": 0.634,
+                  "MSG2/1": 2.969, "MSG2/2": 7.53, "partseg SA1": 2.385,
+                  "partseg SA2": 1.58, "SSG4096 SA1": 4.601,
+                  "SSG4096 SA2": 2.972},
+}
 PC_CHECK = 2                       # PointConv part-seg clouds on the CPU too
 CSRC = "pointcloudlib_tpu_torch/csrc/"
 SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
@@ -417,6 +443,7 @@ def _fps_case(name, xyz, m, skip, timed):
     if timed:
         b, n, _ = xyz.shape
         rec["ms"] = time_ms(lambda: kfps.fps(xyz, m, skip), 20)
+        rec["device_ms"] = graph_ms(lambda: kfps.fps(xyz, m, skip), 10)
         rec["plain_ms"] = time_ms(lambda: kfps.fps_plain(xyz, m, skip), 3, 1)
         # per point and iteration: 3 sub, 3 mul, 2 add, 1 min, 1 compare
         rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
@@ -717,7 +744,12 @@ def _train_case(name, L, timed, route="bq"):
 
     def record(kernel, rec, fn, plain, flops_bf16, flops_f32, nbytes):
         if timed:
-            rec["ms"] = time_ms(fn, 10)
+            if kernel in CUDA_CORE_BWD_MS:  # device times, beside the old
+                rec["ms"] = graph_ms(fn, 5)
+                rec["cuda_core_graph_ms"] = CUDA_CORE_BWD_MS[kernel].get(
+                    rec["case"])
+            else:
+                rec["ms"] = time_ms(fn, 10)
             rec["plain_ms"] = time_ms(plain, 2, 1)
             rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
                 flops_bf16, flops_f32, nbytes)
@@ -1126,6 +1158,8 @@ def _three_interp_case(name, query, points, feats, timed, self_pairs=0):
     if timed:
         rec["ms"] = time_ms(lambda: kti.three_interp_fwd(query, points,
                                                          feats), 20)
+        rec["device_ms"] = graph_ms(
+            lambda: kti.three_interp_fwd(query, points, feats), 20)
         rec["plain_ms"] = time_ms(
             lambda: kti.three_interp_plain(query, points, feats), 3, 1)
         # ~10 f32 operations a (query, point) pair, 5 an output element
@@ -1149,15 +1183,20 @@ def _scatter_case(name, g, idx, n, timed):
     dropped = int(((idx < 0) | (idx >= n)).sum())
     rec = {"case": name, "B": b, "rows": rows, "n": n, "C": c,
            "dropped_rows": dropped, **_errs([err])}
-    if timed:
-        rec["ms"] = time_ms(lambda: kga.scatter_rows(g, idx, n), 20)
+    if timed:  # device times; the event loop reads the launch rate
+        rec["ms"] = graph_ms(lambda: kga.scatter_rows(g, idx, n), 20)
+        rec["launch_rate_ms"] = time_ms(lambda: kga.scatter_rows(g, idx, n),
+                                        20)
         rec["plain_ms"] = time_ms(
             lambda: kga.scatter_rows_plain(g, idx, n), 5, 1)
+        keep = ((idx >= 0) & (idx < n)).reshape(b, -1)
         target = (idx.reshape(b, -1).long()
-                  + n * torch.arange(b, device=DEV)[:, None]).reshape(-1)
-        g2 = g.reshape(-1, c)
+                  + n * torch.arange(b, device=DEV)[:, None])[keep]
+        g2 = g.reshape(b, -1, c)[keep]
         acc = torch.zeros((b * n, c), device=DEV)
-        rec["library_ms"] = time_ms(
+        # zeroing the output inside the timed call, as the kernel's
+        # wrapper does
+        rec["library_ms"] = graph_ms(
             lambda: acc.zero_().index_add_(0, target, g2), 20)
         # one f32 add an element of g
         rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
@@ -1680,6 +1719,7 @@ def _knn_case(name, query, points, k, timed):
            "idx_d2_bit_identical": True, "max_abs_err": 0.0}
     if timed:
         rec["ms"] = time_ms(lambda: kknn.knn(query, points, k), 5)
+        rec["device_ms"] = graph_ms(lambda: kknn.knn(query, points, k), 5)
         rec["plain_ms"] = time_ms(lambda: kknn.knn_plain(query, points, k),
                                   1, 1)
         rec["library_ms"] = time_ms(lambda: torch.topk(
@@ -2111,6 +2151,67 @@ def _pointconv_calls(model, *inputs):
     return gathers, fused
 
 
+def _pointconv_path_calls(model, *inputs):
+    """``{kernel: [args]}`` of FPS, the kNN and the 3-NN interpolation in
+    one eval forward of ``model``, and of the row scatter-add in one
+    train-mode forward and backward (the gathers' gradients)."""
+    from pointcloudlib_tpu_torch.ops import dispatch
+
+    calls = {"fps": [], "knn": [], "three_interp": [], "scatter_rows": []}
+    spots = ((dispatch._fps_kernel, "fps", "fps"), (kknn, "knn", "knn"),
+             (kti, "three_interp_fwd", "three_interp"),
+             (kga, "scatter_rows", "scatter_rows"),
+             (kkg, "scatter_rows", "scatter_rows"),
+             (kti, "scatter_rows", "scatter_rows"))
+    orig = [_record_calls(mod, name, calls[key]) for mod, name, key in spots]
+    try:
+        with torch.no_grad():
+            model(*inputs)
+        forward = {key: len(args) for key, args in calls.items()}
+        model.train()
+        out = model(*inputs)
+        (out[0] if isinstance(out, tuple) else out).float().sum().backward()
+        for key, args in calls.items():  # the eval forward's, the backward's
+            if key == "scatter_rows":
+                del args[:forward[key]]
+            else:
+                del args[forward[key]:]
+    finally:
+        for (mod, name, _), fn in zip(spots, orig):
+            setattr(mod, name, fn)
+        model.zero_grad(set_to_none=True)
+        model.eval()
+    return calls
+
+
+def phase_pointconv_path(cls_model, seg_model, xyz, nrm, seg_xyz):
+    """``{kernel: [records]}`` of FPS, ``knn``, ``three_interp`` and
+    ``scatter_rows`` at the PointConv paths' own shapes (arguments
+    recorded from the models' forward and backward), checked and timed."""
+    recs = {}
+    onehot = torch.zeros((seg_xyz.shape[0], 16), device=DEV)
+    for tag, model, inputs in (("pointconv cls", cls_model, (xyz, nrm)),
+                               ("pointconv seg", seg_model,
+                                (seg_xyz, onehot))):
+        calls = _pointconv_path_calls(model, *inputs)
+        for x, m, skip in calls["fps"]:
+            recs.setdefault("fps", []).append(_fps_case(
+                f"{tag} {x.shape[1]}->{m}", x, m, skip, True))
+        for query, points, k in calls["knn"]:
+            recs.setdefault("knn", []).append(_knn_case(
+                f"{tag} M={query.shape[1]} N={points.shape[1]} k={k}",
+                query, points, k, True))
+        for query, points, feats in calls["three_interp"]:
+            recs.setdefault("three_interp", []).append(_three_interp_case(
+                f"{tag} M={query.shape[1]} N={points.shape[1]} "
+                f"C={feats.shape[2]}", query, points, feats, True)[0])
+        for g, idx, n in calls["scatter_rows"]:
+            recs.setdefault("scatter_rows", []).append(_scatter_case(
+                f"{tag} backward rows={idx[0].numel()} n={n} "
+                f"C={g.shape[-1]}", g, idx, n, True))
+    return recs
+
+
 def phase_pointconv_kernels(cls_model, seg_model, xyz, nrm, seg_xyz):
     """``{kernel: [records]}`` of the two PointConv kernels at the shapes
     of the main paths, their inputs taken from the models' own forward
@@ -2243,6 +2344,105 @@ def _kernel_entry(name, source, replaces, recs, paths):
             **extra, "timed_cases": [r["case"] for r in timed]}
 
 
+def _kernel_ms(fn, calls: int = 3) -> dict:
+    """Device milliseconds a call of each CUDA kernel ``fn`` launches
+    (torch.profiler over ``calls`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        if us > 0 and "_kernel" in evt.key:
+            name = evt.key.split("<")[0].split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
+
+
+def _bwd_layers():
+    """``(name, L)`` of every PointNet++ train layer of the main paths, as
+    ``main`` makes and names them: SSG SA1 / SA2 (B=64), MSG's six scales
+    (B=32), part segmentation's SA1 / SA2 (B=16, N=2048) and SSG at
+    N=4096 (B=32)."""
+    ssg_vars = random_jax_variables(get_cls_model("pointnet2"), seed=0)
+    clouds, normals, _ = SyntheticModelNet(
+        n_points=N_POINTS, size=N_CLOUDS, seed=0).batch(0, N_CLOUDS)
+    xyz = torch.from_numpy(clouds[:BATCH]).to(DEV)
+    nrm = torch.from_numpy(normals[:BATCH]).to(DEV)
+    ssg = _model_on_card("pointnet2", ssg_vars)
+    yield from _train_layers(ssg, xyz, nrm)[:2]
+    msg = _model_on_card("pointnet2_msg", random_jax_variables(
+        get_cls_model("pointnet2_msg"), seed=0))
+    g = torch.Generator(device=DEV).manual_seed(4)
+    for name, sa, nx, pts, q, off in _msg_scales(msg, xyz[:MSG_BATCH],
+                                                 nrm[:MSG_BATCH]):
+        with torch.no_grad():
+            yield name, _train_inputs(sa, nx, pts, q, off, g)
+    del msg
+    seg = _model_on_card(PN2_SEG, random_jax_variables(
+        build_model(PN2_SEG), seed=0))
+    seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
+    yield from _train_layers(seg, seg_xyz, seg_xyz, "partseg ")[:2]
+    del seg
+    big, big_n, _ = SyntheticModelNet(
+        n_points=BIG_POINTS, size=BIG_CLOUDS - BIG_BATCH, seed=0).batch(
+        0, BIG_CLOUDS - BIG_BATCH)
+    _, l1, l2 = _big_layers(ssg, torch.from_numpy(big[:BIG_BATCH]).to(DEV),
+                            torch.from_numpy(big_n[:BIG_BATCH]).to(DEV))
+    yield "SSG4096 SA1", l1
+    yield "SSG4096 SA2", l2
+
+
+def bwd_times() -> None:
+    """Device milliseconds a call of ``sa_bwd_p1`` and ``sa_bwd_p2`` at
+    every PointNet++ train shape (``graph_ms``), split by the CUDA kernels
+    each launches, and each one's largest deviation from its plain
+    version over max|plain| (not tie-robust: a near-tie of the max-pool
+    can move p2's to a few 1e-2; ``phase_train_kernels`` holds the
+    gates): after the device line, one JSON line a case.
+    It times the kernels of the package beside this file, so a copy of
+    the file in another checkout's root times that checkout's:
+
+        python3 -c 'import chip_smoke; chip_smoke.bwd_times()'
+    """
+    phase_device()
+    _build.build(("fused_sa_bwd_p1", "fused_sa_bwd_p2"))
+
+    def dev(got, want):
+        return max(((a.double() - b.double()).abs().max()
+                    / b.double().abs().max().clamp_min(1e-30)).item()
+                   for a, b in zip(got, want))
+
+    for name, L in _bwd_layers():
+        p, (st1, st2, st3) = L["p"], L["st"]
+        n = L["pts"].shape[1]
+        p1 = (L["h1"], L["dout"], st1, st2, st3, p.w2, p.w3)
+        p2 = (L["h1"], L["dout"], L["idx"], st1, st2, st3, p.w2, p.w3,
+              *L["us"], n)
+        b, m, k, c1 = L["h1"].shape
+        with torch.no_grad():
+            emit("bwd", {
+                "case": name, "B": b, "N": n, "M": m, "k": k,
+                "widths": [c1, p.w2.shape[1], p.w3.shape[1]],
+                "p1_ms": graph_ms(lambda: kft.sa_bwd_p1(*p1), 5),
+                "p2_ms": graph_ms(lambda: kft.sa_bwd_p2(*p2), 5),
+                "p1_kernels_ms": _kernel_ms(lambda: kft.sa_bwd_p1(*p1)),
+                "p2_kernels_ms": _kernel_ms(lambda: kft.sa_bwd_p2(*p2)),
+                "p1_max_dev": dev(kft.sa_bwd_p1(*p1),
+                                  kft.sa_bwd_p1_plain(*p1)),
+                "p2_max_dev": dev(kft.sa_bwd_p2(*p2),
+                                  kft.sa_bwd_p2_plain(*p2))})
+        del L
+        torch.cuda.empty_cache()
+
+
 def _model_on_card(name, variables):
     model = build_model(name)
     from_jax_variables(model, variables)
@@ -2311,10 +2511,14 @@ def main() -> None:
     del dg_model
     pc_vars = random_jax_variables(get_cls_model("pointconv"), seed=0)
     pcseg_vars = random_jax_variables(build_model(PC_SEG), seed=0)
-    recs.update(phase_pointconv_kernels(
-        _model_on_card("pointconv", pc_vars),
-        _model_on_card(PC_SEG, pcseg_vars), xyz[:PC_BATCH], nrm[:PC_BATCH],
-        seg_xyz))
+    pc_models = (_model_on_card("pointconv", pc_vars),
+                 _model_on_card(PC_SEG, pcseg_vars))
+    recs.update(phase_pointconv_kernels(*pc_models, xyz[:PC_BATCH],
+                                        nrm[:PC_BATCH], seg_xyz))
+    for kernel, rs in phase_pointconv_path(*pc_models, xyz[:PC_BATCH],
+                                           nrm[:PC_BATCH], seg_xyz).items():
+        recs.setdefault(kernel, []).extend(rs)
+    del pc_models
     torch.cuda.empty_cache()
 
     cnt = {"ball_query_cnt": {r["case"].replace(" serving", ""): {

@@ -390,14 +390,14 @@ __host__ __device__ __forceinline__ int tiles_per_center(int k) {
 // never more than there is work.
 template <typename K>
 cudaError_t resident_blocks(K kernel, size_t smem, long long work,
-                            int* blocks) {
+                            int* blocks, int threads = kThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   long long b = (long long)sms * per_sm;

@@ -224,7 +224,7 @@ _SIGNATURES = {
                              ctypes.c_int),
     },
     "fused_sa_bwd_p2": {
-        "sa_bwd_p2_launch": ([ctypes.c_void_p] * 14 + [ctypes.c_longlong]
+        "sa_bwd_p2_launch": ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
                              + [ctypes.c_int] * 6 + [ctypes.c_void_p],
                              ctypes.c_int),
     },
@@ -435,8 +435,9 @@ sa_bwd_p1.launches = 0
 
 def sa_bwd_p2(h1, dout, idx, st1, st2, st3, w2, w3, us3, us2, n: int):
     """Backward pass 2 → ``(dw2, ps1, scat, d1, d2)`` as
-    :func:`sa_bwd_p2_plain`: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    :func:`sa_bwd_p2_plain`: the kernel for CUDA tensors (``scat`` a view
+    of rows padded to 2·C1 + 4 floats), the plain version for CPU
+    tensors."""
     if not _on_card("sa_bwd_p2", h1):
         return sa_bwd_p2_plain(h1, dout, idx, st1, st2, st3, w2, w3, us3,
                                us2, n)
@@ -454,23 +455,21 @@ def sa_bwd_p2(h1, dout, idx, st1, st2, st3, w2, w3, us3, us2, n: int):
     us = _aligned(torch.cat([us3.reshape(-1), us2.reshape(-1)]))
     dw2 = torch.zeros((c1, c2), dtype=torch.float32, device=dev)
     ps1 = torch.zeros((2, c1), dtype=torch.float32, device=dev)
-    scat = torch.zeros((b, n, 2 * c1 + 1), dtype=torch.float32, device=dev)
+    # rows of 2·C1 + 4 floats: the kernel adds four channels at a time
+    scat = torch.zeros((b, n, 2 * c1 + 4), dtype=torch.float32, device=dev)
     d1 = torch.empty((b, m, c1), dtype=torch.float32, device=dev)
     d2 = torch.empty((b, m, c1), dtype=torch.float32, device=dev)
     h1, dout, idx = _aligned(h1), _aligned(dout), _aligned(idx)
     w2b, w3b = _aligned(w2.bfloat16()), _aligned(w3.bfloat16())
-    wt2 = _aligned(w2.t().bfloat16())
-    wt3 = _aligned(w3.t().bfloat16())
     with torch.cuda.device(dev):
         err = _lib("fused_sa_bwd_p2").sa_bwd_p2_launch(
             h1.data_ptr(), dout.data_ptr(), idx.data_ptr(), st.data_ptr(),
-            us.data_ptr(), w2b.data_ptr(), w3b.data_ptr(), wt2.data_ptr(),
-            wt3.data_ptr(), dw2.data_ptr(), ps1.data_ptr(), scat.data_ptr(),
-            d1.data_ptr(), d2.data_ptr(), rows, n, m * k, k, c1, c2, c3,
-            _stream(dev))
+            us.data_ptr(), w2b.data_ptr(), w3b.data_ptr(), dw2.data_ptr(),
+            ps1.data_ptr(), scat.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+            rows, n, m * k, k, c1, c2, c3, _stream(dev))
     _build.check(err, "sa_bwd_p2")
     sa_bwd_p2.launches += 1
-    return dw2, ps1, scat, d1, d2
+    return dw2, ps1, scat[..., :2 * c1 + 1], d1, d2
 
 
 sa_bwd_p2.launches = 0

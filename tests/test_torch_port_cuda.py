@@ -284,6 +284,21 @@ TRAIN_SHAPES = {  # widths, B, N, M, radius, k
 }
 # SSG's SA1 at N=4096: p2 where the JAX package runs _k_p2w
 WINDOW_SHAPES = {"ssg4096_sa1": ((64, 64, 128), 4, 4096, 512, 0.2, 64)}
+# the backward passes' edge cases, each center its own cloud point (no
+# empty row): a radius that holds only the center (cnt = 1, every other
+# slot a replica of slot 0, all k slots tied at every channel), one that
+# holds every point (cnt >= k, no replica), and clouds on a coarse grid
+# (many duplicate points: exact max ties between distinct slots)
+BWD_CASES = {
+    "all_replicas": ((64, 64, 128), 2, 512, 128, 1e-4, 64),
+    "all_replicas_k128": ((128, 128, 256), 2, 512, 64, 1e-4, 128),
+    "all_replicas_k8": ((64, 96, 128), 2, 512, 128, 1e-4, 8),
+    "no_replicas": ((64, 96, 128), 2, 512, 128, 10.0, 32),
+    "grid_ties": ((32, 32, 64), 2, 512, 256, 0.6, 16),
+    # eight centers a tile at the widest widths; a center over four tiles
+    "k8_wide": ((128, 128, 256), 2, 512, 64, 0.2, 8),
+    "k256": ((64, 64, 128), 2, 1024, 32, 0.6, 256),
+}
 
 
 def _train_layer(card, name, seed=0):
@@ -292,12 +307,16 @@ def _train_layer(card, name, seed=0):
     bf16 h1, folded BN rows from its statistics, an output gradient."""
     from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as ft
 
-    widths, b, n, m, radius, k = {**TRAIN_SHAPES, **WINDOW_SHAPES}[name]
+    widths, b, n, m, radius, k = {**TRAIN_SHAPES, **WINDOW_SHAPES,
+                                   **BWD_CASES}[name]
     c1, c2, c3 = widths
     rng = np.random.default_rng(seed)
     pts = _sphere(rng, b, n, card)
+    if name == "grid_ties":
+        pts = torch.round(pts * 2.0) / 2.0
     nx = pts[:, :m].clone()
-    nx[0, 0] = 50.0
+    if name not in BWD_CASES:
+        nx[0, 0] = 50.0
     w1 = torch.from_numpy(rng.standard_normal((3, c1)).astype(
         np.float32)).to(card)
     q = pts @ w1
@@ -374,9 +393,24 @@ def test_tail_matches_plain(card, name, stage):
         _close_sums(got, want, f"stage {stage}")
 
 
-@pytest.mark.parametrize("name", sorted(TRAIN_SHAPES))
+def _check_case(L, name):
+    """The property a backward edge case is named for holds."""
+    cnt, k = L["cnt"], L["k"]
+    if name.startswith("all_replicas"):
+        assert bool((cnt == 1).all())
+    elif name == "no_replicas":
+        assert bool((cnt >= k).all())
+    elif name == "grid_ties":
+        assert int(torch.unique(L["pts"][0], dim=0).shape[0]) < 128
+
+
+BWD_NAMES = sorted(TRAIN_SHAPES) + sorted(WINDOW_SHAPES) + sorted(BWD_CASES)
+
+
+@pytest.mark.parametrize("name", BWD_NAMES)
 def test_bwd_p1_matches_plain(card, name):
     L = _train_layer(card, name, seed=2)
+    _check_case(L, name)
     ft, p, (st1, st2, st3) = L["ft"], L["p"], L["st"]
     before = ft.sa_bwd_p1.launches
     got = ft.sa_bwd_p1(L["h1"], L["dout"], st1, st2, st3, p.w2, p.w3)
@@ -388,9 +422,10 @@ def test_bwd_p1_matches_plain(card, name):
         _tie_robust(a, b_, what)
 
 
-@pytest.mark.parametrize("name", sorted(TRAIN_SHAPES) + sorted(WINDOW_SHAPES))
+@pytest.mark.parametrize("name", BWD_NAMES)
 def test_bwd_p2_matches_plain(card, name):
     L = _train_layer(card, name, seed=3)
+    _check_case(L, name)
     ft, p, (st1, st2, st3) = L["ft"], L["p"], L["st"]
     ps3, vecs, mats = ft.sa_bwd_p1_plain(L["h1"], L["dout"], st1, st2, st3,
                                          p.w2, p.w3)
