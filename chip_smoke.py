@@ -26,10 +26,10 @@ once:
    1e-2 + 1e-2·|plain|, the backward passes tie-robust (fewer than 0.5 %
    of elements beyond 1e-2 + 1e-2·|plain|, mean deviation below 3e-3,
    both scaled by max|plain|: a last-bit change can move a max-pool tie
-   share); kernel and plain times (``sa_bwd_p1`` and ``sa_bwd_p2``:
-   device times from CUDA graphs, the device times of the CUDA-core
-   versions they replaced at the same case beside them as
-   ``cuda_core_graph_ms``, from ``CUDA_CORE_BWD_MS``);
+   share); kernel and plain times (the tails, ``sa_bwd_p1`` and
+   ``sa_bwd_p2``: device times from CUDA graphs; beside p1's and p2's the
+   device times of the CUDA-core versions they replaced at the same case
+   as ``cuda_core_graph_ms``, from ``CUDA_CORE_BWD_MS``);
 5. MSG kernels — every kernel of the PointNet++ MSG path at the six
    scales' shapes (B=32, N=1024 into MSG1, its 512 centers into MSG2, from
    the model's own inputs) against its plain version under the same
@@ -748,6 +748,8 @@ def _train_case(name, L, timed, route="bq"):
                 rec["ms"] = graph_ms(fn, 5)
                 rec["cuda_core_graph_ms"] = CUDA_CORE_BWD_MS[kernel].get(
                     rec["case"])
+            elif kernel.startswith("sa_tail"):  # device times
+                rec["ms"] = graph_ms(fn, 5)
             else:
                 rec["ms"] = time_ms(fn, 10)
             rec["plain_ms"] = time_ms(plain, 2, 1)
@@ -2439,6 +2441,37 @@ def bwd_times() -> None:
                                   kft.sa_bwd_p1_plain(*p1)),
                 "p2_max_dev": dev(kft.sa_bwd_p2(*p2),
                                   kft.sa_bwd_p2_plain(*p2))})
+        del L
+        torch.cuda.empty_cache()
+
+
+def tail_times() -> None:
+    """Device milliseconds a call of ``sa_tail`` stages 2, 3 and 4 at
+    every PointNet++ train shape (``graph_ms``), and each one's largest
+    deviation from its plain version over max|plain|
+    (``phase_train_kernels`` holds the gates): after the device line, one
+    JSON line a case. Like ``bwd_times``, it times the kernels of the
+    package beside this file:
+
+        python3 -c 'import chip_smoke; chip_smoke.tail_times()'
+    """
+    phase_device()
+    _build.build(("fused_sa_tail",))
+    for name, L in _bwd_layers():
+        p, (st1, st2, st3) = L["p"], L["st"]
+        b, m, k, c1 = L["h1"].shape
+        rec = {"case": name, "B": b, "N": L["pts"].shape[1], "M": m,
+               "k": k, "widths": [c1, p.w2.shape[1], p.w3.shape[1]]}
+        with torch.no_grad():
+            for stage in (2, 3, 4):
+                args = (stage, L["h1"], st1, st2, st3, p.w2, p.w3)
+                rec[f"stage{stage}_ms"] = graph_ms(
+                    lambda: kft.sa_tail(*args), 5)
+                got, want = kft.sa_tail(*args), kft.sa_tail_plain(*args)
+                rec[f"stage{stage}_max_dev"] = (
+                    (got.double() - want.double()).abs().max()
+                    / want.double().abs().max().clamp_min(1e-30)).item()
+        emit("tail", rec)
         del L
         torch.cuda.empty_cache()
 

@@ -1,7 +1,7 @@
 // Pieces the two set-abstraction backward passes share on the tensor
-// cores (fused_sa_bwd_p1.cu, fused_sa_bwd_p2.cu): the row tile staged
-// for wgmma, and the max-pool gradient and the per-channel row sums in
-// the accumulator fragment of wgmma_tile.cuh.
+// cores (fused_sa_bwd_p1.cu, fused_sa_bwd_p2.cu), beside the forward
+// chain's staging (fused_sa_chain.cuh): the max-pool gradient and the
+// per-channel row sums in the accumulator fragment of wgmma_tile.cuh.
 //
 // Two warpgroups (a pair, 256 threads) work on one 64-row tile at a
 // time; a block holds one or two pairs that share the staged weights and
@@ -18,8 +18,7 @@
 
 #pragma once
 
-#include "fused_sa_common.cuh"
-#include "wgmma_tile.cuh"
+#include "fused_sa_chain.cuh"
 
 namespace pcl {
 
@@ -27,74 +26,7 @@ constexpr int kPairThreads = 2 * wg::kWGThreads;
 
 // Barrier of pair p (named barrier p + 1; 0 is __syncthreads).
 __device__ __forceinline__ void pair_sync(int p) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(p + 1), "n"(kPairThreads)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Starts copying the kRows x C1 tile of h1 at row0 into raw (row-major,
-// shared memory), by the pair's thread pt.
-template <int C1>
-__device__ __forceinline__ void prefetch_h1(const __nv_bfloat16* h1,
-                                            size_t row0, __nv_bfloat16* raw,
-                                            int pt) {
-  const __nv_bfloat16* src = h1 + row0 * C1;
-  for (int e = pt; e < kRows * C1 / 8; e += kPairThreads)
-    cp_async16(raw + e * 8, src + e * 8);
-}
-
-// Copies W [R, C] (row-major bf16, global) into a core-matrix tile, by
-// every thread of a block of nthreads.
-template <int R, int C>
-__device__ __forceinline__ void stage_w(const __nv_bfloat16* w,
-                                        __nv_bfloat16* ws, int nthreads) {
-  for (int e = threadIdx.x; e < R * C / 8; e += nthreads) {
-    const int r = e / (C / 8), c = (e % (C / 8)) * 8;
-    *reinterpret_cast<uint4*>(ws + wg::cm(r, c, C)) =
-        *reinterpret_cast<const uint4*>(w + (size_t)r * C + c);
-  }
-}
-
-// The kRows x C1 tile of h1 (row-major, src: the tile in global memory
-// or its prefetched copy) into shared memory in the core-matrix layout:
-// y1 = bf16(relu(BN1(h1))) and, where h1s is not null, h1 itself; by the
-// pair's thread pt.
-template <int C1>
-__device__ __forceinline__ void stage_h1(const __nv_bfloat16* src,
-                                         const float* sc1, const float* bi1,
-                                         __nv_bfloat16* y1s,
-                                         __nv_bfloat16* h1s, int pt) {
-  for (int e = pt; e < kRows * (C1 / 8); e += kPairThreads) {
-    const int r = e / (C1 / 8);
-    const int c = (e % (C1 / 8)) * 8;
-    const uint4 hv = *reinterpret_cast<const uint4*>(src + (size_t)r * C1 + c);
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = bn_relu(bf_at(hv, i), sc1[c + i], bi1[c + i]);
-    *reinterpret_cast<uint4*>(y1s + wg::cm(r, c, C1)) = pack8(v);
-    if (h1s) *reinterpret_cast<uint4*>(h1s + wg::cm(r, c, C1)) = hv;
-  }
-}
-
-// Stores a pair of f32 values (columns c, c + 1 of row r) as bf16 into a
-// core-matrix tile of width W.
-template <int W>
-__device__ __forceinline__ void put2(__nv_bfloat16* tile, int r, int c,
-                                     float a, float b) {
-  *reinterpret_cast<uint32_t*>(tile + wg::cm(r, c, W)) = pack2(a, b);
+  bar_sync<kPairThreads>(p + 1);
 }
 
 // The max-pool gradient at z3 for a tile of whole centers (k divides

@@ -163,7 +163,7 @@ __global__ void __launch_bounds__(P1Layout<C1, C2, C3>::pairs *kPairThreads,
                   (long long)blockIdx.x * L::pairs + pair,
                   (long long)gridDim.x * L::pairs, tpc);
   if (L::prefetch && walk.iters > 0)
-    prefetch_h1<C1>(a.h1, walk.tile(0) * kRows, raw, pt);
+    prefetch_h1<C1, kPairThreads>(a.h1, walk.tile(0) * kRows, raw, pt);
   cp_async_commit();
   for (long long it = 0; it < walk.iters; ++it) {
     const int pass = walk.pass(it);
@@ -177,14 +177,16 @@ __global__ void __launch_bounds__(P1Layout<C1, C2, C3>::pairs *kPairThreads,
     if (L::prefetch) {
       cp_async_wait<0>();
       pair_sync(pair);
-      stage_h1<C1>(raw, sc1, bi1, y1s, nullptr, pt);
+      stage_h1<C1, kPairThreads>(raw, sc1, bi1, y1s, nullptr, pt);
     } else {
-      stage_h1<C1>(a.h1 + row0 * C1, sc1, bi1, y1s, nullptr, pt);
+      stage_h1<C1, kPairThreads>(a.h1 + row0 * C1, sc1, bi1, y1s, nullptr,
+                                 pt);
     }
     wg::fence_to_async();
     pair_sync(pair);
     if (L::prefetch && it + 1 < walk.iters)
-      prefetch_h1<C1>(a.h1, walk.tile(it + 1) * kRows, raw, pt);
+      prefetch_h1<C1, kPairThreads>(a.h1, walk.tile(it + 1) * kRows, raw,
+                                    pt);
     cp_async_commit();
 
     // layer 2: left = [y2 | m2 | m2*x2]; y2 to shared memory

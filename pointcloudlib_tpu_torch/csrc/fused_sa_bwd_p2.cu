@@ -192,7 +192,7 @@ __global__ void __launch_bounds__(kPairThreads,
   const Walk walk(a.rows / ((long long)kRows * tpc), blockIdx.x, gridDim.x,
                   tpc);
   if (L::prefetch && walk.iters > 0)
-    prefetch_h1<C1>(a.h1, walk.tile(0) * kRows, raw, tid);
+    prefetch_h1<C1, kPairThreads>(a.h1, walk.tile(0) * kRows, raw, tid);
   cp_async_commit();
   for (long long it = 0; it < walk.iters; ++it) {
     const int pass = walk.pass(it);
@@ -210,15 +210,17 @@ __global__ void __launch_bounds__(kPairThreads,
     if (L::prefetch) {
       cp_async_wait<0>();
       pair_sync(0);
-      stage_h1<C1>(raw, sc1, bi1, y1s, h1s, tid);
+      stage_h1<C1, kPairThreads>(raw, sc1, bi1, y1s, h1s, tid);
     } else {
-      stage_h1<C1>(a.h1 + row0 * C1, sc1, bi1, y1s, h1s, tid);
+      stage_h1<C1, kPairThreads>(a.h1 + row0 * C1, sc1, bi1, y1s, h1s,
+                                 tid);
     }
     if (tid < kRows) idxs[tid] = a.idx[row0 + tid];
     wg::fence_to_async();
     pair_sync(0);
     if (L::prefetch && it + 1 < walk.iters)
-      prefetch_h1<C1>(a.h1, walk.tile(it + 1) * kRows, raw, tid);
+      prefetch_h1<C1, kPairThreads>(a.h1, walk.tile(it + 1) * kRows, raw,
+                                    tid);
     cp_async_commit();
 
     // layer 2: h2 stays in registers, y2 to shared memory

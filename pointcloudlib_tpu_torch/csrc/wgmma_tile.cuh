@@ -349,21 +349,24 @@ __device__ __forceinline__ float rows8_max(float v) {
 }
 
 // Reduce-scatter of eight values over the same eight lanes in seven
-// shuffles: returns the sum over the lanes of v[rows8_slot(lane)].
+// shuffles: returns the sum (with MAX, the max) over the lanes of
+// v[rows8_slot(lane)].
+template <bool MAX = false>
 __device__ __forceinline__ float rows8_scatter(const float (&v)[8],
                                                int lane) {
+  auto op = [](float a, float b) { return MAX ? fmaxf(a, b) : a + b; };
   const bool b2 = lane & 4, b3 = lane & 8, b4 = lane & 16;
   float w[4], u[2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    w[i] = (b2 ? v[i + 4] : v[i]) +
-           __shfl_xor_sync(0xffffffffu, b2 ? v[i] : v[i + 4], 4);
+    w[i] = op(b2 ? v[i + 4] : v[i],
+              __shfl_xor_sync(0xffffffffu, b2 ? v[i] : v[i + 4], 4));
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    u[i] = (b3 ? w[i + 2] : w[i]) +
-           __shfl_xor_sync(0xffffffffu, b3 ? w[i] : w[i + 2], 8);
-  return (b4 ? u[1] : u[0]) +
-         __shfl_xor_sync(0xffffffffu, b4 ? u[0] : u[1], 16);
+    u[i] = op(b3 ? w[i + 2] : w[i],
+              __shfl_xor_sync(0xffffffffu, b3 ? w[i] : w[i + 2], 8));
+  return op(b4 ? u[1] : u[0],
+            __shfl_xor_sync(0xffffffffu, b4 ? u[0] : u[1], 16));
 }
 __device__ __forceinline__ int rows8_slot(int lane) {
   return ((lane >> 2) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 4) & 1);

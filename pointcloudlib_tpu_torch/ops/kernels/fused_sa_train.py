@@ -8,8 +8,9 @@ Replaces ``pointcloudlib_tpu/ops/pallas/fused_sa.py``
 Forward pass 1 is ``_k_bqf1`` (ball query inside) or ``_k_f1`` (from a
 given neighbour index): gather, bf16 h1 checkpoint, Σ/Σ² of h1. From
 there the two routes are the same code: ``_k_stats2``, ``_k_stats3`` and
-``_k_out`` (one templated tail kernel here), then ``_k_p1`` and ``_k_p2``
-in the backward. Between the kernels, plain tensor ops do what the JAX
+``_k_out`` (``fused_sa_tail.cu``, one wrapper: stage 2 on CUDA cores,
+stages 3 and 4 on the tensor cores), then ``_k_p1`` and ``_k_p2`` in the
+backward. Between the kernels, plain tensor ops do what the JAX
 package leaves to XLA: the BN moments, the folded BN rows
 (``_stack_stats``), ``_combine_p1`` and the affine assembly of ``dq`` and
 ``doff``.

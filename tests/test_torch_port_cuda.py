@@ -377,22 +377,6 @@ def test_bq_f1_matches_plain(card, name):
     _close_sums(psum, L["psum"], "psum1")
 
 
-@pytest.mark.parametrize("stage", [2, 3, 4])
-@pytest.mark.parametrize("name", sorted(TRAIN_SHAPES))
-def test_tail_matches_plain(card, name, stage):
-    L = _train_layer(card, name, seed=1)
-    ft, p, (st1, st2, st3) = L["ft"], L["p"], L["st"]
-    before = ft.sa_tail.launches
-    got = ft.sa_tail(stage, L["h1"], st1, st2, st3, p.w2, p.w3)
-    torch.cuda.synchronize()
-    assert ft.sa_tail.launches == before + 1
-    want = ft.sa_tail_plain(stage, L["h1"], st1, st2, st3, p.w2, p.w3)
-    if stage == 4:  # the eval kernel's bound: one bf16 rounding may move
-        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
-    else:
-        _close_sums(got, want, f"stage {stage}")
-
-
 def _check_case(L, name):
     """The property a backward edge case is named for holds."""
     cnt, k = L["cnt"], L["k"]
@@ -405,6 +389,40 @@ def _check_case(L, name):
 
 
 BWD_NAMES = sorted(TRAIN_SHAPES) + sorted(WINDOW_SHAPES) + sorted(BWD_CASES)
+
+
+def _tail_check(L, stage, st3):
+    ft, p, (st1, st2, _) = L["ft"], L["p"], L["st"]
+    before = ft.sa_tail.launches
+    got = ft.sa_tail(stage, L["h1"], st1, st2, st3, p.w2, p.w3)
+    torch.cuda.synchronize()
+    assert ft.sa_tail.launches == before + 1
+    want = ft.sa_tail_plain(stage, L["h1"], st1, st2, st3, p.w2, p.w3)
+    if stage == 4:  # the eval kernel's bound: one bf16 rounding may move
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    else:
+        _close_sums(got, want, f"stage {stage}")
+    return got
+
+
+@pytest.mark.parametrize("stage", [2, 3, 4])
+@pytest.mark.parametrize("name", BWD_NAMES)
+def test_tail_matches_plain(card, name, stage):
+    L = _train_layer(card, name, seed=1)
+    _check_case(L, name)
+    _tail_check(L, stage, L["st"][2])
+
+
+@pytest.mark.parametrize("name", ["sa1", "msg2_k128", "k8_wide"])
+def test_tail_pools_a_dead_channel_to_zero(card, name):
+    """A channel whose BN3 shift puts every row's z3 below 0 pools to
+    exactly 0 (the max's identity is the ReLU's floor)."""
+    L = _train_layer(card, name, seed=4)
+    st3 = L["st"][2].clone()
+    st3[1, 5] = -1e6
+    got = _tail_check(L, 4, st3)
+    assert bool((got[..., 5] == 0).all())
+    assert bool((got[..., 4] > 0).any())
 
 
 @pytest.mark.parametrize("name", BWD_NAMES)
