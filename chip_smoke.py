@@ -17,7 +17,11 @@ once:
    (near-origin points, m = N, N not a multiple of 32, an empty
    ball-query row): FPS must be bit-identical, the SA eval within
    |Δ| ≤ 1e-2 + 1e-2·|plain| (the same bf16 roundings, f32 sums in
-   another order); kernel and plain times from CUDA events;
+   another order); kernel and plain times from CUDA events, the SA eval
+   kernel's a device time from CUDA graphs (the event loop's launch rate
+   and, as ``cuda_core_graph_ms``, the device time of the CUDA-core
+   kernel it replaced, from ``CUDA_CORE_EVAL_MS``, beside it; the same
+   for the eval kernel that takes an idx in phases 5 and 14);
 4. train kernels — the train-mode fused SA kernels against their plain
    versions at the SA1 and SA2 train shapes of the SSG path (B=64, from
    the model's own inputs) and with an empty ball-query row: f1's idx,
@@ -304,6 +308,19 @@ CUDA_CORE_BWD_MS = {
                   "partseg SA2": 1.58, "SSG4096 SA1": 4.601,
                   "SSG4096 SA2": 2.972},
 }
+# The CUDA-core fused_sa_bq_eval / fused_sa_eval that the tensor-core
+# kernels replaced, at this script's eval cases: device ms a call by
+# graph_ms on an NVIDIA H100 80GB HBM3 at 700 W, from eval_times() run on
+# the checkout before the redesign (PERF.md §5); fused_sa_eval's with the
+# ball query's cnt and without it
+CUDA_CORE_EVAL_MS = {
+    "fused_sa_bq_eval": {"SA1": 1.369, "SA2": 1.588, "MSG1/0": 0.146,
+                         "MSG1/1": 0.547, "MSG2/0": 0.19, "MSG2/1": 0.896,
+                         "partseg SA1": 0.597, "partseg SA2": 0.477,
+                         "SSG4096 SA2": 0.899},
+    "fused_sa_eval": {"MSG1/2": (2.634, 2.947), "MSG2/2": (1.772, 1.771),
+                      "SSG4096 SA1": (1.117, 1.118)},
+}
 PC_CHECK = 2                       # PointConv part-seg clouds on the CPU too
 CSRC = "pointcloudlib_tpu_torch/csrc/"
 SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
@@ -452,6 +469,40 @@ def _fps_case(name, xyz, m, skip, timed):
     return rec
 
 
+def _bq_eval_bound(nx, pts, q, p, radius, k, cnt):
+    """``(bound_ms, ops_ms, bytes_ms)`` of ``fused_sa_bq_eval``: the two
+    products over the live slots in bf16, the ball query's ~10 f32
+    operations a tested pair (a center's scan stops at its k-th hit, a
+    short one reads the whole cloud), each input read and the output
+    written once."""
+    b, m, _ = nx.shape
+    n = pts.shape[1]
+    c1, c2, c3 = q.shape[-1], p.w2.shape[1], p.w3.shape[1]
+    live = torch.clamp(cnt, 1, k).sum().item()
+    d2 = geometry.square_distance(nx, pts)
+    rank = torch.cumsum((d2 < radius * radius).int(), dim=-1)
+    scanned = torch.where(cnt >= k, (rank < k).sum(-1) + 1,
+                          torch.full_like(cnt, n)).sum().item()
+    return bound(2.0 * live * (c1 * c2 + c2 * c3), 10.0 * scanned,
+                 12.0 * b * (n + m) + 2.0 * b * n * c1 + 4.0 * b * m * c1
+                 + 2.0 * (c1 * c2 + c2 * c3) + 4.0 * b * m * c3)
+
+
+def _eval_bound(q, idx, p, cnt):
+    """``(bound_ms, ops_ms, bytes_ms)`` of ``fused_sa_eval``: the products
+    over the live slots (what cnt leaves to do; every slot without it),
+    each input read and the output written once."""
+    b, m, k = idx.shape
+    n, c1 = q.shape[1:]
+    c2, c3 = p.w2.shape[1], p.w3.shape[1]
+    live = (b * m * k if cnt is None
+            else torch.clamp(cnt, 1, k).sum().item())
+    return bound(2.0 * live * (c1 * c2 + c2 * c3), 0.0,
+                 2.0 * b * n * c1 + 4.0 * b * m * c1
+                 + 4.0 * b * m * (k + (cnt is not None))
+                 + 2.0 * (c1 * c2 + c2 * c3) + 4.0 * b * m * c3)
+
+
 def _bq_case(name, sa, args, timed):
     nx, pts, q, off = args
     p, s = sa.sa_params(), sa.sa_stats()
@@ -477,23 +528,18 @@ def _bq_case(name, sa, args, timed):
            "cnt_mean": cnt.float().mean().item(), "cnt_max": cnt.max().item(),
            "empty_rows": int((cnt == 0).sum().item()),
            "live_slots": int(live)}
-    if timed:
+    if timed:  # device times; the event loop reads the launch rate
         with torch.no_grad():
-            rec["ms"] = time_ms(
-                lambda: kfs.fused_sa_bq_eval(nx, pts, q, off, p, s, r, k), 20)
+            call = lambda: kfs.fused_sa_bq_eval(nx, pts, q, off, p, s, r, k)
+            rec["ms"] = graph_ms(call, 5)
+            rec["cuda_core_graph_ms"] = CUDA_CORE_EVAL_MS[
+                "fused_sa_bq_eval"].get(name.replace(" serving", ""))
+            rec["launch_rate_ms"] = time_ms(call, 20)
             rec["plain_ms"] = time_ms(
                 lambda: kfs.fused_sa_bq_eval_plain(nx, pts, q, off, p, s, r,
                                                    k), 3, 1)
-        # scan length per center: up to its k-th hit (the kernel stops
-        # there), the whole cloud when it has fewer
-        d2 = geometry.square_distance(nx, pts)
-        rank = torch.cumsum((d2 < r * r).int(), dim=-1)
-        scanned = torch.where(cnt >= k, (rank < k).sum(-1) + 1,
-                              torch.full_like(cnt, n)).sum().item()
-        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
-            2.0 * live * (c1 * c2 + c2 * c3), 10.0 * scanned,
-            12.0 * b * (n + m) + 2.0 * b * n * c1 + 4.0 * b * m * c1
-            + 2.0 * (c1 * c2 + c2 * c3) + 4.0 * b * m * c3)
+        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = _bq_eval_bound(
+            nx, pts, q, p, r, k, cnt)
     emit("kernel fused_sa_bq_eval", rec)
     return rec
 
@@ -956,19 +1002,20 @@ def _eval_idx_case(name, sa, q, off, idx, cnt, timed):
            "cnt_mean": cnt.float().mean().item(),
            "empty_rows": int((cnt == 0).sum().item()),
            "live_slots": int(live)}
-    if timed:
+    if timed:  # device times; the event loop reads the launch rate
         with torch.no_grad():
-            rec["ms"] = time_ms(
-                lambda: kfs.fused_sa_eval(q, off, idx, p, s, cnt=cnt), 20)
-            rec["ms_without_cnt"] = time_ms(
-                lambda: kfs.fused_sa_eval(q, off, idx, p, s), 10)
+            call = lambda: kfs.fused_sa_eval(q, off, idx, p, s, cnt=cnt)
+            rec["ms"] = graph_ms(call, 5)
+            rec["ms_without_cnt"] = graph_ms(
+                lambda: kfs.fused_sa_eval(q, off, idx, p, s), 5)
+            old = CUDA_CORE_EVAL_MS["fused_sa_eval"].get(name)
+            rec["cuda_core_graph_ms"] = old and old[0]
+            rec["cuda_core_graph_ms_without_cnt"] = old and old[1]
+            rec["launch_rate_ms"] = time_ms(call, 20)
             rec["plain_ms"] = time_ms(
                 lambda: kfs.fused_sa_eval_plain(q, off, idx, p, s), 3, 1)
-        # the products over the live slots (what cnt leaves to do)
-        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
-            2.0 * live * (c1 * c2 + c2 * c3), 0.0,
-            2.0 * b * n * c1 + 4.0 * b * m * c1 + 4.0 * b * m * (k + 1)
-            + 2.0 * (c1 * c2 + c2 * c3) + 4.0 * b * m * c3)
+        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = _eval_bound(
+            q, idx, p, cnt)
     emit("kernel fused_sa_eval", rec)
     return rec
 
@@ -2473,6 +2520,118 @@ def tail_times() -> None:
                     / want.double().abs().max().clamp_min(1e-30)).item()
         emit("tail", rec)
         del L
+        torch.cuda.empty_cache()
+
+
+def _eval_layers():
+    """``(name, layer, args)`` of every eval-kernel call on the PointNet++
+    serving paths, inputs from the models' own forward: SSG SA1 / SA2
+    (B=64), MSG's six scales (B=32; MSG2 from MSG1's train-mode output,
+    as ``_msg_scales`` makes them), part segmentation's SA1 / SA2 (B=16,
+    N=2048) and SSG at N=4096 (B=32, Hilbert-sorted as a request is: SA1
+    by the given index, SA2 with the ball query inside). ``args`` are
+    ``(new_xyz, pts, q, off)`` for ``fused_sa_bq_eval`` and ``(q, off,
+    idx, cnt)`` for ``fused_sa_eval``; q in bf16."""
+    ssg_vars = random_jax_variables(get_cls_model("pointnet2"), seed=0)
+    clouds, normals, _ = SyntheticModelNet(
+        n_points=N_POINTS, size=N_CLOUDS, seed=0).batch(0, N_CLOUDS)
+    xyz = torch.from_numpy(clouds[:BATCH]).to(DEV)
+    nrm = torch.from_numpy(normals[:BATCH]).to(DEV)
+    ssg = _model_on_card("pointnet2", ssg_vars)
+    for name, sa, args in _sa_inputs(ssg, xyz, nrm):
+        yield name, sa, args
+    msg = _model_on_card("pointnet2_msg", random_jax_variables(
+        get_cls_model("pointnet2_msg"), seed=0))
+    for name, sa, nx, pts, q, off in _msg_scales(msg, xyz[:MSG_BATCH],
+                                                 nrm[:MSG_BATCH]):
+        if sa.fuses_ball_query(pts.shape[1]):
+            yield name, sa, (nx, pts, q.bfloat16(), off)
+        else:
+            idx, cnt = kbq.ball_query_plain(nx, pts, sa.radius, sa.n_samples)
+            yield name, sa, (q.bfloat16(), off, idx, cnt)
+    del msg
+    seg = _model_on_card(PN2_SEG, random_jax_variables(
+        build_model(PN2_SEG), seed=0))
+    seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
+    for name, sa, args in _sa_inputs(seg, seg_xyz, seg_xyz):
+        yield f"partseg {name}", sa, args
+    del seg
+    big, big_n, _ = SyntheticModelNet(
+        n_points=BIG_POINTS, size=BIG_CLOUDS - BIG_BATCH, seed=0).batch(
+        0, BIG_CLOUDS - BIG_BATCH)
+    sa1, sa2 = ssg.sa1.fused, ssg.sa2.fused
+    with torch.no_grad():
+        xyz, nrm, _ = spatial.canonicalize(
+            torch.from_numpy(big[:BIG_BATCH]).to(DEV),
+            torch.from_numpy(big_n[:BIG_BATCH]).to(DEV))
+        nx1, q1, off1 = sa1.prepare(xyz, nrm)
+        idx, cnt = kbq.ball_query_plain(nx1, xyz, sa1.radius, sa1.n_samples)
+        q1 = q1.bfloat16()
+        yield "SSG4096 SA1", sa1, (q1, off1, idx, cnt)
+        out1 = kfs.fused_sa_eval(q1, off1, idx, sa1.sa_params(),
+                                 sa1.sa_stats(), cnt=cnt)
+        nx2, q2, off2 = sa2.prepare(nx1, out1)
+    yield "SSG4096 SA2", sa2, (nx2, nx1, q2.bfloat16(), off2)
+
+
+def eval_times() -> None:
+    """Device milliseconds a call of ``fused_sa_bq_eval`` and
+    ``fused_sa_eval`` (with the ball query's cnt and without) at every
+    eval shape of the PointNet++ serving paths (``_eval_layers``): the
+    wrapper's call by ``graph_ms`` (the kernel and the folding of its BN
+    rows) and the kernel alone by ``torch.profiler``; each one's largest
+    deviation from its plain version over max|plain|, the live slots and
+    the bound. After the device line, one JSON line a case. Like
+    ``bwd_times``, it times the kernels of the package beside this file:
+
+        python3 -c 'import chip_smoke; chip_smoke.eval_times()'
+    """
+    phase_device()
+    _build.build(("fused_sa_bq_eval", "fused_sa_eval"))
+
+    def dev(got, want):
+        return ((got.double() - want.double()).abs().max()
+                / want.double().abs().max().clamp_min(1e-30)).item()
+
+    for name, sa, args in _eval_layers():
+        p, s = sa.sa_params(), sa.sa_stats()
+        c1, c2, c3 = p.w2.shape[0], p.w2.shape[1], p.w3.shape[1]
+        with torch.no_grad():
+            if args[0].dtype == torch.float32:  # the ball query inside
+                nx, pts, q, off = args
+                r, k = sa.radius, sa.n_samples
+                calls = {"": lambda: kfs.fused_sa_bq_eval(
+                    nx, pts, q, off, p, s, r, k)}
+                want = kfs.fused_sa_bq_eval_plain(nx, pts, q, off, p, s, r,
+                                                  k)
+                _, cnt = geometry.ball_query(nx, pts, r, k)
+                kernel, shape = "fused_sa_bq_eval", (nx.shape[0],
+                                                     pts.shape[1],
+                                                     nx.shape[1])
+                bounds = {"": _bq_eval_bound(nx, pts, q, p, r, k, cnt)[0]}
+            else:
+                q, off, idx, cnt = args
+                k = idx.shape[-1]
+                calls = {"": lambda: kfs.fused_sa_eval(q, off, idx, p, s,
+                                                       cnt=cnt),
+                         "_without_cnt": lambda: kfs.fused_sa_eval(
+                             q, off, idx, p, s)}
+                want = kfs.fused_sa_eval_plain(q, off, idx, p, s)
+                kernel, shape = "fused_sa_eval", (q.shape[0], q.shape[1],
+                                                  idx.shape[1])
+                bounds = {"": _eval_bound(q, idx, p, cnt)[0],
+                          "_without_cnt": _eval_bound(q, idx, p, None)[0]}
+            rec = {"case": name, "kernel": kernel,
+                   "B": shape[0], "N": shape[1], "M": shape[2], "k": k,
+                   "widths": [c1, c2, c3],
+                   "live_slots": int(torch.clamp(cnt, 1, k).sum().item()),
+                   "cnt_mean": cnt.float().mean().item()}
+            for tag, call in calls.items():
+                rec[f"ms{tag}"] = graph_ms(call, 5)
+                rec[f"kernel_ms{tag}"] = sum(_kernel_ms(call).values())
+                rec[f"max_dev{tag}"] = dev(call(), want)
+                rec[f"bound_ms{tag}"] = bounds[tag]
+        emit("eval", rec)
         torch.cuda.empty_cache()
 
 

@@ -40,14 +40,14 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
 
-  stage_cloud(pts + (size_t)b * n * 3, n, ptss);
+  stage_cloud(pts + (size_t)b * n * 3, n, ptss, threadIdx.x, kThreads);
   __syncthreads();
 
   for (int c = warp; c < mt; c += kWarps) {
     const size_t center = (size_t)b * m + m0 + c;
     int* row = idx + center * k;
     const int count =
-        bq_scan<true>(new_xyz + center * 3, ptss, n, k, r2, lane, row);
+        bq_scan(new_xyz + center * 3, ptss, n, k, r2, lane, row);
     bq_fill(row, count, k, lane);
     if (lane == 0) cnt[center] = count;
   }

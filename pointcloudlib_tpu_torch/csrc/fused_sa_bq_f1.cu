@@ -71,13 +71,13 @@ __global__ void __launch_bounds__(kThreads) bq_f1_kernel(const F1Args a) {
   const int lane = tid % 32;
   const int warp = tid / 32;
 
-  stage_cloud(a.pts + (size_t)b * n * 3, n, ptss);
+  stage_cloud(a.pts + (size_t)b * n * 3, n, ptss, threadIdx.x, kThreads);
   for (int i = tid; i < 2 * C1; i += kThreads) red[i] = 0.0f;
   __syncthreads();
 
   // ball query: one warp per center, the whole cloud (cnt counts every hit)
   for (int c = warp; c < mt; c += kWarps) {
-    const int count = bq_scan<true>(
+    const int count = bq_scan(
         a.new_xyz + ((size_t)b * a.m + m0 + c) * 3, ptss, n, k, a.r2, lane,
         nbr + c * k);
     bq_fill(nbr + c * k, count, k, lane);

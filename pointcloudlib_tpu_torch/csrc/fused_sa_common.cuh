@@ -83,25 +83,45 @@ __device__ __forceinline__ float sumsq3(float x, float y, float z) {
                    __fmul_rn(z, z));
 }
 
+// One step of a warp's ball query for the center (cx, cy, cz): the
+// points ptss[base, base + 128) (p.w holds |p|^2) with d2 < r2 take the
+// ranks count, count + 1, ... in index order; those below k go to
+// nbr[rank] (shared or global memory). Returns count plus the step's
+// hits. Four 32-point sets are tested before their ranks are taken, so
+// that their distances are in flight together.
+__device__ __forceinline__ int bq_step(float cx, float cy, float cz,
+                                       const float4* ptss, int n, int k,
+                                       float r2, int lane, int* nbr, int base,
+                                       int count) {
+  const float c2 = sumsq3(cx, cy, cz);
+  unsigned bal[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int j = base + 32 * s + lane;
+    bal[s] = __ballot_sync(
+        0xffffffffu, j < n && sq_dist(cx, cy, cz, c2, ptss[j]) < r2);
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int rank = count + __popc(bal[s] & below);
+    if ((bal[s] >> lane & 1u) && rank < k) nbr[rank] = base + 32 * s + lane;
+    count += __popc(bal[s]);
+  }
+  return count;
+}
+constexpr int kScanStep = 128;  // points a bq_step tests
+
 // One warp finds a center's neighbours: the first k points of
-// ptss[0, n) in index order with d2 < r2 go to nbr[0, k) (shared or
-// global memory); p.w holds |p|^2. Returns the number of hits: all of
-// them when FULL, else the scan stops once k are found.
-template <bool FULL>
+// ptss[0, n) in index order with d2 < r2 go to nbr[0, k). Returns the
+// number of hits, all of them.
 __device__ __forceinline__ int bq_scan(const float* center,
                                        const float4* ptss, int n, int k,
                                        float r2, int lane, int* nbr) {
   const float cx = center[0], cy = center[1], cz = center[2];
-  const float c2 = sumsq3(cx, cy, cz);
   int count = 0;
-  for (int base = 0; base < n && (FULL || count < k); base += 32) {
-    const int j = base + lane;
-    const bool hit = j < n && sq_dist(cx, cy, cz, c2, ptss[j]) < r2;
-    const unsigned bal = __ballot_sync(0xffffffffu, hit);
-    const int rank = count + __popc(bal & ((1u << lane) - 1u));
-    if (hit && rank < k) nbr[rank] = j;
-    count += __popc(bal);
-  }
+  for (int base = 0; base < n; base += kScanStep)
+    count = bq_step(cx, cy, cz, ptss, n, k, r2, lane, nbr, base, count);
   return count;
 }
 
@@ -117,10 +137,24 @@ __device__ __forceinline__ void bq_fill(int* nbr, int count, int k,
   for (int j = live + lane; j < k; j += 32) nbr[j] = first;
 }
 
-// Stages a cloud [n, 3] in shared memory as (x, y, z, |p|^2).
+// Stages a cloud [n, 3] in shared memory as (x, y, z, |p|^2), by thread
+// first of stride threads, four points a thread in flight.
 __device__ __forceinline__ void stage_cloud(const float* pg, int n,
-                                            float4* ptss) {
-  for (int j = threadIdx.x; j < n; j += kThreads) {
+                                            float4* ptss, int first,
+                                            int stride) {
+  int j = first;
+  for (; j + 3 * stride < n; j += 4 * stride) {
+    float v[4][3];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) v[s][d] = pg[3 * (j + s * stride) + d];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      ptss[j + s * stride] = make_float4(v[s][0], v[s][1], v[s][2],
+                                         sumsq3(v[s][0], v[s][1], v[s][2]));
+  }
+  for (; j < n; j += stride) {
     const float x = pg[3 * j], y = pg[3 * j + 1], z = pg[3 * j + 2];
     ptss[j] = make_float4(x, y, z, sumsq3(x, y, z));
   }
@@ -201,22 +235,6 @@ __device__ __forceinline__ void load_y1(const __nv_bfloat16* h1,
     *reinterpret_cast<uint32_t*>(ys + r * (C1 + 8) + cc) =
         pack2(bn_relu(bf_lo(hh), sc1[cc], bi1[cc]),
               bn_relu(bf_hi(hh), sc1[cc + 1], bi1[cc + 1]));
-  }
-}
-
-// ys[rows of this thread, 8 channels] = bf16(relu(acc*sc + bi))
-template <int COUT>
-__device__ __forceinline__ void store_bn_relu(
-    const float (&acc)[Tile<COUT>::RPT][8], const float* sc, const float* bi,
-    __nv_bfloat16* ys, int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < Tile<COUT>::RPT; ++i) {
-    float v[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      v[c] = bn_relu(acc[i][c], sc[cg * 8 + c], bi[cg * 8 + c]);
-    *reinterpret_cast<uint4*>(ys + (rg * Tile<COUT>::RPT + i) * (COUT + 8) +
-                              cg * 8) = pack8(v);
   }
 }
 

@@ -129,6 +129,8 @@ def _lib_idx() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.sa_eval_smem.argtypes = [ctypes.c_int] * 4
+        lib.sa_eval_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -138,11 +140,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _eval_operands(params: SAParams, stats: SAStats):
-    """``(st, w2, w3)`` as the eval kernels take them: the folded
-    ``sc, bi`` rows of the three layers in one float32 vector, the
-    weights in bf16."""
-    st = torch.cat([torch.cat([s[0], s[1]]) for s in _folded(params, stats)])
-    return (_aligned(st.float()), _aligned(params.w2.bfloat16()),
+    """``(st, w2, w3)`` as the eval kernels take them: the folded BN rows
+    in one float32 vector, ``sc`` of the three layers, then ``bi``
+    (``_stack_stats``' arithmetic element by element, on the three layers
+    at once: a served batch is host-bound, and this launches 10
+    operations where a fold a layer launches 25), the weights in bf16."""
+    mu = torch.cat([stats.m1, stats.m2, stats.m3])
+    var = torch.cat([stats.v1, stats.v2, stats.v3])
+    gam = torch.cat([params.g1, params.g2, params.g3])
+    bet = torch.cat([params.b1, params.b2, params.b3])
+    sc = gam * torch.rsqrt(var + _EPS)
+    st = torch.cat([sc, bet - mu * sc]).float()
+    return (_aligned(st), _aligned(params.w2.bfloat16()),
             _aligned(params.w3.bfloat16()))
 
 
@@ -232,6 +241,11 @@ def fused_sa_eval(q, off, idx, params: SAParams, stats: SAStats,
         if t.device != q.device:
             raise ValueError(f"fused_sa_eval: {name} on {t.device}, q on "
                              f"{q.device}")
+    lib = _lib_idx()
+    smem = lib.sa_eval_smem(*widths, k)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"fused_sa_eval: k={k} needs {smem} bytes of shared "
+                         f"memory, above one block's {_SMEM_LIMIT}")
     st, w2, w3 = _eval_operands(params, stats)
     q, off, idx = map(_aligned, (q, off, idx))
     cnt_ptr = None if cnt is None else _aligned(cnt).data_ptr()
@@ -239,7 +253,7 @@ def fused_sa_eval(q, off, idx, params: SAParams, stats: SAStats,
                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib_idx().sa_eval_launch(
+        err = lib.sa_eval_launch(
             q.data_ptr(), off.data_ptr(), idx.data_ptr(), cnt_ptr,
             st.data_ptr(), w2.data_ptr(), w3.data_ptr(), out.data_ptr(),
             b, n, m, *widths, k, stream)

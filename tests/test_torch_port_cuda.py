@@ -79,17 +79,37 @@ def _sa(rng, dev, c1, c2, c3):
     return params, stats
 
 
+# Every eval width triple at k = 16, 32, 64 and 128 (B=4, N=512, M=70:
+# not a multiple of any center tile): on the unit sphere a ball of radius
+# sqrt(k / 128) holds k of the 512 points on average, so rows cut at k
+# (cnt > k) sit beside short rows of every length mod 8, which the
+# kernels pad to whole 8-row groups with replicas of slot 0.
+EVAL_SWEEP = [(w, 4, 512, 70, float(np.sqrt(k / 128)), k)
+              for w in kfs.EVAL_WIDTHS for k in (16, 32, 64, 128)]
+
+
+def _check_sweep_counts(cnt, k):
+    """A sweep case holds an empty row, rows cut at k and short rows of
+    every residue 1-7 mod 8."""
+    cnt = cnt.cpu()
+    short = cnt[(cnt > 0) & (cnt < k)]
+    assert int(cnt[0, 0]) == 0 and bool((cnt > k).any())
+    assert set((short % 8).tolist()) >= set(range(1, 8))
+
+
 @pytest.mark.parametrize("widths,b,n,m,radius,k", [
     ((64, 64, 128), 4, 1024, 512, 0.2, 64),
     ((128, 128, 256), 4, 512, 128, 0.4, 64),
     ((64, 64, 128), 2, 300, 70, 0.3, 16),   # ragged tile, N % 32 != 0
-])
+] + EVAL_SWEEP)
 def test_bq_eval_matches_plain(card, widths, b, n, m, radius, k):
     rng = np.random.default_rng(sum(widths) + n)
     c1, c2, c3 = widths
     pts = _sphere(rng, b, n, card)
     nx = pts[:, :m].clone()
     nx[0, 0] = 50.0                         # an empty row
+    if (widths, b, n, m, radius, k) in EVAL_SWEEP:
+        _check_sweep_counts(kbq.ball_query_plain(nx, pts, radius, k)[1], k)
     q = (pts @ torch.from_numpy(rng.standard_normal((3, c1)).astype(
         np.float32)).to(card)).bfloat16()
     off = torch.from_numpy(rng.normal(0, 0.3, (b, m, c1)).astype(
@@ -177,8 +197,13 @@ IDX_SHAPES = {  # widths, B, N, M, radius, k
 }
 
 
+# the sweep of test_bq_eval_matches_plain, by the given index
+IDX_SWEEP = {f"sweep_{'-'.join(map(str, case[0]))}_k{case[-1]}": case
+             for case in EVAL_SWEEP}
+
+
 def _idx_layer(card, name):
-    widths, b, n, m, radius, k = IDX_SHAPES[name]
+    widths, b, n, m, radius, k = {**IDX_SHAPES, **IDX_SWEEP}[name]
     c1, c2, c3 = widths
     rng = np.random.default_rng(sum(widths) + k)
     pts = _sphere(rng, b, n, card)
@@ -209,9 +234,11 @@ def test_sa_f1_matches_plain(card, name):
 
 
 @pytest.mark.parametrize("with_cnt", [True, False])
-@pytest.mark.parametrize("name", sorted(IDX_SHAPES))
+@pytest.mark.parametrize("name", sorted(IDX_SHAPES) + sorted(IDX_SWEEP))
 def test_sa_eval_idx_matches_plain(card, name, with_cnt):
     q, off, idx, cnt, params, stats = _idx_layer(card, name)
+    if name in IDX_SWEEP:
+        _check_sweep_counts(cnt, idx.shape[-1])
     q = q.bfloat16()
     before = kfs.fused_sa_eval.launches
     got = kfs.fused_sa_eval(q, off, idx, params, stats,

@@ -122,10 +122,52 @@ def test_sa_f1_matches_jax(widths):
                                atol=1e-5 * np.abs(jpsum).max())
 
 
-@pytest.mark.parametrize("with_cnt", [False, True])
-@pytest.mark.parametrize("widths", WIDTHS)
+def _patterned(seed, widths, k, cnt):
+    """Eval inputs at B=2, M=32, N=128 whose ``cnt`` is given: center i
+    holds ``cnt[i]`` hits, its first ``max(min(cnt, k), 1)`` slots
+    distinct points, every later slot a repeat of slot 0, as the ball
+    query leaves them (a row with cnt 0 is all point 0). The eval kernel
+    pads each center's live slots to a multiple of 8 with such repeats, so
+    these counts (0, every residue mod 8, above k) are what it rests on."""
+    L = _layer(seed, widths)
+    rng = np.random.default_rng(seed)
+    b, m, n = 2, 32, L["n"]
+    cnt = np.asarray(cnt, np.int32).reshape(b, m)
+    idx = np.zeros((b, m, k), np.int32)
+    for i in range(b):
+        for j in range(m):
+            live = max(min(int(cnt[i, j]), k), 1)
+            first = rng.choice(n, live, replace=False) if cnt[i, j] else [0]
+            idx[i, j, :live] = first
+            idx[i, j, live:] = first[0]
+    return {**L, "idx": idx, "cnt": cnt}
+
+
+# (C1, C2, C3) = (32, 32, 64), cnt patterns of the eval kernel's padding:
+# zeros, every residue mod 8, counts above k (every slot runs on the JAX
+# side too) or all below it (the JAX kernel caps its slots)
+EVAL_PATTERNS = {
+    "pad-k16": (16, [0, 1, 2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16,
+                     17, 23, 40, 0] * 3 + [8, 1, 31, 2]),
+    "pad-k64": (64, [0, 1, 2, 3, 4, 5, 6, 7, 9, 18, 27, 36, 45, 54, 63, 33,
+                     41, 0, 12, 25] * 3 + [8, 57, 14, 22]),
+}
+
+
+@pytest.mark.parametrize("widths,with_cnt", [
+    pytest.param(w, c, id=f"widths{i}-{c}")
+    for i, w in enumerate(WIDTHS) for c in (False, True)
+] + [pytest.param((32, 32, 64), name, id=name) for name in EVAL_PATTERNS])
 def test_fused_sa_eval_matches_jax(widths, with_cnt):
-    L = _layer(1, widths)
+    if with_cnt in EVAL_PATTERNS:
+        k, cnt = EVAL_PATTERNS[with_cnt]
+        L = _patterned(5, widths, k, cnt)
+        assert {int(c) % 8 for c in L["cnt"].flat if 0 < c < k} >= set(
+            range(1, 8)) and (L["cnt"] == 0).any()
+        assert ((L["cnt"] > k).any() if k == 16
+                else int(L["cnt"].max()) < k)
+    else:
+        L = _layer(1, widths)
     cnt_t = torch.from_numpy(L["cnt"]) if with_cnt else None
     got = fs.fused_sa_eval(
         torch.from_numpy(L["q"]).bfloat16(), torch.from_numpy(L["off"]),
