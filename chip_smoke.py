@@ -14,10 +14,10 @@ once:
 3. kernels — the SSG serving kernels against their plain PyTorch versions
    on the card, at the serving shapes (FPS 1024→512 and 512→128, fused
    ball-query SA eval at SA1 and SA2, B=64) and at edge cases
-   (near-origin points, m = N, N not a multiple of 32, an empty
-   ball-query row): FPS must be bit-identical, the SA eval within
-   |Δ| ≤ 1e-2 + 1e-2·|plain| (the same bf16 roundings, f32 sums in
-   another order); kernel and plain times from CUDA events, the SA eval
+   (near-origin points, m = N, N not a multiple of 32, duplicated
+   points, an empty ball-query row): FPS must be bit-identical, the SA
+   eval within |Δ| ≤ 1e-2 + 1e-2·|plain| (the same bf16 roundings, f32
+   sums in another order); kernel and plain times from CUDA events, the SA eval
    kernel's a device time from CUDA graphs (the event loop's launch rate
    and, as ``cuda_core_graph_ms``, the device time of the CUDA-core
    kernel it replaced, from ``CUDA_CORE_EVAL_MS``, beside it; the same
@@ -559,6 +559,9 @@ def phase_kernels(model, xyz, nrm):
     odd = xyz[:4, :1000].clone()
     odd[:, 500:] *= 1e-3
     _fps_case("N=1000 m>eligible", odd, 600, True, False)
+    # every point four times on a coarse grid: exact d² ties
+    dup = torch.round(xyz[:8, :N_POINTS // 4].repeat(1, 4, 1) * 4.0) / 4.0
+    _fps_case("duplicates 1024->512", dup, 512, True, False)
 
     bq_recs = []
     for name, mod, args in sa:
@@ -2520,6 +2523,57 @@ def tail_times() -> None:
                     / want.double().abs().max().clamp_min(1e-30)).item()
         emit("tail", rec)
         del L
+        torch.cuda.empty_cache()
+
+
+# Every FPS launch of the ported paths: (case, clouds, batch, n_samples of
+# each launch in turn, skip_near_origin); a launch after the first takes
+# the previous one's centers, as the models' layers do.
+FPS_PATHS = (
+    ("SSG", "modelnet", BATCH, (512, 128), True),
+    ("MSG", "modelnet", MSG_BATCH, (512, 128), True),
+    ("partseg", "shapenet", SEG_BATCH, (512, 128), True),
+    ("SSG4096", "modelnet4096", BIG_BATCH, (512, 128), True),
+    ("pointconv", "modelnet", PC_BATCH, (512, 128), False),
+    ("pointconv partseg", "shapenet", SEG_BATCH, (1024, 256, 64, 36), False),
+)
+
+
+def fps_times() -> None:
+    """Device milliseconds a call of ``fps`` at every FPS launch of the
+    ported paths (``FPS_PATHS``; ``graph_ms``), nanoseconds a pick (the
+    m - 1 dependent argmax steps after the seed), the operations bound
+    and whether the indices equal the plain version's (reported, not
+    held: ``phase_kernels`` and the card tests hold them): after the
+    device line, one JSON line a launch. Like ``bwd_times``, it times the
+    kernel of the package beside this file:
+
+        python3 -c 'import chip_smoke; chip_smoke.fps_times()'
+    """
+    phase_device()
+    _build.build(("fps",))
+    clouds = {
+        "modelnet": lambda b: SyntheticModelNet(
+            n_points=N_POINTS, size=b, seed=0).batch(0, b)[0],
+        "modelnet4096": lambda b: SyntheticModelNet(
+            n_points=BIG_POINTS, size=b, seed=0).batch(0, b)[0],
+        "shapenet": lambda b: _seg_data(b)[0],
+    }
+    for case, data, b, samples, skip in FPS_PATHS:
+        xyz = torch.from_numpy(clouds[data](b)).to(DEV)
+        for m in samples:
+            n = xyz.shape[1]
+            with torch.no_grad():
+                idx = kfps.fps(xyz, m, skip)
+                same = torch.equal(idx, kfps.fps_plain(xyz, m, skip))
+                ms = graph_ms(lambda: kfps.fps(xyz, m, skip), 10)
+            bound_ms = bound(0.0, 10.0 * b * n * (m - 1),
+                             12.0 * b * n + 4.0 * b * m)[0]
+            emit("fps", {"case": f"{case} {n}->{m}", "B": b, "N": n, "M": m,
+                         "skip": skip, "ms": ms,
+                         "ns_a_pick": ms * 1e6 / max(m - 1, 1),
+                         "bound_ms": bound_ms, "bit_identical": same})
+            xyz = geometry.index_points(xyz, idx)
         torch.cuda.empty_cache()
 
 

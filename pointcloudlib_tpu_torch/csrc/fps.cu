@@ -7,16 +7,21 @@
 // to the plain version (ops/geometry.py farthest_point_sample).
 //
 // What bounds it: not bytes (a cloud is 12 bytes a point, read once) and
-// not arithmetic (~10 flops a point an iteration), but the chain of m-1
-// dependent block-wide argmax reductions — each pick needs the previous
-// one. The design keeps that chain short: one block per cloud, each
+// not arithmetic (~10 flops a point a pick), but the latency of the chain
+// of m - 1 dependent block-wide argmax steps: each pick needs the one
+// before it. The design keeps one pick short. One block a cloud; each
 // thread holds a strided share of the points and their min-d2 in
-// registers (PPT per thread, unrolled), the cloud is staged once in
-// shared memory so the picked point's coordinates are one shared load,
-// and each iteration is one warp-shuffle argmax, one shared-memory
-// exchange between warps and two barriers.
-// Known limit: one block per cloud, so B=64 clouds fill 64 of the H100's
-// 132 SMs.
+// registers (PPT a thread, unrolled), and the cloud is staged once in
+// shared memory, so the picked point's coordinates are one shared load.
+// A score maps to an order-preserving u32 key, so a warp's argmax is two
+// redux.sync (the largest key, then the lowest index holding it) in place
+// of a shuffle tree. Each warp writes its (key, index) into a slot of its
+// own, double-buffered by the pick's parity, the block meets at one
+// barrier, and then every warp reduces the few candidates itself (up to
+// four in registers, more by redux): no serial stage in one warp, no
+// second barrier. Few warps a cloud (the launcher's table, by
+// measurement, PERF.md) keep that exchange short; a cloud of at most 256
+// points runs in one warp with no barrier.
 //
 // Numerics: d2 = (dx*dx + dy*dy) + dz*dz with explicit round-to-nearest
 // intrinsics. nvcc would otherwise contract into FMAs, which changes the
@@ -28,38 +33,52 @@
 
 namespace pcl {
 
-constexpr int kWarp = 32;
+// Order-preserving u32 key of a score: >= 0, -1 (ineligible) or -inf (a
+// slot past n). Non-negative floats order as their bits with the sign bit
+// set; negative ones order reversed, so every bit is flipped.
+__device__ __forceinline__ unsigned score_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : u | 0x80000000u;
+}
 
-__device__ __forceinline__ void better(float& bv, int& bi, float ov, int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
+// The warp's best (key, index): the largest key and the lowest index that
+// holds it, in every lane.
+__device__ __forceinline__ void warp_best(unsigned& key, unsigned& idx) {
+  const unsigned best = __reduce_max_sync(0xffffffffu, key);
+  idx = __reduce_min_sync(0xffffffffu, key == best ? idx : 0xffffffffu);
+  key = best;
+}
+
+// The better of two (key, index) candidates into (key, idx).
+__device__ __forceinline__ void better(unsigned& key, unsigned& idx,
+                                       uint2 o) {
+  if (o.x > key || (o.x == key && o.y < idx)) {
+    key = o.x;
+    idx = o.y;
   }
 }
 
-template <int PPT>
-__global__ void fps_kernel(const float* __restrict__ xyz,
-                           int* __restrict__ out, int n, int m, int skip) {
+template <int PPT, int NW>
+__global__ void __launch_bounds__(NW * 32)
+    fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n,
+               int m, int skip) {
+  constexpr int NT = NW * 32;
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + n;
   float* sz = sy + n;
-  __shared__ float wv[kWarp];
-  __shared__ int wi[kWarp];
-  __shared__ float last[3];
+  __shared__ uint2 cand[2][NW];  // (key, index) a warp, by pick parity
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid % kWarp;
-  const int warp = tid / kWarp;
-  const int nwarps = nt / kWarp;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
   const float* p = xyz + (size_t)b * n * 3;
 
   float px[PPT], py[PPT], pz[PPT], md[PPT];
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
-    const int j = tid + i * nt;
+    const int j = tid + i * NT;
     if (j < n) {
       px[i] = p[3 * j];
       py[i] = p[3 * j + 1];
@@ -79,17 +98,11 @@ __global__ void fps_kernel(const float* __restrict__ xyz,
   }
   if (tid == 0) out[(size_t)b * m] = 0;
   __syncthreads();
-  if (tid == 0) {
-    last[0] = sx[0];
-    last[1] = sy[0];
-    last[2] = sz[0];
-  }
-  __syncthreads();
+  float lx = sx[0], ly = sy[0], lz = sz[0];
 
   for (int s = 1; s < m; ++s) {
-    const float lx = last[0], ly = last[1], lz = last[2];
     float bv = -INFINITY;
-    int bi = 0x7fffffff;
+    unsigned bi = 0xffffffffu;
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const float dx = __fsub_rn(px[i], lx);
@@ -102,51 +115,44 @@ __global__ void fps_kernel(const float* __restrict__ xyz,
       // indices rise with i: strict '>' keeps the lowest on ties
       if (md[i] > bv) {
         bv = md[i];
-        bi = tid + i * nt;
+        bi = tid + i * NT;
       }
     }
+    unsigned key = score_key(bv);
+    warp_best(key, bi);
+    if (NW > 1) {
+      // a warp may run one pick ahead of the slowest: the other parity
+      uint2* c = cand[s & 1];
+      if (lane == 0) c[warp] = make_uint2(key, bi);
+      __syncthreads();
+      if (NW <= 4) {  // every lane reads the few candidates, in order
+        key = c[0].x;
+        bi = c[0].y;
 #pragma unroll
-    for (int off = kWarp / 2; off > 0; off /= 2) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      better(bv, bi, ov, oi);
-    }
-    if (lane == 0) {
-      wv[warp] = bv;
-      wi[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? wv[lane] : -INFINITY;
-      bi = lane < nwarps ? wi[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = kWarp / 2; off > 0; off /= 2) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        better(bv, bi, ov, oi);
-      }
-      if (lane == 0) {
-        out[(size_t)b * m + s] = bi;
-        last[0] = sx[bi];
-        last[1] = sy[bi];
-        last[2] = sz[bi];
+        for (int w = 1; w < NW; ++w) better(key, bi, c[w]);
+      } else {
+        const uint2 o = lane < NW ? c[lane] : make_uint2(0u, 0xffffffffu);
+        key = o.x;
+        bi = o.y;
+        warp_best(key, bi);
       }
     }
-    __syncthreads();
+    if (tid == 0) out[(size_t)b * m + s] = (int)bi;
+    lx = sx[bi];
+    ly = sy[bi];
+    lz = sz[bi];
   }
 }
 
-template <int PPT>
+template <int PPT, int NW>
 cudaError_t launch(const float* xyz, int* out, int b, int n, int m,
                    int skip, cudaStream_t stream) {
-  int threads = (n + PPT - 1) / PPT;
-  threads = ((threads + kWarp - 1) / kWarp) * kWarp;
   const size_t smem = (size_t)3 * n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fps_kernel<PPT, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  fps_kernel<PPT><<<b, threads, smem, stream>>>(xyz, out, n, m, skip);
+  fps_kernel<PPT, NW><<<b, NW * 32, smem, stream>>>(xyz, out, n, m, skip);
   return cudaGetLastError();
 }
 
@@ -160,11 +166,12 @@ extern "C" int fps_launch(const void* xyz, void* out, int b, int n, int m,
   const float* x = static_cast<const float*>(xyz);
   int* o = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // about 256 threads a cloud: a short per-iteration reduction, a few
-  // points per thread in registers
-  if (n <= 256) return pcl::launch<1>(x, o, b, n, m, skip, s);
-  if (n <= 512) return pcl::launch<2>(x, o, b, n, m, skip, s);
-  if (n <= 1024) return pcl::launch<4>(x, o, b, n, m, skip, s);
-  if (n <= 2048) return pcl::launch<8>(x, o, b, n, m, skip, s);
-  return pcl::launch<16>(x, o, b, n, m, skip, s);
+  // points a thread and warps a cloud, by measurement (PERF.md)
+  if (n <= 64) return pcl::launch<2, 1>(x, o, b, n, m, skip, s);
+  if (n <= 256) return pcl::launch<8, 1>(x, o, b, n, m, skip, s);
+  if (n <= 512) return pcl::launch<4, 4>(x, o, b, n, m, skip, s);
+  if (n <= 1024) return pcl::launch<8, 4>(x, o, b, n, m, skip, s);
+  if (n <= 2048) return pcl::launch<8, 8>(x, o, b, n, m, skip, s);
+  if (n <= 4096) return pcl::launch<8, 16>(x, o, b, n, m, skip, s);
+  return pcl::launch<16, 32>(x, o, b, n, m, skip, s);
 }

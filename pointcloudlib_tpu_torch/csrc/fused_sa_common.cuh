@@ -1,7 +1,8 @@
 // Pieces shared by the ball-query and fused set-abstraction kernels
 // (ball query, eval, f1, tails, backward passes): bf16 unpacking, the BN
 // affine with explicit round-to-nearest steps, the 64-row register-tiled
-// product over bf16 operands with f32 sums, the ball-query distance and
+// product over bf16 operands with f32 sums on CUDA cores (left to the
+// two-layer EdgeConv kernels, edge2.cuh), the ball-query distance and
 // its warp scan, the h1 gather of forward pass 1, the max-pool gradient
 // (within one tile, or folded across the tiles of a center with more
 // than 64 slots), and the per-channel block reduction into a global sum.
@@ -216,25 +217,6 @@ __device__ __forceinline__ void product(const __nv_bfloat16* ys,
         for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(y, w[c], acc[i][c]);
       }
     }
-  }
-}
-
-// ys[r, :] = bf16(relu(BN1(h1[row0 + r, :]))) for the kRows rows of a
-// tile; h1 is bf16 [rows, C1] in global memory.
-template <int C1>
-__device__ __forceinline__ void load_y1(const __nv_bfloat16* h1,
-                                        size_t row0, const float* sc1,
-                                        const float* bi1,
-                                        __nv_bfloat16* ys) {
-  const __nv_bfloat16* src = h1 + row0 * C1;
-  for (int e = threadIdx.x; e < kRows * (C1 / 2); e += kThreads) {
-    const int r = e / (C1 / 2);
-    const int cc = (e % (C1 / 2)) * 2;
-    const uint32_t hh =
-        *reinterpret_cast<const uint32_t*>(src + (size_t)r * C1 + cc);
-    *reinterpret_cast<uint32_t*>(ys + r * (C1 + 8) + cc) =
-        pack2(bn_relu(bf_lo(hh), sc1[cc], bi1[cc]),
-              bn_relu(bf_hi(hh), sc1[cc + 1], bi1[cc + 1]));
   }
 }
 

@@ -373,16 +373,19 @@ def sa_tail(stage: int, h1, st1, st2: Optional[torch.Tensor],
     _expect("sa_tail", h1.device, h1=(h1, (b, m, k, c1), torch.bfloat16),
             w2=(w2, (c1, c2), w2.dtype), w3=(w3, (c2, c3), w3.dtype))
     dev = h1.device
-    st = _pack_st((c1, c2, c3), st1, st2 if stage >= 3 else None,
-                  st3 if stage == 4 else None)
+    h1 = _aligned(h1)
+    w2b = _aligned(w2.bfloat16())
+    if stage == 2:  # the kernel reads BN1's rows of st and W2 alone
+        st, w3b = _aligned(st1.float()), w2b
+    else:
+        st = _pack_st((c1, c2, c3), st1, st2,
+                      st3 if stage == 4 else None)
+        w3b = _aligned(w3.bfloat16())
     if stage == 4:
         out = torch.empty((b, m, c3), dtype=torch.float32, device=dev)
     else:
         out = torch.zeros((2, c2 if stage == 2 else c3), dtype=torch.float32,
                           device=dev)
-    h1 = _aligned(h1)
-    w2b = _aligned(w2.bfloat16())
-    w3b = _aligned(w3.bfloat16())
     with torch.cuda.device(dev):
         err = _lib("fused_sa_tail").sa_tail_launch(
             stage, h1.data_ptr(), st.data_ptr(), w2b.data_ptr(),

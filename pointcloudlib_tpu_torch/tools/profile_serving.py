@@ -89,7 +89,7 @@ STAGES = (
     (r"eval_kernel", "fused_sa_eval kernel"),
     (r"bq_f1_kernel", "bq_f1 kernel"),
     (r"f1_kernel", "sa_f1 kernel"),
-    (r"stats2_kernel", "sa_tail stage 2 kernel"),
+    (r"sums2_kernel", "sa_tail stage 2 kernel"),
     (r"chain_kernel", "sa_tail stages 3, 4 kernel"),
     (r"p1_rows_kernel|p1_mats_kernel", "sa_bwd_p1 kernel"),
     (r"p2_kernel", "sa_bwd_p2 kernel"),

@@ -47,10 +47,19 @@ def _sphere(rng, b, n, dev):
     (2, 1000, 700, True, 500),     # m > eligible points
     (2, 1000, 300, False, 500),    # near-origin points, no skip
     (1, 4096, 256, True, 100),
+    (2, 2048, 512, True, 0),
+    (2, 4096, 512, True, 0),
+    (1, 16384, 64, True, 0),       # the largest cloud the kernel stages
+    (200, 512, 128, True, 0),      # more clouds than the card has SMs
+    (2, 1024, 512, True, -1),      # duplicated points: exact d2 ties
+    (2, 64, 36, False, 0),         # one warp a cloud
 ])
 def test_fps_bit_identical(card, b, n, m, skip, n_near):
     rng = np.random.default_rng(n + m)
     x = _sphere(rng, b, n, card)
+    if n_near < 0:  # every point four times, on a coarse grid
+        x = torch.round(x[:, : n // 4].repeat(1, 4, 1) * 4.0) / 4.0
+        n_near = 0
     x[:, n - n_near:] *= 1e-3
     before = kfps.fps.launches
     got = kfps.fps(x, m, skip)
@@ -335,7 +344,7 @@ def _train_layer(card, name, seed=0):
     from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as ft
 
     widths, b, n, m, radius, k = {**TRAIN_SHAPES, **WINDOW_SHAPES,
-                                   **BWD_CASES}[name]
+                                   **BWD_CASES, **TAIL_SWEEP}[name]
     c1, c2, c3 = widths
     rng = np.random.default_rng(seed)
     pts = _sphere(rng, b, n, card)
@@ -415,6 +424,11 @@ def _check_case(L, name):
         assert int(torch.unique(L["pts"][0], dim=0).shape[0]) < 128
 
 
+# every width triple at k = 16, 32, 64 and 128 (each with an empty row;
+# at k = 128 a center spans two 64-row tiles)
+TAIL_SWEEP = {f"sweep_{'-'.join(map(str, w))}_k{k}":
+              (w, 2, 512, 64, float(np.sqrt(k / 128)), k)
+              for w in kfs.EVAL_WIDTHS for k in (16, 32, 64, 128)}
 BWD_NAMES = sorted(TRAIN_SHAPES) + sorted(WINDOW_SHAPES) + sorted(BWD_CASES)
 
 
@@ -433,7 +447,7 @@ def _tail_check(L, stage, st3):
 
 
 @pytest.mark.parametrize("stage", [2, 3, 4])
-@pytest.mark.parametrize("name", BWD_NAMES)
+@pytest.mark.parametrize("name", BWD_NAMES + sorted(TAIL_SWEEP))
 def test_tail_matches_plain(card, name, stage):
     L = _train_layer(card, name, seed=1)
     _check_case(L, name)

@@ -40,6 +40,10 @@ FPS_CASES = {
     # more samples than eligible points: every later score is 0 or -1
     "m_gt_eligible": (lambda r: _near_origin(r, 2, 64, 10), 24, True),
     "m_eq_n": (lambda r: _cloud(r, 2, 64), 64, True),
+    # every point four times on a coarse grid: exact d² ties, where the
+    # lowest index must win
+    "duplicates": (lambda r: np.tile(np.round(_cloud(r, 2, 16) * 2) / 2,
+                                     (1, 4, 1)), 24, True),
 }
 
 
