@@ -16,12 +16,20 @@
 // What bounds it: bytes. It reads q, off and the clouds once and writes
 // h1 (2 * B*M*k*C1 bytes, 268 MB at the SA1 train shape), idx and cnt;
 // the distance tests are ~10 f32 operations per (center, point). The
-// design stages each cloud in shared memory once per tile of MT centers,
-// lets one warp per center scan it 32 points a step (a ballot gives the
-// in-order ranks of the hits; bq_scan, shared with the standalone ball
-// query and the eval kernel), and writes h1 with consecutive threads on
-// consecutive channel pairs (f1_rows, shared with the forward pass that
-// takes a given idx).
+// design:
+// - a block stages its cloud in shared memory once (stage_cloud) behind
+//   one barrier; the only other barrier is before the block's sums;
+// - then each warp owns a center end to end: it scans the cloud 128
+//   points a step (a ballot gives the in-order ranks of the hits;
+//   bq_scan, shared with the standalone ball query and the eval kernel),
+//   pads the row (bq_fill), writes its idx row and cnt and at once that
+//   center's k rows of h1 (f1_center, fused_sa_f1.cuh: 16-byte gathers
+//   and stores, slot 0's replicas stored without a gather, sums in
+//   registers). No barrier stands between one warp's scan and another's
+//   writes, so the scans of some warps overlap the writes of others;
+// - the grid is sized to the card: the blocks of a cloud split its
+//   centers so that the whole grid is one wave of resident blocks (at
+//   the smallest train grid, PS SA2's 2,048 centers, 15.5 warps an SM).
 //
 // Numerics: the distances use the eval kernel's round-to-nearest
 // sequence, so membership is bit-identical to geometry.ball_query; h1 is
@@ -29,11 +37,9 @@
 // version. The sums are f32 in another order (atomics): within 1e-3
 // relative.
 
-#include "fused_sa_common.cuh"
+#include "fused_sa_f1.cuh"
 
 namespace pcl {
-
-constexpr int kF1Centers = 32;  // centers per block
 
 struct F1Args {
   const float* new_xyz;      // [B, M, 3]
@@ -46,62 +52,64 @@ struct F1Args {
   float* psum;               // [2, C1]
   int n, m, k;
   float r2;
+  int per_block;             // centers a block
 };
 
-template <int C1>
-struct F1Layout {
-  static size_t bytes(int n, int k) {
-    return (size_t)n * 16 + (size_t)kF1Centers * k * 4 + (size_t)2 * C1 * 4;
-  }
-};
-
-template <int C1>
-__global__ void __launch_bounds__(kThreads) bq_f1_kernel(const F1Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float4* ptss = reinterpret_cast<float4*>(smem);
-  int* nbr = reinterpret_cast<int*>(smem + (size_t)a.n * 16);
-  float* red = reinterpret_cast<float*>(smem + (size_t)a.n * 16 +
-                                        (size_t)kF1Centers * a.k * 4);
-
-  const int n = a.n, k = a.k;
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * kF1Centers;
-  const int mt = min(kF1Centers, a.m - m0);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-
-  stage_cloud(a.pts + (size_t)b * n * 3, n, ptss, threadIdx.x, kThreads);
-  for (int i = tid; i < 2 * C1; i += kThreads) red[i] = 0.0f;
-  __syncthreads();
-
-  // ball query: one warp per center, the whole cloud (cnt counts every hit)
-  for (int c = warp; c < mt; c += kWarps) {
-    const int count = bq_scan(
-        a.new_xyz + ((size_t)b * a.m + m0 + c) * 3, ptss, n, k, a.r2, lane,
-        nbr + c * k);
-    bq_fill(nbr + c * k, count, k, lane);
-    if (lane == 0) a.cnt[(size_t)b * a.m + m0 + c] = count;
-  }
-  __syncthreads();
-
-  int* idxg = a.idx + ((size_t)b * a.m + m0) * k;
-  for (int e = tid; e < mt * k; e += kThreads) idxg[e] = nbr[e];
-
-  f1_rows<C1>(a.q + (size_t)b * n * C1, a.off + ((size_t)b * a.m + m0) * C1,
-              a.h1 + ((size_t)b * a.m + m0) * k * C1, nbr, mt * k, k, red,
-              a.psum);
+// Dynamic shared memory: the cloud (x, y, z, |p|^2), a neighbour row a
+// warp, the block's sums.
+inline size_t f1_smem(int n, int k, int c1) {
+  return (size_t)n * 16 + (size_t)kWarps * ((k + 3) / 4 * 16) +
+         (size_t)2 * c1 * 4;
 }
 
 template <int C1>
-cudaError_t launch_f1(const F1Args& a, int batch, cudaStream_t stream) {
-  const size_t smem = F1Layout<C1>::bytes(a.n, a.k);
+__global__ void __launch_bounds__(kThreads, kF1MinBlocks)
+    bq_f1_kernel(const F1Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, k = a.k;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int kp = (k + 3) / 4 * 4;
+  float4* ptss = reinterpret_cast<float4*>(smem);
+  int* nbr = reinterpret_cast<int*>(smem + (size_t)n * 16) + warp * kp;
+  float* red = reinterpret_cast<float*>(smem + (size_t)n * 16 +
+                                        (size_t)kWarps * kp * 4);
+
+  const int b = blockIdx.y;
+  const int m0 = blockIdx.x * a.per_block;
+  const int centers = min(a.per_block, a.m - m0);
+  stage_cloud(a.pts + (size_t)b * n * 3, n, ptss, threadIdx.x, kThreads);
+  for (int i = threadIdx.x; i < 2 * C1; i += kThreads) red[i] = 0.0f;
+  __syncthreads();
+
+  const __nv_bfloat16* qg = a.q + (size_t)b * n * C1;
+  F1Sums s;
+  s.zero();
+  for (int c = warp; c < centers; c += kWarps) {
+    const size_t center = (size_t)b * a.m + m0 + c;
+    const int count = bq_scan(a.new_xyz + center * 3, ptss, n, k, a.r2,
+                              lane, nbr);
+    bq_fill(nbr, count, k, lane);
+    __syncwarp();
+    for (int e = lane; e < k; e += 32) a.idx[center * k + e] = nbr[e];
+    if (lane == 0) a.cnt[center] = count;
+    f1_center<C1>(qg, a.off + center * C1, a.h1 + center * k * C1, nbr, k,
+                  lane, s);
+    __syncwarp();  // before the next scan overwrites nbr
+  }
+  f1_flush<C1>(s, lane, red, a.psum);
+}
+
+template <int C1>
+cudaError_t launch_f1(F1Args a, int batch, cudaStream_t stream) {
+  const size_t smem = f1_smem(a.n, a.k, C1);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bq_f1_kernel<C1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  int wave = 0;
+  cudaError_t err = f1_wave(bq_f1_kernel<C1>, smem, &wave);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.m + kF1Centers - 1) / kF1Centers, batch);
+  // one wave: the resident blocks shared among the clouds
+  const int chunks = max(1, wave / batch);
+  a.per_block = (a.m + chunks - 1) / chunks;
+  const dim3 grid((a.m + a.per_block - 1) / a.per_block, batch);
   bq_f1_kernel<C1><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -139,8 +147,7 @@ extern "C" int sa_bq_f1_launch(const void* new_xyz, const void* pts,
 
 // Dynamic shared memory the launch above needs (0: width not compiled).
 extern "C" long long sa_bq_f1_smem(int n, int c1, int k) {
-  if (c1 == 32) return (long long)pcl::F1Layout<32>::bytes(n, k);
-  if (c1 == 64) return (long long)pcl::F1Layout<64>::bytes(n, k);
-  if (c1 == 128) return (long long)pcl::F1Layout<128>::bytes(n, k);
+  if (c1 == 32 || c1 == 64 || c1 == 128)
+    return (long long)pcl::f1_smem(n, k, c1);
   return 0;
 }

@@ -3,7 +3,7 @@
 // affine with explicit round-to-nearest steps, the 64-row register-tiled
 // product over bf16 operands with f32 sums on CUDA cores (left to the
 // two-layer EdgeConv kernels, edge2.cuh), the ball-query distance and
-// its warp scan, the h1 gather of forward pass 1, the max-pool gradient
+// its warp scan, the max-pool gradient
 // (within one tile, or folded across the tiles of a center with more
 // than 64 slots), and the per-channel block reduction into a global sum.
 //
@@ -238,46 +238,6 @@ __device__ __forceinline__ void flush_sum(const float (&v)[8], int cg,
   }
   __syncthreads();
   for (int i = threadIdx.x; i < C; i += kThreads) atomicAdd(out + i, red[i]);
-}
-
-// Forward pass 1 after the neighbours are known, for one block's nrows =
-// centers * k grouped rows: h1[row] = bf16(float(bf16 q[nbr[row]]) -
-// off[row / k]) and [sum h1, sum h1^2] of the f32 h1 before its rounding,
-// added into psum [2, C1]. qg is the cloud's q, offg and hg the block's
-// first center's rows, nbr in shared or global memory, red scratch of
-// 2*C1 floats zeroed by the caller before a barrier. Each thread keeps a
-// fixed channel pair, so its share of the sums stays in registers until
-// one shared-memory and one global atomicAdd per channel and block.
-template <int C1>
-__device__ __forceinline__ void f1_rows(const __nv_bfloat16* qg,
-                                        const float* offg,
-                                        __nv_bfloat16* hg, const int* nbr,
-                                        int nrows, int k, float* red,
-                                        float* psum) {
-  static_assert(kThreads % (C1 / 2) == 0, "fixed channel pair per thread");
-  constexpr int NCP = C1 / 2;
-  const int tid = threadIdx.x;
-  const int cc = (tid % NCP) * 2;
-  float s0 = 0.0f, s1 = 0.0f, ss0 = 0.0f, ss1 = 0.0f;
-  for (int e = tid; e < nrows * NCP; e += kThreads) {
-    const int row = e / NCP;  // c * k + j
-    const int c = row / k;
-    const uint32_t qq = *reinterpret_cast<const uint32_t*>(
-        qg + (size_t)nbr[row] * C1 + cc);
-    const float h0 = __fsub_rn(bf_lo(qq), offg[(size_t)c * C1 + cc]);
-    const float h1 = __fsub_rn(bf_hi(qq), offg[(size_t)c * C1 + cc + 1]);
-    *reinterpret_cast<uint32_t*>(hg + (size_t)row * C1 + cc) = pack2(h0, h1);
-    s0 += h0;
-    s1 += h1;
-    ss0 += h0 * h0;
-    ss1 += h1 * h1;
-  }
-  atomicAdd(red + cc, s0);
-  atomicAdd(red + cc + 1, s1);
-  atomicAdd(red + C1 + cc, ss0);
-  atomicAdd(red + C1 + cc + 1, ss1);
-  __syncthreads();
-  for (int i = tid; i < 2 * C1; i += kThreads) atomicAdd(psum + i, red[i]);
 }
 
 // Per-row gradient at z3 = BN3(h3) of the max over each center's k slots,

@@ -1,15 +1,16 @@
-"""Design variants of the FPS kernel and of the forward tail's stage 2,
-timed against each other on the card. Each variant is an edit of the
-committed source (``csrc/fps.cu``, ``csrc/fused_sa_tail.cu``), built
-beside it by ``nvcc`` with the package's flags into ``build/variants/``.
+"""Design variants of the FPS kernel, of the forward tail's stage 2 and
+of forward pass 1, timed against each other on the card. Each variant is
+an edit of the committed source (``csrc/fps.cu``, ``csrc/fused_sa_tail.cu``,
+``csrc/fused_sa_bq_f1.cu`` and ``fused_sa_f1.cu``), built beside it by
+``nvcc`` with the package's flags into ``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
-        [--only fps tail read cluster] [--parent DIR]
+        [--only fps tail f1 read cluster] [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
-unpacked by ``git archive``): its ``fps.cu`` and ``fused_sa_tail.cu`` are
-built against its own headers and timed beside the variants. Prints one
-JSON line a case:
+unpacked by ``git archive``): its ``fps.cu``, ``fused_sa_tail.cu`` and
+pass-1 sources are built against its own headers and timed beside the
+variants. Prints one JSON line a case:
 
 * ``fps``: ns a pick (device ms of one launch by CUDA graphs over the
   m - 1 picks after the seed) and whether the indices equal the plain
@@ -26,7 +27,13 @@ JSON line a case:
   width), ``copy_only`` (the copies alone: no y1 staging, no product;
   time only) and ``copy_cm`` (``copy_only`` with each warp's copies in
   y1's core-matrix order, eight half lines a warp; time only);
-* ``read``: the card's rate reading 268 MB by plain 16-byte vector loads;
+* ``f1``: pass 1's kernel alone at the train shapes of ``F1`` (device
+  ms by CUDA graphs, h1 bit-identical to the plain version's, psum's
+  deviation over max|plain|) for each of ``F1_VARIANTS`` (store paths,
+  unroll, occupancy, the grid of ``bq_f1`` and the split of the design
+  into its parts; a part's h1 and sums are wrong by design);
+* ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
+  and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
   candidate, one barrier, every thread reads one), by a block barrier and
   by a two-block cluster's barrier through the peer's shared memory.
@@ -139,6 +146,25 @@ __global__ void read_kernel(const uint4* __restrict__ p, long long n,
       acc += __uint_as_float(v[u].x ^ v[u].y ^ v[u].z ^ v[u].w);
   }
   if (acc == 1.2345f) out[0] = acc;  // keeps the loads
+}
+template <bool CS>
+__global__ void write_kernel(uint4* p, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const uint4 v = make_uint4(threadIdx.x, blockIdx.x, 0u, 0u);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    if (CS)
+      __stcs(p + i, v);
+    else
+      p[i] = v;
+  }
+}
+extern "C" int write_launch(void* p, long long n16, int blocks, int cs,
+                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cs) write_kernel<true><<<blocks, 256, 0, s>>>((uint4*)p, n16);
+  else write_kernel<false><<<blocks, 256, 0, s>>>((uint4*)p, n16);
+  return cudaGetLastError();
 }
 extern "C" int read_launch(const void* p, long long n16, void* out,
                            int blocks, int unroll, void* stream) {
@@ -371,6 +397,213 @@ def run_tail(parent: Optional[Path]) -> None:
               flush=True)
 
 
+# Forward pass 1 (csrc/fused_sa_bq_f1.cu, the ball query inside, "bq";
+# csrc/fused_sa_f1.cu, from the ball query's idx, "idx") at the train
+# shapes of the PointNet++ paths: case, clouds, B, centers of each FPS
+# level in turn (a level samples the previous one's centers), radius, k,
+# C1, route. q and off are random: the pass's work depends on the
+# neighbours alone, which come from the clouds as in the models.
+F1 = [
+    ("SSG SA1", "modelnet", 64, (512,), 0.2, 64, 64, "bq"),
+    ("SSG SA2", "modelnet", 64, (512, 128), 0.4, 64, 128, "bq"),
+    ("MSG1/0", "modelnet", 32, (512,), 0.1, 16, 32, "bq"),
+    ("MSG1/1", "modelnet", 32, (512,), 0.2, 32, 64, "bq"),
+    ("MSG1/2", "modelnet", 32, (512,), 0.4, 128, 64, "idx"),
+    ("MSG2/2", "modelnet", 32, (512, 128), 0.8, 128, 128, "idx"),
+    ("PS SA1", "shapenet", 16, (512,), 0.2, 64, 64, "bq"),
+    ("PS SA2", "shapenet", 16, (512, 128), 0.4, 64, 128, "bq"),
+    ("SSG4096 SA1", "modelnet4096", 32, (512,), 0.2, 64, 64, "idx"),
+]
+F1_SOURCES = {"bq": "fused_sa_bq_f1.cu", "idx": "fused_sa_f1.cu"}
+F1_STORE = "  __stcs(reinterpret_cast<uint4*>(p), v);\n"
+F1_PLAIN_STORE = "  *reinterpret_cast<uint4*>(p) = v;\n"
+F1_CALL = """  f1_span<C1>(qc, off, nbr, first, p0, 0, k, rr, hc + cg * 8, s);
+"""
+# the rows staged in shared memory, two 2 KB halves a warp, each half
+# written by one bulk asynchronous copy (cp.async.bulk, no tensor map)
+F1_BULK = """  __shared__ __align__(16) unsigned char stage[kWarps][4096];
+  constexpr int R = 2048 / (C1 * 2);  // rows a half
+  unsigned char* stg = stage[threadIdx.x / 32];
+  int half = 0;
+  for (int cb = 0; cb < k; cb += R, half ^= 1) {
+    const int ce = min(cb + R, k);
+    __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(stg + half * 2048);
+    if (lane == 0)  // the copy that read this half two chunks ago is done
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+    __syncwarp();
+    f1_span<C1>(qc, off, nbr, first, p0, cb, ce, rr, sb + cg * 8, s);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if (lane == 0)
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\\n"
+          "cp.async.bulk.commit_group;" ::"l"(hc + (size_t)cb * C1),
+          "r"((unsigned)__cvta_generic_to_shared(sb)),
+          "r"((ce - cb) * C1 * 2)
+          : "memory");
+  }
+  if (lane == 0)  // the next center (or the block's exit) reuses stage
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  __syncwarp();
+"""
+F1_UNROLL = "constexpr int kF1Unroll = 4;"
+F1_MIN_BLOCKS = "constexpr int kF1MinBlocks = 3;"
+F1_CHUNKS = "const int chunks = max(1, wave / batch);"
+F1_WRITE = """    f1_center<C1>(qg, a.off + center * C1, a.h1 + center * k * C1, nbr, k,
+                  lane, s);
+"""
+F1_SCAN = """    const int count = bq_scan(a.new_xyz + center * 3, ptss, n, k, a.r2,
+                              lane, nbr);
+    bq_fill(nbr, count, k, lane);
+"""
+STAGE_CLOUD = ("  stage_cloud(a.pts + (size_t)b * n * 3, n, ptss, "
+               "threadIdx.x, kThreads);\n")
+F1_SUMS = """      s[c] = fmaf(times, h[c], s[c]);
+      ss[c] = fmaf(times, h[c] * h[c], ss[c]);
+"""
+# Variants of the committed pass 1: (routes, edits of the source, edits
+# of its header fused_sa_f1.cuh). The store path: 16-byte stores with the
+# streaming hint (built) or without it (plain_store), or rows staged in
+# shared memory and written by bulk asynchronous copies (bulk4k: two
+# 2 KB halves a warp); the gathers in flight a lane (unroll2, unroll8);
+# the registers a thread (min2, min4: launch bounds of 2 or 4 resident
+# blocks an SM in place of 3); the centers a block of bq_f1 (waves2,
+# waves4: the grid two or four waves of resident blocks in place of
+# one); and the split of the design into its parts (scan_only;
+# write_only, the scan and the cloud's staging replaced by a copy of the
+# ball query's idx, which the harness leaves in the idx buffer;
+# no_sums).
+F1_VARIANTS = {
+    "built": (("bq", "idx"), [], []),
+    "plain_store": (("bq", "idx"), [], [(F1_STORE, F1_PLAIN_STORE)]),
+    "bulk4k": (("bq", "idx"), [],
+               [(F1_STORE, F1_PLAIN_STORE), (F1_CALL, F1_BULK)]),
+    "unroll2": (("bq", "idx"), [], [(F1_UNROLL, F1_UNROLL.replace("4", "2"))]),
+    "unroll8": (("bq", "idx"), [], [(F1_UNROLL, F1_UNROLL.replace("4", "8"))]),
+    "min2": (("bq", "idx"), [],
+             [(F1_MIN_BLOCKS, F1_MIN_BLOCKS.replace("3", "2"))]),
+    "min4": (("bq", "idx"), [],
+             [(F1_MIN_BLOCKS, F1_MIN_BLOCKS.replace("3", "4"))]),
+    "waves2": (("bq",), [(F1_CHUNKS, F1_CHUNKS.replace("wave", "2 * wave"))],
+               []),
+    "waves4": (("bq",), [(F1_CHUNKS, F1_CHUNKS.replace("wave", "4 * wave"))],
+               []),
+    "scan_only": (("bq",), [(F1_WRITE, "")], []),
+    "write_only": (("bq",), [
+        (STAGE_CLOUD, ""),
+        (F1_SCAN, "    for (int e = lane; e < k; e += 32)\n"
+                  "      nbr[e] = a.idx[center * k + e];\n"
+                  "    const int count = k;\n")], []),
+    "no_sums": (("bq", "idx"), [], [(F1_SUMS, "")]),
+}
+
+
+def f1_source(csrc: Path, route: str, edits, header_edits) -> str:
+    """A pass-1 source of ``csrc`` with its edits; edits of its header
+    ``fused_sa_f1.cuh`` are made in a copy pasted in place of its
+    include."""
+    header = "fused_sa_f1.cuh"
+    text = (csrc / F1_SOURCES[route]).read_text()
+    if header_edits:
+        head = edited((csrc / header).read_text(), header_edits)
+        text = edited(text, [(f'#include "{header}"', head)])
+    return edited(text, edits)
+
+
+def f1_cases():
+    """``(case, route, nx, pts, q, off, radius, k)`` for each entry of
+    ``F1``: clouds from the synthetic sets (SSG4096 sorted as its train
+    step sorts them), centers by FPS."""
+    from pointcloudlib_tpu_torch.ops import spatial
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+    clouds = {
+        "modelnet": lambda b: SyntheticModelNet(
+            n_points=1024, size=b, seed=0).batch(0, b)[0],
+        "modelnet4096": lambda b: SyntheticModelNet(
+            n_points=4096, size=b, seed=0).batch(0, b)[0],
+        "shapenet": lambda b: SyntheticShapeNetPart(
+            n_points=2048, size=b, seed=0).batch(0, b)[0],
+    }
+    for case, data, b, levels, radius, k, c1, route in F1:
+        pts = torch.from_numpy(clouds[data](b)).to(DEV)
+        if data == "modelnet4096":
+            pts = spatial.canonicalize(pts)[0]
+        for i, m in enumerate(levels):
+            nx = geometry.index_points(pts, kfps.fps_plain(pts, m, True))
+            if i < len(levels) - 1:
+                pts = nx
+        n = pts.shape[1]
+        q = torch.randn((b, n, c1), generator=g, device=DEV).bfloat16()
+        off = torch.randn((b, m, c1), generator=g, device=DEV) * 0.3
+        yield case, route, nx.contiguous(), pts.contiguous(), q, off, radius, k
+
+
+def run_f1(parent: Optional[Path]) -> None:
+    sources = {}
+    for name, (routes, edits, head) in F1_VARIANTS.items():
+        for route in routes:
+            sources[f"f1{route}_{name}"] = (
+                f1_source(_build.CSRC, route, edits, head), _build.CSRC)
+    if parent:
+        for route in ("bq", "idx"):
+            sources[f"f1{route}_parent"] = (
+                (parent / F1_SOURCES[route]).read_text(), parent)
+    libs = build(sources)
+    for name, lib in libs.items():
+        source = "fused_sa_bq_f1" if name.startswith("f1bq") else "fused_sa_f1"
+        for fn, (args, res) in kft._SIGNATURES[source].items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, res
+    for case, route, nx, pts, q, off, radius, k in f1_cases():
+        b, n, c1 = q.shape
+        m = nx.shape[1]
+        if route == "bq":
+            idx, want, cnt, wsum = kft.bq_f1_plain(nx, pts, q, off, radius, k)
+        else:
+            idx, cnt = geometry.ball_query(nx, pts, radius, k)
+            want, wsum = kft.sa_f1_plain(q, off, idx)
+        idx_buf = idx.clone()
+        h1 = torch.empty_like(want)
+        cnt_out = torch.empty_like(cnt)
+        psum = torch.zeros((2, c1), device=DEV)
+        rec: Dict[str, list] = {}
+        for name, lib in libs.items():
+            if not name.startswith(f"f1{route}_"):
+                continue
+
+            def call(lib=lib):
+                psum.zero_()
+                if route == "bq":
+                    return lib.sa_bq_f1_launch(
+                        nx.data_ptr(), pts.data_ptr(), q.data_ptr(),
+                        off.data_ptr(), idx_buf.data_ptr(), h1.data_ptr(),
+                        cnt_out.data_ptr(), psum.data_ptr(), b, n, m, c1, k,
+                        radius * radius, _stream().value)
+                return lib.sa_f1_launch(
+                    q.data_ptr(), off.data_ptr(), idx_buf.data_ptr(),
+                    h1.data_ptr(), psum.data_ptr(), b, n, m, c1, k,
+                    _stream().value)
+
+            h1.zero_()
+            idx_buf.copy_(idx)  # the write-only variants read it
+            if call() != 0:
+                raise RuntimeError(f"{name}: launch error")
+            torch.cuda.synchronize()
+            same = torch.equal(h1.view(torch.int16), want.view(torch.int16))
+            dev = ((psum.double() - wsum.double()).abs().max()
+                   / wsum.double().abs().max()).item()
+            rec[name.split("_", 1)[1]] = [round(graph_ms(call, 5), 4), same,
+                                          float(f"{dev:.2e}")]
+        rows = b * m * k
+        print(json.dumps({"f1": case, "route": route, "B": b, "N": n, "M": m,
+                          "k": k, "C1": c1,
+                          "cnt_mean": round(cnt.float().mean().item(), 2),
+                          "h1_MB": round(2 * rows * c1 / 1e6, 1),
+                          "ms_identical_dev": rec}), flush=True)
+        del h1, want
+        torch.cuda.empty_cache()
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -384,6 +617,15 @@ def run_read() -> None:
                           "ms": round(ms, 4),
                           "TB_s": round(2 * x.numel() / ms / 1e9, 3)}),
               flush=True)
+    for cs in (0, 1):
+        for per_sm in (8, 16):
+            ms = graph_ms(lambda: lib.write_launch(
+                _ptr(x), ctypes.c_longlong(x.numel() // 8), per_sm * sms, cs,
+                _stream()), 5)
+            print(json.dumps({"write": 2 * x.numel(), "streaming_hint": cs,
+                              "blocks_an_sm": per_sm, "ms": round(ms, 4),
+                              "TB_s": round(2 * x.numel() / ms / 1e9, 3)}),
+                  flush=True)
 
 
 def run_cluster() -> None:
@@ -401,9 +643,9 @@ def run_cluster() -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", nargs="+", default=["fps", "tail", "read",
+    ap.add_argument("--only", nargs="+", default=["fps", "tail", "f1", "read",
                                                   "cluster"],
-                    choices=["fps", "tail", "read", "cluster"])
+                    choices=["fps", "tail", "f1", "read", "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -416,6 +658,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_fps(args.parent)
     if "tail" in args.only:
         run_tail(args.parent)
+    if "f1" in args.only:
+        run_f1(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

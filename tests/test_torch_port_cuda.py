@@ -227,11 +227,31 @@ def _idx_layer(card, name):
     return q, off, idx, cnt, params, stats
 
 
-@pytest.mark.parametrize("name", sorted(IDX_SHAPES))
+def _repeats(idx, kind):
+    """A k=128 index whose every slot repeats slot 0 (``all_equal``), or
+    random indices with slot 0's also in the middle and at the end of
+    each row (``slot0_repeats``): the kernel stores the rows whose index
+    equals slot 0's as copies of slot 0's row."""
+    if kind == "all_equal":
+        return idx[..., :1].expand(idx.shape).contiguous()
+    g = torch.Generator(device=idx.device).manual_seed(5)
+    out = torch.randint(0, 1024, idx.shape, generator=g, device=idx.device,
+                        dtype=torch.int32)
+    out[..., idx.shape[-1] // 2] = out[..., 0]
+    out[..., -1] = out[..., 0]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(IDX_SHAPES) + sorted(IDX_SWEEP)
+                         + ["all_equal", "slot0_repeats"])
 def test_sa_f1_matches_plain(card, name):
     from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as ft
 
-    q, off, idx, _, _, _ = _idx_layer(card, name)
+    if name in ("all_equal", "slot0_repeats"):
+        q, off, idx, _, _, _ = _idx_layer(card, "msg1_k128")  # N = 1024
+        idx = _repeats(idx, name)
+    else:
+        q, off, idx, _, _, _ = _idx_layer(card, name)
     before = ft.sa_f1.launches
     h1, psum = ft.sa_f1(q.bfloat16(), off, idx)
     torch.cuda.synchronize()
@@ -344,7 +364,8 @@ def _train_layer(card, name, seed=0):
     from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as ft
 
     widths, b, n, m, radius, k = {**TRAIN_SHAPES, **WINDOW_SHAPES,
-                                   **BWD_CASES, **TAIL_SWEEP}[name]
+                                   **BWD_CASES, **TAIL_SWEEP,
+                                   **F1_CASES}[name]
     c1, c2, c3 = widths
     rng = np.random.default_rng(seed)
     pts = _sphere(rng, b, n, card)
@@ -398,16 +419,28 @@ def _close_sums(got, want, what):
                                msg=what)
 
 
-@pytest.mark.parametrize("name", sorted(TRAIN_SHAPES))
+# pass 1's grid: PS SA2's small grid (2,048 centers), and an M (prime)
+# that no block's share of centers divides (the last block of a cloud
+# holds fewer centers than the others)
+F1_CASES = {
+    "ps_sa2_grid": ((128, 128, 256), 16, 512, 128, 0.4, 64),
+    "ragged_m": ((64, 64, 128), 3, 1024, 331, 0.2, 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_SHAPES) + sorted(BWD_CASES)
+                         + sorted(F1_CASES))
 def test_bq_f1_matches_plain(card, name):
     L = _train_layer(card, name)
+    _check_case(L, name)
     ft = L["ft"]
     before = ft.bq_f1.launches
     idx, h1, cnt, psum = ft.bq_f1(L["nx"], L["pts"], L["q"].bfloat16(),
                                   L["off"], L["radius"], L["k"])
     torch.cuda.synchronize()
     assert ft.bq_f1.launches == before + 1
-    assert int(cnt[0, 0]) == 0
+    if name not in BWD_CASES:
+        assert int(cnt[0, 0]) == 0
     assert torch.equal(idx, L["idx"]) and torch.equal(cnt, L["cnt"])
     assert torch.equal(h1.view(torch.int16), L["h1"].view(torch.int16))
     _close_sums(psum, L["psum"], "psum1")

@@ -107,9 +107,15 @@ def _layer(seed, widths, b=2, n=128, m=32, k=128, radius=0.4):
                 params=params, stats=stats, co=arr(b, m, c3), n=n)
 
 
-@pytest.mark.parametrize("widths", WIDTHS)
-def test_sa_f1_matches_jax(widths):
-    L = _layer(0, widths)
+# the last case's radius holds only the center itself: every slot past 0
+# is a replica of slot 0, which the card's kernel stores as a copy
+@pytest.mark.parametrize("widths,radius", [(w, 0.4) for w in WIDTHS]
+                         + [(WIDTHS[0], 1e-4)],
+                         ids=["widths0", "widths1", "replicas"])
+def test_sa_f1_matches_jax(widths, radius):
+    L = _layer(0, widths, radius=radius)
+    if radius < 1e-3:
+        assert int((L["cnt"] == 1).sum()) == L["cnt"].size - 1
     h1, psum = ft.sa_f1(torch.from_numpy(L["q"]), torch.from_numpy(L["off"]),
                         torch.from_numpy(L["idx"]))
     jh1, jpsum = jfs._call_f1(jnp.asarray(L["q"]), jnp.asarray(L["idx"]),

@@ -105,14 +105,20 @@ def _layer(seed, widths, b=2, n=128, m=32, k=16, radius=0.4):
                 radius=radius, k=k, n=n, r=r)
 
 
-@pytest.mark.parametrize("widths", WIDTHS)
-def test_bq_f1_matches_jax(widths):
-    L = _layer(0, widths)
+# the last case's radius holds only the center itself: every slot past 0
+# is a replica of slot 0, which the card's kernel stores as a copy
+@pytest.mark.parametrize("widths,radius", [(w, 0.4) for w in WIDTHS]
+                         + [(WIDTHS[0], 1e-4)],
+                         ids=["widths0", "widths1", "replicas"])
+def test_bq_f1_matches_jax(widths, radius):
+    L = _layer(0, widths, radius=radius)
     idx, h, cnt, psum = jfs._call_bqf1(
         jnp.asarray(_np(L["nx"])), jnp.asarray(_np(L["pts"])),
         jnp.asarray(_np(L["q"])), jnp.asarray(_np(L["off"])), L["radius"],
         L["k"], True)
     assert int(L["cnt"][0, 0]) == 0  # the empty row is there
+    if radius < 1e-3:
+        assert int((L["cnt"] == 1).sum()) == L["cnt"].numel() - 1
     np.testing.assert_array_equal(L["idx"].numpy(), np.asarray(idx))
     np.testing.assert_array_equal(L["cnt"].numpy(), np.asarray(cnt))
     # one f32 subtraction and one rounding on both sides: bit-identical
