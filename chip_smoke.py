@@ -186,7 +186,10 @@ once:
    models' eval forward and the row scatter-add at those of their
    backward (arguments recorded from the models), each against its plain
    version as in phases 3, 8 and 15, with device times (CUDA graphs)
-   beside the event loop's;
+   beside the event loop's; every row-gather and scatter-add record
+   (phase 8's too) names the route its wrapper took (``narrow`` or
+   ``wide``: ``gather.gather_route``, ``gather.scatter_route``) and its
+   share of the bytes bound;
 22. PointConv classification serving — ``Predictor(batch_size=32,
    with_normals=True)`` as in phase 6: per served batch exactly 2
    launches of FPS and of the row gather, 1 of ``knn`` and of the fused
@@ -1271,6 +1274,14 @@ def _three_interp_case(name, query, points, feats, timed, self_pairs=0):
     return rec, (idx, w)
 
 
+def _route(name, *args) -> str:
+    """The route ``gather.<name>`` gives, or ``"parent"`` for a package
+    from before the routes (``rows_times`` run against a parent
+    checkout)."""
+    fn = getattr(kga, name, None)
+    return fn(*args) if fn else "parent"
+
+
 def _scatter_case(name, g, idx, n, timed):
     """The row scatter-add kernel against its plain version within
     SCATTER_TOL·max|plain|, with ``index_add_`` timed beside it."""
@@ -1282,7 +1293,8 @@ def _scatter_case(name, g, idx, n, timed):
     rows = idx[0].numel()
     dropped = int(((idx < 0) | (idx >= n)).sum())
     rec = {"case": name, "B": b, "rows": rows, "n": n, "C": c,
-           "dropped_rows": dropped, **_errs([err])}
+           "route": _route("scatter_route", n, c), "dropped_rows": dropped,
+           **_errs([err])}
     if timed:  # device times; the event loop reads the launch rate
         rec["ms"] = graph_ms(lambda: kga.scatter_rows(g, idx, n), 20)
         rec["launch_rate_ms"] = time_ms(lambda: kga.scatter_rows(g, idx, n),
@@ -1302,6 +1314,7 @@ def _scatter_case(name, g, idx, n, timed):
         rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
             0.0, 1.0 * b * rows * c,
             4.0 * b * rows * c + 4.0 * b * rows + 4.0 * b * n * c)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     emit("kernel scatter_rows", rec)
     return rec
 
@@ -2163,6 +2176,7 @@ def _gather_case(name, points, idx, timed):
     rows = idx[0].numel()
     sentinels = int(((idx < 0) | (idx >= n)).sum())
     rec = {"case": name, "B": b, "N": n, "C": c, "idx": list(idx.shape),
+           "route": _route("gather_route", points.contiguous()),
            "sentinel_rows": sentinels, "bit_identical": True,
            "max_abs_err": 0.0}
     if timed:  # device times: these kernels are shorter than a launch
@@ -2177,6 +2191,7 @@ def _gather_case(name, points, idx, timed):
         # a copy: the index and the source cloud read once, the rows written
         rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
             0.0, 0.0, 4.0 * b * rows + 4.0 * b * n * c + 4.0 * b * rows * c)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     emit("kernel gather_neighbors", rec)
     return rec
 
@@ -2630,6 +2645,47 @@ def f1_times() -> None:
                     "bound_ms": bound_ms, "bytes_ms": bytes_ms,
                     "share_of_bound": bound_ms / ms})
         del L
+        torch.cuda.empty_cache()
+
+
+def rows_times() -> None:
+    """The row scatter-add and the row gather at every shape of the main
+    paths, inputs recorded from the models' own forward and backward
+    (``_pointconv_path_calls``, ``_pointconv_calls``): the scatters of
+    PointNet++ part segmentation's (FP2, FP1), PointConv classification's
+    and PointConv part segmentation's train steps and the gathers of the
+    PointConv forwards; after the device line, one ``kernel scatter_rows``
+    or ``kernel gather_neighbors`` line a call, as ``main`` prints them:
+    the route, device ms by CUDA graphs (the wrapper's allocation and any
+    memset included), the library call's, the bound and its share, and
+    the check against the plain version (held: a failure exits). Like
+    ``bwd_times``, it times the kernels of the package beside this file:
+
+        python3 -c 'import chip_smoke; chip_smoke.rows_times()'
+    """
+    phase_device()
+    _build.build(SOURCES)
+    clouds, normals, _ = SyntheticModelNet(
+        n_points=N_POINTS, size=PC_BATCH, seed=0).batch(0, PC_BATCH)
+    xyz, nrm = torch.from_numpy(clouds).to(DEV), torch.from_numpy(
+        normals).to(DEV)
+    seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
+    onehot = torch.zeros((SEG_BATCH, 16), device=DEV)
+    for tag, name, inputs in (
+            ("partseg", PN2_SEG, (seg_xyz, onehot, seg_xyz)),  # xyz as feats
+            ("pointconv cls", "pointconv", (xyz, nrm)),
+            ("pointconv seg", PC_SEG, (seg_xyz, onehot))):
+        model = _model_on_card(name, random_jax_variables(
+            build_model(name), seed=0))
+        for g, idx, n in _pointconv_path_calls(model,
+                                               *inputs)["scatter_rows"]:
+            _scatter_case(f"{tag} backward rows={idx[0].numel()} n={n} "
+                          f"C={g.shape[-1]}", g, idx, n, True)
+        if name != PN2_SEG:
+            for points, idx in _pointconv_calls(model, *inputs)[0]:
+                _gather_case(f"{tag} N={points.shape[1]} "
+                             f"C={points.shape[2]}", points, idx, True)
+        del model
         torch.cuda.empty_cache()
 
 

@@ -20,17 +20,53 @@ import torch
 from pointcloudlib_tpu_torch.ops.kernels import _build
 
 
+# The scatter-add's narrow route keeps a copy of out[b] in each block's
+# shared memory. It takes rows the wide route cannot add as 16-byte units
+# (C % 4 != 0) where out[b] (n·C·4 bytes) is at most this; the rest take
+# the wide route (global atomics into a zeroed out). Measured on an H100
+# at 16,384 rows a batch (tools/kernel_variants.py --only rows), the
+# narrow route wins up to 32 KB at C = 1 and 3, up to 16 KB at C = 6, and
+# nowhere at C = 4 or 12.
+SCATTER_NARROW_BYTES = 16 * 1024
+_INT32 = 2 ** 31
+
+
 def _lib(name: str = "scatter_rows") -> ctypes.CDLL:
     """``csrc/scatter_rows.cu`` or ``csrc/gather_rows.cu``: both launchers
-    take ``(a, idx, out, b, rows_per_batch, n, c, stream)``."""
+    take ``(a, idx, out, b, rows_per_batch, n, c, narrow, stream)``."""
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _check_int32(what: str, rows: int, n: int, c: int) -> None:
+    """The kernels index within a batch in 32 bits."""
+    if rows * c >= _INT32 or n * c >= _INT32:
+        raise ValueError(f"{what}: a batch's rows·C = {rows * c} or N·C = "
+                         f"{n * c} reaches 2^31, the kernels' index range")
+
+
+def gather_route(points: torch.Tensor) -> str:
+    """The row gather's route for a contiguous ``points [B, N, C]``:
+    ``"wide"`` (one float4 a thread) where C % 4 == 0 and the rows are
+    16-byte aligned, else ``"narrow"`` (the batch's cloud staged in shared
+    memory where it fits, rows assembled by warps)."""
+    return ("wide" if points.shape[-1] % 4 == 0
+            and points.data_ptr() % 16 == 0 else "narrow")
+
+
+def scatter_route(n: int, c: int) -> str:
+    """The row scatter-add's route into ``[B, n, C]``: ``"narrow"`` (a
+    cluster of blocks a batch, adding in shared memory, every element of
+    out written once) where C % 4 != 0 and out[b] fits
+    ``SCATTER_NARROW_BYTES``, else ``"wide"`` (atomics into a zeroed
+    out)."""
+    return ("narrow" if c % 4 and 4 * n * c <= SCATTER_NARROW_BYTES
+            else "wide")
 
 
 def gather_neighbors_plain(points: torch.Tensor, idx: torch.Tensor
@@ -51,7 +87,8 @@ def gather_neighbors(points: torch.Tensor, idx: torch.Tensor
                      ) -> torch.Tensor:
     """The row gather of :func:`gather_neighbors_plain` for ``points [B,
     N, C]`` float32 and an int ``idx [B, M]`` or ``[B, M, K]``: the kernel
-    for CUDA tensors (an exact copy, bit-identical to the plain version),
+    for CUDA tensors (by :func:`gather_route`; an exact copy,
+    bit-identical to the plain version),
     the plain version for CPU tensors. No gradient: see
     :class:`GatherNeighbors`."""
     if points.device.type == "cpu":
@@ -76,18 +113,17 @@ def gather_neighbors(points: torch.Tensor, idx: torch.Tensor
     if b < 1 or n < 1 or c < 1 or per_batch < 1:
         raise ValueError(f"gather_neighbors: empty sizes B={b}, N={n}, "
                          f"C={c}, rows {per_batch}")
-    if n >= 2 ** 31:
-        raise ValueError(f"gather_neighbors: N={n} is above the int32 "
-                         f"index range")
+    _check_int32("gather_neighbors", per_batch, n, c)
     points = points.contiguous()
     idx = idx.to(torch.int32).contiguous()
     out = torch.empty((*idx.shape, c), dtype=torch.float32,
                       device=points.device)
+    narrow = gather_route(points) == "narrow"
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib("gather_rows").gather_rows_launch(
             points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, per_batch,
-            n, c, stream)
+            n, c, int(narrow), stream)
     _build.check(err, "gather_neighbors")
     gather_neighbors.launches += 1
     return out
@@ -133,8 +169,9 @@ def scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int
     """Scatter-add of the rows of ``g [B, M, K, C]`` into ``[B, n, C]``
     float32 at ``idx [B, M, K]``; an index outside ``[0, n)`` adds
     nothing (``_scatter_xla``'s ``mode="drop"``). The kernel for CUDA
-    tensors, the plain version for CPU tensors. The kernel adds with f32
-    atomics, so the last bits change from run to run."""
+    tensors (by :func:`scatter_route`), the plain version for CPU tensors.
+    The kernel adds with f32 atomics, so the last bits change from run to
+    run."""
     if g.device.type == "cpu":
         return scatter_rows_plain(g, idx, n)
     if g.device.type != "cuda":
@@ -151,14 +188,18 @@ def scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int
     if b < 1 or per_batch < 1 or n < 1 or c < 1:
         raise ValueError(f"scatter_rows: empty sizes B={b}, rows "
                          f"{per_batch}, n={n}, C={c}")
+    _check_int32("scatter_rows", per_batch, n, c)
     g = g.float().contiguous()
     idx = idx.to(torch.int32).contiguous()
-    out = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    # the narrow route writes every element of out; the wide one adds
+    narrow = scatter_route(n, c) == "narrow"
+    out = (torch.empty if narrow else torch.zeros)(
+        (b, n, c), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().scatter_rows_launch(g.data_ptr(), idx.data_ptr(),
                                          out.data_ptr(), b, per_batch, n, c,
-                                         stream)
+                                         int(narrow), stream)
     _build.check(err, "scatter_rows")
     scatter_rows.launches += 1
     return out

@@ -1,16 +1,18 @@
-"""Design variants of the FPS kernel, of the forward tail's stage 2 and
-of forward pass 1, timed against each other on the card. Each variant is
-an edit of the committed source (``csrc/fps.cu``, ``csrc/fused_sa_tail.cu``,
-``csrc/fused_sa_bq_f1.cu`` and ``fused_sa_f1.cu``), built beside it by
-``nvcc`` with the package's flags into ``build/variants/``.
+"""Design variants of the FPS kernel, of the forward tail's stage 2, of
+forward pass 1 and of the row scatter-add and gather, timed against each
+other on the card. Each variant is an edit of the committed source
+(``csrc/fps.cu``, ``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu``
+and ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``),
+built beside it by ``nvcc`` with the package's flags into
+``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
-        [--only fps tail f1 read cluster] [--parent DIR]
+        [--only fps tail f1 rows read cluster] [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
-unpacked by ``git archive``): its ``fps.cu``, ``fused_sa_tail.cu`` and
-pass-1 sources are built against its own headers and timed beside the
-variants. Prints one JSON line a case:
+unpacked by ``git archive``): its ``fps.cu``, ``fused_sa_tail.cu``,
+pass-1 and row sources are built against its own headers and timed
+beside the variants. Prints one JSON line a case:
 
 * ``fps``: ns a pick (device ms of one launch by CUDA graphs over the
   m - 1 picks after the seed) and whether the indices equal the plain
@@ -32,6 +34,18 @@ variants. Prints one JSON line a case:
   deviation over max|plain|) for each of ``F1_VARIANTS`` (store paths,
   unroll, occupancy, the grid of ``bq_f1`` and the split of the design
   into its parts; a part's h1 and sums are wrong by design);
+* ``rows`` (not in the default set): at every path shape of
+  ``SCATTER_PATHS`` and ``GATHER_PATHS``, device ms by CUDA graphs and the
+  deviation from the plain version (scatter, over max|plain|) or bit
+  identity (gather) of each of ``NEW_VARIANTS`` by the wrapper's route,
+  both routes where the scatter's narrow route fits (``built_narrow``,
+  ``built_wide``), and the library call (``index_add``: with its
+  ``zero_``; ``torch.gather``); with ``--parent``, the parent's kernels,
+  its wrapper's memset and the parents' split (``PARENT_SPLIT``: edits of
+  the sources before the routes, a part's output wrong by design); the
+  atomic and reduction instructions of the built kernels (``cuobjdump
+  -sass``); and both scatter routes forced at the cut-off sizes of
+  ``SCATTER_CUTOFF``;
 * ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
   and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
@@ -46,6 +60,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -604,6 +619,363 @@ def run_f1(parent: Optional[Path]) -> None:
         torch.cuda.empty_cache()
 
 
+# The row scatter-add (csrc/scatter_rows.cu) and the row gather
+# (csrc/gather_rows.cu) at every shape of the main paths: case, B, rows a
+# batch, n, C. Inputs are random (uniform indices in [0, n), a few
+# sentinels in the gather's): neither kernel's work depends on the data
+# beyond how many rows meet in one target.
+SCATTER_PATHS = [
+    ("PS FP2 bwd", 16, 1536, 128, 256),
+    ("PS FP1 bwd", 16, 6144, 512, 128),
+    ("PC cls C=132", 32, 8192, 512, 132),
+    ("PC cls C=1", 32, 16384, 1024, 1),
+    ("PC seg 32768/2048/128", 16, 32768, 2048, 128),
+    ("PC seg 16384/1024/256", 16, 16384, 1024, 256),
+    ("PC seg 4096/256/512", 16, 4096, 256, 512),
+    ("PC seg 6144/1024/128", 16, 6144, 1024, 128),
+    ("PC seg 3072/256/256", 16, 3072, 256, 256),
+    ("PC seg 768/64/512", 16, 768, 64, 512),
+    ("PC seg 192/36/512", 16, 192, 36, 512),
+    ("PC seg 2048/256/132", 16, 2048, 256, 132),
+    ("PC seg 8192/1024/68", 16, 8192, 1024, 68),
+]
+# the narrow/wide cut-off of the scatter: out[b] of 4 to 64 KB at
+# PointConv SA1's rows (B=32, 16,384 rows a batch), both routes forced
+SCATTER_CUTOFF = [(f"cut-off C={c} n={n}", 32, 16384, n, c)
+                  for c, ns in ((1, (4096, 8192, 12288, 16384)),
+                                (3, (683, 1365, 2730, 4096)),
+                                (6, (341, 682, 1365, 2048)),
+                                (4, (1024, 2048, 3072, 4096)),
+                                (12, (256, 512, 1024, 1365)))
+                  for n in ns]
+GATHER_PATHS = [
+    ("PC cls SA1 C=6", 32, 16384, 1024, 6),
+    ("PC cls SA1 C=1", 32, 16384, 1024, 1),
+    ("PC seg n=256 C=512", 16, 4096, 256, 512),
+    ("PC seg n=1024 C=256", 16, 16384, 1024, 256),
+    ("PC seg n=2048 C=128", 16, 32768, 2048, 128),
+]
+# The parents' split (the sources before the routes, given by --parent):
+# scatter with a plain store in place of the atomic (loads_only) and with
+# a fixed index pattern, so that no load waits for the index
+# (atomics_only); gather with the loads replaced by a value made from the
+# index math (index_math_only), with the store kept only behind a test
+# that never holds (loads_only), and with the body a store of zeros
+# (stores_only). A part's output is wrong by design.
+SCATTER_ATOMIC = ("for (int ch = lane; ch < c; ch += 32) "
+                  "atomicAdd(o + ch, gr[ch]);")
+GATHER_LOADS = """    const int t = __ldg(idx + r);
+    T v;
+    if (t >= 0 && t < n) {
+      const long long b = r / rows_per_batch;
+      v = __ldg(pts + ((size_t)b * n + t) * c + ch);
+    } else {
+      v = T{};
+    }
+"""
+GATHER_BODY = """    const long long r = e / c;
+    const int ch = (int)(e - r * c);
+""" + GATHER_LOADS + "    out[e] = v;\n"
+PARENT_SPLIT = {
+    "scatter_rows": {
+        "loads_only": [(SCATTER_ATOMIC, SCATTER_ATOMIC.replace(
+            "atomicAdd(o + ch, gr[ch])", "o[ch] = gr[ch]"))],
+        "atomics_only": [("const int t = idx[r];",
+                          "const int t = (int)(r % n);")],
+    },
+    "gather_rows": {
+        "index_math_only": [(GATHER_LOADS, """\
+    const long long b = r / rows_per_batch;
+    T v{};
+    reinterpret_cast<float*>(&v)[0] = (float)(b + ch);
+""")],
+        "loads_only": [("    out[e] = v;\n", "    if (reinterpret_cast<const "
+                        "float*>(&v)[0] == 1.2345f) out[e] = v;\n")],
+        "stores_only": [(GATHER_BODY, "    out[e] = T{};\n")],
+    },
+}
+# the parents' launchers: (a, idx, out, b, rows a batch, n, c, stream);
+# this tree's take the route too: (..., c, narrow, stream)
+PARENT_ROWS_ARGS = [ctypes.c_void_p] * 3 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+ROWS_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# Variants of this tree's sources. Scatter: the narrow route's blocks
+# flushing their copies into a zeroed out by 16-byte reductions in place
+# of the cluster's sum (flush); clusters of at most 2, 4 or 16 blocks
+# (cluster2/4/16; 16 is a non-portable size); 4 elements a narrow thread
+# in place of 8 (per_thread4); 512 or 1024 threads a narrow block
+# (narrow512/1024); loads of 2 or 8 steps in flight in place of 4
+# (inflight2/8); the wide route's grid up to one or sixteen waves of
+# resident blocks in place of four (waves1/16) and its f32 reductions in
+# place of 16-byte ones (scalar_red), and at least 6 or 8 of its blocks
+# resident an SM (min_blocks6/8: registers capped). Gather: the narrow
+# route reading rows through L1/L2 without staging the cloud (unstaged);
+# 256 threads a narrow block in place of 512 (threads256); 4 narrow
+# blocks an SM in the grid's wave in place of 2 (per_sm4).
+SR_REDUCE = ("  // this block's slice of out[b], summed over the cluster in "
+             "rank order\n", "  cluster.sync();  // no block leaves while a "
+             "peer still reads its copy\n")
+SR_FLUSH = """  // flush: the block's copy added into a zeroed out by reductions
+  float* ob = out + b * nw;
+  if (nw % 4 == 0) {
+    for (int i = threadIdx.x; i < nw4; i += kSrThreads)
+      atomicAdd(reinterpret_cast<float4*>(ob) + i, acc4[i]);
+  } else {
+    for (int i = threadIdx.x; i < nw; i += kSrThreads)
+      atomicAdd(ob + i, acc[i]);
+  }
+"""
+SR_CLUSTER = "constexpr int kSrMaxCluster = 8;"
+SR_PER_THREAD = "constexpr int kSrNarrowPerThread = 8;"
+SR_INFLIGHT = "constexpr int kSrInFlight = 4;"
+GN_THREADS = "constexpr int kGnThreads = 512;"
+GN_PER_SM = "constexpr int kGnBlocksPerSm = 2;"
+SR_WAVES = "constexpr int kSrWideWaves = 4;"
+SR_WIDE_BOUNDS = ("__global__ void __launch_bounds__(kSrThreads)\n"
+                  "    scatter_rows_kernel(")
+SR_NARROW_THREADS = "constexpr int kSrNarrowThreads = 256;"
+SR_KERNEL = "  auto kernel = narrow_scatter_rows_kernel<ONE>;\n"
+NEW_VARIANTS = {
+    "scatter_rows": {
+        "built": [],
+        "flush": [("const int rank = (int)cluster.block_rank();",
+                   "const int rank = blockIdx.x;"),
+                  ("const int cs = (int)cluster.num_blocks();",
+                   "const int cs = gridDim.x;"),
+                  ("cluster.sync();", "__syncthreads();"),
+                  ("attr[0].val.clusterDim.x = cs;",
+                   "attr[0].val.clusterDim.x = 1;")],
+        "cluster2": [(SR_CLUSTER, SR_CLUSTER.replace("8", "2"))],
+        "cluster4": [(SR_CLUSTER, SR_CLUSTER.replace("8", "4"))],
+        "cluster16": [(SR_CLUSTER, SR_CLUSTER.replace("8", "16")),
+                      (SR_KERNEL, SR_KERNEL + (
+                          "  cudaFuncSetAttribute(kernel, cudaFuncAttribute"
+                          "NonPortableClusterSizeAllowed, 1);\n"))],
+        "per_thread4": [(SR_PER_THREAD, SR_PER_THREAD.replace("8", "4"))],
+        "narrow512": [(SR_NARROW_THREADS,
+                       SR_NARROW_THREADS.replace("256", "512"))],
+        "narrow1024": [(SR_NARROW_THREADS,
+                        SR_NARROW_THREADS.replace("256", "1024"))],
+        "inflight2": [(SR_INFLIGHT, SR_INFLIGHT.replace("4", "2"))],
+        "inflight8": [(SR_INFLIGHT, SR_INFLIGHT.replace("4", "8"))],
+        "waves1": [(SR_WAVES, SR_WAVES.replace("4", "1"))],
+        "waves16": [(SR_WAVES, SR_WAVES.replace("4", "16"))],
+        "scalar_red": [("const bool vec = c % 4 == 0 &&",
+                        "const bool vec = false &&")],
+        "min_blocks6": [(SR_WIDE_BOUNDS, SR_WIDE_BOUNDS.replace(
+            "(kSrThreads)", "(kSrThreads, 6)"))],
+        "min_blocks8": [(SR_WIDE_BOUNDS, SR_WIDE_BOUNDS.replace(
+            "(kSrThreads)", "(kSrThreads, 8)"))],
+    },
+    "gather_rows": {
+        "built": [],
+        "unstaged": [("constexpr int kGnStageBytes = 64 * 1024;",
+                      "constexpr int kGnStageBytes = 0;")],
+        "threads256": [(GN_THREADS, GN_THREADS.replace("512", "256"))],
+        "per_sm4": [(GN_PER_SM, GN_PER_SM.replace("2", "4"))],
+    },
+}
+# where a narrow scatter is forced beside the built routes: out[b] up to
+# the shared memory a block can take
+SMEM_BLOCK = 232448
+
+
+def _bytes_ms(nbytes: float) -> float:
+    return 1e3 * nbytes / 3.35e12
+
+
+def _new_source(src: str, name: str) -> str:
+    """This tree's ``csrc/<src>.cu`` with variant ``name``'s edits (flush:
+    the cluster's sum replaced by ``SR_FLUSH`` first)."""
+    text = (_build.CSRC / f"{src}.cu").read_text()
+    if (src, name) == ("scatter_rows", "flush"):
+        a, b = text.index(SR_REDUCE[0]), text.index(SR_REDUCE[1])
+        text = text[:a] + SR_FLUSH + text[b:]
+    return edited(text, NEW_VARIANTS[src][name])
+
+
+def _sass_counts(lib: Path) -> Dict[str, Dict[str, int]]:
+    """Atomic and reduction instructions of each kernel in ``lib``, from
+    ``cuobjdump -sass`` (empty where the tool is missing)."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    try:
+        text = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = {}
+        elif fn:
+            for key in re.findall(r"\b((?:RED|ATOM)\w*\.[\w.]+)", ln):
+                counts[fn][key] = counts[fn].get(key, 0) + 1
+    return counts
+
+
+def run_rows(parent: Optional[Path]) -> None:
+    """The parents' split (with ``--parent``) and this tree's variants of
+    the row scatter-add and the row gather at every path shape."""
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+
+    sources = {}
+    if parent:
+        for src, split in PARENT_SPLIT.items():
+            text = (parent / f"{src}.cu").read_text()
+            sources[f"{src}_parent"] = (text, parent)
+            for name, edits in split.items():
+                sources[f"{src}_parent_{name}"] = (edited(text, edits),
+                                                   parent)
+    for src, variants in NEW_VARIANTS.items():
+        for name in variants:
+            sources[f"{src}_{name}"] = (_new_source(src, name), _build.CSRC)
+    libs = build(sources)
+    for name, lib in libs.items():
+        fn = getattr(lib, name.split("_rows")[0] + "_rows_launch")
+        fn.argtypes = PARENT_ROWS_ARGS if "_parent" in name else ROWS_ARGS
+        fn.restype = ctypes.c_int
+    for name in ("scatter_rows_built", "scatter_rows_flush",
+                 "gather_rows_built"):
+        print(json.dumps({"sass": name,
+                          "ops": _sass_counts(OUT / f"{name}.so")}),
+              flush=True)
+    g = torch.Generator(device=DEV).manual_seed(0)
+
+    for case, b, rows, n, c in SCATTER_PATHS:
+        gr = torch.randn((b, rows, c), generator=g, device=DEV)
+        idx = torch.randint(0, n, (b, rows), generator=g, device=DEV,
+                            dtype=torch.int32)
+        out = torch.zeros((b, n, c), device=DEV)
+        want = kga.scatter_rows_plain(gr, idx, n)
+        route = kga.scatter_route(n, c)
+        rec: Dict[str, list] = {}
+
+        def launch(key, narrow=None):
+            lib = libs[f"scatter_rows_{key}"]
+            if "_parent" in key or key.startswith("parent"):
+                return lambda: lib.scatter_rows_launch(
+                    _ptr(gr), _ptr(idx), _ptr(out), b, rows, n, c,
+                    _stream())
+            return lambda: lib.scatter_rows_launch(
+                _ptr(gr), _ptr(idx), _ptr(out), b, rows, n, c, int(narrow),
+                _stream())
+
+        def timed(label, key, narrow=None, zero=True, check=True):
+            call = launch(key, narrow)
+            # a route that writes every element starts from NaN
+            out.fill_(0.0 if zero else float("nan"))
+            if call() != 0:
+                raise RuntimeError(f"scatter {case} {label}: launch error")
+            torch.cuda.synchronize()
+            dev = ((out - want).abs().max() / want.abs().max()).item()
+            ms = graph_ms((lambda: (out.zero_(), call())) if zero else call,
+                          20)
+            rec[label] = [round(ms, 5), float(f"{dev:.2e}") if check
+                          else None]
+
+        if parent:
+            timed("parent", "parent")
+            rec["parent_kernel"] = [round(graph_ms(launch("parent"), 20), 5)]
+            rec["memset"] = [round(graph_ms(lambda: out.zero_(), 20), 5)]
+            for name in PARENT_SPLIT["scatter_rows"]:
+                rec[f"parent_{name}"] = [round(graph_ms(
+                    launch(f"parent_{name}"), 20), 5)]
+        fits = 4 * n * c <= SMEM_BLOCK
+        for name in NEW_VARIANTS["scatter_rows"]:
+            narrow = route == "narrow" or name == "flush"
+            if name == "flush" and not fits:
+                continue
+            timed(name, name, narrow, zero=not narrow or name == "flush")
+        if route == "wide" and fits:
+            timed("built_narrow", "built", True, zero=False)
+        if route == "narrow":
+            timed("built_wide", "built", False)
+        target = (idx.long() + n * torch.arange(b, device=DEV)[:, None])
+        acc = torch.zeros((b * n, c), device=DEV)
+        flat_g, flat_t = gr.reshape(-1, c), target.reshape(-1)
+        rec["index_add"] = [round(graph_ms(
+            lambda: acc.zero_().index_add_(0, flat_t, flat_g), 20), 5)]
+        print(json.dumps({
+            "scatter": case, "B": b, "rows": rows, "n": n, "C": c,
+            "route": route,
+            "bound_ms": _bytes_ms(4.0 * b * rows * (c + 1) + 4.0 * b * n * c),
+            "ms_dev": rec}), flush=True)
+        del gr, out, acc
+        torch.cuda.empty_cache()
+
+    lib = libs["scatter_rows_built"].scatter_rows_launch
+    for case, b, rows, n, c in SCATTER_CUTOFF:
+        gr = torch.randn((b, rows, c), generator=g, device=DEV)
+        idx = torch.randint(0, n, (b, rows), generator=g, device=DEV,
+                            dtype=torch.int32)
+        out = torch.empty((b, n, c), device=DEV)
+        want = kga.scatter_rows_plain(gr, idx, n)
+        rec = {}
+        for route, narrow in (("narrow", 1), ("wide", 0)):
+            def call(narrow=narrow):
+                return lib(_ptr(gr), _ptr(idx), _ptr(out), b, rows, n, c,
+                           narrow, _stream())
+
+            out.fill_(float("nan") if narrow else 0.0)
+            if call() != 0:
+                raise RuntimeError(f"scatter {case} {route}: launch error")
+            torch.cuda.synchronize()
+            dev = ((out - want).abs().max() / want.abs().max()).item()
+            ms = graph_ms(call if narrow else lambda: (out.zero_(), call()),
+                          20)
+            rec[route] = [round(ms, 5), float(f"{dev:.2e}")]
+        print(json.dumps({"scatter cut-off": case,
+                          "out_b_KB": 4 * n * c / 1024,
+                          "route": kga.scatter_route(n, c), "ms_dev": rec}),
+              flush=True)
+
+    for case, b, rows, n, c in GATHER_PATHS:
+        pts = torch.randn((b, n, c), generator=g, device=DEV)
+        idx = torch.randint(0, n, (b, rows), generator=g, device=DEV,
+                            dtype=torch.int32)
+        idx.view(-1)[::97] = n
+        out = torch.empty((b, rows, c), device=DEV)
+        want = kga.gather_neighbors_plain(pts, idx)
+        route = kga.gather_route(pts)
+        rec = {}
+
+        def launch(key):
+            lib = libs[f"gather_rows_{key}"]
+            if key.startswith("parent"):
+                return lambda: lib.gather_rows_launch(
+                    _ptr(pts), _ptr(idx), _ptr(out), b, rows, n, c,
+                    _stream())
+            return lambda: lib.gather_rows_launch(
+                _ptr(pts), _ptr(idx), _ptr(out), b, rows, n, c,
+                int(route == "narrow"), _stream())
+
+        for key in ((["parent"] + [f"parent_{k}" for k in
+                                   PARENT_SPLIT["gather_rows"]])
+                    if parent else []) + list(NEW_VARIANTS["gather_rows"]):
+            call = launch(key)
+            out.fill_(float("nan"))
+            if call() != 0:
+                raise RuntimeError(f"gather {case} {key}: launch error")
+            torch.cuda.synchronize()
+            rec[key] = [round(graph_ms(call, 20), 5),
+                        torch.equal(out, want)]
+        # torch.gather takes no sentinel: the same rows with them clamped
+        flat = idx.clamp(0, n - 1).long()[..., None].expand(-1, -1, c)
+        rec["torch.gather"] = [round(graph_ms(
+            lambda: torch.gather(pts, 1, flat), 20), 5)]
+        print(json.dumps({
+            "gather": case, "B": b, "rows": rows, "n": n, "C": c,
+            "route": route,
+            "bound_ms": _bytes_ms(4.0 * b * rows * (c + 1) + 4.0 * b * n * c),
+            "ms_identical": rec}), flush=True)
+        del pts, out
+        torch.cuda.empty_cache()
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -645,7 +1017,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="+", default=["fps", "tail", "f1", "read",
                                                   "cluster"],
-                    choices=["fps", "tail", "f1", "read", "cluster"])
+                    choices=["fps", "tail", "f1", "rows", "read", "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -660,6 +1032,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_tail(args.parent)
     if "f1" in args.only:
         run_f1(args.parent)
+    if "rows" in args.only:
+        run_rows(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

@@ -671,14 +671,33 @@ SCATTER_SHAPES = {  # B, M, K, C, n
     "fp2_bwd": (16, 512, 3, 256, 128),
     "n36": (1, 40, 3, 64, 36),
     "n100": (2, 16, 3, 3, 100),
+    # PointConv classification's backward: SA1's density (C = 1) and SA2
+    "pc_cls_c1": (32, 512, 32, 1, 1024),
+    "pc_cls_c132": (32, 256, 32, 132, 512),
+    # C = 1 where most rows of out get no index, and a batch whose
+    # indices are all sentinels: on the narrow route out starts
+    # unwritten, so those rows must still read exactly 0
+    "c1_sparse": (4, 64, 4, 1, 4096),
+    "c1_sentinel_batch": (3, 100, 8, 1, 512),
+    # out[b] just at and just above gather.SCATTER_NARROW_BYTES, and a
+    # small out[b] of 16-byte rows (the wide route)
+    "cutoff_narrow": (2, 256, 4, 3, 1365),
+    "cutoff_wide": (2, 256, 4, 3, 1366),
+    "c4_small": (2, 256, 4, 4, 64),
 }
+SCATTER_ROUTES = {"pc_cls_c1": "narrow", "c1_sparse": "narrow",
+                  "c1_sentinel_batch": "narrow", "n100": "narrow",
+                  "cutoff_narrow": "narrow", "cutoff_wide": "wide",
+                  "c4_small": "wide", "pc_cls_c132": "wide",
+                  "fp1_bwd": "wide"}
 
 
 @pytest.mark.parametrize("name", sorted(SCATTER_SHAPES))
 def test_scatter_rows_matches_plain(card, name):
     """Within 1e-5 of the largest plain element: f32 atomics add a
-    target's rows in another order; indices at or beyond n add
-    nothing."""
+    target's rows in another order; indices at or beyond n add nothing,
+    and rows of out that no index reaches are exactly 0 on either
+    route."""
     from pointcloudlib_tpu_torch.ops.kernels import gather as kga
 
     b, m, k, c, n = SCATTER_SHAPES[name]
@@ -688,6 +707,9 @@ def test_scatter_rows_matches_plain(card, name):
     idx = torch.from_numpy(rng.integers(0, n + 8, (b, m, k)).astype(
         np.int32)).to(card)
     idx[0, 0, 0] = n
+    if name == "c1_sentinel_batch":
+        idx[-1] = n + 1
+    assert kga.scatter_route(n, c) == SCATTER_ROUTES.get(name, "wide")
     before = kga.scatter_rows.launches
     got = kga.scatter_rows(g, idx, n)
     torch.cuda.synchronize()
@@ -695,6 +717,13 @@ def test_scatter_rows_matches_plain(card, name):
     want = kga.scatter_rows_plain(g, idx, n)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
+    hit = torch.zeros((b, n + 9), dtype=torch.bool, device=card)
+    hit.scatter_(1, idx.reshape(b, -1).long(), True)
+    if name == "c1_sparse":
+        assert (~hit[:, :n]).float().mean() > 0.5
+    if name == "c1_sentinel_batch":
+        assert not hit[-1, :n].any()
+    assert not got[~hit[:, :n]].any()
 
 
 def test_partseg_train_step_card_matches_cpu(card):
@@ -1345,6 +1374,13 @@ GATHER_SHAPES = {  # B, N, C, idx shape after B
     "seg decoder n=2048": (16, 2048, 128, (2048, 16)),
     "2-D idx": (4, 300, 8, (77,)),
     "M=13, C=5": (3, 128, 5, (13, 7)),
+    "C=2": (4, 700, 2, (96, 9)),
+    "C=3": (4, 1024, 3, (128, 16)),
+    "C=7, rows·C % 4 != 0": (3, 500, 7, (33, 5)),
+    # a cloud too large to stage in shared memory (96 KB), and rows wider
+    # than a warp's assembly buffer
+    "C=6, N=4000 unstaged": (2, 4000, 6, (256, 8)),
+    "C=37": (2, 200, 37, (40, 3)),
 }
 
 

@@ -126,17 +126,19 @@ def test_three_interp_grad_matches_jax_vjp():
     assert tq.grad is None and tp.grad is None
 
 
-@pytest.mark.parametrize("n", [128, 512, 36])
-def test_scatter_rows_plain_matches_pallas(n):
+@pytest.mark.parametrize("n,c", [(128, 40), (512, 40), (36, 40), (128, 1)],
+                         ids=["128", "512", "36", "128-C1"])
+def test_scatter_rows_plain_matches_pallas(n, c):
     """``scatter_rows_plain`` against the JAX ``scatter_rows``: at n=128
     and n=512 its Pallas kernel (interpret mode), at n=36 its XLA
-    scatter-add (``n % 128 != 0``). Indices at and beyond n add nothing
-    on both sides. The kernel adds g through a bf16 hi/lo split, ~2^-17
-    of each row (``gather.py`` measures |Δ| up to 1.5e-5 on N(0, 1)
-    data), so atol 5e-5 with rtol 1e-5 on these sums of a few N(0, 1)
-    rows."""
+    scatter-add (``n % 128 != 0``); C = 1 is PointConv's density
+    gradient, the shape the port's kernel takes by its narrow route.
+    Indices at and beyond n add nothing on both sides. The kernel adds g
+    through a bf16 hi/lo split, ~2^-17 of each row (``gather.py``
+    measures |Δ| up to 1.5e-5 on N(0, 1) data), so atol 5e-5 with rtol
+    1e-5 on these sums of a few N(0, 1) rows."""
     rng = np.random.default_rng(n)
-    b, m, k, c = 2, 48, 3, 40
+    b, m, k = 2, 48, 3
     g = _normal(rng, b, m, k, c)
     idx = rng.integers(0, n + 6, (b, m, k)).astype(np.int32)
     idx[0, 0] = [n, n + 3, 0]

@@ -58,7 +58,8 @@ def _close_rows(got, want, scale):
     (2, 128, 5, (8, 4)),       # C not a multiple of 4, M below 8
     (2, 256, 16, (13, 6)),     # M not a multiple of 8 (JAX pads rows)
     (1, 128, 1, (40,)),        # C = 1, a 2-D idx
-])
+    (2, 128, 6, (16, 8)),      # C = 6: PointConv SA1's xyz and normals
+], ids=["2-128-5-rows0", "2-256-16-rows1", "1-128-1-rows2", "2-128-6-rows3"])
 def test_gather_neighbors_matches_jax(b, n, c, rows):
     """``gather_neighbors_plain`` against the JAX ``gather_neighbors`` in
     interpret mode, sentinel indices (N, N + 3) giving zero rows."""
@@ -78,6 +79,28 @@ def test_gather_neighbors_matches_jax(b, n, c, rows):
     exact = np.take_along_axis(pts, np.minimum(idx, n - 1).reshape(
         b, -1, 1), axis=1).reshape(got.shape)
     np.testing.assert_array_equal(got[idx < n], exact[idx < n])
+
+
+def test_row_kernel_routes_and_index_range():
+    """The routes the wrappers give their kernels, functions of the shapes
+    alone: the scatter-add's narrow route for rows that are not 16-byte
+    units up to ``SCATTER_NARROW_BYTES`` of out[b] (PointConv SA1's
+    density gradient among them), the gather's wide route for aligned
+    16-byte rows; and the kernels' 32-bit index range within a batch."""
+    assert kga.SCATTER_NARROW_BYTES == 16 * 1024
+    assert kga.scatter_route(1024, 1) == "narrow"
+    assert kga.scatter_route(1365, 3) == "narrow"
+    assert kga.scatter_route(1366, 3) == "wide"
+    assert kga.scatter_route(64, 4) == "wide"
+    assert kga.scatter_route(512, 132) == "wide"
+    assert kga.gather_route(torch.zeros(2, 10, 6)) == "narrow"
+    assert kga.gather_route(torch.zeros(2, 10, 1)) == "narrow"
+    assert kga.gather_route(torch.zeros(2, 10, 8)) == "wide"
+    assert kga.gather_route(torch.zeros(81)[1:].view(1, 10, 8)) == "narrow"
+    kga._check_int32("gather_neighbors", 2 ** 28 - 1, 10, 8)
+    for rows, n in ((2 ** 28, 10), (1, 2 ** 28)):
+        with pytest.raises(ValueError, match="2\\^31"):
+            kga._check_int32("gather_neighbors", rows, n, 8)
 
 
 def test_gather_neighbors_gradient_matches_jax():
