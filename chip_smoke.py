@@ -125,7 +125,8 @@ once:
 15. kNN-route kernels — DGCNN's four EdgeConvs at N % 128 ≠ 0 (serving
    B=32, N=10,000; training B=32, N=1,000): ``knn`` idx and d²
    bit-identical to the plain version (``torch.cdist`` + ``torch.topk``
-   timed as the library's yardstick, two calls), ``edge_eval`` within
+   timed as the library's yardstick, two calls; each record names the
+   route the wrapper took, ``knn.knn_route``), ``edge_eval`` within
    1e-5·max|plain| (its plain version taken 8 clouds at a time),
    ``edge_f1``'s h bit-identical, ``edge_out`` and ``edge_bwd`` as in
    phase 11; edge cases: duplicate points, k = N, a query cloud of its
@@ -147,7 +148,8 @@ once:
    ``edge2_knn_eval`` and ``edge2_out`` within 1e-5·max|plain| (the
    neighbour lists and y1 are bit-identical, h2 sums in another order),
    pass 1's idx and h bit-identical, ``edge2_stats2``'s Σ/Σ² and
-   ``edge2_p1``'s ps2, vecs and mats within 1e-3·max|plain|, ``edge2_p2``'s
+   ``edge2_p1``'s ps2, vecs and mats within 1e-3·max|plain| (its timed
+   records with a device time by CUDA graphs), ``edge2_p2``'s
    dq and doff tie-robust; EC3's four EdgeConv kernels at k=40 as in phase
    11; edge cases: duplicate points, and the route at N % 128 ≠ 0 (N=1,000:
    the kNN, ``edge2_eval`` timed, ``edge_f1`` and the train kernels);
@@ -214,6 +216,16 @@ cases and the launches of the N=4096 paths; ``edge_knn_eval``'s entry
 adds the ``torch.topk`` yardstick); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
+
+Beside ``main``, functions that time one kernel family at every shape of
+the main paths, for old-against-new runs from two checkouts' roots
+(``python3 -c 'import chip_smoke; chip_smoke.knn_times()'``):
+``bwd_times``, ``tail_times``, ``f1_times``, ``rows_times``,
+``fps_times``, ``eval_times``, ``knn_times`` (the kNN, with its route,
+the library's ``torch.cdist`` + ``torch.topk`` and the plain order's
+floor) and ``edge2_times`` (the two-layer pass 1 at DGCNN part
+segmentation's pairs and on its kNN route, with the memory one call
+allocates).
 """
 
 from __future__ import annotations
@@ -1815,6 +1827,14 @@ def _per_clouds(fn, *args):
                       for s in range(0, b, PLAIN_CLOUDS)])
 
 
+def _knn_route_name(b, m, n, c, k) -> str:
+    """The route the kNN wrapper takes at these shapes (``knn_route``;
+    "block" in a checkout before the routes)."""
+    route = getattr(kknn, "knn_route", None)
+    return ("block" if route is None
+            else kknn.route_name(route(b, m, n, c, k)))
+
+
 def _knn_case(name, query, points, k, timed):
     """The kNN kernel against its plain version: idx and d² bit-identical;
     with ``timed``, ``torch.cdist`` + ``torch.topk`` (two calls) timed as
@@ -1829,6 +1849,7 @@ def _knn_case(name, query, points, k, timed):
     b, m, c = query.shape
     n = points.shape[1]
     rec = {"case": name, "B": b, "M": m, "N": n, "C": c, "k": k,
+           "route": _knn_route_name(b, m, n, c, k),
            "idx_d2_bit_identical": True, "max_abs_err": 0.0}
     if timed:
         rec["ms"] = time_ms(lambda: kknn.knn(query, points, k), 5)
@@ -2055,14 +2076,16 @@ def _edge2_case(name, layer, xe, xt, g, timed):
                (4.0 * b * n * cin if ops else 0.0) + 6.0 * b * n * c1
                + 4.0 * e + 2.0 * e * c1 + 8.0 * c1)
         _edge2_train_cases(f"{name} N={n}", layer, wh, wpsum, widx, g, shape,
-                           record)
+                           record, timed)
     return recs
 
 
-def _edge2_train_cases(case, layer, h1, psum, idx, g, shape, record):
+def _edge2_train_cases(case, layer, h1, psum, idx, g, shape, record, timed):
     """``edge2_stats2``, ``edge2_out``, ``edge2_p1`` and ``edge2_p2``
     against their plain versions from pass 1's plain ``h1``, sums and
-    neighbour index, each from the plain results of the pass before."""
+    neighbour index, each from the plain results of the pass before;
+    with ``timed``, ``edge2_p1``'s record gains its device time
+    (``graph_ms``) beside the event loop's."""
     b, m, k, c1 = h1.shape
     c2 = layer.w2.shape[1]
     w2 = layer.w2
@@ -2095,7 +2118,11 @@ def _edge2_train_cases(case, layer, h1, psum, idx, g, shape, record):
             for x, y, w in zip(got, want, ("ps2", "vecs", "mats"))]
     # the chain, the tie split, dz2, x̂2, [y1‖m1‖m1·x̂1] and their sums:
     # ~8 an element of y1 and ~12 of y2; the mats product (bf16)
-    record("edge2_p1", {"case": case, **shape, **_errs(errs)},
+    rec = {"case": case, **shape, "route": "wgmma, one kernel",
+           **_errs(errs)}
+    if timed:
+        rec["device_ms"] = graph_ms(lambda: kfe.edge2_p1(*a), 5)
+    record("edge2_p1", rec,
            lambda: kfe.edge2_p1(*a), lambda: kfe.edge2_p1_plain(*a),
            prod + 2.0 * e * (3 * c1) * (2 * c2), (8.0 * c1 + 12.0 * c2) * e,
            hb + 4.0 * b * m * c2 + 4.0 * (2 * c2 + 3 * c1 + 6 * c1 * c2))
@@ -2687,6 +2714,169 @@ def rows_times() -> None:
                              f"C={points.shape[2]}", points, idx, True)
         del model
         torch.cuda.empty_cache()
+
+
+def _knn_path_inputs():
+    """``(case, query, points, k)`` of the kNN calls of the main paths:
+    DGCNN's four EdgeConvs on the route of N % 128 ≠ 0 (serving, 32
+    clouds of 10,000 points; training, 32 of 1,000: ``_odd_inputs``),
+    PointConv classification's and part segmentation's (recorded from
+    the models' eval forward) and DGCNN part segmentation's kNN route (16
+    clouds of 1,000 points, k=40, its three layers: ``_dseg_layers``)."""
+    dg = _model_on_card("dgcnn", random_jax_variables(
+        get_cls_model("dgcnn"), seed=0))
+    odd = SyntheticModelNet(n_points=ODD_SERVE_POINTS, size=DGCNN_BATCH,
+                            seed=0).batch(0, DGCNN_BATCH)[0]
+    odd_train = synthetic_batch("dgcnn", DGCNN_BATCH, 5,
+                                ODD_TRAIN_POINTS)["xyz"].to(DEV)
+    layers = _odd_inputs(dg, torch.from_numpy(odd).to(DEV), odd_train)
+    del dg
+    for j in (0, 1):  # serving, then training
+        for name, f, *xs in layers:
+            x = xs[j]
+            yield f"DGCNN {name} N={x.shape[1]}", x, x, f.k
+    del layers
+    clouds, normals, _ = SyntheticModelNet(
+        n_points=N_POINTS, size=PC_BATCH, seed=0).batch(0, PC_BATCH)
+    seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
+    for tag, name, inputs in (
+            ("PointConv cls", "pointconv", (torch.from_numpy(clouds).to(DEV),
+                                            torch.from_numpy(normals).to(DEV))),
+            ("PointConv seg", PC_SEG, (seg_xyz, torch.zeros(
+                (SEG_BATCH, 16), device=DEV)))):
+        model = _model_on_card(name, random_jax_variables(
+            build_model(name), seed=0))
+        for q, p, k in _pointconv_path_calls(model, *inputs)["knn"]:
+            yield f"{tag} M={q.shape[1]} N={p.shape[1]} k={k}", q, p, k
+        del model
+    dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
+                                                     seed=0))
+    x_odd = SyntheticShapeNetPart(n_points=DSEG_ODD_TRAIN, size=SEG_BATCH,
+                                  seed=3).batch(0, SEG_BATCH)[0]
+    for name, layer, xe, _ in _dseg_layers(dseg, torch.from_numpy(
+            x_odd).to(DEV)):
+        yield f"DGCNN-seg {name} N={xe.shape[1]}", xe, xe, layer.k
+
+
+def knn_times() -> None:
+    """The kNN at every shape of the main paths (``_knn_path_inputs``):
+    after the device line, one ``knn:`` line a call with its route, device
+    ms by CUDA graphs (events over three calls above 2·10⁵ point
+    channels a cloud, where a graph of repeats would hold gigabytes), the
+    library's ``torch.cdist`` + ``torch.topk`` timed the same way, the
+    bound (operations at the FMA peak, or bytes) and the plain order's
+    floor (twice the operations bound: one instruction an operation) with
+    the kernel's share of each, and idx and d² against the plain version
+    (bit for bit; two clouds at N ≥ 5,000). Like ``bwd_times``, it times
+    the kernels of the package beside this file:
+
+        python3 -c 'import chip_smoke; chip_smoke.knn_times()'
+    """
+    phase_device()
+    _build.build(SOURCES)
+    for case, q, p, k in _knn_path_inputs():
+        b, m, c = q.shape
+        n = p.shape[1]
+        big = n * c > 200000
+
+        def timed(fn):
+            return time_ms(fn, 3, 1) if big else graph_ms(fn, 10)
+
+        nb = 2 if n >= 5000 else b
+        d2, idx = kknn.knn(q[:nb], p[:nb], k)
+        wd2, widx = kknn.knn_plain(q[:nb], p[:nb], k)
+        same = bool(torch.equal(idx, widx) and torch.equal(d2, wd2))
+        del d2, idx, wd2, widx
+        ms = timed(lambda: kknn.knn(q, p, k))
+        lib = timed(lambda: torch.topk(torch.cdist(q, p), k, dim=-1,
+                                       largest=False))
+        bound_ms, ops_ms, bytes_ms = bound(
+            0.0, b * m * n * (2.0 * c + 3.0),
+            4.0 * b * (m + n) * c + 8.0 * b * m * k)
+        emit("knn", {"case": case, "B": b, "M": m, "N": n, "C": c, "k": k,
+                     "route": _knn_route_name(b, m, n, c, k), "device_ms": ms,
+                     "library_ms": lib, "bound_ms": bound_ms,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "share_of_bound": bound_ms / ms,
+                     "plain_order_floor_ms": 2.0 * ops_ms,
+                     "share_of_floor": 2.0 * ops_ms / ms,
+                     "bit_identical": same, "checked_clouds": nb})
+        if not same:
+            fail(f"knn {case}: not bit-identical to the plain version")
+        torch.cuda.empty_cache()
+
+
+def edge2_times() -> None:
+    """``edge2_p1`` at DGCNN part segmentation's two pairs (B=16, N=2048,
+    k=40) and on its kNN route (16 clouds of 1,000 points), inputs built
+    as ``phase_dseg_kernels`` builds them (pass 1's plain h1 from the
+    model's own train chain, BN rows of its batch moments, a seeded
+    output gradient): after the device line, one ``edge2_p1:`` line a
+    case with device ms by CUDA graphs (the wrapper's allocations and
+    memsets included), the CUDA kernels' split (torch.profiler), the
+    memory one call allocates above its inputs, the bound and its share,
+    and the largest deviation of ps2, vecs and mats over max|plain|
+    (held to 1e-3). Like ``bwd_times``, it times the package beside this
+    file:
+
+        python3 -c 'import chip_smoke; chip_smoke.edge2_times()'
+    """
+    phase_device()
+    _build.build(SOURCES)
+    dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
+                                                     seed=0))
+    x_odd = SyntheticShapeNetPart(n_points=DSEG_ODD_TRAIN, size=SEG_BATCH,
+                                  seed=3).batch(0, SEG_BATCH)[0]
+    g = torch.Generator(device=DEV).manual_seed(11)
+    for x in (torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV),
+              torch.from_numpy(x_odd).to(DEV)):
+        for name, layer, _, xt in _dseg_layers(dseg, x)[:2]:
+            b, n, _ = xt.shape
+            k, (c1, c2) = layer.k, layer.w2.shape
+            with torch.no_grad():
+                q, off = layer.prepare(xt)
+                qb = q.bfloat16()
+                if n % 128:
+                    h1, psum = kfe.edge_f1_plain(qb, off,
+                                                 kknn.knn(xt, xt, k)[1])
+                else:
+                    _, h1, psum = kfe.edge_knn_f1_plain(xt, qb, off, k)
+                r = float(b * n * k)
+                st1 = kfs._stack_stats(*kft._moments(psum, r),
+                                       layer.bn1_scale, layer.bn1_bias)
+                st2 = kfs._stack_stats(*kft._moments(
+                    kfe.edge2_stats2_plain(h1, st1, layer.w2), r),
+                    layer.bn2_scale, layer.bn2_bias)
+                a = (h1, torch.randn((b, n, c2), generator=g, device=DEV),
+                     st1, st2, layer.w2)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                got = kfe.edge2_p1(*a)
+                torch.cuda.synchronize()
+                call_bytes = torch.cuda.max_memory_allocated() - base
+                want = kfe.edge2_p1_plain(*a)
+                dev = max(((u - w).abs().max() / w.abs().max()).item()
+                          for u, w in zip(got, want))
+                del got, want
+                ms = graph_ms(lambda: kfe.edge2_p1(*a), 5)
+                kernels = _kernel_ms(lambda: kfe.edge2_p1(*a))
+            e = r
+            bound_ms, ops_ms, bytes_ms = bound(
+                2.0 * c1 * c2 * e + 2.0 * e * (3 * c1) * (2 * c2),
+                (8.0 * c1 + 12.0 * c2) * e,
+                2.0 * e * c1 + 2.0 * c1 * c2 + 32.0 * (c1 + c2)
+                + 4.0 * b * n * c2 + 4.0 * (2 * c2 + 3 * c1 + 6 * c1 * c2))
+            emit("edge2_p1", {
+                "case": f"{name} N={n}", "B": b, "N": n, "k": k, "C1": c1,
+                "C2": c2, "device_ms": ms, "kernels_ms": kernels,
+                "call_bytes": call_bytes, "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": bound_ms / ms, "max_dev": dev})
+            if dev > SUM_TOL:
+                fail(f"edge2_p1 {name} N={n}: {dev} of max|plain| off")
+            del a, h1
+            torch.cuda.empty_cache()
 
 
 # Every FPS launch of the ported paths: (case, clouds, batch, n_samples of

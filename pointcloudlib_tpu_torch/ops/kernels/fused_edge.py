@@ -199,7 +199,7 @@ _SIGNATURES = {
         for stage in ("stats2", "out")
     },
     "edge2_bwd_p1": {
-        "edge2_bwd_p1_launch": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+        "edge2_bwd_p1_launch": ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
                                 + [ctypes.c_int] * 3
                                 + [ctypes.c_float, ctypes.c_void_p],
                                 ctypes.c_int),
@@ -751,20 +751,16 @@ def edge2_p1(h1, dout, st1, st2, w2, slope: float = 0.2):
     b, m, k, c1, c2 = _rows2("edge2_p1", h1, w2, st1, st2)
     dev = h1.device
     _expect("edge2_p1", dev, dout=(dout, (b, m, c2), torch.float32))
-    rows = b * m * k
     ps2 = torch.zeros((2, c2), dtype=torch.float32, device=dev)
     vecs = torch.zeros(3 * c1, dtype=torch.float32, device=dev)
     mats = torch.zeros((3 * c1, 2 * c2), dtype=torch.float32, device=dev)
-    left = torch.empty((rows, 3 * c1), dtype=torch.bfloat16, device=dev)
-    right = torch.empty((rows, 2 * c2), dtype=torch.bfloat16, device=dev)
     h1, dout, st = _aligned(h1), _aligned(dout), _st2(st1, st2)
     w2b = _aligned(w2.bfloat16())
     with torch.cuda.device(dev):
         err = _lib("edge2_bwd_p1").edge2_bwd_p1_launch(
             h1.data_ptr(), dout.data_ptr(), st.data_ptr(), w2b.data_ptr(),
-            ps2.data_ptr(), vecs.data_ptr(), left.data_ptr(),
-            right.data_ptr(), mats.data_ptr(), b * m, k, c1, c2, slope,
-            _stream(dev))
+            ps2.data_ptr(), vecs.data_ptr(), mats.data_ptr(), b * m, k, c1,
+            c2, slope, _stream(dev))
     _build.check(err, "edge2_p1")
     edge2_p1.launches += 1
     return ps2, vecs, mats

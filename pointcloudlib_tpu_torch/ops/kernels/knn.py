@@ -9,6 +9,15 @@ int32)``, ascending, the lower index first on ties. The plain version is
 ``knn_pallas``'s ``exact`` flag has no counterpart here). DGCNN's
 EdgeConvs take it at N % 128 ≠ 0; ``geometry.knn`` sends CUDA tensors
 here.
+
+Two routes (``csrc/knn.cu``), chosen from the shapes by :func:`knn_route`:
+``select`` (a block of 128 or 256 queries, the points streamed through a
+ring of shared-memory tiles, d² filtered in registers against each
+query's k-th and the survivors merged into lists that 8 lanes hold; at
+C % 4 == 0 an FMA pass with an error bound in front, its near pairs
+recomputed in the plain order) for large clouds and grids, else
+``block`` (the first version's 64-query blocks, which also take widths
+up to 379 at k = 40).
 """
 
 from __future__ import annotations
@@ -28,16 +37,74 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
 )
 
 MAX_K = 40  # longest neighbour list of the kNN kernels (csrc/edge_knn.cuh)
+# the select route's instances, as the launcher numbers them: (queries a
+# thread, tiles in the ring, the fast pass); a block takes 32 queries a
+# thread; the fast pass takes C % 4 == 0
+SELECT = {1: (4, 3, False), 2: (4, 3, True), 3: (8, 2, True)}
+_SEL_T = 64  # candidates a tile
+_SEL_MAX_K8 = 24  # longest list with 8 queries a thread
+
+
+def _sel_stride(c: int) -> int:
+    p = (c + 3) // 4 * 4
+    return p if p % 8 else p + 4
+
+
+def select_smem(qpt: int, stages: int, c: int) -> int:
+    """Shared memory bytes of a select block (``csrc/knn.cu``
+    ``sel_smem``)."""
+    q, p = 32 * qpt, _sel_stride(c)
+    return 4 * (q * p + stages * _SEL_T * (p + 1) + q)
+
+
+# below both, the select route's merges of the first tiles (every
+# candidate of tile 0 enters the lists) and a grid of at most one block
+# an SM leave it slower than the block route (PERF.md §5)
+_SEL_MIN_N = 2048     # points a cloud
+_SEL_MIN_BLOCKS = 256  # blocks of 128 queries
+
+
+def block_smem(c: int, k: int) -> int:
+    """Shared memory bytes of a block of the block route (``csrc/knn.cu``
+    ``knn_smem``, which the launcher checks again): the query and
+    candidate tiles, the d² tile, the norms and the lists."""
+    return 4 * (128 * c + 64 * 68 + 128 + 2 * 64 * k)
+
+
+def knn_route(b: int, m: int, n: int, c: int, k: int) -> int:
+    """The launcher's route for these shapes. The select route where the
+    clouds have at least :data:`_SEL_MIN_N` points or its grid at least
+    :data:`_SEL_MIN_BLOCKS` blocks of 128 queries: with the fast pass
+    where C % 4 == 0 and the clouds have at least :data:`_SEL_MIN_N`
+    points (over fewer tiles its first, exact tiles and the pairs it
+    forms again outweigh it), 256 queries a block and a ring of 2 tiles
+    at C ≥ 96 and k ≤ 24, else 128 queries and 3 tiles. Else, or where
+    its shared memory does not fit a block, 0 (the block route)."""
+    block_fits = block_smem(c, k) <= _SMEM_LIMIT
+    if block_fits and n < _SEL_MIN_N and b * -(-m // 128) < _SEL_MIN_BLOCKS:
+        return 0
+    fast = c % 4 == 0 and n >= _SEL_MIN_N
+    want = (8, 2, True) if fast and c >= 96 and k <= _SEL_MAX_K8 else (
+        4, 3, fast)
+    for route, inst in SELECT.items():
+        if inst == want and select_smem(*inst[:2], c) <= _SMEM_LIMIT:
+            return route
+    return 0
+
+
+def route_name(route: int) -> str:
+    if route == 0:
+        return "block"
+    qpt, stages, fast = SELECT[route]
+    return f"select {32 * qpt}x{stages}" + (" fast" if fast else "")
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("knn")
     if lib.knn_launch.argtypes is None:
-        lib.knn_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        lib.knn_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                                    + [ctypes.c_void_p])
         lib.knn_launch.restype = ctypes.c_int
-        lib.knn_smem.argtypes = [ctypes.c_int] * 2
-        lib.knn_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -48,9 +115,10 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(d² [B, M, k] float32, idx [B, M, k] int32)`` of ``query [B, M,
     C]`` in ``points [B, N, C]``, as :func:`knn_plain`: the kernel for
-    CUDA tensors (float32, at most ``MAX_K`` neighbours), the plain
-    version for CPU tensors. For ``k > N`` the kernel finds all N and the
-    last repeats, as in the plain version."""
+    CUDA tensors (float32, at most ``MAX_K`` neighbours) on the route
+    :func:`knn_route` picks, the plain version for CPU tensors. For ``k >
+    N`` the kernel finds all N and the last repeats, as in the plain
+    version."""
     if not _on_card("knn", points):
         return knn_plain(query, points, k)
     b, m, c = query.shape
@@ -62,18 +130,22 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int
         raise ValueError(f"knn: the kernel finds 1 to {MAX_K} neighbours, "
                          f"got k={k} (N={n})")
     lib = _lib()
-    smem = lib.knn_smem(c, kk)
-    if smem > _SMEM_LIMIT:
+    route = knn_route(b, m, n, c, kk)
+    smem = block_smem(c, kk)
+    if route == 0 and smem > _SMEM_LIMIT:
         raise ValueError(f"knn: width C={c} and k={kk} need {smem} bytes of "
                          f"shared memory, above one block's {_SMEM_LIMIT}")
     dev = points.device
     d2 = torch.empty((b, m, kk), dtype=torch.float32, device=dev)
     idx = torch.empty((b, m, kk), dtype=torch.int32, device=dev)
+    # the select route's |p|^2 of every point (csrc/knn.cu knn_norms_kernel)
+    norms = torch.empty(b * n if route else 1, dtype=torch.float32,
+                        device=dev)
     query, points = _aligned(query), _aligned(points)
     with torch.cuda.device(dev):
         err = lib.knn_launch(query.data_ptr(), points.data_ptr(),
-                             d2.data_ptr(), idx.data_ptr(), b, m, n, c, kk,
-                             _stream(dev))
+                             d2.data_ptr(), idx.data_ptr(), norms.data_ptr(),
+                             b, m, n, c, kk, route, _stream(dev))
     _build.check(err, "knn")
     knn.launches += 1
     return geometry.repeat_last(d2, idx, k)

@@ -1,13 +1,14 @@
 """Design variants of the FPS kernel, of the forward tail's stage 2, of
-forward pass 1 and of the row scatter-add and gather, timed against each
+forward pass 1, of the row scatter-add and gather, of the standalone kNN
+and of the two-layer EdgeConv's backward pass 1, timed against each
 other on the card. Each variant is an edit of the committed source
 (``csrc/fps.cu``, ``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu``
-and ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``),
-built beside it by ``nvcc`` with the package's flags into
-``build/variants/``.
+and ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``,
+``csrc/knn.cu``, ``csrc/edge2_bwd_p1.cu``), built beside it by ``nvcc``
+with the package's flags into ``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
-        [--only fps tail f1 rows read cluster] [--parent DIR]
+        [--only fps tail f1 rows knn edge2p1 read cluster] [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
 unpacked by ``git archive``): its ``fps.cu``, ``fused_sa_tail.cu``,
@@ -46,6 +47,23 @@ beside the variants. Prints one JSON line a case:
   atomic and reduction instructions of the built kernels (``cuobjdump
   -sass``); and both scatter routes forced at the cut-off sizes of
   ``SCATTER_CUTOFF``;
+* ``knn`` (not in the default set): at the self-kNN inputs of DGCNN's
+  four EdgeConvs (the model's eval chain, seeded weights; B=32, k=20) at
+  N=10,000 and N=1,000, device ms (events over three calls above 2·10⁵
+  point channels, else CUDA graphs) and idx and d² against the plain
+  version, for the built kernel at every route (``block`` and each
+  select instance of ``knn.SELECT``: queries a block, tiles in the ring,
+  the FMA pass) and for ``KNN_VARIANTS`` (``no_select``: the products
+  alone); with ``--parent``, the parent's kernel and its split
+  (``PARENT_KNN_SPLIT``: products, walk and loads alone, and the walk's
+  insertion counts);
+* ``edge2p1`` (not in the default set): pass 1 at DGCNN part
+  segmentation's shapes (B=16, k=40, N=2,048 and 1,000; seeded random
+  inputs), device ms with the memsets and the largest deviation from the
+  plain version over max|plain|, for the built kernel and
+  ``E2_VARIANTS`` (the mats product left out, or waited for at once);
+  with ``--parent``, the parent's kernels and their split
+  (``PARENT_E2_SPLIT``);
 * ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
   and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
@@ -75,6 +93,7 @@ from pointcloudlib_tpu_torch.data.synthetic import (
 from pointcloudlib_tpu_torch.ops import geometry
 from pointcloudlib_tpu_torch.ops.kernels import _build
 from pointcloudlib_tpu_torch.ops.kernels import fps as kfps
+from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
 from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as kft
 
 OUT = _build.BUILD_DIR.parent / "variants"
@@ -976,6 +995,388 @@ def run_rows(parent: Optional[Path]) -> None:
         torch.cuda.empty_cache()
 
 
+# The standalone kNN (csrc/knn.cu) at the shapes of DGCNN's route at N %
+# 128 != 0 and PointConv's, and the two-layer EdgeConv's backward pass 1
+# (csrc/edge2_bwd_p1.cu) at DGCNN part segmentation's. The parents' split
+# (--parent; a part's output is wrong by design). kNN, by edits of its
+# selection knn_block in edge_knn.cuh, pasted in place of the include:
+# products_only (no walk), walk_only (no loads, no products: a hashed d2
+# that keeps the walk's insertions those of a random order), loads_only
+# (the tile loads, the norms, the barriers and the d2 tile's stores) and
+# counted (the built kernel with counters: a warp's walk steps, the steps
+# in which any lane inserts, and the lanes' insertions). Pass 1:
+# rows_only (no mats kernel), tie_split_only (the rows kernel's first
+# walk alone), rows_no_stores (the rows kernel without the scratch
+# stores) and mats_only (the mats kernel over an unwritten scratch).
+KNN_HEADER = '#include "edge_knn.cuh"'
+KNN_WALK = """    const float* row = d2s + wq * kKnnD2;
+#pragma unroll 4
+    for (int i = 0; i < kKnnT / kKnnWalkers; ++i) {
+      const int j = kKnnWalkers * i + ws;
+      const float d = row[j];
+      if (d < ld[KP - 1]) list_insert(ld, li, d, t0 + j);
+    }
+"""
+KNN_PRODUCT = ("    float acc[4][4];\n",
+               "    __syncthreads();  // q2s and p2s are written\n")
+KNN_HASH = """    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        acc[r][s] = -(float)((((unsigned)(q0 + qi + 16 * r) * 2654435761u) ^
+                              ((unsigned)(t0 + cj + 16 * s) * 40503u)) >> 12);
+"""
+KNN_ZERO = """    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[r][s] = 0.0f;
+"""
+KNN_COUNTERS = """namespace pcl {
+__device__ unsigned long long walk_counts[3];
+}
+"""
+KNN_READ_COUNTS = """
+extern "C" int knn_counts(void* host, int reset) {
+  if (reset) {
+    const unsigned long long zero[3] = {0, 0, 0};
+    return cudaMemcpyToSymbol(pcl::walk_counts, zero, sizeof(zero));
+  }
+  return cudaMemcpyFromSymbol(host, pcl::walk_counts,
+                              3 * sizeof(unsigned long long));
+}
+"""
+PARENT_KNN_SPLIT = {
+    "products_only": [(KNN_WALK, "")],
+    "walk_only": [("    load_tile(xb, n, cin, t0, xs);\n", ""),
+                  (KNN_PRODUCT, KNN_HASH)],
+    "loads_only": [(KNN_WALK, ""), (KNN_PRODUCT, KNN_ZERO)],
+    "counted": [
+        ("  for (int t0 = 0; t0 < n; t0 += kKnnT) {\n",
+         "  unsigned long long n_steps = 0, n_busy = 0, n_ins = 0;\n"
+         "  for (int t0 = 0; t0 < n; t0 += kKnnT) {\n"),
+        ("      if (d < ld[KP - 1]) list_insert(ld, li, d, t0 + j);\n",
+         "      const bool ins = d < ld[KP - 1];\n"
+         "      const unsigned any = __ballot_sync(0xffffffffu, ins);\n"
+         "      n_steps += 1;\n"
+         "      n_busy += any != 0u;\n"
+         "      n_ins += __popc(any);\n"
+         "      if (ins) list_insert(ld, li, d, t0 + j);\n"),
+        ("  // merge the four walkers' lists of a query",
+         "  if ((threadIdx.x & 31) == 0) {\n"
+         "    atomicAdd(&walk_counts[0], n_steps);\n"
+         "    atomicAdd(&walk_counts[1], n_busy);\n"
+         "    atomicAdd(&walk_counts[2], n_ins);\n"
+         "  }\n"
+         "  // merge the four walkers' lists of a query")],
+}
+E2_MATS = ("  return launch_mats<3 * C1, 2 * C2>(a.left, a.right, a.mats,\n"
+           "                                     a.centers * a.k, stream);\n")
+E2_SECOND = ("    for (int kk = 0; kk < k; ++kk) {\n      __syncthreads();\n"
+             "      // the y1 tile, and this slot's rows of left\n")
+E2_LEFT_STORES = """          __nv_bfloat16* lg = a.left + row * (3 * C1) + cc;
+          *reinterpret_cast<uint32_t*>(lg) = v;
+          *reinterpret_cast<uint32_t*>(lg + C1) = pack2(m[0], m[1]);
+          *reinterpret_cast<uint32_t*>(lg + 2 * C1) = pack2(x[0], x[1]);
+"""
+E2_RIGHT_STORES = """        *reinterpret_cast<uint4*>(rp) = pack8(dz[i]);
+        *reinterpret_cast<uint4*>(rp + C2) = pack8(x);
+"""
+PARENT_E2_SPLIT = {
+    "rows_only": [(E2_MATS, "  return cudaSuccess;\n")],
+    "tie_split_only": [(E2_MATS, "  return cudaSuccess;\n"),
+                       (E2_SECOND, E2_SECOND.replace("kk < k;", "kk < 0;"))],
+    "rows_no_stores": [(E2_MATS, "  return cudaSuccess;\n"),
+                       (E2_LEFT_STORES, ""), (E2_RIGHT_STORES, "")],
+    "mats_only": [("  kernel<<<blocks, kThreads, smem, stream>>>(a);\n", "")],
+}
+# this tree's design variants: knn (edits of knn.cu, edits of
+# edge_knn.cuh) and pass 1 (edits of edge2_bwd_p1.cu). kNN, the select
+# route's split: its products and norms alone, the filter and the merges
+# left out (no_select; the d2 kept alive by a sink).
+KNN_SEL_CALL = """#pragma unroll
+    for (int r = 0; r < QPT; ++r)
+      group_select<E>(dv[r], ld[r], lj[r], tau[r], t0, n - t0, cg, gbase,
+                      ksrc, ke);
+"""
+KNN_SEL_LOOP = "  float q2[QPT];\n  for (int t = 0; t < tiles; ++t) {\n"
+KNN_SEL_OUT = ("#pragma unroll\n  for (int r = 0; r < QPT; ++r) {\n"
+               "    const int q = qg + 32 * r;\n    if (q >= nq) continue;\n")
+KNN_VARIANTS: Dict[str, tuple] = {
+    "no_select": ([
+        (KNN_SEL_LOOP, KNN_SEL_LOOP.replace("q2[QPT];",
+                                            "q2[QPT], sink = INFINITY;")),
+        (KNN_SEL_CALL, "#pragma unroll\n    for (int r = 0; r < QPT; ++r)\n"
+                       "#pragma unroll\n      for (int s = 0; s < kSelCand; "
+                       "++s) sink = fminf(sink, dv[r][s]);\n"),
+        (KNN_SEL_OUT, "  if (sink == 1.2345f) d2[0] = sink;\n" + KNN_SEL_OUT),
+    ], ()),
+}
+E2_MATS_LAUNCH = """      wg::issue<WL, 1, 1, kRows / 16>(macc, wg::mn_major(rt, WR, 0, 64 * g),
+                                      wg::mn_major(lt, WL, 0, 0));
+      wg::commit();
+"""
+# pass 1: without the mats product (no_mats); with each step's mats
+# product waited for at once (mats_waited), not left in flight behind the
+# next step's staging
+E2_VARIANTS: Dict[str, list] = {
+    "no_mats": [(E2_MATS_LAUNCH, "")],
+    "mats_waited": [(E2_MATS_LAUNCH, E2_MATS_LAUNCH.replace(
+        "wg::commit();", "wg::commit_wait();"))],
+}
+PARENT_KNN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+KNN_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+PARENT_E2_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+E2_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+           + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _segment_edits(text: str, edits):
+    """``edits`` with each ``(start, end)`` pair of markers turned into
+    the text from ``start`` up to ``end``."""
+    out = []
+    for old, new in edits:
+        if isinstance(old, tuple):
+            a = text.index(old[0])
+            old = text[a:text.index(old[1], a)]
+        out.append((old, new))
+    return out
+
+
+def knn_source(csrc: Path, edits=(), header_edits=()) -> str:
+    """``csrc/knn.cu`` with its edits; edits of its selection
+    (``edge_knn.cuh``) are made in a copy pasted in place of the include,
+    behind the walk counters of the ``counted`` variant."""
+    text = (csrc / "knn.cu").read_text()
+    if header_edits:
+        head = (csrc / "edge_knn.cuh").read_text()
+        head = edited(head, _segment_edits(head, header_edits))
+        text = edited(text, [(KNN_HEADER, '#include "fused_sa_common.cuh"\n'
+                              + KNN_COUNTERS + head)]) + KNN_READ_COUNTS
+    return edited(text, _segment_edits(text, edits))
+
+
+def _dgcnn_on_card():
+    from pointcloudlib_tpu_torch.models import get_cls_model
+    from pointcloudlib_tpu_torch.utils.interop import (
+        from_jax_variables, random_jax_variables)
+
+    model = get_cls_model("dgcnn")
+    from_jax_variables(model, random_jax_variables(get_cls_model("dgcnn"),
+                                                   seed=0))
+    return model.to(DEV).eval()
+
+
+def knn_cases():
+    """``(case, query, points, k, (d2, idx))``: the self-kNN inputs of
+    DGCNN's four EdgeConvs on the route of N % 128 != 0 (B=32, k=20), from
+    the model's own eval chain with seeded weights, at N=10,000 (serving)
+    and at N=1,000 (training's shape), with the plain version's result."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    model = _dgcnn_on_card()
+    for n in (10000, 1000):
+        x = torch.from_numpy(SyntheticModelNet(
+            n_points=n, size=32, seed=0).batch(0, 32)[0]).to(DEV)
+        with torch.no_grad():
+            for i, ec in enumerate(model.edge):
+                f = ec.fused
+                want = _plain_by_clouds(x, f.k)
+                yield f"EC{i + 1} N={n}", x, x, f.k, want
+                q, off = f.prepare(x)
+                x = kfe.fused_edge_eval(q, off, want[1], f.bn_scale, f.bn_bias,
+                                        kfe.EdgeStats(f.mean, f.var))
+
+
+def _plain_by_clouds(x, k):
+    """The plain self-kNN's ``(d2, idx)`` of a batch, a cloud at a
+    time."""
+    found = [geometry.knn_plain(x[i:i + 1], x[i:i + 1], k)
+             for i in range(x.shape[0])]
+    return (torch.cat([f[0] for f in found]),
+            torch.cat([f[1] for f in found]))
+
+
+def _ms(fn, big: bool) -> float:
+    """Device ms a call: CUDA graphs for short calls, events over three
+    calls after one for calls of milliseconds."""
+    if not big:
+        return graph_ms(fn, 10)
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 3
+
+
+def run_knn(parent: Optional[Path]) -> None:
+    """The parents' split and this tree's kNN variants at each shape of
+    :func:`knn_cases`: device ms, idx and d2 bit-identical to the plain
+    version, and the counted variant's walk counts."""
+    sources = {"knn_built": (knn_source(_build.CSRC), _build.CSRC)}
+    for name, (edits, head) in KNN_VARIANTS.items():
+        sources[f"knn_{name}"] = (knn_source(_build.CSRC, edits, head),
+                                  _build.CSRC)
+    if parent:
+        sources["knn_parent"] = (knn_source(parent), parent)
+        for name, head in PARENT_KNN_SPLIT.items():
+            sources[f"knn_parent_{name}"] = (knn_source(parent, (), head),
+                                             parent)
+    libs = build(sources)
+    # the launchers that take a route (this tree's), by their text: each
+    # of their select routes (and the built one's block route) is timed
+    routed = {name for name, (text, _) in sources.items()
+              if "int route" in text}
+    for name, lib in libs.items():
+        lib.knn_launch.argtypes = (KNN_ARGS if name in routed
+                                   else PARENT_KNN_ARGS)
+        lib.knn_launch.restype = ctypes.c_int
+    runs = []
+    for name, lib in libs.items():
+        if name not in routed:
+            runs.append((name[4:], lib, None))
+            continue
+        for route in ([0] if name == "knn_built" else []) + list(kknn.SELECT):
+            runs.append((f"{name[4:]} {kknn.route_name(route)}", lib, route))
+    for case, query, points, k, (want_d2, want_idx) in knn_cases():
+        b, m, c = query.shape
+        n = points.shape[1]
+        d2 = torch.empty((b, m, k), device=DEV)
+        idx = torch.empty((b, m, k), dtype=torch.int32, device=DEV)
+        norms = torch.empty(b * n, device=DEV)
+        rec: Dict[str, list] = {}
+        for label, lib, route in runs:
+            def call(lib=lib, route=route):
+                if route is None:  # the parents' launcher
+                    return lib.knn_launch(_ptr(query), _ptr(points),
+                                          _ptr(d2), _ptr(idx), b, m, n, c, k,
+                                          _stream())
+                return lib.knn_launch(_ptr(query), _ptr(points), _ptr(d2),
+                                      _ptr(idx), _ptr(norms), b, m, n, c, k,
+                                      route, _stream())
+
+            if "counted" in label:
+                counts = (ctypes.c_ulonglong * 3)()
+                lib.knn_counts(counts, 1)
+            idx.fill_(-1)
+            err = call()
+            if err != 0:  # a select instance whose shared memory does not fit
+                rec[label] = f"launch error {err}"
+                continue
+            torch.cuda.synchronize()
+            same = torch.equal(idx, want_idx) and torch.equal(d2, want_d2)
+            if "counted" in label:
+                lib.knn_counts(counts, 0)
+                steps, busy, ins = counts
+                rec[label] = {"warp_steps": steps, "busy_share": busy / steps,
+                              "insertions_a_query": ins / (b * m)}
+                continue
+            rec[label] = [round(_ms(call, n * c > 200000), 4), same]
+        ops = b * m * n * (2.0 * c + 3.0)
+        print(json.dumps({
+            "knn": case, "B": b, "M": m, "N": n, "C": c, "k": k,
+            "fma_bound_ms": 1e3 * ops / 67e12,
+            "plain_order_floor_ms": 2e3 * ops / 67e12,
+            "ms_identical": rec}), flush=True)
+        del d2, idx
+        torch.cuda.empty_cache()
+
+
+def edge2p1_cases():
+    """``(case, h1, dout, st, w2)``: pass 1's inputs at DGCNN part
+    segmentation's shapes (k=40, C1 = C2 = 64; random values, seeded:
+    its work depends on the data only through max-pool ties), B=16 at
+    N=2,048 and on the kNN route at N=1,000."""
+    g = torch.Generator(device=DEV).manual_seed(0)
+    for case, b, n in (("pair N=2048", 16, 2048), ("pair N=1000", 16, 1000)):
+        h1 = torch.randn((b, n, 40, 64), generator=g,
+                         device=DEV).bfloat16()
+        dout = torch.randn((b, n, 64), generator=g, device=DEV)
+        st = torch.stack([1.0 + 0.1 * torch.randn(64, generator=g,
+                                                  device=DEV)
+                          if i % 4 in (0, 2) else
+                          0.1 * torch.randn(64, generator=g, device=DEV)
+                          for i in range(8)])
+        w2 = (0.15 * torch.randn((64, 64), generator=g,
+                                 device=DEV)).bfloat16()
+        yield case, h1, dout, st, w2
+
+
+def run_edge2p1(parent: Optional[Path]) -> None:
+    """The parents' split and this tree's pass-1 variants at each shape of
+    :func:`edge2p1_cases`: device ms with the wrapper's memsets, and the
+    largest deviation of ps2, vecs and mats over max|plain|."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    sources = {"e2_built": ((_build.CSRC / "edge2_bwd_p1.cu").read_text(),
+                            _build.CSRC)}
+    for name, edits in E2_VARIANTS.items():
+        sources[f"e2_{name}"] = (edited((_build.CSRC / "edge2_bwd_p1.cu")
+                                        .read_text(), edits), _build.CSRC)
+    if parent:
+        text = (parent / "edge2_bwd_p1.cu").read_text()
+        sources["e2_parent"] = (text, parent)
+        for name, edits in PARENT_E2_SPLIT.items():
+            sources[f"e2_parent_{name}"] = (edited(text, edits), parent)
+    libs = build(sources)
+    # the launchers that take the scratch (the parents') by their text
+    with_scratch = {name for name, (text, _) in sources.items()
+                    if "void* left" in text}
+    for name, lib in libs.items():
+        fn = lib.edge2_bwd_p1_launch
+        fn.argtypes = PARENT_E2_ARGS if name in with_scratch else E2_ARGS
+        fn.restype = ctypes.c_int
+    for case, h1, dout, st, w2 in edge2p1_cases():
+        b, m, k, c1 = h1.shape
+        c2 = w2.shape[1]
+        want = kfe.edge2_p1_plain(h1, dout, st[:4], st[4:], w2)
+        ps2 = torch.zeros((2, c2), device=DEV)
+        vecs = torch.zeros(3 * c1, device=DEV)
+        mats = torch.zeros((3 * c1, 2 * c2), device=DEV)
+        rows = b * m * k
+        stf = st.reshape(-1).contiguous()
+        scratch = None
+        rec: Dict[str, list] = {}
+        for name, lib in libs.items():
+            if name in with_scratch and scratch is None:
+                scratch = (torch.empty((rows, 3 * c1), dtype=torch.bfloat16,
+                                       device=DEV),
+                           torch.empty((rows, 2 * c2), dtype=torch.bfloat16,
+                                       device=DEV))
+
+            def call(lib=lib, name=name):
+                ps2.zero_()
+                vecs.zero_()
+                mats.zero_()
+                extra = ([_ptr(scratch[0]), _ptr(scratch[1])]
+                         if name in with_scratch else [])
+                return lib.edge2_bwd_p1_launch(
+                    _ptr(h1), _ptr(dout), _ptr(stf), _ptr(w2), _ptr(ps2),
+                    _ptr(vecs), *extra, _ptr(mats), b * m, k, c1, c2,
+                    ctypes.c_float(0.2), _stream())
+
+            if call() != 0:
+                raise RuntimeError(f"{name} {case}: launch error")
+            torch.cuda.synchronize()
+            dev = max(((x - y).abs().max() / y.abs().max()).item()
+                      for x, y in zip((ps2, vecs, mats), want))
+            rec[name[3:]] = [round(graph_ms(call, 5), 4),
+                             float(f"{dev:.2e}")]
+        print(json.dumps({
+            "edge2_p1": case, "B": b, "M": m, "k": k, "C1": c1, "C2": c2,
+            "bf16_bound_ms": 1e3 * 2.0 * rows * (c1 * c2 + 6 * c1 * c2)
+            / 989e12, "ms_dev": rec}), flush=True)
+        del scratch, h1
+        torch.cuda.empty_cache()
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -1017,7 +1418,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="+", default=["fps", "tail", "f1", "read",
                                                   "cluster"],
-                    choices=["fps", "tail", "f1", "rows", "read", "cluster"])
+                    choices=["fps", "tail", "f1", "rows", "knn", "edge2p1",
+                             "read", "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1034,6 +1436,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_f1(args.parent)
     if "rows" in args.only:
         run_rows(args.parent)
+    if "knn" in args.only:
+        run_knn(args.parent)
+    if "edge2p1" in args.only:
+        run_edge2p1(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

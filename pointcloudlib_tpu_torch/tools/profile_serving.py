@@ -72,7 +72,8 @@ STAGES = (
     (r"edge2_eval_kernel", "edge2_eval kernel"),
     (r"edge2_tail_kernel<64, 64, false>", "edge2_stats2 kernel"),
     (r"edge2_tail_kernel<64, 64, true>", "edge2_out kernel"),
-    (r"edge2_p1_rows_kernel|p1_mats_kernel<192, 128>", "edge2_p1 kernel"),
+    (r"edge2_p1_kernel|edge2_p1_rows_kernel|p1_mats_kernel<192, 128>",
+     "edge2_p1 kernel"),
     (r"edge2_p2_kernel", "edge2_p2 kernel"),
     (r"edge_knn_eval_kernel", "edge_knn_eval kernel"),
     (r"edge_knn_f1_kernel", "edge_knn_f1 kernel"),
@@ -80,7 +81,7 @@ STAGES = (
     (r"edge_bwd_kernel", "edge_bwd kernel"),
     (r"edge_eval_kernel", "edge_eval kernel"),
     (r"edge_f1_kernel", "edge_f1 kernel"),
-    (r"knn_kernel", "knn kernel"),
+    (r"knn_kernel|knn_select_kernel|knn_norms_kernel", "knn kernel"),
     (r"fps_kernel", "fps kernel"),
     (r"three_interp_kernel", "three_interp kernel"),
     (r"scatter_rows_kernel", "scatter_rows kernel"),

@@ -1002,7 +1002,14 @@ KNN_SHAPES = {  # B, M (queries), N, C, k
     "m_ne_n": (2, 77, 65, 3, 40),       # a query cloud of its own
     "n16384_c128": (1, 16384, 16384, 128, 8),
     "ec1_duplicates": (4, 1000, 1000, 3, 20),
-}
+    "ec2_n10000": (1, 10000, 10000, 64, 20),
+    "dseg_k40_c64": (2, 1000, 1000, 64, 40),  # part seg's kNN route
+    "pointconv_m512_n1024": (4, 512, 1024, 3, 32),
+    "all_equal": (2, 2000, 2000, 64, 20),     # every d² ties: the index
+    "translated_1e3": (2, 2000, 2000, 64, 20),  # the expanded form cancels
+    "m257_n129_c64": (2, 257, 129, 64, 20),   # one past the 64-point tile
+    "m257_n129_c128": (2, 257, 129, 128, 20),  # and the 128 / 256-query
+}                                             # blocks
 
 
 def _knn_inputs(card, name):
@@ -1012,6 +1019,10 @@ def _knn_inputs(card, name):
         np.float32)).to(card)
     if "duplicates" in name:
         p[:, n // 2:] = p[:, : n // 2]
+    if name == "all_equal":
+        p[:] = p[:, :1]
+    if name == "translated_1e3":
+        p += 1e3
     q = p if m == n else torch.from_numpy(rng.standard_normal(
         (b, m, c)).astype(np.float32)).to(card)
     return q, p, k
@@ -1037,6 +1048,33 @@ def test_knn_bit_identical(card, name):
         assert torch.equal(idx[:, :, 0].long(), pts.expand(idx.shape[0], -1))
         assert torch.equal(idx[:, :, 1].long(),
                            (pts + n // 2).expand(idx.shape[0], -1))
+
+
+@pytest.mark.parametrize("name", sorted(KNN_SHAPES))
+def test_knn_every_route_bit_identical(card, name, monkeypatch):
+    """Every route the launcher has (the block route and each select
+    instance, with and without the FMA pass) that takes these shapes,
+    each forced in turn through ``knn_route``: idx and d² equal to the
+    plain version's."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+    from pointcloudlib_tpu_torch.ops.kernels.fused_sa import _SMEM_LIMIT
+
+    q, p, k = _knn_inputs(card, name)
+    c = q.shape[2]
+    k = min(k, p.shape[1])
+    wd2, widx = kknn.knn_plain(q, p, k)
+    routes = [0] if kknn.block_smem(c, k) <= _SMEM_LIMIT else []
+    routes += [r for r, (qpt, stages, fast) in kknn.SELECT.items()
+               if kknn.select_smem(qpt, stages, c) <= _SMEM_LIMIT
+               and not (fast and c % 4)
+               and not (qpt == 8 and k > kknn._SEL_MAX_K8)]
+    assert len(routes) >= 2
+    for route in routes:
+        monkeypatch.setattr(kknn, "knn_route", lambda *_, r=route: r)
+        d2, idx = kknn.knn(q, p, k)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, widx), kknn.route_name(route)
+        assert torch.equal(d2, wd2), kknn.route_name(route)
 
 
 def test_knn_rejects_what_it_cannot_run(card):
@@ -1175,6 +1213,8 @@ EDGE2_SHAPES = {  # B, N, k, C_in: the two pairs at k=40, and edge cases
     "n1000": (2, 1000, 40, 64),          # the given-index route's N
     "n65": (2, 65, 20, 64),              # one past the 64-point tile
     "k8_n128": (2, 128, 8, 3),
+    "duplicates_n2048": (2, 2048, 40, 3),  # max-pool ties across tiles
+    "n100_b3": (3, 100, 20, 64),         # 300 centers: a part tile
 }
 
 

@@ -80,6 +80,7 @@ def _cloud(rng, b, n, c, duplicates=False):
     (2, 37, 50, 3, 8, True),      # duplicate points, M ≠ N
     (1, 16, 12, 3, 15, False),    # k > N: the last neighbour repeats
     (2, 100, 100, 3, 20, True),
+    (2, 64, 150, 3, 40, True),    # k = 40 (the longest list), M ≠ N
 ])
 def test_knn_matches_jax(b, m, n, c, k, dup):
     """The port's ``knn`` (its plain version on the CPU) against the JAX
