@@ -107,7 +107,9 @@ once:
    dβ within 1e-3·max|plain| (f32 atomics in another order), its scatter
    counts exact; ``torch.topk`` of the same d² timed as a yardstick of
    the selection alone; edge cases: duplicate points (exact kNN and
-   max-pool ties) and N = 65, one past the 64-point candidate tile;
+   max-pool ties) and N = 65, one past the 64-point candidate tile
+   (``edge_knn_f1`` takes its select route at the layers' shapes and its
+   block route at the edge cases' small grids, ``knn.edge_f1_route``);
 12. DGCNN serving — ``Predictor(batch_size=32)`` as in phase 6: exactly
    4 launches of ``edge_knn_eval`` per served batch;
 13. DGCNN train — ``make_cls_train_step`` at B=32 with SGD (momentum 0.9,
@@ -2807,17 +2809,18 @@ def knn_times() -> None:
 
 
 def edge2_times() -> None:
-    """``edge2_p1`` at DGCNN part segmentation's two pairs (B=16, N=2048,
-    k=40) and on its kNN route (16 clouds of 1,000 points), inputs built
-    as ``phase_dseg_kernels`` builds them (pass 1's plain h1 from the
-    model's own train chain, BN rows of its batch moments, a seeded
-    output gradient): after the device line, one ``edge2_p1:`` line a
-    case with device ms by CUDA graphs (the wrapper's allocations and
-    memsets included), the CUDA kernels' split (torch.profiler), the
-    memory one call allocates above its inputs, the bound and its share,
-    and the largest deviation of ps2, vecs and mats over max|plain|
-    (held to 1e-3). Like ``bwd_times``, it times the package beside this
-    file:
+    """``edge2_p1`` and ``edge2_p2`` at DGCNN part segmentation's two
+    pairs (B=16, N=2048, k=40) and on its kNN route (16 clouds of 1,000
+    points), inputs built as ``phase_dseg_kernels`` builds them (pass 1's
+    plain h1 and neighbour lists from the model's own train chain, BN
+    rows of its batch moments, a seeded output gradient; pass 2's sums
+    from the plain pass 1): after the device line, one ``edge2_p1:`` and
+    one ``edge2_p2:`` line a case with device ms by CUDA graphs (the
+    wrapper's allocations and memsets included), the CUDA kernels' split
+    (torch.profiler), the memory one call allocates above its inputs, the
+    bound and its share, and the deviation from the plain version: ps2,
+    vecs and mats over max|plain| (held to 1e-3), dq and doff tie-robust.
+    Like ``bwd_times``, it times the package beside this file:
 
         python3 -c 'import chip_smoke; chip_smoke.edge2_times()'
     """
@@ -2837,10 +2840,10 @@ def edge2_times() -> None:
                 q, off = layer.prepare(xt)
                 qb = q.bfloat16()
                 if n % 128:
-                    h1, psum = kfe.edge_f1_plain(qb, off,
-                                                 kknn.knn(xt, xt, k)[1])
+                    idx = kknn.knn(xt, xt, k)[1]
+                    h1, psum = kfe.edge_f1_plain(qb, off, idx)
                 else:
-                    _, h1, psum = kfe.edge_knn_f1_plain(xt, qb, off, k)
+                    idx, h1, psum = kfe.edge_knn_f1_plain(xt, qb, off, k)
                 r = float(b * n * k)
                 st1 = kfs._stack_stats(*kft._moments(psum, r),
                                        layer.bn1_scale, layer.bn1_bias)
@@ -2875,8 +2878,169 @@ def edge2_times() -> None:
                 "share_of_bound": bound_ms / ms, "max_dev": dev})
             if dev > SUM_TOL:
                 fail(f"edge2_p1 {name} N={n}: {dev} of max|plain| off")
+            with torch.no_grad():
+                ps2, vecs, mats = kfe.edge2_p1_plain(*a)
+                _, s1 = kft._combine_p1(ps2, vecs, mats, st2, layer.w2, r)
+                a = (h1, a[1], idx, st1, st2, layer.w2, ps2 / r, s1 / r, SLOPE,
+                     n)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                got = kfe.edge2_p2(*a)
+                torch.cuda.synchronize()
+                call_bytes = torch.cuda.max_memory_allocated() - base
+                errs = [_check_tie_robust(f"edge2_p2 {name} N={n} {w}", u, v)
+                        for u, v, w in zip(got, kfe.edge2_p2_plain(*a),
+                                           ("dq", "doff"))]
+                del got
+                ms = graph_ms(lambda: kfe.edge2_p2(*a), 5)
+                kernels = _kernel_ms(lambda: kfe.edge2_p2(*a))
+            # as _edge2_train_cases counts it: the products h2 and dy1, the
+            # elementwise work, h1 and dout read, dq and doff written
+            bound_ms, ops_ms, bytes_ms = bound(
+                4.0 * c1 * c2 * e, (9.0 * c1 + 12.0 * c2) * e,
+                2.0 * e * c1 + 2.0 * c1 * c2 + 32.0 * (c1 + c2)
+                + 4.0 * b * n * c2 + 4.0 * e + 8.0 * b * n * c1
+                + 16.0 * (c1 + c2))
+            emit("edge2_p2", {
+                "case": f"{name} N={n}", "B": b, "N": n, "k": k, "C1": c1,
+                "C2": c2, "device_ms": ms, "kernels_ms": kernels,
+                "call_bytes": call_bytes, "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": bound_ms / ms, **_errs(errs)})
             del a, h1
             torch.cuda.empty_cache()
+
+
+def _edge_f1_bound(b, n, cin, c, k):
+    """``bound()`` of ``edge_knn_f1``: the selection's d² of every pair
+    and h's sum and square (4 an edge element, f32); x, q and off read,
+    idx, h and psum written."""
+    e = float(b * n * k)
+    return bound(0.0, float(b * n * n) * (2 * cin + 3) + 4.0 * e * c,
+                 4.0 * b * n * cin + 6.0 * b * n * c + 4.0 * e + 2.0 * e * c
+                 + 8.0 * c)
+
+
+def _dgcnn_train_layers():
+    """``(case, layer, x_serving, x_train)`` of every kNN-inside EdgeConv
+    of the main paths, on ``main``'s data: DGCNN's four (B=32, N=1024,
+    k=20; ``_edge_inputs``) and its part segmentation's two pairs and
+    EC3 (B=16, N=2048, k=40; ``_dseg_layers``)."""
+    clouds = SyntheticModelNet(n_points=N_POINTS, size=DGCNN_BATCH,
+                               seed=0).batch(0, DGCNN_BATCH)[0]
+    dg = _model_on_card("dgcnn", random_jax_variables(
+        get_cls_model("dgcnn"), seed=0))
+    for name, f, xe, xt in _edge_inputs(dg, torch.from_numpy(clouds).to(DEV)):
+        yield f"DGCNN {name}", f, xe, xt
+    del dg
+    dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
+                                                     seed=0))
+    seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
+    for name, layer, xe, xt in _dseg_layers(dseg, seg_xyz):
+        yield f"DGCNN-seg {name}", layer, xe, xt
+
+
+def _dgcnn_kernel_calls(case, layer, xe, wh, wpsum, widx, g):
+    """``(kernel, call)`` of the other kernels of one kNN-inside layer, on
+    the inputs ``phase_dgcnn_kernels`` and ``phase_dseg_kernels`` give
+    them: the eval kernel on the serving input, the train kernels from
+    pass 1's plain results."""
+    b, n, k, c = wh.shape
+    r = float(b * n * k)
+    q, off = layer.prepare(xe)
+    if isinstance(layer, Fused2EdgeConv):
+        st1, st2 = kfe._folded2(*_pair_params(layer)[1:], layer.stats())
+        ev = (xe, q.bfloat16(), off, st1, st2, layer.w2, layer.k)
+        st1 = kfs._stack_stats(*kft._moments(wpsum, r), layer.bn1_scale,
+                               layer.bn1_bias)
+        st2 = kfs._stack_stats(*kft._moments(kfe.edge2_stats2_plain(
+            wh, st1, layer.w2), r), layer.bn2_scale, layer.bn2_bias)
+        return [("edge2_knn_eval", lambda: kfe.edge2_knn_eval(*ev)),
+                ("edge2_stats2", lambda: kfe.edge2_stats2(wh, st1, layer.w2)),
+                ("edge2_out", lambda: kfe.edge2_out(wh, st1, st2, layer.w2))]
+    st = kfs._stack_stats(layer.mean, layer.var, layer.bn_scale,
+                          layer.bn_bias)
+    ev = (xe, q.bfloat16(), off, st, layer.k)
+    st = kfs._stack_stats(*kft._moments(wpsum, r), layer.bn_scale,
+                          layer.bn_bias)
+    bw = (wh, torch.randn((b, n, c), generator=g, device=DEV), widx, st,
+          SLOPE, n)
+    return [("edge_knn_eval", lambda: kfe.edge_knn_eval(*ev)),
+            ("edge_out", lambda: kfe.edge_out(wh, st)),
+            ("edge_bwd", lambda: kfe.edge_bwd(*bw))]
+
+
+def edgef1_times() -> None:
+    """``edge_knn_f1`` at its seven launches of the main paths (DGCNN's
+    four EdgeConvs, B=32, N=1024, k=20; its part segmentation's pairs and
+    EC3, B=16, N=2048, k=40; inputs from the models' own train chains,
+    ``_dgcnn_train_layers``): after the device line, one ``edge_knn_f1:``
+    line a launch with its route, device ms by CUDA graphs (the wrapper's
+    allocations, memset and norms launch included), the bound (the
+    selection's operations at the f32 peak, or bytes) and its share, idx
+    and h against the plain version (bit for bit) and psum's deviation
+    (held to 1e-3·max|plain|). Then one ``dgcnn_kernel:`` line a call of
+    the other DGCNN kernels at the same layers, by the same device timing
+    (``edge_knn_eval``, ``edge_out`` and ``edge_bwd``; ``edge2_knn_eval``,
+    ``edge2_stats2`` and ``edge2_out`` of the pairs), and of
+    ``edge2_eval`` at pair 1 on the kNN route (16 clouds of 1,000
+    points). Like ``bwd_times``, it times the package beside this file:
+
+        python3 -c 'import chip_smoke; chip_smoke.edgef1_times()'
+    """
+    phase_device()
+    _build.build(SOURCES)
+    g = torch.Generator(device=DEV).manual_seed(8)
+    for case, layer, xe, xt in _dgcnn_train_layers():
+        k = layer.k
+        b, n, cin = xt.shape
+        with torch.no_grad():
+            q, off = layer.prepare(xt)
+            f1 = (xt, q.bfloat16(), off, k)
+            idx, h, psum = kfe.edge_knn_f1(*f1)
+            widx, wh, wpsum = kfe.edge_knn_f1_plain(*f1)
+            same = bool(torch.equal(idx, widx) and torch.equal(
+                h.view(torch.int16), wh.view(torch.int16)))
+            err = _check_sums(f"edge_knn_f1 {case}", psum, wpsum)
+            c = h.shape[-1]
+            del idx, h
+            ms = graph_ms(lambda: kfe.edge_knn_f1(*f1), 10)
+            bound_ms, ops_ms, bytes_ms = _edge_f1_bound(b, n, cin, c, k)
+            # a checkout from before the routes has the block route only
+            route = (kknn.edge_f1_route_name(kknn.edge_f1_route(
+                b, n, cin, c, k)) if hasattr(kknn, "edge_f1_route")
+                else "block")
+            emit("edge_knn_f1", {
+                "case": case, "B": b, "N": n, "k": k, "C_in": cin, "C": c,
+                "route": route, "device_ms": ms,
+                "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": bound_ms / ms, "bit_identical": same,
+                **_errs([err])})
+            if not same:
+                fail(f"edge_knn_f1 {case}: idx or h not bit-identical to "
+                     f"the plain version")
+            for kernel, call in _dgcnn_kernel_calls(case, layer, xe, wh,
+                                                    wpsum, widx, g):
+                emit("dgcnn_kernel", {"kernel": kernel, "case": case,
+                                      "device_ms": graph_ms(call, 10)})
+            del wh, widx
+            torch.cuda.empty_cache()
+    dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
+                                                     seed=0))
+    x_odd = SyntheticShapeNetPart(n_points=DSEG_ODD_TRAIN, size=SEG_BATCH,
+                                  seed=3).batch(0, SEG_BATCH)[0]
+    _, layer, xe, _ = _dseg_layers(dseg, torch.from_numpy(x_odd).to(DEV))[0]
+    with torch.no_grad():
+        q, off = layer.prepare(xe)
+        st1, st2 = kfe._folded2(*_pair_params(layer)[1:], layer.stats())
+        ev = (q.bfloat16(), off, kknn.knn(xe, xe, layer.k)[1], st1, st2,
+              layer.w2)
+        emit("dgcnn_kernel", {"kernel": "edge2_eval",
+                              "case": f"DGCNN-seg pair1 N={xe.shape[1]}",
+                              "device_ms": graph_ms(
+                                  lambda: kfe.edge2_eval(*ev), 10)})
 
 
 # Every FPS launch of the ported paths: (case, clouds, batch, n_samples of

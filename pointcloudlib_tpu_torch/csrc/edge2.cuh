@@ -1,6 +1,7 @@
 // The two-layer EdgeConv of DGCNN part segmentation (Fused2EdgeConv),
-// the row chain its six kernels share (edge2_eval.cu, edge2_knn_eval.cu,
-// edge2_tail.cu, edge2_bwd_p1.cu, edge2_bwd_p2.cu). From an edge's
+// the row chain of its forward kernels on CUDA cores (edge2_eval.cu,
+// edge2_knn_eval.cu, edge2_tail.cu; the backward passes form it on the
+// tensor cores, edge2_wgmma.cuh). From an edge's
 // first-layer pre-activation h1 (the bf16 checkpoint, or float(bf16
 // Q[j]) - Off[i] gathered) and the folded BN rows (sc, bi, rs, mrs):
 //   y1 = bf16(leaky(h1*sc1 + bi1))      one rounding per operation, in the
@@ -29,21 +30,17 @@ namespace pcl {
 // Width pairs (C1, C2) the two-layer kernels are compiled for.
 #define PCL_EDGE2_WIDTHS(X) X(64, 64)
 
-// Shared memory of the chain: W2 and W2^T (bf16), the folded rows of
-// both layers and the pre-divided backward sums (f32), the y1 tile, the
-// tile of the backward's dh2 (bf16) and a reduction scratch; byte offsets.
+// Shared memory of the chain: W2 (bf16), the folded rows of both layers
+// (f32), the y1 tile (bf16) and a reduction scratch; byte offsets.
 template <int C1, int C2>
 struct Edge2Layout {
   static_assert(Tile<C1>::ACTIVE == kThreads && Tile<C2>::ACTIVE == kThreads,
                 "every thread owns a tile of each product");
   static_assert(kThreads % (C1 / 2) == 0, "a fixed channel pair a thread");
-  static constexpr int NST = 4 * C1 + 4 * C2 + 2 * C2 + 2 * C1;
   static constexpr size_t w2 = 0;
-  static constexpr size_t wt2 = w2 + (size_t)C1 * C2 * 2;
-  static constexpr size_t st = wt2 + (size_t)C1 * C2 * 2;
-  static constexpr size_t ys = st + (size_t)NST * 4;
-  static constexpr size_t ds = ys + (size_t)kRows * (C1 + 8) * 2;
-  static constexpr size_t red = ds + (size_t)kRows * (C2 + 8) * 2;
+  static constexpr size_t st = w2 + (size_t)C1 * C2 * 2;
+  static constexpr size_t ys = st + (size_t)4 * (C1 + C2) * 4;
+  static constexpr size_t red = ys + (size_t)kRows * (C1 + 8) * 2;
   static constexpr size_t bytes = red + (size_t)3 * C1 * 4;
 };
 
@@ -51,47 +48,28 @@ struct Edge2Layout {
 template <int C1, int C2>
 struct Edge2Smem {
   using L = Edge2Layout<C1, C2>;
-  __nv_bfloat16 *w2, *wt2, *ys, *ds;
+  __nv_bfloat16 *w2, *ys;
   float *st, *red;
   __device__ explicit Edge2Smem(unsigned char* base)
       : w2(reinterpret_cast<__nv_bfloat16*>(base + L::w2)),
-        wt2(reinterpret_cast<__nv_bfloat16*>(base + L::wt2)),
         ys(reinterpret_cast<__nv_bfloat16*>(base + L::ys)),
-        ds(reinterpret_cast<__nv_bfloat16*>(base + L::ds)),
         st(reinterpret_cast<float*>(base + L::st)),
         red(reinterpret_cast<float*>(base + L::red)) {}
-  // (sc, bi, rs, mrs) of layer 1 at st[0..4*C1), of layer 2 after it;
-  // the pre-divided sums us2 [2, C2] and us1 [2, C1] after those
+  // (sc, bi, rs, mrs) of layer 1 at st[0..4*C1), of layer 2 after it
   __device__ const float* st1(int row) const { return st + row * C1; }
   __device__ const float* st2(int row) const { return st + 4 * C1 + row * C2; }
-  __device__ const float* us2(int row) const {
-    return st + 4 * C1 + 4 * C2 + row * C2;
-  }
-  __device__ const float* us1(int row) const {
-    return st + 4 * C1 + 6 * C2 + row * C1;
-  }
 };
 
-// Stages W2 (bf16 [C1, C2]), W2^T (bf16 [C2, C1], may be null), the
-// folded rows st (4*C1 ++ 4*C2 floats) and the pre-divided sums us
-// (2*C2 ++ 2*C1 floats, may be null). Ends with a barrier.
+// Stages W2 (bf16 [C1, C2]) and the folded rows st (4*C1 ++ 4*C2
+// floats). Ends with a barrier.
 template <int C1, int C2>
 __device__ __forceinline__ void stage_chain(const Edge2Smem<C1, C2>& s,
                                             const __nv_bfloat16* w2,
-                                            const __nv_bfloat16* wt2,
-                                            const float* st,
-                                            const float* us) {
+                                            const float* st) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < C1 * C2 / 8; i += kThreads) {
+  for (int i = tid; i < C1 * C2 / 8; i += kThreads)
     reinterpret_cast<uint4*>(s.w2)[i] = reinterpret_cast<const uint4*>(w2)[i];
-    if (wt2)
-      reinterpret_cast<uint4*>(s.wt2)[i] =
-          reinterpret_cast<const uint4*>(wt2)[i];
-  }
   for (int i = tid; i < 4 * (C1 + C2); i += kThreads) s.st[i] = st[i];
-  if (us)
-    for (int i = tid; i < 2 * (C1 + C2); i += kThreads)
-      s.st[4 * (C1 + C2) + i] = us[i];
   __syncthreads();
 }
 
@@ -207,74 +185,6 @@ __device__ __forceinline__ void gather_max(const Edge2Smem<C1, C2>& s,
     *reinterpret_cast<float4*>(o + 4) =
         make_float4(mx[i][4], mx[i][5], mx[i][6], mx[i][7]);
   }
-}
-
-// The backward's first walk over a tile of centers' k slots: the max of
-// leaky(z2) over each center's slots and how many slots reach it, for
-// this thread's rows and channels; then the share of the output gradient
-// each of those slots takes, g = dout / ties (0 on rows past nc), as the
-// plain version's even tie split. dout [centers, C2].
-template <int C1, int C2>
-__device__ __forceinline__ void tie_split(const Edge2Smem<C1, C2>& s,
-                                          const __nv_bfloat16* h1,
-                                          const float* dout, long long c0,
-                                          int nc, int k, float slope, int rg,
-                                          int cg,
-                                          float (&mx)[Tile<C2>::RPT][8],
-                                          float (&g)[Tile<C2>::RPT][8]) {
-  constexpr int RPT = Tile<C2>::RPT;
-  int t[RPT][8];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      mx[i][c] = -INFINITY;
-      t[i][c] = 0;
-    }
-  for (int kk = 0; kk < k; ++kk) {
-    __syncthreads();
-    load_y1_slot(s, h1, c0, nc, k, kk, slope);
-    __syncthreads();
-    float z[RPT][8];
-    chain_z2(s, rg, cg, z);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float y = leaky(z[i][c], slope);
-        if (y > mx[i][c]) {
-          mx[i][c] = y;
-          t[i][c] = 1;
-        } else if (y == mx[i][c]) {
-          ++t[i][c];
-        }
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg * RPT + i;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      g[i][c] = r < nc ? __fdiv_rn(dout[(size_t)(c0 + r) * C2 + cg * 8 + c],
-                                   (float)t[i][c])
-                       : 0.0f;
-  }
-}
-
-// dz2 of one slot from its z2, the center's max and the share: the share
-// where leaky(z2) reaches the max, times slope where z2 <= 0 (in place).
-template <int RPT>
-__device__ __forceinline__ void maxpool_dz2(float (&z)[RPT][8],
-                                            const float (&mx)[RPT][8],
-                                            const float (&g)[RPT][8],
-                                            float slope) {
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float da = leaky(z[i][c], slope) == mx[i][c] ? g[i][c] : 0.0f;
-      z[i][c] = z[i][c] > 0.0f ? da : __fmul_rn(slope, da);
-    }
 }
 
 __host__ __device__ inline long long center_tiles(long long centers) {

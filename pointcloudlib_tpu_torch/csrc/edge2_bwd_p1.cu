@@ -42,16 +42,10 @@
 //     its slab of mats^T (64 x 192 f32, 96 registers a thread; wgmma
 //     m64n192k16, both operands MN-major), issued and left in flight
 //     while the next step stages: left and right are double-buffered.
-// Both chains of a row are the same instructions on the same bf16
-// operands, so pass B's h2 is pass A's bit for bit, and a row's h2 does
-// not depend on where it sits in the tile: equal h1 rows give equal h2,
-// which the max-pool's even tie split depends on. Where z2 lies within
-// 2^-13 of 0, the leaky mask's kink, h2 is taken again as the plain
-// product sums it (f32 FMAs in the order of k, as layer2_z of
-// fused_sa_eval.cuh does near a bf16 rounding boundary): there a
-// last-bit difference of the sum turns dz2's factor between 1 and
-// slope, and a card test met one such z2 (0 in the plain product,
-// 2e-8 in exact arithmetic) whose center moved ps2 by 0.8 |dout|. mats, ps2 and vecs
+// The chain, pass A's folds and the kink band (a z2 within 2^-13 of 0
+// takes h2 from the plain product's sequential sum) are edge2_wgmma.cuh's,
+// which pass 2 shares: both passes form the same h2, ties and leaky masks
+// bit for bit, and pass B's h2 is pass A's. mats, ps2 and vecs
 // stay in registers for the whole walk and are added into the zeroed
 // outputs once a block, mats by one atomicAdd an element. No scratch:
 // left and right (640 bytes an edge) never leave shared memory.
@@ -60,8 +54,7 @@
 // tie count, then the share) 32, ps2 16, vecs 24.
 // All sums are f32 in another order than the plain version.
 
-#include "edge2.cuh"
-#include "fused_sa_chain.cuh"
+#include "edge2_wgmma.cuh"
 
 namespace pcl {
 
@@ -92,46 +85,6 @@ struct E2P1Layout {
   static constexpr size_t left = raw + (size_t)2 * kRows * RAW * 2;
   static constexpr size_t right = left + (size_t)2 * kRows * WL * 2;
   static constexpr size_t bytes = right + (size_t)2 * kRows * WR * 2;
-};
-
-// Half-width of the band around z2 = 0 where the leaky mask's decision
-// is taken again from the plain product's sum: two f32 sums of the 64
-// products of a row differ by ~1e-5 at these widths (64 u sum|y1 w2|),
-// far inside it.
-constexpr float kKinkBand = 0x1p-13f;
-
-// h2[r, c] = y1[r, :] . W2[:, c] as the plain product sums it: f32 FMAs
-// in the order of k, from 0 (y1: the first C1 columns of the left tile,
-// width WL; w2s: core-matrix [C1, C2]).
-template <int C1, int C2, int WL>
-__device__ __forceinline__ float seq_h2(const __nv_bfloat16* lt,
-                                        const __nv_bfloat16* w2s, int r,
-                                        int c) {
-  const __nv_bfloat16* wc = w2s + wg::cm(0, c, C2);
-  float acc = 0.0f;
-#pragma unroll
-  for (int k0 = 0; k0 < C1; k0 += 8) {
-    const uint4 y = *reinterpret_cast<const uint4*>(lt + wg::cm(r, k0, WL));
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      acc = fmaf(bf_at(y, i), __bfloat162float(wc[wg::cm(k0 + i, 0, C2)]),
-                 acc);
-  }
-  return acc;
-}
-
-// A block's place in its walk: the first center of its tile, the pass
-// and the slot, advanced by increments (no divisions a step).
-struct E2Walk {
-  long long c0;
-  int pass, kk;
-  __device__ void next(int k, long long stride) {
-    if (++kk < k) return;
-    kk = 0;
-    if (++pass < 2) return;
-    pass = 0;
-    c0 += stride;
-  }
 };
 
 template <int C1, int C2>
@@ -260,54 +213,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     ahead.next(k, stride);
     cp_async_commit();
 
-    // h2[:, 32 g + ...] = y1 . W2 (also waits for the last step's mats)
-    wg::fence_regs(h);
+    // h2[:, 32 g + ...] = y1 . W2, the kink band from the plain
+    // product's sum (the wait also takes the last step's mats)
     wg::fence_regs(macc);
-    wg::begin();
-    wg::issue<N2, 0, 1, C1 / 16>(h, wg::k_major(lt, WL, 0, 0),
-                                 wg::mn_major(w2s, C2, 0, g * N2));
-    wg::commit_wait();
-    wg::fence_regs(h);
+    chain_h2<C1, C2, WL>(h, lt, w2s, sc2, bi2, g, t);
     wg::fence_regs(macc);
-    // a z2 near 0 (the leaky mask's kink) from the plain product's sum,
-    // in both passes alike
-    unsigned kink = 0;
-#pragma unroll
-    for (int v = 0; v < N2 / 2; ++v) {
-      const int col = g * N2 + wg::frag_col(t, v >> 2, v & 1);
-      if (fabsf(bn_z(h[v], sc2[col], bi2[col])) < kKinkBand) kink |= 1u << v;
-    }
-    while (kink) {
-      const int v = __ffs(kink) - 1;
-      kink &= kink - 1;
-      const float hv = seq_h2<C1, C2, WL>(lt, w2s, wg::frag_row(t, (v >> 1) & 1),
-                                          g * N2 + wg::frag_col(t, v >> 2, v & 1));
-#pragma unroll
-      for (int i = 0; i < N2 / 2; ++i)
-        if (i == v) h[i] = hv;
-    }
 
+    if (!pass_b) {
+      fold_ties<C2>(h, mx, tg, sc2, bi2, slope, g, t);
+      if (kk == k - 1) tie_shares<C2>(tg, a.dout, c0, nc, g, t);
+    } else {
 #pragma unroll
-    for (int n = 0; n < N2 / 8; ++n)
+      for (int n = 0; n < N2 / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wg::frag_row(t, i);
-        float dz[2], x2[2];
+        for (int i = 0; i < 2; ++i) {
+          const int r = wg::frag_row(t, i);
+          float dz[2], x2[2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int v = 4 * n + 2 * i + j;
-          const int col = g * N2 + wg::frag_col(t, n, j);
-          const float z = bn_z(h[v], sc2[col], bi2[col]);
-          const float y = leaky(z, slope);
-          if (!pass_b) {
-            if (y > mx[v]) {
-              mx[v] = y;
-              tg[v] = 1.0f;
-            } else if (y == mx[v]) {
-              tg[v] += 1.0f;
-            }
-          } else {
-            const float da = y == mx[v] ? tg[v] : 0.0f;
+          for (int j = 0; j < 2; ++j) {
+            const int v = 4 * n + 2 * i + j;
+            const int col = g * N2 + wg::frag_col(t, n, j);
+            const float z = bn_z(h[v], sc2[col], bi2[col]);
+            const float da = leaky(z, slope) == mx[v] ? tg[v] : 0.0f;
             dz[j] = z > 0.0f ? da : __fmul_rn(slope, da);
             x2[j] = xhat(h[v], rs2[col], mrs2[col]);
             if (r < nc) {
@@ -315,29 +242,12 @@ __global__ void __launch_bounds__(kThreads, 1)
               sdx[2 * n + j] += dz[j] * x2[j];
             }
           }
-        }
-        if (pass_b) {
           const int col = g * N2 + wg::frag_col(t, n, 0);
           *reinterpret_cast<uint32_t*>(rt + wg::cm(r, col, WR)) =
               pack2(dz[0], dz[1]);
           *reinterpret_cast<uint32_t*>(rt + wg::cm(r, C2 + col, WR)) =
               pack2(x2[0], x2[1]);
         }
-      }
-    if (!pass_b && kk == k - 1) {  // tie counts -> shares dout / ties
-#pragma unroll
-      for (int n = 0; n < N2 / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int v = 4 * n + 2 * i + j;
-            const int r = wg::frag_row(t, i);
-            const int col = g * N2 + wg::frag_col(t, n, j);
-            tg[v] = r < nc ? __fdiv_rn(a.dout[(size_t)(c0 + r) * C2 + col],
-                                       tg[v])
-                           : 0.0f;
-          }
     }
 #pragma unroll
     for (int v = 0; v < N2 / 2; ++v) h[v] = 0.0f;

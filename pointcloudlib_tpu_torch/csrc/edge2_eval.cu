@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kKnnQ;
   const int nq = min(kKnnQ, m - q0);
-  stage_chain(s, w2, nullptr, st, nullptr);
+  stage_chain(s, w2, st);
   load_nbr(idx + (size_t)b * m * k, q0, nq, k, nbr);
   gather_max(s, nbr, q + (size_t)b * n * C1, off + (size_t)b * m * C1,
              out + (size_t)b * m * C2, q0, nq, k, slope);

@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kKnnQ;
   const float* xb = x + (size_t)b * n * cin;
-  stage_chain(s, w2, nullptr, st, nullptr);
+  stage_chain(s, w2, st);
   const int* nbr = knn_block<KP>(xb, n, xb, n, cin, q0, k,
                                  reinterpret_cast<float*>(smem));
   const size_t cb = (size_t)b * n;

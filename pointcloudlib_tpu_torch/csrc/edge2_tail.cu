@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(kThreads)
   using T2 = Tile<C2>;
   extern __shared__ __align__(16) unsigned char smem[];
   const Edge2Smem<C1, C2> s(smem);
-  stage_chain(s, a.w2, nullptr, a.st, nullptr);
+  stage_chain(s, a.w2, a.st);
   const int rg = threadIdx.x / T2::NCG, cg = threadIdx.x % T2::NCG;
   float acc[8] = {}, acc2[8] = {};  // stats2: this thread's sum, sum^2
   for (long long u = blockIdx.x; u < center_tiles(a.centers);

@@ -1,6 +1,8 @@
 // The write half of forward pass 1, shared by the kernel with the ball
-// query inside (fused_sa_bq_f1.cu) and the one that takes a given idx
-// (fused_sa_f1.cu): one warp writes one center's h1 rows,
+// query inside (fused_sa_bq_f1.cu), the one that takes a given idx
+// (fused_sa_f1.cu) and the EdgeConv's pass 1 with the kNN inside
+// (edge_knn_f1.cu, whose h is the same expression of its neighbour
+// lists): one warp writes one center's h1 rows,
 //   h1[j] = bf16(float(bf16 Q[idx_j]) - off[center])   (one rounding),
 // and keeps [sum h1, sum h1^2] of the f32 h1 in registers.
 //

@@ -44,6 +44,7 @@ import torch
 
 from pointcloudlib_tpu_torch.ops import geometry
 from pointcloudlib_tpu_torch.ops.kernels import _build
+from pointcloudlib_tpu_torch.ops.kernels import knn as _knn
 from pointcloudlib_tpu_torch.ops.kernels.fused_sa import (
     _SMEM_LIMIT,
     _aligned,
@@ -165,7 +166,7 @@ _SIGNATURES = {
         "edge_knn_eval_smem": ([ctypes.c_int] * 2, ctypes.c_longlong),
     },
     "edge_knn_f1": {
-        "edge_knn_f1_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        "edge_knn_f1_launch": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                                + [ctypes.c_void_p], ctypes.c_int),
         "edge_knn_f1_smem": ([ctypes.c_int] * 3, ctypes.c_longlong),
     },
@@ -205,7 +206,7 @@ _SIGNATURES = {
                                 ctypes.c_int),
     },
     "edge2_bwd_p2": {
-        "edge2_bwd_p2_launch": ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+        "edge2_bwd_p2_launch": ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
                                 + [ctypes.c_int] * 5
                                 + [ctypes.c_float, ctypes.c_void_p],
                                 ctypes.c_int),
@@ -288,8 +289,8 @@ edge_knn_eval.launches = 0
 
 def edge_knn_f1(x, q, off, k: int):
     """Forward pass 1 → ``(idx, h, psum)`` as :func:`edge_knn_f1_plain`:
-    the kernel for CUDA tensors (``q`` bfloat16), the plain version for
-    CPU tensors."""
+    the kernel for CUDA tensors (``q`` bfloat16) on the route
+    ``knn.edge_f1_route`` picks, the plain version for CPU tensors."""
     if not _on_card("edge_knn_f1", q):
         return edge_knn_f1_plain(x, q, off, k)
     b, n, c = q.shape
@@ -299,16 +300,22 @@ def edge_knn_f1(x, q, off, k: int):
             x=(x, (b, n, cin), torch.float32),
             off=(off, (b, n, c), torch.float32))
     lib = _lib("edge_knn_f1")
-    _knn_ok("edge_knn_f1", lib, "edge_knn_f1_smem", n, k, (cin, c, k))
+    route = _knn.edge_f1_route(b, n, cin, c, k)
+    if route == 0:
+        _knn_ok("edge_knn_f1", lib, "edge_knn_f1_smem", n, k, (cin, c, k))
     dev = q.device
     idx = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     h = torch.empty((b, n, k, c), dtype=torch.bfloat16, device=dev)
     psum = torch.zeros((2, c), dtype=torch.float32, device=dev)
+    # the select route's |p|^2 of every point (csrc/knn_select.cuh)
+    norms = torch.empty(b * n if route else 1, dtype=torch.float32,
+                        device=dev)
     x, q, off = map(_aligned, (x, q, off))
     with torch.cuda.device(dev):
         err = lib.edge_knn_f1_launch(
             x.data_ptr(), q.data_ptr(), off.data_ptr(), idx.data_ptr(),
-            h.data_ptr(), psum.data_ptr(), b, n, cin, c, k, _stream(dev))
+            h.data_ptr(), psum.data_ptr(), norms.data_ptr(), b, n, cin, c,
+            k, route, _stream(dev))
     _build.check(err, "edge_knn_f1")
     edge_knn_f1.launches += 1
     return idx, h, psum
@@ -787,12 +794,12 @@ def edge2_p2(h1, dout, idx, st1, st2, w2, us2, us1, slope: float, n: int):
     h1, dout, idx, st = _aligned(h1), _aligned(dout), _aligned(idx), \
         _st2(st1, st2)
     us = _aligned(torch.cat([us2.reshape(-1), us1.reshape(-1)]))
-    w2b, wt2 = _aligned(w2.bfloat16()), _aligned(w2.t().bfloat16())
+    w2b = _aligned(w2.bfloat16())
     with torch.cuda.device(dev):
         err = _lib("edge2_bwd_p2").edge2_bwd_p2_launch(
             h1.data_ptr(), dout.data_ptr(), idx.data_ptr(), st.data_ptr(),
-            us.data_ptr(), w2b.data_ptr(), wt2.data_ptr(), dq.data_ptr(),
-            doff.data_ptr(), b * m, m, n, k, c1, c2, slope, _stream(dev))
+            us.data_ptr(), w2b.data_ptr(), dq.data_ptr(), doff.data_ptr(),
+            b * m, m, n, k, c1, c2, slope, _stream(dev))
     _build.check(err, "edge2_p2")
     edge2_p2.launches += 1
     return dq, doff

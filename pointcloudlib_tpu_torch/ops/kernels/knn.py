@@ -92,6 +92,61 @@ def knn_route(b: int, m: int, n: int, c: int, k: int) -> int:
     return 0
 
 
+# Pass 1 with the kNN inside (csrc/edge_knn_f1.cu) takes the same two
+# routes: its select instances, as its launcher numbers them: (list
+# entries a lane, the output width C), DGCNN's k = 20 at C = 64, 128, 256
+# and its part segmentation's k = 40 at C = 64 (without the FMA pass:
+# slower at N = 2,048, PERF.md §5); route 0 is the block route
+EDGE_F1_SELECT = {1: (3, 64), 2: (3, 128), 3: (3, 256), 4: (5, 64)}
+EDGE_F1_ROUTES = (0, *EDGE_F1_SELECT)
+
+
+def edge_f1_smem(route: int, cin: int, c: int, k: int) -> int:
+    """Shared memory bytes of a block of ``edge_knn_f1`` on ``route``
+    (``csrc/edge_knn_f1.cu`` ``f1_sel_smem`` / ``edge_knn_f1_smem``,
+    which the launcher checks again)."""
+    if route == 0:
+        return 4 * (128 * cin + 64 * 68 + 128 + 64 * k + 2 * c)
+    lists = max(select_smem(4, 3, cin), 4 * 128 * k)
+    return -(-lists // 16) * 16 + 8 * c
+
+
+def edge_f1_route_fits(route: int, n: int, cin: int, c: int, k: int
+                       ) -> bool:
+    """Whether ``edge_knn_f1``'s launcher takes these shapes on
+    ``route``."""
+    if route:
+        entries, width = EDGE_F1_SELECT[route]
+        if width != c or 8 * entries < k:
+            return False
+    return 1 <= k <= min(n, MAX_K) and edge_f1_smem(
+        route, cin, c, k) <= _SMEM_LIMIT
+
+
+def edge_f1_route(b: int, n: int, cin: int, c: int, k: int) -> int:
+    """``edge_knn_f1``'s route for these shapes, by :func:`knn_route`'s
+    rule: the select instance of this list length (``ceil(k / 8)``
+    entries a lane) and width where the clouds have at least
+    :data:`_SEL_MIN_N` points or the grid at least
+    :data:`_SEL_MIN_BLOCKS` blocks of 128 queries; else, or where none
+    is built or fits, 0 (the block route)."""
+    if (n < _SEL_MIN_N and b * -(-n // 128) < _SEL_MIN_BLOCKS
+            and edge_f1_route_fits(0, n, cin, c, k)):
+        return 0
+    for route, inst in EDGE_F1_SELECT.items():
+        if inst == (-(-k // 8), c) and edge_f1_route_fits(route, n, cin, c,
+                                                          k):
+            return route
+    return 0
+
+
+def edge_f1_route_name(route: int) -> str:
+    if route == 0:
+        return "block"
+    e, c = EDGE_F1_SELECT[route]
+    return f"select 128x3 k<={8 * e} C={c}"
+
+
 def route_name(route: int) -> str:
     if route == 0:
         return "block"

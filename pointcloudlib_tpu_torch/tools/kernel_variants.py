@@ -1,14 +1,17 @@
 """Design variants of the FPS kernel, of the forward tail's stage 2, of
-forward pass 1, of the row scatter-add and gather, of the standalone kNN
-and of the two-layer EdgeConv's backward pass 1, timed against each
-other on the card. Each variant is an edit of the committed source
-(``csrc/fps.cu``, ``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu``
-and ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``,
-``csrc/knn.cu``, ``csrc/edge2_bwd_p1.cu``), built beside it by ``nvcc``
-with the package's flags into ``build/variants/``.
+forward pass 1, of the row scatter-add and gather, of the standalone kNN,
+of the two-layer EdgeConv's backward passes and of the EdgeConv's pass 1
+with the kNN inside, timed against each other on the card. Each variant
+is an edit of the committed source (``csrc/fps.cu``,
+``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu`` and
+``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``,
+``csrc/knn.cu``, ``csrc/edge2_bwd_p1.cu``, ``csrc/edge2_bwd_p2.cu``,
+``csrc/edge_knn_f1.cu``), built beside it by ``nvcc`` with the package's
+flags into ``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
-        [--only fps tail f1 rows knn edge2p1 read cluster] [--parent DIR]
+        [--only fps tail f1 rows knn edge2p1 edgef1 edge2p2 read cluster]
+        [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
 unpacked by ``git archive``): its ``fps.cu``, ``fused_sa_tail.cu``,
@@ -64,6 +67,20 @@ beside the variants. Prints one JSON line a case:
   ``E2_VARIANTS`` (the mats product left out, or waited for at once);
   with ``--parent``, the parent's kernels and their split
   (``PARENT_E2_SPLIT``);
+* ``edgef1`` (not in the default set): pass 1 with the kNN inside at
+  its seven launches of the DGCNN paths (the models' own train inputs,
+  seeded weights), device ms with the psum memset (and the select
+  route's norms launch), idx and h against the plain version and psum's
+  deviation, for the built kernel on every route of ``knn.EDGE_F1_ROUTES``
+  that takes the shapes and for ``EF1_VARIANTS``; with ``--parent``, the
+  parent's kernel and its split (``PARENT_F1_SPLIT``: the selection, the
+  write and the selection's loads alone);
+* ``edge2p2`` (not in the default set): the two-layer pass 2 at DGCNN
+  part segmentation's shapes (B=16, k=40, N=2,048 and 1,000), device ms
+  with dq's memset and the deviation of dq and doff, for the built
+  kernel and ``E2P2_VARIANTS``; with ``--parent``, the parent's kernel
+  and its split (``PARENT_P2_SPLIT``: the tie walk alone, the products
+  as copies, without dq's reductions, the reductions alone);
 * ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
   and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
@@ -1377,6 +1394,358 @@ def run_edge2p1(parent: Optional[Path]) -> None:
         torch.cuda.empty_cache()
 
 
+# Forward pass 1 with the kNN inside (csrc/edge_knn_f1.cu) at its seven
+# launches of the DGCNN paths, and the two-layer EdgeConv's backward pass
+# 2 (csrc/edge2_bwd_p2.cu) at DGCNN part segmentation's. The parents'
+# split (--parent; a part's output is wrong by design). Pass 1:
+# select_only (no h write), write_only (the neighbour list given: the
+# idx buffer holds the plain version's and is read back in place of the
+# selection) and loads_only (the selection's tile loads, norms, barriers
+# and d2 stores, and no h write). Pass 2: tie_only (the first walk, the
+# max and tie count, alone), no_products (the chain of both walks and
+# dh2 . W2^T replaced by copies of their inputs), no_scatter (without dq's
+# reductions) and scatter_only (dh1 from the h1 rows and dq's reductions:
+# no chain, no tie walk).
+F1_SELECT = "  const int* nbr = knn_block<KP>(xb, n, xb, n, cin, q0, k, sm);\n"
+F1_GIVEN = ("  load_nbr(idx + (size_t)b * n * k, q0, min(kKnnQ, n - q0), k,\n"
+            "           reinterpret_cast<int*>(sm));\n"
+            "  const int* nbr = reinterpret_cast<const int*>(sm);\n")
+F1_WRITE = ("  edge_f1_rows(nbr, q + cb, off + cb, h + cb * k, red, c, k, q0, "
+            "nq);\n")
+PARENT_F1_SPLIT = {
+    "select_only": ([(F1_WRITE, "")], ()),
+    "write_only": ([(F1_SELECT, F1_GIVEN)], ()),
+    "loads_only": ([(F1_WRITE, "")], [(KNN_WALK, ""),
+                                      (KNN_PRODUCT, KNN_ZERO)]),
+}
+E2_HEADER = '#include "edge2.cuh"'
+P2_SECOND = ("    for (int kk = 0; kk < k; ++kk) {\n      __syncthreads();\n"
+             "      load_y1_slot(s, a.h1, c0, nc, k, kk, slope);\n")
+
+
+def _copy_product(dst: str, src: str, rpt: str, width: str, rg: str,
+                  cg: str) -> str:
+    return (f"#pragma unroll\n  for (int i = 0; i < {rpt}; ++i)\n"
+            f"#pragma unroll\n    for (int c = 0; c < 8; ++c)\n"
+            f"      {dst}[i][c] = __bfloat162float({src}[({rg} * {rpt} + i) * "
+            f"({width}) + {cg} * 8 + c]);\n")
+
+
+P2_CHAIN = "        product<C1, C2>(s.ys, s.w2, rg, cg, h);\n"
+P2_BACK = "      product<C2, C1>(s.ds, s.wt2, rg1, cg1, dy);\n"
+P2_HEAD_CHAIN = "  product<C1, C2>(s.ys, s.w2, rg, cg, z);\n"
+P2_SCATTER = """        atomicAdd(reinterpret_cast<float4*>(dst),
+                  make_float4(d[0], d[1], d[2], d[3]));
+        atomicAdd(reinterpret_cast<float4*>(dst + 4),
+                  make_float4(d[4], d[5], d[6], d[7]));
+"""
+PARENT_P2_SPLIT = {
+    "tie_only": ([(P2_SECOND, P2_SECOND.replace("kk < k;", "kk < 0;"))],
+                 ()),
+    "no_products": (
+        [(P2_CHAIN, _copy_product("h", "s.ys", "T2::RPT", "C1 + 8", "rg",
+                                  "cg")),
+         (P2_BACK, _copy_product("dy", "s.ds", "T1::RPT", "C2 + 8", "rg1",
+                                 "cg1"))],
+        [(P2_HEAD_CHAIN, _copy_product("z", "s.ys", "Tile<C2>::RPT",
+                                       "C1 + 8", "rg", "cg"))]),
+    "no_scatter": ([(P2_SCATTER, "")], ()),
+    "scatter_only": (
+        [("    tie_split(s, a.h1, a.dout, c0, nc, k, slope, rg, cg, mx, g);\n",
+          ""),
+         (("      load_y1_slot(s, a.h1, c0, nc, k, kk, slope);\n"
+           "      __syncthreads();\n      // layer 2", "      // layer 1:"),
+          ""),
+         ("      float dy[T1::RPT][8];\n" + P2_BACK,
+          "      float dy[T1::RPT][8] = {};\n")], ()),
+}
+
+
+def _with_header(csrc: Path, source: str, header: str, edits,
+                 header_edits) -> str:
+    """``csrc/<source>`` with its edits; edits of ``header`` are made in a
+    copy pasted in place of its include."""
+    text = (csrc / source).read_text()
+    if header_edits:
+        head = (csrc / header).read_text()
+        head = edited(head, _segment_edits(head, header_edits))
+        text = edited(text, [(f'#include "{header}"', head)])
+    return edited(text, _segment_edits(text, edits))
+
+
+def _seeded(name: str):
+    from pointcloudlib_tpu_torch.tools.grad_check import build_model
+    from pointcloudlib_tpu_torch.utils.interop import (
+        from_jax_variables, random_jax_variables)
+
+    model = build_model(name)
+    from_jax_variables(model, random_jax_variables(build_model(name),
+                                                   seed=0))
+    return model.to(DEV).eval()
+
+
+def edgef1_cases():
+    """``(case, x, q, off, k)``: pass 1's inputs at its seven launches of
+    the main paths, from the models' own train chains with seeded
+    weights: DGCNN's four EdgeConvs (B=32, N=1024, k=20) and DGCNN part
+    segmentation's two pairs and EC3 (B=16, N=2048, k=40)."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    x = torch.from_numpy(SyntheticModelNet(
+        n_points=1024, size=32, seed=0).batch(0, 32)[0]).to(DEV)
+    model = _seeded("dgcnn")
+    with torch.no_grad():
+        for i, ec in enumerate(model.edge):
+            f = ec.fused
+            q, off = f.prepare(x)
+            yield f"DGCNN EC{i + 1}", x, q.bfloat16(), off, f.k
+            x = kfe.fused_edge_conv_knn(x, q, off, f.bn_scale, f.bn_bias,
+                                        f.k)[0]
+    del model
+    x = torch.from_numpy(SyntheticShapeNetPart(
+        n_points=2048, size=16, seed=0).batch(0, 16)[0]).to(DEV)
+    model = _seeded("dgcnn_partseg")
+    with torch.no_grad():
+        for name, layer in (("pair1", model.edge1), ("pair2", model.edge2),
+                            ("EC3", model.edge3)):
+            q, off = layer.prepare(x)
+            yield f"DGCNN-seg {name}", x, q.bfloat16(), off, layer.k
+            if name != "EC3":
+                x = kfe.fused_edge2_conv_knn(
+                    x, q, off, layer.w2, layer.bn1_scale, layer.bn1_bias,
+                    layer.bn2_scale, layer.bn2_bias, layer.k)[0]
+
+
+# this tree's design variants of pass 1 (edits of edge_knn_f1.cu and of
+# its selection's header): the select route's split (select_only: no
+# write half, idx still written), a ring of two tiles (stages2), one
+# block an SM (one_block)
+EF1_WRITE = ("  const __nv_bfloat16* qb = q + (size_t)b * n * C;\n",
+             "  f1_flush<C>(s, lane, red, psum);\n")
+EF1_BOUNDS = ("__global__ void __launch_bounds__(kThreads, 2)\n"
+              "    edge_knn_f1_select_kernel")
+EF1_VARIANTS: Dict[str, tuple] = {
+    "select_only": ([(EF1_WRITE, ""),
+                     ("  f1_flush<C>(s, lane, red, psum);\n", "")], ()),
+    "stages2": ([("constexpr int kF1Stages = 3;",
+                  "constexpr int kF1Stages = 2;")], ()),
+    "one_block": ([(EF1_BOUNDS, EF1_BOUNDS.replace("2)", "1)"))], ()),
+}
+PARENT_F1_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+F1_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def run_edgef1(parent: Optional[Path]) -> None:
+    """The parents' split and this tree's pass-1 variants at each shape of
+    :func:`edgef1_cases`: device ms with the psum memset (and the new
+    kernel's norms launch), idx and h bit-identical to the plain version,
+    and psum's deviation over max|plain|; this tree's kernel on every
+    route it has that takes the shapes."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    sources = {"f1_built": ((_build.CSRC / "edge_knn_f1.cu").read_text(),
+                            _build.CSRC)}
+    for name, (edits, head) in EF1_VARIANTS.items():
+        sources[f"f1_{name}"] = (_with_header(
+            _build.CSRC, "edge_knn_f1.cu", "knn_select.cuh", edits, head),
+            _build.CSRC)
+    if parent:
+        sources["f1_parent"] = ((parent / "edge_knn_f1.cu").read_text(),
+                                parent)
+        for name, (edits, head) in PARENT_F1_SPLIT.items():
+            sources[f"f1_parent_{name}"] = (_with_header(
+                parent, "edge_knn_f1.cu", "edge_knn.cuh", edits, head),
+                parent)
+    libs = build(sources)
+    routed = {name for name, (text, _) in sources.items()
+              if "int route" in text}
+    for name, lib in libs.items():
+        lib.edge_knn_f1_launch.argtypes = (F1_ARGS if name in routed
+                                           else PARENT_F1_ARGS)
+        lib.edge_knn_f1_launch.restype = ctypes.c_int
+    for case, x, q, off, k in edgef1_cases():
+        b, n, cin = x.shape
+        c = q.shape[-1]
+        widx, wh, wpsum = kfe.edge_knn_f1_plain(x, q, off, k)
+        idx = torch.empty_like(widx)
+        h = torch.empty_like(wh)
+        psum = torch.zeros_like(wpsum)
+        norms = torch.empty(b * n, device=DEV)
+        runs = []
+        for name, lib in libs.items():
+            routes = [None]
+            if name in routed:
+                routes = [r for r in kknn.EDGE_F1_ROUTES
+                          if kknn.edge_f1_route_fits(r, n, cin, c, k)]
+            runs += [(name[3:] if r is None else
+                      f"{name[3:]} {kknn.edge_f1_route_name(r)}", lib, r)
+                     for r in routes]
+        rec: Dict[str, list] = {}
+        for label, lib, route in runs:
+            def call(lib=lib, route=route):
+                psum.zero_()
+                if route is None:  # the parents' launcher
+                    return lib.edge_knn_f1_launch(
+                        _ptr(x), _ptr(q), _ptr(off), _ptr(idx), _ptr(h),
+                        _ptr(psum), b, n, cin, c, k, _stream())
+                return lib.edge_knn_f1_launch(
+                    _ptr(x), _ptr(q), _ptr(off), _ptr(idx), _ptr(h),
+                    _ptr(psum), _ptr(norms), b, n, cin, c, k, route,
+                    _stream())
+
+            if "write_only" in label:
+                idx.copy_(widx)
+            else:
+                idx.fill_(-1)
+            h.zero_()
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            same = bool(torch.equal(idx, widx) and torch.equal(
+                h.view(torch.int16), wh.view(torch.int16)))
+            dev = ((psum - wpsum).abs().max() / wpsum.abs().max()).item()
+            rec[label] = [round(graph_ms(call, 10), 4), same,
+                          float(f"{dev:.2e}")]
+        pairs = float(b * n * n)
+        print(json.dumps({
+            "edge_knn_f1": case, "B": b, "N": n, "k": k, "C_in": cin, "C": c,
+            "fma_bound_ms": 1e3 * pairs * (2.0 * cin + 3.0) / 67e12,
+            "h_write_ms": 1e3 * 2.0 * b * n * k * c / 3.35e12,
+            "ms_identical_dev": rec}), flush=True)
+        del idx, h, widx, wh
+        torch.cuda.empty_cache()
+
+
+def edge2p2_cases():
+    """``(case, h1, dout, idx, st1, st2, w2, us2, us1, n)``: pass 2's
+    inputs at DGCNN part segmentation's shapes (B=16, k=40, C1 = C2 =
+    64), N=2,048 and N=1,000 (the kNN route): the neighbour lists of the
+    synthetic part-seg clouds (so dq's reductions meet the path's
+    locality), random h1, BN rows and sums (seeded: the work depends on
+    the values only through max-pool ties and the kink band)."""
+    g = torch.Generator(device=DEV).manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=DEV)
+
+    for case, b, n in (("pair N=2048", 16, 2048), ("pair N=1000", 16, 1000)):
+        x = torch.from_numpy(SyntheticShapeNetPart(
+            n_points=n, size=b, seed=0).batch(0, b)[0]).to(DEV)
+        idx = kknn.knn(x, x, 40)[1]
+        h1 = rnd(b, n, 40, 64).bfloat16()
+        st = [torch.stack([1.0 + rnd(64, scale=0.1), rnd(64, scale=0.1),
+                           1.0 + rnd(64, scale=0.1), rnd(64, scale=0.1)])
+              for _ in range(2)]
+        w2 = rnd(64, 64, scale=0.15).bfloat16().float()
+        yield (case, h1, rnd(b, n, 64), idx, st[0], st[1], w2,
+               rnd(2, 64, scale=0.01), rnd(2, 64, scale=0.01), n)
+
+
+# this tree's design variants of pass 2 (edits of edge2_bwd_p2.cu and of
+# the chain's header): its split (a_only: every step a pass-A step, so
+# twice the first walk; no_scatter: without dq's reductions and the
+# lanes' trade; no_dy: dy1's product replaced by zeros; no_dh1: dh1 left
+# as dy1; no_fences: without the proxy fences, its output unchecked), one
+# block an SM (one_block) and h1's copies three steps ahead (ring4)
+E2P2_SCATTER = """        if (rq < nc)
+          atomicAdd(reinterpret_cast<float4*>(
+                        a.dq + (size_t)(dq_rows + jq) * C1 + col),
+                    v4);
+"""
+E2P2_DY = """      wg::product<N1, 0, 0, C2 / 16>(dy, wg::k_major(ds, C2, 0, 0),
+                                     wg::k_major(w2s, C2, g * N1, 0));
+"""
+E2P2_BOUNDS = ("__global__ void __launch_bounds__(kThreads, 2)\n"
+               "    edge2_p2_kernel")
+E2P2_FENCE = "    wg::fence_to_async();\n"
+E2P2_PASS_A = ("    const bool pass_b = cur.pass;",
+               "    const bool pass_b = false;")
+E2P2_VARIANTS: Dict[str, tuple] = {
+    "a_only": ([E2P2_PASS_A], ()),
+    "no_scatter": ([(E2P2_SCATTER, "")], ()),
+    "no_dy": ([(E2P2_DY, "#pragma unroll\n      for (int v = 0; v < N1 / 2; "
+                         "++v) dy[v] = 0.0f;\n")], ()),
+    "one_block": ([(E2P2_BOUNDS, E2P2_BOUNDS.replace("2)", "1)"))], ()),
+    "ring4": ([("  static constexpr int RING = 3;",
+                "  static constexpr int RING = 4;")], ()),
+    "no_fences": ([(E2P2_FENCE + "    __syncthreads();  // the y1",
+                    "    __syncthreads();  // the y1"),
+                   ("  " + E2P2_FENCE + "      __syncthreads();  // the dh2",
+                    "      __syncthreads();  // the dh2")], ()),
+    "no_dh1": ([("""            dy[v] = bn_bwd(dz, xhat(hj, rs1[ch], mrs1[ch]), sc1[ch], us1[ch],
+                           us1[C1 + ch]);
+""", "            dy[v] = dz;\n")], ()),
+}
+PARENT_P2_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+P2_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+           + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def run_edge2p2(parent: Optional[Path]) -> None:
+    """The parents' split and this tree's pass-2 variants at each shape of
+    :func:`edge2p2_cases`: device ms with dq's memset, and the largest
+    deviation of dq and doff over max|plain| (a max-pool tie share may
+    move: the card tests hold them tie-robust)."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    sources = {"p2_built": ((_build.CSRC / "edge2_bwd_p2.cu").read_text(),
+                            _build.CSRC)}
+    for name, (edits, head) in E2P2_VARIANTS.items():
+        sources[f"p2_{name}"] = (_with_header(
+            _build.CSRC, "edge2_bwd_p2.cu", "edge2_wgmma.cuh", edits, head),
+            _build.CSRC)
+    if parent:
+        sources["p2_parent"] = ((parent / "edge2_bwd_p2.cu").read_text(),
+                                parent)
+        for name, (edits, head) in PARENT_P2_SPLIT.items():
+            sources[f"p2_parent_{name}"] = (_with_header(
+                parent, "edge2_bwd_p2.cu", "edge2.cuh", edits, head), parent)
+    libs = build(sources)
+    with_wt2 = {name for name, (text, _) in sources.items()
+                if "const void* wt2" in text}
+    for name, lib in libs.items():
+        fn = lib.edge2_bwd_p2_launch
+        fn.argtypes = PARENT_P2_ARGS if name in with_wt2 else P2_ARGS
+        fn.restype = ctypes.c_int
+    for case, h1, dout, idx, st1, st2, w2, us2, us1, n in edge2p2_cases():
+        b, m, k, c1 = h1.shape
+        c2 = w2.shape[1]
+        want = kfe.edge2_p2_plain(h1, dout, idx, st1, st2, w2, us2, us1,
+                                  0.2, n)
+        dq = torch.zeros((b, n, c1), device=DEV)
+        doff = torch.empty((b, m, c1), device=DEV)
+        st = torch.cat([st1.reshape(-1), st2.reshape(-1)]).contiguous()
+        us = torch.cat([us2.reshape(-1), us1.reshape(-1)]).contiguous()
+        w2b = w2.bfloat16().contiguous()
+        wt2 = w2.t().bfloat16().contiguous()
+        rec: Dict[str, list] = {}
+        for name, lib in libs.items():
+            def call(lib=lib, name=name):
+                dq.zero_()
+                extra = [_ptr(wt2)] if name in with_wt2 else []
+                return lib.edge2_bwd_p2_launch(
+                    _ptr(h1), _ptr(dout), _ptr(idx), _ptr(st), _ptr(us),
+                    _ptr(w2b), *extra, _ptr(dq), _ptr(doff), b * m, m, n, k,
+                    c1, c2, ctypes.c_float(0.2), _stream())
+
+            if call() != 0:
+                raise RuntimeError(f"{name} {case}: launch error")
+            torch.cuda.synchronize()
+            dev = [float(f"{((x - y).abs().max() / y.abs().max()).item():.2e}")
+                   for x, y in zip((dq, doff), want)]
+            rec[name[3:]] = [round(graph_ms(call, 5), 4), dev]
+        e = float(b * m * k)
+        print(json.dumps({
+            "edge2_p2": case, "B": b, "M": m, "k": k, "C1": c1, "C2": c2,
+            "bf16_bound_ms": 1e3 * 3.0 * 2.0 * e * c1 * c2 / 989e12,
+            "bytes_bound_ms": 1e3 * (2.0 * 2.0 * e * c1 + 4.0 * e
+                                     + 8.0 * b * n * c1) / 3.35e12,
+            "ms_dev": rec}), flush=True)
+        del dq, doff, h1, want
+        torch.cuda.empty_cache()
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -1419,7 +1788,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--only", nargs="+", default=["fps", "tail", "f1", "read",
                                                   "cluster"],
                     choices=["fps", "tail", "f1", "rows", "knn", "edge2p1",
-                             "read", "cluster"])
+                             "edgef1", "edge2p2", "read", "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1440,6 +1809,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_knn(args.parent)
     if "edge2p1" in args.only:
         run_edge2p1(args.parent)
+    if "edgef1" in args.only:
+        run_edgef1(args.parent)
+    if "edge2p2" in args.only:
+        run_edge2p2(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

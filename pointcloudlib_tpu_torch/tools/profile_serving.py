@@ -76,12 +76,14 @@ STAGES = (
      "edge2_p1 kernel"),
     (r"edge2_p2_kernel", "edge2_p2 kernel"),
     (r"edge_knn_eval_kernel", "edge_knn_eval kernel"),
-    (r"edge_knn_f1_kernel", "edge_knn_f1 kernel"),
+    (r"edge_knn_f1_kernel|edge_knn_f1_select_kernel", "edge_knn_f1 kernel"),
     (r"edge_out_kernel", "edge_out kernel"),
     (r"edge_bwd_kernel", "edge_bwd kernel"),
     (r"edge_eval_kernel", "edge_eval kernel"),
     (r"edge_f1_kernel", "edge_f1 kernel"),
-    (r"knn_kernel|knn_select_kernel|knn_norms_kernel", "knn kernel"),
+    # |p|^2 before the select route of knn and of edge_knn_f1
+    (r"knn_norms_kernel", "knn norms kernel"),
+    (r"knn_kernel|knn_select_kernel", "knn kernel"),
     (r"fps_kernel", "fps kernel"),
     (r"three_interp_kernel", "three_interp kernel"),
     (r"scatter_rows_kernel", "scatter_rows kernel"),

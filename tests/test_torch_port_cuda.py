@@ -768,14 +768,22 @@ EDGE_SHAPES = {  # B, N, k, C_in, C: DGCNN's four EdgeConvs, and edge cases
     "n65": (2, 65, 20, 64, 64),          # one past the 64-point tile
     "ec1_duplicates": (4, 1024, 20, 3, 64),
     "k8_n128": (2, 128, 8, 16, 32),
+    # part segmentation's pass-1 shapes (the select route at N = 2,048,
+    # with the FMA pass at C_in = 64) and its edge cases
+    "seg_pair1": (4, 2048, 40, 3, 64),
+    "seg_pair2": (4, 2048, 40, 64, 64),
+    "seg_duplicates": (4, 2048, 40, 3, 64),
+    "seg_translated_1e3": (4, 2048, 40, 64, 64),  # the expanded d² cancels
+    "seg_all_equal": (2, 2048, 40, 64, 64),       # every d² ties: the index
 }
 
 
 def _edge_inputs(card, name, seed=0):
     """``x``, ``q`` (bf16), ``off``, the folded BN rows of random running
-    statistics and an output gradient; the duplicates case repeats the
+    statistics and an output gradient; the duplicates cases repeat the
     first half of each cloud (exact kNN ties at d² = 0, exact max-pool
-    ties)."""
+    ties), the translated case moves the clouds by 1e3 and the all-equal
+    case makes every point of a cloud its first."""
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
 
     b, n, k, cin, c = EDGE_SHAPES[name]
@@ -788,6 +796,10 @@ def _edge_inputs(card, name, seed=0):
     x = t(b, n, cin)
     if "duplicates" in name:
         x[:, n // 2:] = x[:, : n // 2]
+    if "translated" in name:
+        x += 1e3
+    if "all_equal" in name:
+        x[:] = x[:, :1]
     wa, wb = t(cin, c, scale=cin ** -0.5), t(cin, c, scale=cin ** -0.5)
     q = (x.bfloat16().float() @ wa.bfloat16().float()).bfloat16()
     off = x.bfloat16().float() @ (wa - wb).bfloat16().float()
@@ -838,6 +850,32 @@ def test_edge_knn_f1_and_out_match_plain(card, name):
             idx.shape[0], -1))
         assert torch.equal(idx[:, :, 1].long(), (pts % (n // 2) + n // 2
                                                  ).expand(idx.shape[0], -1))
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+def test_edge_knn_f1_every_route_bit_identical(card, name, monkeypatch):
+    """Every route of pass 1's launcher (the block route and each select
+    instance: list length, width) that takes these shapes, each forced in
+    turn through ``knn.edge_f1_route``: idx and h bit-identical to the
+    plain version's, Σ/Σ² within 1e-3 of the largest."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    kfe, a = _edge_inputs(card, name, seed=4)
+    f1 = (a["x"], a["q"], a["off"], a["k"])
+    b, n, cin = a["x"].shape
+    c = a["q"].shape[-1]
+    widx, wh, wpsum = kfe.edge_knn_f1_plain(*f1)
+    routes = [r for r in kknn.EDGE_F1_ROUTES
+              if kknn.edge_f1_route_fits(r, n, cin, c, a["k"])]
+    assert routes and (c != 64 or len(routes) >= 2), routes
+    for route in routes:
+        monkeypatch.setattr(kknn, "edge_f1_route", lambda *_, r=route: r)
+        idx, h, psum = kfe.edge_knn_f1(*f1)
+        torch.cuda.synchronize()
+        what = kknn.edge_f1_route_name(route)
+        assert torch.equal(idx, widx), what
+        assert torch.equal(h.view(torch.int16), wh.view(torch.int16)), what
+        _close_sums(psum, wpsum, what)
 
 
 @pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
@@ -1215,6 +1253,7 @@ EDGE2_SHAPES = {  # B, N, k, C_in: the two pairs at k=40, and edge cases
     "k8_n128": (2, 128, 8, 3),
     "duplicates_n2048": (2, 2048, 40, 3),  # max-pool ties across tiles
     "n100_b3": (3, 100, 20, 64),         # 300 centers: a part tile
+    "kink_band": (2, 2048, 40, 64),      # many z2 within 2^-13 of 0
 }
 
 
@@ -1224,7 +1263,10 @@ def _edge2_inputs(card, name, seed=0):
     checkpoint ``h1``, the folded BN rows of h1's and h2's own batch
     moments (random γ, β) and an output gradient. The duplicates case
     repeats the first half of each cloud (exact kNN and max-pool
-    ties)."""
+    ties); the kink-band case scales every other channel of layer 2 by
+    1e-4 with no shift, so that most of its z2 lie within 2^-13 of 0,
+    the band where the backward passes take h2 from the plain product's
+    sum."""
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
     from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import _moments
 
@@ -1246,9 +1288,11 @@ def _edge2_inputs(card, name, seed=0):
     r = float(b * n * k)
     st1 = kfs._stack_stats(*_moments(psum, r), t(64, scale=0.2) + 1.0,
                            t(64, scale=0.1))
+    g2, b2 = t(64, scale=0.2) + 1.0, t(64, scale=0.1)
+    if name == "kink_band":  # z2 = (h2 − mean)·1e-4/σ, every other channel
+        g2[::2], b2[::2] = 1e-4, 0.0
     st2 = kfs._stack_stats(*_moments(kfe.edge2_stats2_plain(h1, st1, w2),
-                                     r), t(64, scale=0.2) + 1.0,
-                           t(64, scale=0.1))
+                                     r), g2, b2)
     return kfe, dict(x=x, q=q, off=off, w2=w2, idx=idx, h1=h1, st1=st1,
                      st2=st2, k=k, r=r, dout=t(b, n, 64))
 

@@ -31,6 +31,7 @@ from pointcloudlib_tpu.ops.pallas.fused_edge import (
 from pointcloudlib_tpu.ops.pallas.fused_sa import _stack_stats as jax_stack
 
 from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
 from pointcloudlib_tpu_torch.ops.kernels.fused_sa import _stack_stats
 
 SLOPE = 0.2
@@ -42,6 +43,9 @@ CASES = {  # B, N, k, Cin, C
     # the JAX kNN kernels take two query tiles here (test_fused_edge.py's
     # multi-tile regression shape), so their BN sums span grid steps
     "multitile_n512": (2, 512, 8, 16, 256),
+    # part segmentation's k (its pass 1 at N = 2,048 is the select
+    # route's k = 40 instance on the card)
+    "partseg_k40_xyz": (2, 128, 40, 3, 64),
 }
 
 
@@ -215,6 +219,33 @@ def test_backward_splits_max_pool_ties_evenly():
     torch.testing.assert_close(ps[0], torch.tensor([n * SLOPE, n * 1.0]))
     assert torch.equal(scat[0, :, 2 * c], torch.full((n,), float(k)))
     torch.testing.assert_close(d2[0, 0], torch.tensor([0.0, 4.0]))
+
+
+def test_edge_knn_f1_routes():
+    """Pass 1's route, a function of the shapes alone (``knn.edge_f1_route``):
+    the select instance of the list length and width at DGCNN's and its
+    part segmentation's train shapes, the block route for small grids,
+    widths and list lengths no select instance takes, and shared memory
+    a block cannot hold."""
+    r = kknn.edge_f1_route
+    name = kknn.edge_f1_route_name
+    assert [name(r(32, 1024, cin, c, 20)) for cin, c in (
+        (3, 64), (64, 64), (64, 128), (128, 256))] == [
+        "select 128x3 k<=24 C=64", "select 128x3 k<=24 C=64",
+        "select 128x3 k<=24 C=128", "select 128x3 k<=24 C=256"]
+    assert [name(r(16, 2048, cin, 64, 40)) for cin in (3, 64)] == [
+        "select 128x3 k<=40 C=64"] * 2
+    assert name(r(4, 2048, 6, 64, 40)) == "select 128x3 k<=40 C=64"
+    assert r(4, 1024, 3, 64, 20) == 0       # 32 blocks of 128 queries
+    assert r(16, 1000, 64, 64, 40) == 0     # part seg's kNN-route size
+    assert r(32, 1024, 3, 32, 20) == 0      # no select instance at C = 32
+    assert r(32, 1024, 3, 64, 24) == 1      # 3 entries a lane, as k = 20
+    assert r(32, 1024, 3, 64, 8) == 0       # no instance for lists of 8
+    assert r(32, 4096, 512, 64, 20) == 0    # the walk's tiles do not fit
+    assert kknn.edge_f1_route_fits(4, 2048, 64, 64, 20)  # a longer list
+    assert not kknn.edge_f1_route_fits(1, 2048, 64, 64, 40)  # k > 24
+    assert not kknn.edge_f1_route_fits(2, 2048, 64, 64, 20)  # C = 128's
+    assert not kknn.edge_f1_route_fits(0, 64, 64, 64, 65)
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu():
