@@ -108,8 +108,10 @@ once:
    counts exact; ``torch.topk`` of the same d² timed as a yardstick of
    the selection alone; edge cases: duplicate points (exact kNN and
    max-pool ties) and N = 65, one past the 64-point candidate tile
-   (``edge_knn_f1`` takes its select route at the layers' shapes and its
-   block route at the edge cases' small grids, ``knn.edge_f1_route``);
+   (``edge_knn_f1`` and ``edge_knn_eval`` take their select route at the
+   layers' shapes and their block route at the edge cases' small grids,
+   ``knn.edge_f1_route``, ``knn.edge_eval_route``; the eval kernel's
+   lines name the route);
 12. DGCNN serving — ``Predictor(batch_size=32)`` as in phase 6: exactly
    4 launches of ``edge_knn_eval`` per served batch;
 13. DGCNN train — ``make_cls_train_step`` at B=32 with SGD (momentum 0.9,
@@ -147,14 +149,17 @@ once:
    seeded random weights): both two-layer EdgeConv pairs' inputs (C_in 3
    and 64), from a served batch and from a train step, into the six
    two-layer kernels and pass 1 against their plain versions:
-   ``edge2_knn_eval`` and ``edge2_out`` within 1e-5·max|plain| (the
-   neighbour lists and y1 are bit-identical, h2 sums in another order),
+   ``edge2_knn_eval`` (its route named: the select route and the chain
+   on the tensor cores at N=2048) and ``edge2_out`` within
+   1e-5·max|plain| (the neighbour lists and y1 are bit-identical, h2
+   sums in another order),
    pass 1's idx and h bit-identical, ``edge2_stats2``'s Σ/Σ² and
    ``edge2_p1``'s ps2, vecs and mats within 1e-3·max|plain| (its timed
    records with a device time by CUDA graphs), ``edge2_p2``'s
    dq and doff tie-robust; EC3's four EdgeConv kernels at k=40 as in phase
-   11; edge cases: duplicate points, and the route at N % 128 ≠ 0 (N=1,000:
-   the kNN, ``edge2_eval`` timed, ``edge_f1`` and the train kernels);
+   11; edge cases: duplicate points, a small grid (``edge2_knn_eval``'s
+   block route), and the route at N % 128 ≠ 0 (N=1,000: the kNN,
+   ``edge2_eval`` timed, ``edge_f1`` and the train kernels);
 18. DGCNN part-segmentation serving — ``SegPredictor(batch_size=16)`` on
    64 clouds at N=2048, three requests: per served batch exactly 2
    launches of ``edge2_knn_eval`` and 1 of ``edge_knn_eval``; 4 clouds on
@@ -225,9 +230,11 @@ the main paths, for old-against-new runs from two checkouts' roots
 ``bwd_times``, ``tail_times``, ``f1_times``, ``rows_times``,
 ``fps_times``, ``eval_times``, ``knn_times`` (the kNN, with its route,
 the library's ``torch.cdist`` + ``torch.topk`` and the plain order's
-floor) and ``edge2_times`` (the two-layer pass 1 at DGCNN part
+floor), ``edge2_times`` (the two-layer pass 1 at DGCNN part
 segmentation's pairs and on its kNN route, with the memory one call
-allocates).
+allocates), ``edgef1_times`` (pass 1 with the kNN inside and the other
+DGCNN kernels) and ``edgeeval_times`` (the two eval kernels with the kNN
+inside at their seven served launches, with their routes).
 """
 
 from __future__ import annotations
@@ -1525,7 +1532,9 @@ def _edge_case(name, f, xe, xt, g, timed):
         ev = (xe, qb, off, st, k)
         err = _check_sums(f"edge_knn_eval {name}", kfe.edge_knn_eval(*ev),
                           kfe.edge_knn_eval_plain(*ev), EDGE_TOL)
-        rec = {"case": name, **shape, **_errs([err])}
+        rec = {"case": name, **shape, "route": _edge_route_label(
+            kknn, "edge_eval_route", b, n, cin, c, k, layers=1),
+               **_errs([err])}
         if timed:  # the selection alone, by the library, on the same d²
             d2 = geometry.square_distance(xe, xe)
             rec["topk_selection_yardstick_ms"] = time_ms(
@@ -2038,6 +2047,8 @@ def _edge2_case(name, layer, xe, xt, g, timed):
                                  kfe.edge2_knn_eval_plain)
             elem += float(b * n * n) * (2 * cin + 3)  # d² of every pair
             io += 4.0 * b * n * cin
+            rec["route"] = _edge_route_label(kknn, "edge_eval_route", b, n,
+                                             cin, c2, k, layers=2)
         err = _check_sums(f"{kernel} {name}", fn(*ev), plain(*ev), EDGE_TOL)
         record(kernel, {**rec, **_errs([err])}, lambda: fn(*ev),
                lambda: plain(*ev), prod, elem, io)
@@ -2149,8 +2160,9 @@ def phase_dseg_kernels(model, xyz, x_odd):
     kernels and pass 1, and EC3's four EdgeConv kernels
     (:func:`_edge_case`), timed; the route at N % 128 ≠ 0 (N=1,000,
     B=16: the kNN, ``edge2_eval``, ``edge_f1`` and the train kernels),
-    ``edge2_eval`` timed; duplicate points (exact kNN and max-pool ties),
-    untimed."""
+    ``edge2_eval`` timed; duplicate points (exact kNN and max-pool ties)
+    and a small grid (2 clouds of 1,024 points: ``edge2_knn_eval``'s
+    block route), untimed."""
     g = torch.Generator(device=DEV).manual_seed(11)
     recs = {}
 
@@ -2168,6 +2180,8 @@ def phase_dseg_kernels(model, xyz, x_odd):
     dup = xyz[:4].clone()
     dup[:, SEG_POINTS // 2:] = dup[:, :SEG_POINTS // 2]
     _edge2_case("pair1 duplicate points", model.edge1, dup, dup, g, False)
+    small = xyz[:2, :SEG_POINTS // 2].contiguous()  # the block route
+    _edge2_case("pair1 small grid", model.edge1, small, small, g, False)
     for name, layer, xe, xt in _dseg_layers(model, x_odd)[:2]:
         found = _edge2_case(f"partseg {name}", layer, xe, xt, g,
                             name == "pair2")
@@ -2922,6 +2936,20 @@ def _edge_f1_bound(b, n, cin, c, k):
                  + 8.0 * c)
 
 
+def _edge_route_label(knn, fn, *shape, layers=0) -> str:
+    """The name of the route ``knn.<fn>`` gives these shapes: pass 1's
+    (``layers`` 0) or an eval kernel's (1, 2). A checkout from before the
+    routes has the block route only, and one from before the eval routes
+    names the routes of pass 1 alone."""
+    if not hasattr(knn, fn):
+        return "block"
+    if not layers:
+        name = getattr(knn, "edge_route_name", None) or knn.edge_f1_route_name
+        return name(getattr(knn, fn)(*shape))
+    return knn.edge_route_name(getattr(knn, fn)(*shape, layers=layers),
+                               layers)
+
+
 def _dgcnn_train_layers():
     """``(case, layer, x_serving, x_train)`` of every kNN-inside EdgeConv
     of the main paths, on ``main``'s data: DGCNN's four (B=32, N=1024,
@@ -3007,10 +3035,7 @@ def edgef1_times() -> None:
             del idx, h
             ms = graph_ms(lambda: kfe.edge_knn_f1(*f1), 10)
             bound_ms, ops_ms, bytes_ms = _edge_f1_bound(b, n, cin, c, k)
-            # a checkout from before the routes has the block route only
-            route = (kknn.edge_f1_route_name(kknn.edge_f1_route(
-                b, n, cin, c, k)) if hasattr(kknn, "edge_f1_route")
-                else "block")
+            route = _edge_route_label(kknn, "edge_f1_route", b, n, cin, c, k)
             emit("edge_knn_f1", {
                 "case": case, "B": b, "N": n, "k": k, "C_in": cin, "C": c,
                 "route": route, "device_ms": ms,
@@ -3041,6 +3066,81 @@ def edgef1_times() -> None:
                               "case": f"DGCNN-seg pair1 N={xe.shape[1]}",
                               "device_ms": graph_ms(
                                   lambda: kfe.edge2_eval(*ev), 10)})
+
+
+def _edge_eval_bound(layers, b, n, cin, c1, c2, k):
+    """``bound()`` of ``edge_knn_eval`` (``layers`` 1) or
+    ``edge2_knn_eval`` (2): the selection's d² of every pair (f32); the
+    gather, BN, LeakyReLU and max at 5 operations an edge element, or the
+    chain's product (bf16) and 4 operations an element of y1 and of y2;
+    x, q, off (and W2 and both layers' rows) read and out written."""
+    e = float(b * n * k)
+    f32 = float(b * n * n) * (2 * cin + 3)
+    if layers == 1:
+        return bound(0.0, f32 + 5.0 * e * c1, 4.0 * b * n * cin
+                     + 10.0 * b * n * c1 + 16.0 * c1)
+    return bound(2.0 * c1 * c2 * e, f32 + (4.0 * c1 + 4.0 * c2) * e,
+                 4.0 * b * n * cin + 6.0 * b * n * c1 + 4.0 * b * n * c2
+                 + 2.0 * c1 * c2 + 32.0 * (c1 + c2))
+
+
+def edgeeval_times() -> None:
+    """``edge_knn_eval`` and ``edge2_knn_eval`` at their seven launches of
+    the served paths (DGCNN's four EdgeConvs, B=32, N=1024, k=20; its
+    part segmentation's pairs and EC3, B=16, N=2048, k=40; each layer's
+    input from the models' serving chains, ``_dgcnn_train_layers``):
+    after the device line, one ``edge_eval:`` line a launch with its route
+    (``block`` in a checkout from before the routes), device ms by CUDA
+    graphs (the wrapper's allocations and the select route's norms launch
+    included), the bound and its share, and the deviation from the plain
+    version over max|plain| (``edge_knn_eval`` held bit for bit,
+    ``edge2_knn_eval`` to 1e-5). Like ``edgef1_times``, it times the
+    package beside this file; for old against new, copy this file into
+    the other checkout's root and run it there too:
+
+        python3 -c 'import chip_smoke; chip_smoke.edgeeval_times()'
+    """
+    phase_device()
+    _build.build(SOURCES)
+    for case, layer, xe, _ in _dgcnn_train_layers():
+        b, n, cin = xe.shape
+        k = layer.k
+        with torch.no_grad():
+            q, off = layer.prepare(xe)
+            if isinstance(layer, Fused2EdgeConv):
+                c1, c2 = layer.w2.shape
+                st1, st2 = kfe._folded2(*_pair_params(layer)[1:],
+                                        layer.stats())
+                args = (xe, q.bfloat16(), off, st1, st2, layer.w2, k)
+                layers, fn, plain = (2, kfe.edge2_knn_eval,
+                                     kfe.edge2_knn_eval_plain)
+            else:
+                c1 = c2 = layer.bn_scale.shape[0]
+                st = kfs._stack_stats(layer.mean, layer.var, layer.bn_scale,
+                                      layer.bn_bias)
+                args = (xe, q.bfloat16(), off, st, k)
+                layers, fn, plain = (1, kfe.edge_knn_eval,
+                                     kfe.edge_knn_eval_plain)
+            got, want = fn(*args), plain(*args)
+            same = bool(torch.equal(got, want))
+            err = _check_sums(f"{fn.__name__} {case}", got, want, EDGE_TOL)
+            if layers == 1 and not same:
+                fail(f"edge_knn_eval {case}: out not bit-identical to the "
+                     f"plain version")
+            del got, want
+            ms = graph_ms(lambda: fn(*args), 10)
+            bound_ms, ops_ms, bytes_ms = _edge_eval_bound(layers, b, n, cin,
+                                                          c1, c2, k)
+            emit("edge_eval", {
+                "kernel": fn.__name__, "case": case, "B": b, "N": n, "k": k,
+                "C_in": cin, "C1": c1, "C2": c2,
+                "route": _edge_route_label(kknn, "edge_eval_route", b, n,
+                                           cin, c2, k, layers=layers),
+                "device_ms": ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": bound_ms / ms, "bit_identical": same,
+                **_errs([err])})
+            torch.cuda.empty_cache()
 
 
 # Every FPS launch of the ported paths: (case, clouds, batch, n_samples of

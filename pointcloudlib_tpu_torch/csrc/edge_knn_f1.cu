@@ -35,7 +35,8 @@
 // repeats slot 0's index stored without a gather, the sums in registers)
 // and adds its sums into psum once (f1_flush). The lists go through the
 // tiles' shared memory after the walk, so the selection keeps its ring.
-// Instances: those the wrapper takes (kF1Routes), one for each list
+// Instances: those the wrapper takes (kEdgeRoutes of knn_select.cuh,
+// shared with the eval kernels with the kNN inside), one for each list
 // length and output width of the paths.
 //
 // "block" (edge_knn_f1_kernel, the first version): knn_block of
@@ -91,20 +92,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   sel_walk<kF1Qpt, E, kF1Stages, false>(xb + (size_t)q0 * cin, nq, xb,
                                         p2g + (size_t)b * n, n, cin, k, smem,
                                         ld, lj);
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the tiles
-  int* nbr = reinterpret_cast<int*>(smem);  // [Q][k]
-  const int qg = warp * 4 + (lane >> 3), cg = lane & 7;
-#pragma unroll
-  for (int r = 0; r < kF1Qpt; ++r) {
-    const int ql = qg + 32 * r;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int slot = cg * E + e;
-      if (ql < nq && slot < k) nbr[ql * k + slot] = lj[r][e];
-    }
-  }
-  __syncthreads();
+  const int* nbr = sel_lists<kF1Qpt, E>(lj, nq, k, k, 1, smem);  // [Q][k]
   const size_t row0 = (size_t)b * n + q0;
   for (int e = tid; e < nq * k; e += kThreads) idx[row0 * k + e] = nbr[e];
   const __nv_bfloat16* qb = q + (size_t)b * n * C;
@@ -185,13 +173,6 @@ cudaError_t launch_select(const F1Launch& a) {
   return cudaGetLastError();
 }
 
-// The select route's instances, route r at kF1Routes[r - 1]: (list
-// entries a lane E, the output width C), the ones the wrapper takes
-// (ops/kernels/knn.py EDGE_F1_SELECT): DGCNN's k = 20 at C = 64, 128,
-// 256 and its part segmentation's k = 40 at C = 64.
-constexpr int kF1Routes[][2] = {{3, 64}, {3, 128}, {3, 256}, {5, 64}};
-constexpr int kF1RouteCount = 4;
-
 }  // namespace pcl
 
 // Shared memory bytes of one block of the block route for input width
@@ -204,9 +185,9 @@ extern "C" long long edge_knn_f1_smem(int cin, int c, int k) {
 // i32, h [b, n, k, c] bf16, psum [2, c] f32 zeroed, norms [b, n] f32
 // scratch of the select route (|p|^2; unused by the block route); all
 // contiguous and 16-byte aligned. route: 0 the block route; 1 .. 4 the
-// select instance kF1Routes[route - 1] (its width c, k <= 8 E). Returns
-// the launch's cudaGetLastError()
-// code, or cudaErrorInvalidValue for sizes it does not take (as
+// select instance kEdgeRoutes[route - 1] (knn_select.cuh; its width c, k
+// <= 8 E). Returns the launch's cudaGetLastError() code, or
+// cudaErrorInvalidValue for sizes it does not take (as
 // edge_knn_eval_launch; an unknown route or one that does not take
 // them).
 extern "C" int edge_knn_f1_launch(const void* x, const void* q,
@@ -215,21 +196,16 @@ extern "C" int edge_knn_f1_launch(const void* x, const void* q,
                                   int cin, int c, int k, int route,
                                   void* stream) {
   if (b < 1 || cin < 1 || k < 1 || k > n || k > pcl::kKnnMaxK ||
-      !pcl::edge_width_ok(c) || route < 0 || route > pcl::kF1RouteCount)
+      !pcl::edge_width_ok(c) || route < 0 || route > pcl::kEdgeRouteCount)
     return cudaErrorInvalidValue;
   pcl::F1Launch a{x, q, off, static_cast<const float*>(norms), idx, h, psum,
                   b, n, cin, c, k, 0, static_cast<cudaStream_t>(stream)};
   if (route > 0) {
-    const int* rt = pcl::kF1Routes[route - 1];
     a.smem = pcl::f1_sel_smem(cin, c, k);
-    if (a.smem > 227 * 1024 || rt[1] != c || 8 * rt[0] < k)
+    if (a.smem > 227 * 1024 || !pcl::edge_route_takes(route, c, k))
       return cudaErrorInvalidValue;
-    const long long rows = (long long)b * n;
-    pcl::knn_norms_kernel<<<(unsigned)((rows + pcl::kThreads - 1) /
-                                        pcl::kThreads),
-                            pcl::kThreads, 0, a.stream>>>(
-        static_cast<const float*>(x), static_cast<float*>(norms), rows, cin);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        pcl::launch_norms(x, norms, (long long)b * n, cin, a.stream);
     if (err != cudaSuccess) return err;
     switch (route) {
       case 1: return pcl::launch_select<3, 64>(a);

@@ -223,13 +223,8 @@ extern "C" int knn_launch(const void* query, const void* pts, void* d2,
     if (smem > 227 * 1024 || (rt[2] && c % 4) ||
         (rt[0] == 8 && k > pcl::kSelMaxK8))
       return cudaErrorInvalidValue;
-    const long long rows = (long long)b * n;
     float* p2g = static_cast<float*>(norms);
-    pcl::knn_norms_kernel<<<(unsigned)((rows + pcl::kThreads - 1) /
-                                        pcl::kThreads),
-                            pcl::kThreads, 0, s>>>(
-        static_cast<const float*>(pts), p2g, rows, c);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err = pcl::launch_norms(pts, p2g, (long long)b * n, c, s);
     if (err != cudaSuccess) return err;
     const dim3 grid((m + 32 * rt[0] - 1) / (32 * rt[0]), b);
     switch (route) {

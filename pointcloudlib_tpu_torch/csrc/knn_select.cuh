@@ -1,5 +1,6 @@
 // The select route of the kNN, shared by the standalone kNN (knn.cu) and
-// train-mode pass 1 with the kNN inside (edge_knn_f1.cu): the points
+// the EdgeConv kernels with the kNN inside (edge_knn_f1.cu,
+// edge_knn_eval.cu, edge2_knn_eval.cu): the points
 // streamed by cp.async through a ring of shared-memory tiles, d2 formed
 // in the plain order in register tiles (or, at C % 4 == 0, by an FMA
 // pass with an error bound whose near pairs are formed again in the
@@ -422,6 +423,58 @@ __device__ __forceinline__ void sel_walk(const float* __restrict__ qb,
       group_select<E>(dv[r], ld[r], lj[r], tau[r], t0, n - t0, cg, gbase,
                       ksrc, ke);
   }
+}
+
+// After sel_walk: waits for the ring's last copies, writes each query's
+// list into shared memory at smem (entry `slot` of query ql at nbr[ql *
+// qs + slot * ss]; qs, ss the strides of a query and of a slot) and
+// returns it after a barrier. The lists take 4 * 32 * QPT * k bytes;
+// every thread of the block calls it.
+template <int QPT, int E>
+__device__ __forceinline__ const int* sel_lists(const int (&lj)[QPT][E],
+                                                int nq, int k, int qs,
+                                                int ss, unsigned char* smem) {
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the tiles
+  int* nbr = reinterpret_cast<int*>(smem);
+  const int lane = threadIdx.x & 31;
+  const int qg = (threadIdx.x >> 5) * 4 + (lane >> 3), cg = lane & 7;
+#pragma unroll
+  for (int r = 0; r < QPT; ++r) {
+    const int ql = qg + 32 * r;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int slot = cg * E + e;
+      if (ql < nq && slot < k) nbr[ql * qs + slot * ss] = lj[r][e];
+    }
+  }
+  __syncthreads();
+  return nbr;
+}
+
+// The select instances of the EdgeConv kernels with the kNN inside, route
+// r at kEdgeRoutes[r - 1]: (list entries a lane E, the output width C),
+// the ones their wrappers take (ops/kernels/knn.py EDGE_SELECT): DGCNN's
+// k = 20 at C = 64, 128, 256 and its part segmentation's k = 40 at C =
+// 64. Route 0 is the block route (knn_block of edge_knn.cuh).
+constexpr int kEdgeRoutes[][2] = {{3, 64}, {3, 128}, {3, 256}, {5, 64}};
+constexpr int kEdgeRouteCount = 4;
+
+// Whether select route `route` (1 .. kEdgeRouteCount) takes width c and
+// k neighbours.
+inline bool edge_route_takes(int route, int c, int k) {
+  return route >= 1 && route <= kEdgeRouteCount &&
+         kEdgeRoutes[route - 1][1] == c && 8 * kEdgeRoutes[route - 1][0] >= k;
+}
+
+// |p|^2 of every point of x [rows, c] into norms, the select route's
+// first launch.
+inline cudaError_t launch_norms(const void* x, void* norms, long long rows,
+                                int c, cudaStream_t stream) {
+  knn_norms_kernel<<<(unsigned)((rows + kThreads - 1) / kThreads), kThreads,
+                     0, stream>>>(static_cast<const float*>(x),
+                                  static_cast<float*>(norms), rows, c);
+  return cudaGetLastError();
 }
 
 }  // namespace pcl

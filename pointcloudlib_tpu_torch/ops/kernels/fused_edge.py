@@ -160,7 +160,7 @@ def edge_bwd_plain(h, dout, idx, st, slope: float, n: int):
 
 _SIGNATURES = {
     "edge_knn_eval": {
-        "edge_knn_eval_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        "edge_knn_eval_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                                  + [ctypes.c_float, ctypes.c_void_p],
                                  ctypes.c_int),
         "edge_knn_eval_smem": ([ctypes.c_int] * 2, ctypes.c_longlong),
@@ -218,8 +218,8 @@ _SIGNATURES = {
         "edge2_eval_smem": ([ctypes.c_int], ctypes.c_longlong),
     },
     "edge2_knn_eval": {
-        "edge2_knn_eval_launch": ([ctypes.c_void_p] * 6
-                                  + [ctypes.c_int] * 6
+        "edge2_knn_eval_launch": ([ctypes.c_void_p] * 7
+                                  + [ctypes.c_int] * 7
                                   + [ctypes.c_float, ctypes.c_void_p],
                                   ctypes.c_int),
         "edge2_knn_eval_smem": ([ctypes.c_int] * 2, ctypes.c_longlong),
@@ -260,7 +260,8 @@ def edge_knn_eval(x, q, off, st, k: int, slope: float = 0.2):
     """Eval-mode fused EdgeConv → ``out [B, N, C]`` float32, as
     :func:`edge_knn_eval_plain`. ``x [B, N, Cin]`` and ``off [B, N, C]``
     float32, ``q [B, N, C]`` bfloat16, ``st [4, C]`` the folded BN rows.
-    The kernel for CUDA tensors, the plain version for CPU tensors."""
+    The kernel for CUDA tensors on the route ``knn.edge_eval_route``
+    picks, the plain version for CPU tensors."""
     if not _on_card("edge_knn_eval", q):
         return edge_knn_eval_plain(x, q, off, st, k, slope)
     b, n, c = q.shape
@@ -271,14 +272,20 @@ def edge_knn_eval(x, q, off, st, k: int, slope: float = 0.2):
             off=(off, (b, n, c), torch.float32),
             st=(st, (4, c), torch.float32))
     lib = _lib("edge_knn_eval")
-    _knn_ok("edge_knn_eval", lib, "edge_knn_eval_smem", n, k, (cin, k))
+    route = _knn.edge_eval_route(b, n, cin, c, k)
+    if route == 0:
+        _knn_ok("edge_knn_eval", lib, "edge_knn_eval_smem", n, k, (cin, k))
     dev = q.device
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+    # the select route's |p|^2 of every point (csrc/knn_select.cuh)
+    norms = torch.empty(b * n if route else 1, dtype=torch.float32,
+                        device=dev)
     x, q, off, st = map(_aligned, (x, q, off, st))
     with torch.cuda.device(dev):
         err = lib.edge_knn_eval_launch(
             x.data_ptr(), q.data_ptr(), off.data_ptr(), st.data_ptr(),
-            out.data_ptr(), b, n, cin, c, k, slope, _stream(dev))
+            out.data_ptr(), norms.data_ptr(), b, n, cin, c, k, route, slope,
+            _stream(dev))
     _build.check(err, "edge_knn_eval")
     edge_knn_eval.launches += 1
     return out
@@ -845,7 +852,8 @@ def edge2_knn_eval(x, q, off, st1, st2, w2, k: int, slope: float = 0.2):
     """Eval-mode two-layer EdgeConv with the graph built inside → ``out
     [B, N, C2]`` float32, as :func:`edge2_knn_eval_plain`. ``x [B, N,
     Cin]`` and ``off [B, N, C1]`` float32, ``q [B, N, C1]`` bfloat16. The
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors on the route ``knn.edge_eval_route`` picks
+    (two layers), the plain version for CPU tensors."""
     if not _on_card("edge2_knn_eval", q):
         return edge2_knn_eval_plain(x, q, off, st1, st2, w2, k, slope)
     b, n, c1 = q.shape
@@ -859,15 +867,21 @@ def edge2_knn_eval(x, q, off, st1, st2, w2, k: int, slope: float = 0.2):
             st1=(st1, (4, c1), torch.float32),
             st2=(st2, (4, c2), torch.float32))
     lib = _lib("edge2_knn_eval")
-    _knn_ok("edge2_knn_eval", lib, "edge2_knn_eval_smem", n, k, (cin, k))
+    route = _knn.edge_eval_route(b, n, cin, c2, k, layers=2)
+    if route == 0:
+        _knn_ok("edge2_knn_eval", lib, "edge2_knn_eval_smem", n, k,
+                (cin, k))
     out = torch.empty((b, n, c2), dtype=torch.float32, device=dev)
+    # the select route's |p|^2 of every point (csrc/knn_select.cuh)
+    norms = torch.empty(b * n if route else 1, dtype=torch.float32,
+                        device=dev)
     x, q, off, st = _aligned(x), _aligned(q), _aligned(off), _st2(st1, st2)
     w2b = _aligned(w2.bfloat16())
     with torch.cuda.device(dev):
         err = lib.edge2_knn_eval_launch(
             x.data_ptr(), q.data_ptr(), off.data_ptr(), st.data_ptr(),
-            w2b.data_ptr(), out.data_ptr(), b, n, cin, c1, c2, k, slope,
-            _stream(dev))
+            w2b.data_ptr(), out.data_ptr(), norms.data_ptr(), b, n, cin, c1,
+            c2, k, route, slope, _stream(dev))
     _build.check(err, "edge2_knn_eval")
     edge2_knn_eval.launches += 1
     return out

@@ -92,13 +92,37 @@ def knn_route(b: int, m: int, n: int, c: int, k: int) -> int:
     return 0
 
 
-# Pass 1 with the kNN inside (csrc/edge_knn_f1.cu) takes the same two
-# routes: its select instances, as its launcher numbers them: (list
-# entries a lane, the output width C), DGCNN's k = 20 at C = 64, 128, 256
-# and its part segmentation's k = 40 at C = 64 (without the FMA pass:
-# slower at N = 2,048, PERF.md §5); route 0 is the block route
-EDGE_F1_SELECT = {1: (3, 64), 2: (3, 128), 3: (3, 256), 4: (5, 64)}
-EDGE_F1_ROUTES = (0, *EDGE_F1_SELECT)
+# The EdgeConv kernels with the kNN inside (csrc/edge_knn_f1.cu,
+# edge_knn_eval.cu, edge2_knn_eval.cu) take the same two routes by one
+# rule (:func:`_edge_route`) and one table of select instances, as their
+# launchers number them (knn_select.cuh kEdgeRoutes): (list entries a
+# lane, the output width C), DGCNN's k = 20 at C = 64, 128, 256 and its
+# part segmentation's k = 40 at C = 64 (the two-layer kernel builds the
+# two at C = 64), without the FMA pass (slower at N = 2,048, PERF.md §5);
+# route 0 is the block route. Each walks 128 queries a block through a
+# ring of three tiles, but the one-layer eval kernel's C = 256 instance
+# (DGCNN's EC4) 256 queries through two (:func:`_walk`)
+EDGE_SELECT = {1: (3, 64), 2: (3, 128), 3: (3, 256), 4: (5, 64)}
+EDGE_ROUTES = (0, *EDGE_SELECT)
+_EDGE2_C = 64  # the width C1 = C2 the two-layer kernels are built for
+_EDGE2_CHAIN = 20224  # the block route's two-layer chain (edge2.cuh
+                      # Edge2Layout<64, 64>::bytes)
+
+
+def _ceil(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _walk(route: int, layers: int) -> Tuple[int, int]:
+    """(queries a thread, tiles in the ring) of a select instance of pass
+    1 (``layers`` 0) or of an eval kernel (1, 2; ``csrc/edge_knn_eval.cu``
+    ``EvalWalk``)."""
+    return (8, 2) if layers == 1 and EDGE_SELECT[route][1] == 256 else (4, 3)
+
+
+def _lists_smem(cin: int, k: int, qpt: int = 4, stages: int = 3) -> int:
+    """A select block's walk, whose tiles then hold its lists."""
+    return max(select_smem(qpt, stages, cin), 4 * 32 * qpt * k)
 
 
 def edge_f1_smem(route: int, cin: int, c: int, k: int) -> int:
@@ -107,44 +131,91 @@ def edge_f1_smem(route: int, cin: int, c: int, k: int) -> int:
     which the launcher checks again)."""
     if route == 0:
         return 4 * (128 * cin + 64 * 68 + 128 + 64 * k + 2 * c)
-    lists = max(select_smem(4, 3, cin), 4 * 128 * k)
-    return -(-lists // 16) * 16 + 8 * c
+    return _ceil(_lists_smem(cin, k), 16) + 8 * c
+
+
+def edge_eval_smem(route: int, cin: int, c: int, k: int,
+                   layers: int = 1) -> int:
+    """Shared memory bytes of a block of ``edge_knn_eval`` (``layers`` 1)
+    or ``edge2_knn_eval`` (2) on ``route`` (``csrc/edge_knn_eval.cu``
+    ``eval_sel_smem`` / ``edge_knn_eval_smem``, ``csrc/edge2_knn_eval.cu``
+    ``E2SelLayout`` / ``edge2_knn_eval_smem``, which the launchers check
+    again): the walk's tiles, then the lists and, with two layers, W2 and
+    two y1 tiles of 64 rows."""
+    if route == 0:
+        knn = 4 * (128 * cin + 64 * 68 + 128 + 64 * k)
+        return knn if layers == 1 else _ceil(knn, 16) + _EDGE2_CHAIN
+    if layers == 1:
+        return _ceil(_lists_smem(cin, k, *_walk(route, 1)), 16)
+    chain = _ceil(4 * 128 * k, 128) + 2 * c * c + 2 * 64 * c * 2
+    return _ceil(max(select_smem(4, 3, cin), chain), 128)
+
+
+def _route_fits(smem: int, route: int, n: int, c: int, k: int) -> bool:
+    if route:
+        entries, width = EDGE_SELECT[route]
+        if width != c or 8 * entries < k:
+            return False
+    return 1 <= k <= min(n, MAX_K) and smem <= _SMEM_LIMIT
 
 
 def edge_f1_route_fits(route: int, n: int, cin: int, c: int, k: int
                        ) -> bool:
     """Whether ``edge_knn_f1``'s launcher takes these shapes on
     ``route``."""
-    if route:
-        entries, width = EDGE_F1_SELECT[route]
-        if width != c or 8 * entries < k:
-            return False
-    return 1 <= k <= min(n, MAX_K) and edge_f1_smem(
-        route, cin, c, k) <= _SMEM_LIMIT
+    return _route_fits(edge_f1_smem(route, cin, c, k), route, n, c, k)
 
 
-def edge_f1_route(b: int, n: int, cin: int, c: int, k: int) -> int:
-    """``edge_knn_f1``'s route for these shapes, by :func:`knn_route`'s
+def edge_eval_route_fits(route: int, n: int, cin: int, c: int, k: int,
+                         layers: int = 1) -> bool:
+    """Whether the launcher of ``edge_knn_eval`` (``layers`` 1) or
+    ``edge2_knn_eval`` (2, C = C1 = C2) takes these shapes on
+    ``route``."""
+    if layers == 2 and c != _EDGE2_C:
+        return False
+    return _route_fits(edge_eval_smem(route, cin, c, k, layers), route, n,
+                       c, k)
+
+
+def _edge_route(fits, b: int, n: int, c: int, k: int) -> int:
+    """The route of a kernel with the kNN inside, by :func:`knn_route`'s
     rule: the select instance of this list length (``ceil(k / 8)``
     entries a lane) and width where the clouds have at least
     :data:`_SEL_MIN_N` points or the grid at least
     :data:`_SEL_MIN_BLOCKS` blocks of 128 queries; else, or where none
-    is built or fits, 0 (the block route)."""
-    if (n < _SEL_MIN_N and b * -(-n // 128) < _SEL_MIN_BLOCKS
-            and edge_f1_route_fits(0, n, cin, c, k)):
+    is built or fits (``fits(route)``), 0 (the block route)."""
+    if n < _SEL_MIN_N and b * -(-n // 128) < _SEL_MIN_BLOCKS and fits(0):
         return 0
-    for route, inst in EDGE_F1_SELECT.items():
-        if inst == (-(-k // 8), c) and edge_f1_route_fits(route, n, cin, c,
-                                                          k):
+    for route, inst in EDGE_SELECT.items():
+        if inst == (-(-k // 8), c) and fits(route):
             return route
     return 0
 
 
-def edge_f1_route_name(route: int) -> str:
+def edge_f1_route(b: int, n: int, cin: int, c: int, k: int) -> int:
+    """``edge_knn_f1``'s route for these shapes (:func:`_edge_route`)."""
+    return _edge_route(lambda r: edge_f1_route_fits(r, n, cin, c, k), b, n,
+                       c, k)
+
+
+def edge_eval_route(b: int, n: int, cin: int, c: int, k: int,
+                    layers: int = 1) -> int:
+    """The route of ``edge_knn_eval`` (``layers`` 1) or
+    ``edge2_knn_eval`` (2, C = C1 = C2) for these shapes: pass 1's rule
+    (:func:`_edge_route`) and instances."""
+    return _edge_route(
+        lambda r: edge_eval_route_fits(r, n, cin, c, k, layers), b, n, c, k)
+
+
+def edge_route_name(route: int, layers: int = 0) -> str:
+    """The name of a route of pass 1 (``layers`` 0) or of an eval kernel
+    (1, 2): its walk (queries a block x tiles in the ring), list length
+    and width."""
     if route == 0:
         return "block"
-    e, c = EDGE_F1_SELECT[route]
-    return f"select 128x3 k<={8 * e} C={c}"
+    e, c = EDGE_SELECT[route]
+    qpt, stages = _walk(route, layers)
+    return f"select {32 * qpt}x{stages} k<={8 * e} C={c}"
 
 
 def route_name(route: int) -> str:

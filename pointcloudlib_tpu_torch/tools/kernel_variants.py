@@ -1,16 +1,18 @@
 """Design variants of the FPS kernel, of the forward tail's stage 2, of
 forward pass 1, of the row scatter-add and gather, of the standalone kNN,
-of the two-layer EdgeConv's backward passes and of the EdgeConv's pass 1
+of the two-layer EdgeConv's backward passes and of the EdgeConv kernels
 with the kNN inside, timed against each other on the card. Each variant
 is an edit of the committed source (``csrc/fps.cu``,
 ``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu`` and
 ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``,
 ``csrc/knn.cu``, ``csrc/edge2_bwd_p1.cu``, ``csrc/edge2_bwd_p2.cu``,
-``csrc/edge_knn_f1.cu``), built beside it by ``nvcc`` with the package's
+``csrc/edge_knn_f1.cu``, ``csrc/edge_knn_eval.cu`` and
+``edge2_knn_eval.cu``), built beside it by ``nvcc`` with the package's
 flags into ``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
-        [--only fps tail f1 rows knn edge2p1 edgef1 edge2p2 read cluster]
+        [--only fps tail f1 rows knn edge2p1 edgef1 edge2p2 edgeeval read
+                cluster]
         [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
@@ -71,7 +73,7 @@ beside the variants. Prints one JSON line a case:
   its seven launches of the DGCNN paths (the models' own train inputs,
   seeded weights), device ms with the psum memset (and the select
   route's norms launch), idx and h against the plain version and psum's
-  deviation, for the built kernel on every route of ``knn.EDGE_F1_ROUTES``
+  deviation, for the built kernel on every route of ``knn.EDGE_ROUTES``
   that takes the shapes and for ``EF1_VARIANTS``; with ``--parent``, the
   parent's kernel and its split (``PARENT_F1_SPLIT``: the selection, the
   write and the selection's loads alone);
@@ -81,6 +83,15 @@ beside the variants. Prints one JSON line a case:
   kernel and ``E2P2_VARIANTS``; with ``--parent``, the parent's kernel
   and its split (``PARENT_P2_SPLIT``: the tie walk alone, the products
   as copies, without dq's reductions, the reductions alone);
+* ``edgeeval`` (not in the default set): the eval kernels with the kNN
+  inside at their seven served launches (the models' eval chains, seeded
+  weights), device ms by CUDA graphs (with the select route's norms
+  launch) and out against the plain version (bit-identical, and the
+  deviation over max|plain|), for the built kernels on every route of
+  ``knn.EDGE_ROUTES`` that takes the shapes and for ``EVAL_VARIANTS``;
+  with ``--parent``, the parents' kernels and their split
+  (``PARENT_EVAL_SPLIT``: the selection alone, the rows or the chain
+  with the lists given, the chain's loads alone);
 * ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
   and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
@@ -1575,10 +1586,10 @@ def run_edgef1(parent: Optional[Path]) -> None:
         for name, lib in libs.items():
             routes = [None]
             if name in routed:
-                routes = [r for r in kknn.EDGE_F1_ROUTES
+                routes = [r for r in kknn.EDGE_ROUTES
                           if kknn.edge_f1_route_fits(r, n, cin, c, k)]
             runs += [(name[3:] if r is None else
-                      f"{name[3:]} {kknn.edge_f1_route_name(r)}", lib, r)
+                      f"{name[3:]} {kknn.edge_route_name(r)}", lib, r)
                      for r in routes]
         rec: Dict[str, list] = {}
         for label, lib, route in runs:
@@ -1746,6 +1757,204 @@ def run_edge2p2(parent: Optional[Path]) -> None:
         torch.cuda.empty_cache()
 
 
+def edgeeval_cases():
+    """``(case, kind, inputs)``: the eval kernels' inputs at their seven
+    launches of the served paths, from the models' own eval chains
+    (running statistics, seeded weights): ``edge_knn_eval`` (kind
+    ``ev``: x, q, off, st, k) at DGCNN's four EdgeConvs (B=32, N=1024,
+    k=20) and part segmentation's EC3, ``edge2_knn_eval`` (kind ``e2``:
+    x, q, off, the stacked rows of both layers, bf16 W2, k) at its two
+    pairs (B=16, N=2048, k=40)."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+    from pointcloudlib_tpu_torch.ops.kernels.fused_sa import _stack_stats
+
+    def ev(f, x):
+        q, off = f.prepare(x)
+        st = _stack_stats(f.mean, f.var, f.bn_scale, f.bn_bias)
+        return x, q.bfloat16(), off, st, f.k
+
+    x = torch.from_numpy(SyntheticModelNet(
+        n_points=1024, size=32, seed=0).batch(0, 32)[0]).to(DEV)
+    model = _seeded("dgcnn")
+    with torch.no_grad():
+        for i, ec in enumerate(model.edge):
+            yield f"DGCNN EC{i + 1}", "ev", ev(ec.fused, x)
+            x = ec(x)
+    del model
+    x = torch.from_numpy(SyntheticShapeNetPart(
+        n_points=2048, size=16, seed=0).batch(0, 16)[0]).to(DEV)
+    model = _seeded("dgcnn_partseg")
+    with torch.no_grad():
+        for name, layer in (("pair1", model.edge1), ("pair2", model.edge2)):
+            q, off = layer.prepare(x)
+            st1, st2 = kfe._folded2(layer.bn1_scale, layer.bn1_bias,
+                                    layer.bn2_scale, layer.bn2_bias,
+                                    layer.stats())
+            yield f"DGCNN-seg {name}", "e2", (
+                x, q.bfloat16(), off, kfe._st2(st1, st2),
+                layer.w2.bfloat16().contiguous(), layer.k)
+            x = layer(x)
+        yield "DGCNN-seg EC3", "ev", ev(model.edge3, x)
+
+
+# The eval kernels with the kNN inside: the parents' split (--parent; a
+# part's output is wrong by design). edge_knn_eval: select_only (no
+# gather, no out) and rows_only (the gather, BN, LeakyReLU and max alone:
+# the plain version's lists read from the buffer passed as x, in place of
+# the selection); edge2_knn_eval: select_only (no chain), chain_only (the
+# lists given, as rows_only) and loads_only (the lists given and the y1
+# gathers, the product replaced by a copy of y1).
+EV_SELECT = ("  const int* nbr = knn_block<KP>(xb, n, xb, n, cin, q0, k,\n"
+             "                                 reinterpret_cast<float*>"
+             "(smem));\n")
+EV_GIVEN = ("  load_nbr(reinterpret_cast<const int*>(x) + (size_t)b * n * k, "
+            "q0,\n           min(kKnnQ, n - q0), k, reinterpret_cast<int*>"
+            "(smem));\n"
+            "  const int* nbr = reinterpret_cast<const int*>(smem);\n")
+EV_ROWS = ("  edge_eval_rows(nbr, q + cb, off + cb, st, out + cb, c, k, slope,"
+           " q0,\n                 min(kKnnQ, n - q0));\n")
+E2_GATHER = ("  gather_max(s, nbr, q + cb * C1, off + cb * C1, out + cb * C2, "
+             "q0,\n             min(kKnnQ, n - q0), k, slope);\n")
+E2_CHAIN = "    chain_z2(s, rg, cg, z);\n"
+PARENT_EVAL_SPLIT = {
+    "ev": {
+        "select_only": ([(EV_ROWS, "")], ()),
+        "rows_only": ([(EV_SELECT, EV_GIVEN)], ()),
+    },
+    "e2": {
+        "select_only": ([(E2_GATHER, "")], ()),
+        "chain_only": ([(EV_SELECT, EV_GIVEN)], ()),
+        "loads_only": ([(EV_SELECT, EV_GIVEN)], [(E2_CHAIN, _copy_product(
+            "z", "s.ys", "T2::RPT", "C1 + 8", "rg", "cg"))]),
+    },
+}
+EV_SOURCES = {"ev": ("edge_knn_eval.cu", "edge_knn.cuh"),
+              "e2": ("edge2_knn_eval.cu", "edge2.cuh")}
+# this tree's variants of the select routes (edits of edge_knn_eval.cu
+# and edge2_knn_eval.cu): their split (select_only: the walk and the
+# lists alone, no eval half or chain), and the C = 256 instance's walk at
+# 128 queries a block and a ring of three tiles, two blocks an SM
+# (walk128; 256 queries and two tiles, one block an SM, are built)
+EV_WALK = """  static constexpr int QPT = C == 256 ? 8 : 4;
+  static constexpr int STAGES = C == 256 ? 2 : 3;
+  static constexpr int BLOCKS = C == 256 ? 1 : 2;"""
+EVAL_VARIANTS: Dict[str, Dict[str, tuple]] = {
+    "ev": {
+        "select_only": ([("""  for (int ql = warp; ql < nq; ql += kWarps)
+    eval_center<C>(qb, off + (row0 + ql) * C, out + (row0 + ql) * C,
+                   nbr + ql * k, k, sc, bi, slope, lane);
+""", "")], ()),
+        "walk128": ([(EV_WALK, """  static constexpr int QPT = 4;
+  static constexpr int STAGES = 3;
+  static constexpr int BLOCKS = 2;""")], ()),
+    },
+    "e2": {
+        "select_only": ([("  const int steps = (nq + kRows - 1) / kRows * k;",
+                          "  const int steps = 0;")], ()),
+    },
+}
+EV_ARGS = {  # the launchers' arguments, before the routes and after
+    ("ev", False): [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_void_p],
+    ("ev", True): [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_void_p],
+    ("e2", False): [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_void_p],
+    ("e2", True): [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def run_edgeeval(parent: Optional[Path]) -> None:
+    """The parents' split and this tree's eval kernels at each launch of
+    :func:`edgeeval_cases`: device ms by CUDA graphs (the select route's
+    norms launch included), ``edge_knn_eval``'s out bit-identical to the
+    plain version and ``edge2_knn_eval``'s deviation over max|plain|,
+    for this tree's kernels on every route that takes the shapes."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    sources = {}
+    for kind, (src, _) in EV_SOURCES.items():
+        sources[f"{kind}_built"] = ((_build.CSRC / src).read_text(),
+                                    _build.CSRC)
+    for kind, variants in EVAL_VARIANTS.items():
+        for name, (edits, head) in variants.items():
+            sources[f"{kind}_{name}"] = (_with_header(
+                _build.CSRC, EV_SOURCES[kind][0], "knn_select.cuh", edits,
+                head), _build.CSRC)
+    if parent:
+        for kind, split in PARENT_EVAL_SPLIT.items():
+            src, header = EV_SOURCES[kind]
+            sources[f"{kind}_parent"] = ((parent / src).read_text(), parent)
+            for name, (edits, head) in split.items():
+                sources[f"{kind}_parent_{name}"] = (_with_header(
+                    parent, src, header, edits, head), parent)
+    libs = build(sources)
+    kinds = {"ev": "edge_knn_eval_launch", "e2": "edge2_knn_eval_launch"}
+    routed = {name for name, (text, _) in sources.items()
+              if "int route" in text}
+    for name, lib in libs.items():
+        fn = getattr(lib, kinds[name[:2]])
+        fn.argtypes = EV_ARGS[(name[:2], name in routed)]
+        fn.restype = ctypes.c_int
+    for case, kind, args in edgeeval_cases():
+        x, q = args[0], args[1]
+        b, n, cin = x.shape
+        c1, k = q.shape[-1], args[-1]
+        if kind == "ev":
+            c2 = c1
+            want = kfe.edge_knn_eval_plain(*args)
+        else:
+            c2 = args[4].shape[1]
+            st1, st2 = args[3][:4 * c1].view(4, c1), args[3][4 * c1:].view(
+                4, c2)
+            want = kfe.edge2_knn_eval_plain(x, q, args[2], st1, st2,
+                                            args[4].float(), k)
+        widx = _plain_by_clouds(x, k)[1]
+        out = torch.empty_like(want)
+        norms = torch.empty(b * n, device=DEV)
+        runs = []
+        for name, lib in libs.items():
+            if name[:2] != kind:
+                continue
+            routes, layers = [None], 1 if kind == "ev" else 2
+            if name in routed:
+                routes = [r for r in kknn.EDGE_ROUTES if
+                          kknn.edge_eval_route_fits(r, n, cin, c1, k, layers)]
+            runs += [(name[3:] if r is None else
+                      f"{name[3:]} {kknn.edge_route_name(r, layers)}", lib,
+                      r) for r in routes]
+        rec: Dict[str, list] = {}
+        for label, lib, route in runs:
+            given = "rows_only" in label or "chain_only" in label or (
+                "loads_only" in label)
+            first = widx if given else x
+            rest = [_ptr(a) for a in args[1:-1]]
+
+            def call(lib=lib, route=route, first=first, rest=rest):
+                fn = getattr(lib, kinds[kind])
+                if route is None:  # the parents' launcher
+                    return fn(_ptr(first), *rest, _ptr(out), b, n, cin,
+                              *((c1,) if kind == "ev" else (c1, c2)), k,
+                              ctypes.c_float(0.2), _stream())
+                return fn(_ptr(first), *rest, _ptr(out), _ptr(norms), b, n,
+                          cin, *((c1,) if kind == "ev" else (c1, c2)), k,
+                          route, ctypes.c_float(0.2), _stream())
+
+            out.fill_(float("nan"))
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            dev = ((out - want).abs().max() / want.abs().max()).item()
+            rec[label] = [round(graph_ms(call, 10), 4),
+                          bool(torch.equal(out, want)), float(f"{dev:.2e}")]
+        print(json.dumps({
+            "kernel": kinds[kind][:-7], "case": case, "B": b, "N": n, "k": k,
+            "C_in": cin, "C": c1, "ms_identical_dev": rec}), flush=True)
+        del out, want, widx
+        torch.cuda.empty_cache()
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -1788,7 +1997,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--only", nargs="+", default=["fps", "tail", "f1", "read",
                                                   "cluster"],
                     choices=["fps", "tail", "f1", "rows", "knn", "edge2p1",
-                             "edgef1", "edge2p2", "read", "cluster"])
+                             "edgef1", "edge2p2", "edgeeval", "read",
+                             "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1813,6 +2023,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_edgef1(args.parent)
     if "edge2p2" in args.only:
         run_edge2p2(args.parent)
+    if "edgeeval" in args.only:
+        run_edgeeval(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

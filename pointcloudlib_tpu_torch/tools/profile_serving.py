@@ -17,7 +17,10 @@ points instead (4096: the sorted route of the given-index kernels; above
 Prints one JSON line with:
 
 * ``wall_ms_per_batch`` — host clock per served batch without the
-  profiler (median of 5 requests), and with it;
+  profiler (median of 5 requests), and with it; ``clouds_per_s``, the
+  batch over the first;
+* ``peak_memory_gb`` — ``torch.cuda.max_memory_allocated`` over the 5
+  unprofiled requests;
 * ``device_busy_ms_per_batch`` and ``device_busy_share`` — the union of
   the device's kernel and copy intervals over the profiled window, per
   batch and as a share of that window's wall time;
@@ -68,20 +71,21 @@ N_CLOUDS = {"pointnet2": 256, "pointnet2_msg": 256, "dgcnn": 256,
 STAGES = (
     (r"gather_rows_kernel", "gather_neighbors kernel"),
     (r"knn_gather_kernel", "knn_gather kernel"),
-    (r"edge2_knn_eval_kernel", "edge2_knn_eval kernel"),
+    (r"edge2_knn_eval_(select_)?kernel", "edge2_knn_eval kernel"),
     (r"edge2_eval_kernel", "edge2_eval kernel"),
     (r"edge2_tail_kernel<64, 64, false>", "edge2_stats2 kernel"),
     (r"edge2_tail_kernel<64, 64, true>", "edge2_out kernel"),
     (r"edge2_p1_kernel|edge2_p1_rows_kernel|p1_mats_kernel<192, 128>",
      "edge2_p1 kernel"),
     (r"edge2_p2_kernel", "edge2_p2 kernel"),
-    (r"edge_knn_eval_kernel", "edge_knn_eval kernel"),
+    (r"edge_knn_eval_(select_)?kernel", "edge_knn_eval kernel"),
     (r"edge_knn_f1_kernel|edge_knn_f1_select_kernel", "edge_knn_f1 kernel"),
     (r"edge_out_kernel", "edge_out kernel"),
     (r"edge_bwd_kernel", "edge_bwd kernel"),
     (r"edge_eval_kernel", "edge_eval kernel"),
     (r"edge_f1_kernel", "edge_f1 kernel"),
-    # |p|^2 before the select route of knn and of edge_knn_f1
+    # |p|^2 before the select route of knn and of the EdgeConv kernels
+    # with the kNN inside
     (r"knn_norms_kernel", "knn norms kernel"),
     (r"knn_kernel|knn_select_kernel", "knn kernel"),
     (r"fps_kernel", "fps kernel"),
@@ -164,12 +168,14 @@ def main(argv=None) -> None:
     request()  # warm-up: kernels built, caches
     batches = n_clouds // batch
 
+    torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
         request()
         walls.append((time.perf_counter() - t0) * 1e3 / batches)
 
+    peak = torch.cuda.max_memory_allocated()
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -197,6 +203,8 @@ def main(argv=None) -> None:
         "batches": batches,
         "wall_ms_per_batch": float(np.median(walls)),
         "wall_ms_per_batch_runs": walls,
+        "clouds_per_s": batch * 1e3 / float(np.median(walls)),
+        "peak_memory_gb": peak / 1e9,
         "profiled_wall_ms_per_batch": window_us / 1e3 / batches,
         "device_busy_ms_per_batch": busy_us / 1e3 / batches,
         "device_busy_share": busy_us / window_us,

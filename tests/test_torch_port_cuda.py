@@ -776,6 +776,13 @@ EDGE_SHAPES = {  # B, N, k, C_in, C: DGCNN's four EdgeConvs, and edge cases
     "seg_translated_1e3": (4, 2048, 40, 64, 64),  # the expanded d² cancels
     "seg_all_equal": (2, 2048, 40, 64, 64),       # every d² ties: the index
 }
+# the served launches of the eval kernel with the kNN inside at their
+# batch sizes: DGCNN's EC2 and EC4 (B=32, N=1024), part seg's EC3
+EVAL_SERVE_SHAPES = {
+    "serve_ec2": (32, 1024, 20, 64, 64),
+    "serve_ec4": (32, 1024, 20, 128, 256),
+    "serve_seg_ec3": (16, 2048, 40, 64, 64),
+}
 
 
 def _edge_inputs(card, name, seed=0):
@@ -786,7 +793,7 @@ def _edge_inputs(card, name, seed=0):
     case makes every point of a cloud its first."""
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
 
-    b, n, k, cin, c = EDGE_SHAPES[name]
+    b, n, k, cin, c = {**EDGE_SHAPES, **EVAL_SERVE_SHAPES}[name]
     rng = np.random.default_rng(seed + n + cin + c)
 
     def t(*shape, scale=1.0):
@@ -865,17 +872,46 @@ def test_edge_knn_f1_every_route_bit_identical(card, name, monkeypatch):
     b, n, cin = a["x"].shape
     c = a["q"].shape[-1]
     widx, wh, wpsum = kfe.edge_knn_f1_plain(*f1)
-    routes = [r for r in kknn.EDGE_F1_ROUTES
+    routes = [r for r in kknn.EDGE_ROUTES
               if kknn.edge_f1_route_fits(r, n, cin, c, a["k"])]
     assert routes and (c != 64 or len(routes) >= 2), routes
     for route in routes:
         monkeypatch.setattr(kknn, "edge_f1_route", lambda *_, r=route: r)
         idx, h, psum = kfe.edge_knn_f1(*f1)
         torch.cuda.synchronize()
-        what = kknn.edge_f1_route_name(route)
+        what = kknn.edge_route_name(route)
         assert torch.equal(idx, widx), what
         assert torch.equal(h.view(torch.int16), wh.view(torch.int16)), what
         _close_sums(psum, wpsum, what)
+
+
+@pytest.mark.parametrize("name", sorted({**EDGE_SHAPES,
+                                         **EVAL_SERVE_SHAPES}))
+def test_edge_knn_eval_every_route_bit_identical(card, name, monkeypatch):
+    """Every route of the eval kernel's launcher (the block route and
+    each select instance) that takes these shapes, each forced in turn
+    through ``knn.edge_eval_route``: out bit-identical to the plain
+    version's, one launch a call. The served shapes take the select
+    route, the small grids (B=4) the block route."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    kfe, a = _edge_inputs(card, name, seed=5)
+    args = (a["x"], a["q"], a["off"], a["st"], a["k"])
+    b, n, cin = a["x"].shape
+    c = a["q"].shape[-1]
+    route = kknn.edge_eval_route(b, n, cin, c, a["k"])
+    assert (route != 0) == (name.startswith("serve") or n >= 2048), route
+    want = kfe.edge_knn_eval_plain(*args)
+    routes = [r for r in kknn.EDGE_ROUTES
+              if kknn.edge_eval_route_fits(r, n, cin, c, a["k"])]
+    assert routes and (c != 64 or a["k"] < 9 or len(routes) >= 2), routes
+    for r in routes:
+        monkeypatch.setattr(kknn, "edge_eval_route", lambda *_, r=r, **__: r)
+        before = kfe.edge_knn_eval.launches
+        got = kfe.edge_knn_eval(*args)
+        torch.cuda.synchronize()
+        assert kfe.edge_knn_eval.launches == before + 1
+        assert torch.equal(got, want), kknn.edge_route_name(r, 1)
 
 
 @pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
@@ -1255,6 +1291,14 @@ EDGE2_SHAPES = {  # B, N, k, C_in: the two pairs at k=40, and edge cases
     "n100_b3": (3, 100, 20, 64),         # 300 centers: a part tile
     "kink_band": (2, 2048, 40, 64),      # many z2 within 2^-13 of 0
 }
+# the eval kernel with the kNN inside: part seg's served pair 2 (B=16), a
+# cloud of duplicated points at N = 2,048 (ties at the k-th slot), and
+# BN2 scales of 1e3
+EVAL2_SHAPES = {
+    "serve_pair2": (16, 2048, 40, 64),
+    "serve_duplicates": (4, 2048, 40, 64),
+    "bn2_large": (2, 2048, 40, 64),
+}
 
 
 def _edge2_inputs(card, name, seed=0):
@@ -1270,7 +1314,7 @@ def _edge2_inputs(card, name, seed=0):
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
     from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import _moments
 
-    b, n, k, cin = EDGE2_SHAPES[name]
+    b, n, k, cin = {**EDGE2_SHAPES, **EVAL2_SHAPES}[name]
     rng = np.random.default_rng(seed + n + cin + k)
 
     def t(*shape, scale=1.0):
@@ -1291,6 +1335,8 @@ def _edge2_inputs(card, name, seed=0):
     g2, b2 = t(64, scale=0.2) + 1.0, t(64, scale=0.1)
     if name == "kink_band":  # z2 = (h2 − mean)·1e-4/σ, every other channel
         g2[::2], b2[::2] = 1e-4, 0.0
+    if name == "bn2_large":
+        g2 = g2 * 1e3
     st2 = kfs._stack_stats(*_moments(kfe.edge2_stats2_plain(h1, st1, w2),
                                      r), g2, b2)
     return kfe, dict(x=x, q=q, off=off, w2=w2, idx=idx, h1=h1, st1=st1,
@@ -1316,6 +1362,35 @@ def test_edge2_eval_kernels_match_plain(card, name):
                                atol=1e-5 * want.abs().max().item())
     torch.testing.assert_close(got_idx, want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("name", sorted({**EDGE2_SHAPES, **EVAL2_SHAPES}))
+def test_edge2_knn_eval_every_route_matches_plain(card, name, monkeypatch):
+    """Every route of ``edge2_knn_eval``'s launcher that takes these
+    shapes, each forced in turn through ``knn.edge_eval_route``: within
+    1e-5 of the largest plain element (the same lists and y1, h2 summed
+    by the tensor cores on the select route), one launch a call. Part
+    seg's shapes take the select route, N ≤ 1,024 the block route."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    kfe, a = _edge2_inputs(card, name, seed=3)
+    args = (a["x"], a["q"], a["off"], a["st1"], a["st2"], a["w2"], a["k"])
+    b, n, cin = a["x"].shape
+    route = kknn.edge_eval_route(b, n, cin, 64, a["k"], layers=2)
+    assert (route != 0) == (n >= 2048), route
+    want = kfe.edge2_knn_eval_plain(*args)
+    routes = [r for r in kknn.EDGE_ROUTES
+              if kknn.edge_eval_route_fits(r, n, cin, 64, a["k"], 2)]
+    assert routes and (a["k"] < 9 or len(routes) >= 2), routes
+    for r in routes:
+        monkeypatch.setattr(kknn, "edge_eval_route", lambda *_, r=r, **__: r)
+        before = kfe.edge2_knn_eval.launches
+        got = kfe.edge2_knn_eval(*args)
+        torch.cuda.synchronize()
+        assert kfe.edge2_knn_eval.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item(),
+                                   msg=kknn.edge_route_name(r, 2))
 
 
 @pytest.mark.parametrize("name", sorted(EDGE2_SHAPES))

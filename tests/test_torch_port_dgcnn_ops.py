@@ -228,7 +228,7 @@ def test_edge_knn_f1_routes():
     widths and list lengths no select instance takes, and shared memory
     a block cannot hold."""
     r = kknn.edge_f1_route
-    name = kknn.edge_f1_route_name
+    name = kknn.edge_route_name
     assert [name(r(32, 1024, cin, c, 20)) for cin, c in (
         (3, 64), (64, 64), (64, 128), (128, 256))] == [
         "select 128x3 k<=24 C=64", "select 128x3 k<=24 C=64",

@@ -130,6 +130,64 @@ def test_knn_wrapper_takes_the_plain_version_on_the_cpu():
     assert torch.equal(idx, want[1]) and torch.equal(d2, want[0])
 
 
+# ---------------------------- the routes of the kernels with the kNN inside
+
+
+@pytest.mark.parametrize("layers,b,n,cin,c,k,want", [
+    # DGCNN's four served EdgeConvs and part segmentation's EC3 and pairs
+    (1, 32, 1024, 3, 64, 20, "select 128x3 k<=24 C=64"),
+    (1, 32, 1024, 64, 64, 20, "select 128x3 k<=24 C=64"),
+    (1, 32, 1024, 64, 128, 20, "select 128x3 k<=24 C=128"),
+    (1, 32, 1024, 128, 256, 20, "select 256x2 k<=24 C=256"),
+    (1, 16, 2048, 64, 64, 40, "select 128x3 k<=40 C=64"),
+    (2, 16, 2048, 3, 64, 40, "select 128x3 k<=40 C=64"),
+    (2, 16, 2048, 64, 64, 40, "select 128x3 k<=40 C=64"),
+    # small grids, other widths and list lengths: the block route
+    (1, 4, 1024, 3, 64, 20, "block"),       # 32 blocks of 128 queries
+    (2, 4, 1024, 3, 64, 40, "block"),
+    (2, 16, 1000, 64, 64, 40, "block"),     # part seg's kNN-route size
+    (1, 32, 1024, 3, 32, 20, "block"),      # no instance at C = 32
+    (1, 32, 1024, 3, 64, 8, "block"),       # none for lists of 8
+    (1, 32, 4096, 512, 64, 20, "block"),    # the walk's tiles do not fit
+])
+def test_edge_eval_routes(layers, b, n, cin, c, k, want):
+    """The route of ``edge_knn_eval`` (one layer) and ``edge2_knn_eval``
+    (two), a function of the shapes alone (``knn.edge_eval_route``, pass
+    1's rule and instances): the served paths take the select instance
+    of their list length and width, small grids and the shapes no
+    instance takes the block route."""
+    route = kknn.edge_eval_route(b, n, cin, c, k, layers=layers)
+    assert kknn.edge_route_name(route, layers) == want
+    if route:
+        assert kknn.edge_eval_route_fits(route, n, cin, c, k, layers)
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_edge_eval_instances_fit_a_block(layers):
+    """Every select instance's shared memory, as the wrapper reckons it
+    (the walk's tiles, then the lists and, with two layers, W2 and two y1
+    tiles), fits one block's 227 KB at the input widths of the paths, and
+    a list longer than the instance's or another width does not fit it.
+    The two-layer kernel reuses the walk's tiles: two blocks an SM at C_in
+    = 64."""
+    for route, (entries, c) in kknn.EDGE_SELECT.items():
+        if layers == 2 and c != 64:
+            assert not kknn.edge_eval_route_fits(route, 2048, 64, c, 20, 2)
+            continue
+        for cin in (3, 64, 128):
+            smem = kknn.edge_eval_smem(route, cin, c, 8 * entries, layers)
+            assert smem <= 227 * 1024, (route, cin, smem)
+            assert kknn.edge_eval_route_fits(route, 2048, cin, c,
+                                             8 * entries, layers)
+        assert not kknn.edge_eval_route_fits(route, 2048, 64, c,
+                                             8 * entries + 1, layers)
+        assert not kknn.edge_eval_route_fits(route, 2048, 64, 2 * c,
+                                             8 * entries, layers)
+    if layers == 2:
+        assert kknn.edge_eval_smem(4, 64, 64, 40, 2) == 88320
+        assert 2 * kknn.edge_eval_smem(4, 3, 64, 40, 2) <= 227 * 1024
+
+
 # ------------------------------------------ EdgeConv from a given index
 
 
