@@ -436,27 +436,31 @@ def phase_device() -> str:
     return line
 
 
+def _ptxas(name: str) -> list:
+    """Registers, static shared memory and spills of each kernel of
+    ``csrc/<name>.cu``, from its ``-Xptxas -v`` report."""
+    entries, fn = [], None
+    for ln in _build.ptxas_log(name).splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            entries.append({"fn": fn, "regs": int(m.group(1)),
+                            "static_smem": int(smem.group(1)) if smem
+                            else 0})
+        if "spill" in ln and fn and not re.search(r"\b0 bytes spill", ln):
+            entries.append({"fn": fn, "spill": ln.strip()})
+    return entries
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build(SOURCES)
     secs = time.perf_counter() - t0
-    ptxas = {}
-    for name in SOURCES:
-        entries, fn = [], None
-        for ln in _build.ptxas_log(name).splitlines():
-            m = re.search(r"entry function '([^']+)'", ln)
-            if m:
-                fn = m.group(1)
-            m = re.search(r"Used (\d+) registers", ln)
-            if m and fn:
-                smem = re.search(r"(\d+) bytes smem", ln)
-                entries.append({"fn": fn, "regs": int(m.group(1)),
-                                "static_smem": int(smem.group(1)) if smem
-                                else 0})
-            if "spill" in ln and fn and not re.search(r"\b0 bytes spill", ln):
-                entries.append({"fn": fn, "spill": ln.strip()})
-        ptxas[name] = entries
-    emit("build", {"seconds": round(secs, 3), "ptxas": ptxas})
+    emit("build", {"seconds": round(secs, 3),
+                   "ptxas": {name: _ptxas(name) for name in SOURCES}})
 
 
 def _sa_inputs(model, xyz, nrm):
@@ -2923,6 +2927,75 @@ def edge2_times() -> None:
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "share_of_bound": bound_ms / ms, **_errs(errs)})
             del a, h1
+            torch.cuda.empty_cache()
+
+
+def tail2_times() -> None:
+    """``edge2_stats2`` and ``edge2_out`` at DGCNN part segmentation's two
+    pairs (B=16, N=2048, k=40) and on its kNN route (16 clouds of 1,000
+    points), inputs built as ``edge2_times`` builds them (pass 1's plain
+    h1 from the model's own train chain, BN rows of its batch moments):
+    after the device line and the kernels' registers and spills, one
+    ``edge2_tail:`` line a kernel and case with device ms by CUDA graphs
+    (stats2 with the wrapper's memset), the bound and its share, and the
+    deviation from the plain version over max|plain| (held to 1e-3 for
+    the sums, 1e-5 for out). It times the package beside this file; for
+    old against new, copy this file into the other checkout's root and
+    run it there too:
+
+        python3 -c 'import chip_smoke; chip_smoke.tail2_times()'
+    """
+    phase_device()
+    _build.build(SOURCES)
+    emit("edge2_tail build", {
+        "ptxas": _ptxas("edge2_tail"),
+        "dynamic_smem": getattr(kfe, "edge2_tail_smem", lambda *_: None)(
+            64, 64)})
+    dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
+                                                     seed=0))
+    x_odd = SyntheticShapeNetPart(n_points=DSEG_ODD_TRAIN, size=SEG_BATCH,
+                                  seed=3).batch(0, SEG_BATCH)[0]
+    for x in (torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV),
+              torch.from_numpy(x_odd).to(DEV)):
+        for name, layer, _, xt in _dseg_layers(dseg, x)[:2]:
+            b, n, _ = xt.shape
+            k, (c1, c2) = layer.k, layer.w2.shape
+            e = float(b * n * k)
+            with torch.no_grad():
+                q, off = layer.prepare(xt)
+                qb = q.bfloat16()
+                if n % 128:
+                    h1, psum = kfe.edge_f1_plain(qb, off,
+                                                 kknn.knn(xt, xt, k)[1])
+                else:
+                    h1, psum = kfe.edge_knn_f1_plain(xt, qb, off, k)[1:]
+                st1 = kfs._stack_stats(*kft._moments(psum, e),
+                                       layer.bn1_scale, layer.bn1_bias)
+                sums = kfe.edge2_stats2_plain(h1, st1, layer.w2)
+                st2 = kfs._stack_stats(*kft._moments(sums, e),
+                                       layer.bn2_scale, layer.bn2_bias)
+                hb = 2.0 * e * c1 + 2.0 * c1 * c2 + 32.0 * (c1 + c2)
+                # as _edge2_train_cases counts them
+                stages = (
+                    ("edge2_stats2", kfe.edge2_stats2, (h1, st1, layer.w2),
+                     sums, SUM_TOL, (3.0 * c1 + 3.0 * c2) * e, hb + 8.0 * c2),
+                    ("edge2_out", kfe.edge2_out, (h1, st1, st2, layer.w2),
+                     kfe.edge2_out_plain(h1, st1, st2, layer.w2), EDGE_TOL,
+                     (3.0 * c1 + 4.0 * c2) * e, hb + 4.0 * b * n * c2))
+                for kernel, fn, a, want, tol, f32_ops, nbytes in stages:
+                    err = _check_sums(f"{kernel} {name} N={n}", fn(*a), want,
+                                      tol)
+                    ms = graph_ms(lambda: fn(*a), 10)
+                    bound_ms, ops_ms, bytes_ms = bound(2.0 * c1 * c2 * e,
+                                                       f32_ops, nbytes)
+                    emit("edge2_tail", {
+                        "kernel": kernel, "case": f"{name} N={n}", "B": b,
+                        "N": n, "k": k, "C1": c1, "C2": c2, "device_ms": ms,
+                        "bound_ms": bound_ms,
+                        "bound_by": ("operations" if ops_ms >= bytes_ms
+                                     else "bytes"),
+                        "share_of_bound": bound_ms / ms, **_errs([err])})
+            del h1, stages
             torch.cuda.empty_cache()
 
 

@@ -1,6 +1,7 @@
 // The two-layer EdgeConv of DGCNN part segmentation (Fused2EdgeConv),
-// the row chain of its forward kernels on CUDA cores (edge2_eval.cu,
-// edge2_knn_eval.cu, edge2_tail.cu; the backward passes form it on the
+// the row chain of its given-index eval kernel on CUDA cores
+// (edge2_eval.cu, and edge2_knn_eval.cu's block route; the tails, the
+// backward passes and edge2_knn_eval's select route form it on the
 // tensor cores, edge2_wgmma.cuh). From an edge's
 // first-layer pre-activation h1 (the bf16 checkpoint, or float(bf16
 // Q[j]) - Off[i] gathered) and the folded BN rows (sc, bi, rs, mrs):
@@ -31,7 +32,7 @@ namespace pcl {
 #define PCL_EDGE2_WIDTHS(X) X(64, 64)
 
 // Shared memory of the chain: W2 (bf16), the folded rows of both layers
-// (f32), the y1 tile (bf16) and a reduction scratch; byte offsets.
+// (f32) and the y1 tile (bf16); byte offsets.
 template <int C1, int C2>
 struct Edge2Layout {
   static_assert(Tile<C1>::ACTIVE == kThreads && Tile<C2>::ACTIVE == kThreads,
@@ -40,8 +41,7 @@ struct Edge2Layout {
   static constexpr size_t w2 = 0;
   static constexpr size_t st = w2 + (size_t)C1 * C2 * 2;
   static constexpr size_t ys = st + (size_t)4 * (C1 + C2) * 4;
-  static constexpr size_t red = ys + (size_t)kRows * (C1 + 8) * 2;
-  static constexpr size_t bytes = red + (size_t)3 * C1 * 4;
+  static constexpr size_t bytes = ys + (size_t)kRows * (C1 + 8) * 2;
 };
 
 // Pointers into the chain's shared memory, with its folded rows.
@@ -49,12 +49,11 @@ template <int C1, int C2>
 struct Edge2Smem {
   using L = Edge2Layout<C1, C2>;
   __nv_bfloat16 *w2, *ys;
-  float *st, *red;
+  float* st;
   __device__ explicit Edge2Smem(unsigned char* base)
       : w2(reinterpret_cast<__nv_bfloat16*>(base + L::w2)),
         ys(reinterpret_cast<__nv_bfloat16*>(base + L::ys)),
-        st(reinterpret_cast<float*>(base + L::st)),
-        red(reinterpret_cast<float*>(base + L::red)) {}
+        st(reinterpret_cast<float*>(base + L::st)) {}
   // (sc, bi, rs, mrs) of layer 1 at st[0..4*C1), of layer 2 after it
   __device__ const float* st1(int row) const { return st + row * C1; }
   __device__ const float* st2(int row) const { return st + 4 * C1 + row * C2; }
@@ -77,29 +76,6 @@ __device__ __forceinline__ void stage_chain(const Edge2Smem<C1, C2>& s,
 __device__ __forceinline__ float bn_leaky(float h, float sc, float bi,
                                           float slope) {
   return leaky(bn_z(h, sc, bi), slope);
-}
-
-// The y1 tile from the checkpoint h1 [centers, k, C1]: row r is slot kk
-// of center c0 + r; rows at or past nc are zero.
-template <int C1, int C2>
-__device__ __forceinline__ void load_y1_slot(const Edge2Smem<C1, C2>& s,
-                                             const __nv_bfloat16* h1,
-                                             long long c0, int nc, int k,
-                                             int kk, float slope) {
-  const float* sc1 = s.st1(0);
-  const float* bi1 = s.st1(1);
-  for (int e = threadIdx.x; e < kRows * (C1 / 2); e += kThreads) {
-    const int r = e / (C1 / 2);
-    const int cc = (e % (C1 / 2)) * 2;
-    uint32_t v = 0;
-    if (r < nc) {
-      const uint32_t hh = *reinterpret_cast<const uint32_t*>(
-          h1 + ((size_t)(c0 + r) * k + kk) * C1 + cc);
-      v = pack2(bn_leaky(bf_lo(hh), sc1[cc], bi1[cc], slope),
-                bn_leaky(bf_hi(hh), sc1[cc + 1], bi1[cc + 1], slope));
-    }
-    *reinterpret_cast<uint32_t*>(s.ys + r * (C1 + 8) + cc) = v;
-  }
 }
 
 // The y1 tile from a gather: row r is query q0 + r of one cloud and its

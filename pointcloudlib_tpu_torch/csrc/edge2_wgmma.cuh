@@ -1,8 +1,9 @@
 // The two-layer EdgeConv's chain on Hopper's tensor cores, shared by the
 // backward passes (edge2_bwd_p1.cu, edge2_bwd_p2.cu) so that both form
 // h2, its max-pool ties and its leaky masks bit for bit alike, and by the
-// eval kernel with the kNN inside (edge2_knn_eval.cu, its product alone:
-// no gradient follows, so it needs no tie walk and no kink band).
+// eval kernel with the kNN inside and the forward tails
+// (edge2_knn_eval.cu, edge2_tail.cu: the product alone, chain_issue; no
+// gradient follows, so they need no tie walk and no kink band).
 //
 // A block of two warpgroups walks tiles of 64 centers (edge2.cuh's
 // layout: a tile's row r is slot kk of center c0 + r, its k slots one
@@ -72,16 +73,17 @@ struct E2Walk {
 };
 
 // Issues h[v] += y1 . W2 over this warpgroup's columns (h zeroed by the
-// caller) and commits it without waiting: the eval kernel
-// (edge2_knn_eval.cu) stages its next tile meanwhile, then waits
-// (wg::wait<0>, wg::fence_regs). lt: the y1 tile (its first C1 columns,
-// width WL, staged and fenced for the async proxy); w2s: W2 core-matrix
-// [C1, C2]; g: the warpgroup.
-template <int C1, int C2, int WL>
-__device__ __forceinline__ void chain_issue(float (&h)[C2 / 4],
+// caller) and commits it without waiting: the eval kernel and the tails
+// (edge2_knn_eval.cu, edge2_tail.cu) stage their next tile meanwhile,
+// then wait (wg::wait<0>, wg::fence_regs). lt: the y1 tile (its first C1
+// columns, width WL, staged and fenced for the async proxy); w2s: W2
+// core-matrix [C1, C2]; g: the warpgroup, one of WGS that share the
+// tile's columns.
+template <int C1, int C2, int WL, int WGS = 2>
+__device__ __forceinline__ void chain_issue(float (&h)[C2 / (2 * WGS)],
                                             const __nv_bfloat16* lt,
                                             const __nv_bfloat16* w2s, int g) {
-  constexpr int N2 = C2 / 2;  // chain columns a warpgroup
+  constexpr int N2 = C2 / WGS;  // chain columns a warpgroup
   wg::fence_regs(h);
   wg::begin();
   wg::issue<N2, 0, 1, C1 / 16>(h, wg::k_major(lt, WL, 0, 0),

@@ -104,7 +104,7 @@ cudaError_t launch_f1(F1Args a, int batch, cudaStream_t stream) {
   const size_t smem = f1_smem(a.n, a.k, C1);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   int wave = 0;
-  cudaError_t err = f1_wave(bq_f1_kernel<C1>, smem, &wave);
+  cudaError_t err = wave_blocks(bq_f1_kernel<C1>, smem, &wave);
   if (err != cudaSuccess) return err;
   // one wave: the resident blocks shared among the clouds
   const int chunks = max(1, wave / batch);

@@ -5,7 +5,7 @@
 // two-layer EdgeConv kernels, edge2.cuh), the ball-query distance and
 // its warp scan, the max-pool gradient
 // (within one tile, or folded across the tiles of a center with more
-// than 64 slots), and the per-channel block reduction into a global sum.
+// than 64 slots), and the blocks of a wave of resident blocks.
 //
 // Every row of a tile runs the same instruction sequence, whatever its
 // position, so repeat-first padding rows (replicas of slot 0) come out
@@ -17,6 +17,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <vector>
 
 namespace pcl {
 
@@ -220,26 +224,6 @@ __device__ __forceinline__ void product(const __nv_bfloat16* ys,
   }
 }
 
-// Adds each thread's per-channel partial sums v[8] (channels cg*8..+8)
-// into red[C] in shared memory, then red into out[C] in global memory.
-// Every thread of the block must call it, those that own no tile of the
-// product (Tile::active() false) with active = false; red is scratch of
-// C floats.
-template <int C>
-__device__ __forceinline__ void flush_sum(const float (&v)[8], int cg,
-                                          float* red, float* out,
-                                          bool active = true) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < C; i += kThreads) red[i] = 0.0f;
-  __syncthreads();
-  if (active) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) atomicAdd(red + cg * 8 + c, v[c]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < C; i += kThreads) atomicAdd(out + i, red[i]);
-}
-
 // Per-row gradient at z3 = BN3(h3) of the max over each center's k slots,
 // split evenly among the slots that reach the max (replicas included),
 // then masked by z3 > 0. For this thread's rows and channels, in place:
@@ -362,6 +346,48 @@ cudaError_t resident_blocks(K kernel, size_t smem, long long work,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   long long b = (long long)sms * per_sm;
   *blocks = (int)(work < b ? work : b);
+  return cudaSuccess;
+}
+
+// resident_blocks for a wave of the whole card, with smem bytes of
+// dynamic shared memory allowed: the queries are made at the first
+// launch of each kernel, device and size, and kept, since the train
+// steps that launch these kernels are bound by the host. The size a
+// kernel allows only grows, so that every size seen before stays
+// allowed.
+template <typename K>
+cudaError_t wave_blocks(K kernel, size_t smem, int* wave,
+                        int threads = kThreads) {
+  struct Seen {
+    const void* fn;
+    int dev;
+    size_t smem;
+    int wave;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t allowed = 0;
+  for (const Seen& e : seen) {
+    if (e.fn != fn || e.dev != dev) continue;
+    if (e.smem == smem) {
+      *wave = e.wave;
+      return cudaSuccess;
+    }
+    allowed = std::max(allowed, e.smem);
+  }
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  err = resident_blocks(kernel, smem, 1LL << 40, wave, threads);
+  if (err != cudaSuccess) return err;
+  seen.push_back({fn, dev, smem, *wave});
   return cudaSuccess;
 }
 

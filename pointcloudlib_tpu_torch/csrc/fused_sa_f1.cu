@@ -81,7 +81,7 @@ cudaError_t launch_f1(const void* q, const void* off, const void* idx,
   const size_t smem = f1_smem(k, C1);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   int wave = 0;
-  cudaError_t err = f1_wave(f1_kernel<C1>, smem, &wave);
+  cudaError_t err = wave_blocks(f1_kernel<C1>, smem, &wave);
   if (err != cudaSuccess) return err;
   const long long centers = (long long)batch * m;
   const int blocks =

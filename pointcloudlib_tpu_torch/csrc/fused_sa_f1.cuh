@@ -24,10 +24,6 @@
 
 #pragma once
 
-#include <algorithm>
-#include <mutex>
-#include <vector>
-
 #include "fused_sa_common.cuh"
 
 namespace pcl {
@@ -170,46 +166,6 @@ __device__ __forceinline__ void f1_flush(F1Sums& s, int lane, float* red,
   __syncthreads();
   for (int i = threadIdx.x; i < 2 * C1; i += blockDim.x)
     atomicAdd(psum + i, red[i]);
-}
-
-// The blocks of one wave of a pass-1 kernel at smem bytes of dynamic
-// shared memory, with that size allowed. The queries are made at the
-// first launch of each kernel, device and size, and kept: the train
-// steps that launch the pass are bound by the host. The size a kernel
-// allows only grows, so that every size seen before stays allowed.
-template <typename K>
-cudaError_t f1_wave(K kernel, size_t smem, int* wave) {
-  struct Seen {
-    const void* fn;
-    int dev;
-    size_t smem;
-    int wave;
-  };
-  static std::mutex mu;
-  static std::vector<Seen> seen;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  size_t allowed = 0;
-  for (const Seen& e : seen) {
-    if (e.fn != fn || e.dev != dev) continue;
-    if (e.smem == smem) {
-      *wave = e.wave;
-      return cudaSuccess;
-    }
-    allowed = std::max(allowed, e.smem);
-  }
-  if (smem > allowed) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  err = resident_blocks(kernel, smem, 1LL << 40, wave);
-  if (err != cudaSuccess) return err;
-  seen.push_back({fn, dev, smem, *wave});
-  return cudaSuccess;
 }
 
 }  // namespace pcl

@@ -598,6 +598,18 @@ class Edge2Stats(NamedTuple):
 
 # (C1, C2) the two-layer kernels are compiled for (csrc/edge2.cuh)
 EDGE2_WIDTHS = ((64, 64),)
+# The forward tails' blocks (csrc/edge2_tail.cu): raw h1 tiles a block
+# (kT2Ring) and the blocks an SM the kernel is built for (kT2Blocks)
+TAIL2_RING, TAIL2_BLOCKS = 3, 2
+
+
+def edge2_tail_smem(c1: int, c2: int) -> int:
+    """Dynamic shared memory bytes of one block of ``edge2_stats2`` or
+    ``edge2_out`` (``csrc/edge2_tail.cu`` ``T2Layout``): W2 (bf16), both
+    layers' folded rows and the sums' scratch (f32), the raw h1 tiles (64
+    rows of C1 + 8 bf16) and two y1 tiles of 64 rows."""
+    head = -(-(2 * c1 * c2 + 16 * (c1 + c2) + 8 * c2) // 128) * 128
+    return head + TAIL2_RING * 64 * (c1 + 8) * 2 + 2 * 64 * c1 * 2
 
 
 def _chain2(h1f, st1, st2, w2, slope: float):

@@ -105,7 +105,7 @@ def knn_route(b: int, m: int, n: int, c: int, k: int) -> int:
 EDGE_SELECT = {1: (3, 64), 2: (3, 128), 3: (3, 256), 4: (5, 64)}
 EDGE_ROUTES = (0, *EDGE_SELECT)
 _EDGE2_C = 64  # the width C1 = C2 the two-layer kernels are built for
-_EDGE2_CHAIN = 20224  # the block route's two-layer chain (edge2.cuh
+_EDGE2_CHAIN = 19456  # the block route's two-layer chain (edge2.cuh
                       # Edge2Layout<64, 64>::bytes)
 
 

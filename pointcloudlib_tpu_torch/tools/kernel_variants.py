@@ -1,18 +1,19 @@
 """Design variants of the FPS kernel, of the forward tail's stage 2, of
 forward pass 1, of the row scatter-add and gather, of the standalone kNN,
-of the two-layer EdgeConv's backward passes and of the EdgeConv kernels
-with the kNN inside, timed against each other on the card. Each variant
+of the two-layer EdgeConv's backward passes and forward tails and of the
+EdgeConv kernels with the kNN inside, timed against each other on the
+card. Each variant
 is an edit of the committed source (``csrc/fps.cu``,
 ``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu`` and
 ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``,
 ``csrc/knn.cu``, ``csrc/edge2_bwd_p1.cu``, ``csrc/edge2_bwd_p2.cu``,
 ``csrc/edge_knn_f1.cu``, ``csrc/edge_knn_eval.cu`` and
-``edge2_knn_eval.cu``), built beside it by ``nvcc`` with the package's
+``edge2_knn_eval.cu``, ``csrc/edge2_tail.cu``), built beside it by ``nvcc`` with the package's
 flags into ``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
-        [--only fps tail f1 rows knn edge2p1 edgef1 edge2p2 edgeeval read
-                cluster]
+        [--only fps tail f1 rows knn edge2p1 edgef1 edge2p2 edgeeval tail2
+                read cluster]
         [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
@@ -92,6 +93,14 @@ beside the variants. Prints one JSON line a case:
   with ``--parent``, the parents' kernels and their split
   (``PARENT_EVAL_SPLIT``: the selection alone, the rows or the chain
   with the lists given, the chain's loads alone);
+* ``tail2`` (not in the default set): the two-layer forward tails
+  (``edge2_stats2``, ``edge2_out``) at DGCNN part segmentation's shapes
+  (h1 [16, N, 40, 64], N=2,048 and 1,000; seeded random inputs), device
+  ms by CUDA graphs and the deviation from the plain version over
+  max|plain|, for the built kernel and ``TAIL2_VARIANTS`` (stats2 also
+  over h1 read flat, ``TAIL2_FLAT``); with ``--parent``, the parent's
+  kernel and its split (``PARENT_TAIL2_SPLIT``: the loads, the product
+  and the flush alone);
 * ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
   and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
@@ -1955,6 +1964,147 @@ def run_edgeeval(parent: Optional[Path]) -> None:
         torch.cuda.empty_cache()
 
 
+# The two-layer EdgeConv's forward tails (csrc/edge2_tail.cu: stats2 and
+# out, one kernel templated on its stage) at DGCNN part segmentation's
+# shapes. The parents' split (--parent; a part's output is wrong by
+# design): loads_only (h1's loads, BN1 and LeakyReLU into the y1 tile,
+# the product replaced by a copy of y1's tile), product_only (the product
+# on the y1 tile as it stands, no loads) and flush_only (no slot: W2's
+# staging, then stats2's flush or out's store).
+T2_LOAD = "      load_y1_slot(s, a.h1, c0, nc, a.k, kk, a.slope);\n"
+T2_STATS = "        product<C1, C2>(s.ys, s.w2, rg, cg, h);\n"
+T2_OUT = "        chain_z2(s, rg, cg, h);\n"
+T2_COPY = _copy_product("h", "s.ys", "T2::RPT", "C1 + 8", "rg", "cg")
+PARENT_TAIL2_SPLIT = {
+    "loads_only": [(T2_STATS, T2_COPY), (T2_OUT, T2_COPY)],
+    "product_only": [(T2_LOAD, "")],
+    "flush_only": [("for (int kk = 0; kk < a.k; ++kk) {",
+                    "for (int kk = 0; kk < 0; ++kk) {")],
+}
+# this tree's design variants of the tails (edits of edge2_tail.cu): a
+# tile a warpgroup (threads128_b4: m64n64, four blocks an SM; two
+# warpgroups of m64n32 and two blocks are built), three blocks an SM
+# (blocks3), h1's copies one step ahead (ring2), an L2 prefetch of h1's
+# rows 4 steps ahead (prefetch4), and the design's split (no_product: the
+# chain left out; no_loads: no copies and no y1 staging, the chain on the
+# first y1 tile)
+T2_CHAIN = ("    chain_issue<C1, C2, C1, WGS>(h, ys + (s & 1) * kRows * C1, w2s, "
+            "g);\n")
+T2_THREADS = "constexpr int kT2Threads = 256;"
+T2_BLOCKS = "constexpr int kT2Blocks = 2;"
+T2_RING = "constexpr int kT2Ring = 3;"
+T2_LOAD = "    if (s + kT2Ring < steps) load_raw(ahead, rb);\n"
+T2_RB = "  int rb = 0;  // this step's raw tile\n"
+
+
+def _t2_prefetch(d: int) -> list:
+    return [(T2_RB, T2_RB + f"  T2Walk pf = cur;\n  for (int i = 0; i < {d}; "
+             "++i) pf.next(k, stride);\n"),
+            (T2_LOAD, f"    if (s + {d} < steps && tid < rows(pf))\n"
+             '      asm volatile("prefetch.global.L2 [%0];" ::"l"(\n'
+             "          a.h1 + ((size_t)(pf.c0 + tid) * k + pf.kk) * C1));\n"
+             "    pf.next(k, stride);\n" + T2_LOAD)]
+
+
+TAIL2_VARIANTS: Dict[str, list] = {
+    "threads128_b4": [(T2_THREADS, T2_THREADS.replace("256", "128")),
+                      (T2_BLOCKS, T2_BLOCKS.replace("= 2", "= 4"))],
+    "blocks3": [(T2_BLOCKS, T2_BLOCKS.replace("= 2", "= 3"))],
+    "ring2": [(T2_RING, T2_RING.replace("= 3", "= 2"))],
+    "prefetch4": _t2_prefetch(4),
+    "no_product": [(T2_CHAIN, "")],
+    "no_loads": [(T2_LOAD, ""),
+                 ("    if (s + 1 < steps) stage_y1(nxt, rn, ys + ((s + 1) & 1) "
+                  "* kRows * C1);\n", "")],
+}
+# the variants whose stats2 is also timed over h1 read as one center of a
+# slot each ("flat": centers B*M*k, k = 1; the same sums, 64 contiguous
+# rows a step)
+TAIL2_FLAT = ("built", "no_product", "parent")
+TAIL2_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+              + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def run_tail2(parent: Optional[Path]) -> None:
+    """The parents' split and this tree's variants of ``edge2_stats2``
+    and ``edge2_out`` at each shape of :func:`edge2p1_cases` (both pairs
+    of part segmentation give the tails the same shapes: h1 [B, N, 40,
+    64]): device ms by CUDA graphs (stats2 with the wrapper's memset) and
+    the largest deviation over max|plain| of the sums and of out."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    src = (_build.CSRC / "edge2_tail.cu").read_text()
+    sources = {"t2_built": (src, _build.CSRC)}
+    for name, edits in TAIL2_VARIANTS.items():
+        sources[f"t2_{name}"] = (edited(src, edits), _build.CSRC)
+    if parent:
+        text = (parent / "edge2_tail.cu").read_text()
+        sources["t2_parent"] = (text, parent)
+        for name, edits in PARENT_TAIL2_SPLIT.items():
+            sources[f"t2_parent_{name}"] = (edited(text, edits), parent)
+    libs = build(sources)
+    for lib in libs.values():
+        for stage in ("stats2", "out"):
+            fn = getattr(lib, f"edge2_{stage}_launch")
+            fn.argtypes = TAIL2_ARGS
+            fn.restype = ctypes.c_int
+    for case, h1, _, st, w2 in edge2p1_cases():
+        b, m, k, c1 = h1.shape
+        c2 = w2.shape[1]
+        e = float(b * m * k)
+        want = {"stats2": kfe.edge2_stats2_plain(h1, st[:4], w2),
+                "out": kfe.edge2_out_plain(h1, st[:4], st[4:], w2)}
+        got = {"stats2": torch.zeros((2, c2), device=DEV),
+               "out": torch.empty((b, m, c2), device=DEV)}
+        stf = st.reshape(-1).contiguous()
+        rec: Dict[str, dict] = {}
+        for name, lib in libs.items():
+            rec[name[3:]] = {}
+            for stage in ("stats2", "out"):
+                out = got[stage]
+
+                def call(lib=lib, stage=stage, out=out):
+                    if stage == "stats2":
+                        out.zero_()
+                    return getattr(lib, f"edge2_{stage}_launch")(
+                        _ptr(h1), _ptr(stf), _ptr(w2), _ptr(out), b * m, k,
+                        c1, c2, ctypes.c_float(0.2), _stream())
+
+                if call() != 0:
+                    raise RuntimeError(f"{name} {stage} {case}: launch error")
+                torch.cuda.synchronize()
+                ref = want[stage]
+                dev = ((out - ref).abs().max() / ref.abs().max()).item()
+                rec[name[3:]][stage] = [round(graph_ms(call, 5), 4),
+                                        float(f"{dev:.2e}")]
+            if name[3:] in TAIL2_FLAT:
+                out = got["stats2"]
+
+                def flat(lib=lib, out=out):
+                    out.zero_()
+                    return lib.edge2_stats2_launch(
+                        _ptr(h1), _ptr(stf), _ptr(w2), _ptr(out), b * m * k,
+                        1, c1, c2, ctypes.c_float(0.2), _stream())
+
+                if flat() != 0:
+                    raise RuntimeError(f"{name} flat {case}: launch error")
+                torch.cuda.synchronize()
+                ref = want["stats2"]
+                dev = ((out - ref).abs().max() / ref.abs().max()).item()
+                rec[name[3:]]["stats2 flat"] = [round(graph_ms(flat, 5), 4),
+                                                float(f"{dev:.2e}")]
+        hb = 2.0 * e * c1 + 2.0 * c1 * c2 + 32.0 * (c1 + c2)
+        print(json.dumps({
+            "edge2_tail": case, "B": b, "M": m, "k": k, "C1": c1, "C2": c2,
+            "bytes_bound_ms": {"stats2": 1e3 * (hb + 8.0 * c2) / 3.35e12,
+                               "out": 1e3 * (hb + 4.0 * b * m * c2)
+                               / 3.35e12},
+            "bf16_bound_ms": 1e3 * 2.0 * e * c1 * c2 / 989e12,
+            "ms_dev": rec}), flush=True)
+        del h1, want, got
+        torch.cuda.empty_cache()
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -1997,7 +2147,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--only", nargs="+", default=["fps", "tail", "f1", "read",
                                                   "cluster"],
                     choices=["fps", "tail", "f1", "rows", "knn", "edge2p1",
-                             "edgef1", "edge2p2", "edgeeval", "read",
+                             "edgef1", "edge2p2", "edgeeval", "tail2", "read",
                              "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -2025,6 +2175,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_edge2p2(args.parent)
     if "edgeeval" in args.only:
         run_edgeeval(args.parent)
+    if "tail2" in args.only:
+        run_tail2(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

@@ -1299,6 +1299,16 @@ EVAL2_SHAPES = {
     "serve_duplicates": (4, 2048, 40, 64),
     "bn2_large": (2, 2048, 40, 64),
 }
+# the forward tails: part seg's train shape (pair 2, B=16: 512 tiles, more
+# than any resident grid), its kNN route's N at B=16, fewer centers than
+# one tile of 64, and BN2 scales below 0 in every other channel (out takes
+# h2's min there); with EVAL2_SHAPES' BN2 scales of 1e3
+TAIL2_SHAPES = {
+    "train_pair2": (16, 2048, 40, 64),
+    "n1000_b16": (16, 1000, 40, 64),
+    "n40_b1": (1, 40, 20, 64),
+    "bn2_negative": (2, 1000, 40, 64),
+}
 
 
 def _edge2_inputs(card, name, seed=0):
@@ -1314,7 +1324,7 @@ def _edge2_inputs(card, name, seed=0):
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
     from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import _moments
 
-    b, n, k, cin = {**EDGE2_SHAPES, **EVAL2_SHAPES}[name]
+    b, n, k, cin = {**EDGE2_SHAPES, **EVAL2_SHAPES, **TAIL2_SHAPES}[name]
     rng = np.random.default_rng(seed + n + cin + k)
 
     def t(*shape, scale=1.0):
@@ -1337,6 +1347,8 @@ def _edge2_inputs(card, name, seed=0):
         g2[::2], b2[::2] = 1e-4, 0.0
     if name == "bn2_large":
         g2 = g2 * 1e3
+    if name == "bn2_negative":
+        g2[1::2] = -g2[1::2]
     st2 = kfs._stack_stats(*_moments(kfe.edge2_stats2_plain(h1, st1, w2),
                                      r), g2, b2)
     return kfe, dict(x=x, q=q, off=off, w2=w2, idx=idx, h1=h1, st1=st1,
@@ -1393,11 +1405,12 @@ def test_edge2_knn_eval_every_route_matches_plain(card, name, monkeypatch):
                                    msg=kknn.edge_route_name(r, 2))
 
 
-@pytest.mark.parametrize("name", sorted(EDGE2_SHAPES))
+@pytest.mark.parametrize("name", sorted({**EDGE2_SHAPES, **TAIL2_SHAPES})
+                         + ["bn2_large"])
 def test_edge2_tail_matches_plain(card, name):
     """``edge2_stats2``: Σ/Σ² within 1e-3 of the largest (f32 atomics in
     another order); ``edge2_out`` within 1e-5 of the largest plain
-    element."""
+    element (h2 summed by the tensor cores)."""
     kfe, a = _edge2_inputs(card, name, seed=1)
     before = kfe.edge2_stats2.launches, kfe.edge2_out.launches
     ps = kfe.edge2_stats2(a["h1"], a["st1"], a["w2"])

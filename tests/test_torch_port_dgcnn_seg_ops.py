@@ -509,3 +509,16 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     for got, want in pairs:
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert before == [fn.launches for fn in counted]
+
+
+def test_tail_instances_fit_their_blocks_an_sm():
+    """The forward tails' shared memory, as ``edge2_tail_smem`` mirrors
+    ``csrc/edge2_tail.cu``'s layout, fits the blocks an SM the kernel is
+    built for: each block within one block's 227 KB, and the blocks
+    together, each with the 1 KB the card reserves, within the SM's 228
+    KB."""
+    for c1, c2 in kfe.EDGE2_WIDTHS:
+        smem = kfe.edge2_tail_smem(c1, c2)
+        assert smem <= 227 * 1024, (c1, c2, smem)
+        assert kfe.TAIL2_BLOCKS * (smem + 1024) <= 228 * 1024, (c1, c2, smem)
+    assert kfe.edge2_tail_smem(64, 64) == 54784
