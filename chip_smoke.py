@@ -105,7 +105,8 @@ once:
    bf16 h), ``edge_knn_eval`` and ``edge_out`` within 1e-5·max|plain|,
    f1's Σ/Σ² and ``edge_bwd``'s sums, scatter and assembled dq, doff, dγ,
    dβ within 1e-3·max|plain| (f32 atomics in another order), its scatter
-   counts exact; ``torch.topk`` of the same d² timed as a yardstick of
+   counts exact (``edge_bwd`` and ``edge2_eval`` timed on the device by
+   CUDA graphs, the event loop's rate beside it); ``torch.topk`` of the same d² timed as a yardstick of
    the selection alone; edge cases: duplicate points (exact kNN and
    max-pool ties) and N = 65, one past the 64-point candidate tile
    (``edge_knn_f1`` and ``edge_knn_eval`` take their select route at the
@@ -159,7 +160,8 @@ once:
    dq and doff tie-robust; EC3's four EdgeConv kernels at k=40 as in phase
    11; edge cases: duplicate points, a small grid (``edge2_knn_eval``'s
    block route), and the route at N % 128 ≠ 0 (N=1,000: the kNN,
-   ``edge2_eval`` timed, ``edge_f1`` and the train kernels);
+   ``edge2_eval`` timed at both pairs, ``edge_f1`` and the train
+   kernels);
 18. DGCNN part-segmentation serving — ``SegPredictor(batch_size=16)`` on
    64 clouds at N=2048, three requests: per served batch exactly 2
    launches of ``edge2_knn_eval`` and 1 of ``edge_knn_eval``; 4 clouds on
@@ -233,8 +235,11 @@ the library's ``torch.cdist`` + ``torch.topk`` and the plain order's
 floor), ``edge2_times`` (the two-layer pass 1 at DGCNN part
 segmentation's pairs and on its kNN route, with the memory one call
 allocates), ``edgef1_times`` (pass 1 with the kNN inside and the other
-DGCNN kernels) and ``edgeeval_times`` (the two eval kernels with the kNN
-inside at their seven served launches, with their routes).
+DGCNN kernels), ``edgeeval_times`` (the two eval kernels with the kNN
+inside at their seven served launches, with their routes) and
+``edgebwd_times`` (the EdgeConv backward at its ten launches of the main
+paths, and ``edge2_eval`` at both pairs on part segmentation's kNN
+route).
 """
 
 from __future__ import annotations
@@ -737,6 +742,19 @@ def phase_serving(name, variables, data, power, batch, per_batch, extra):
 # ------------------------------------------------------ train kernels
 
 
+# DGCNN kernels whose records also time the device by CUDA graphs
+# (graph_ms), beside the event loop's ms
+DEVICE_TIMED = ("edge_bwd", "edge2_eval", "edge_f1", "edge_out")
+
+
+def _kernel_time(kernel, rec, fn) -> None:
+    """A timed DGCNN record's ``ms`` by the event loop and, for
+    ``DEVICE_TIMED``, its ``device_ms``."""
+    rec["ms"] = time_ms(fn, 10)
+    if kernel in DEVICE_TIMED:
+        rec["device_ms"] = graph_ms(fn, 10)
+
+
 def _check_sums(what, got, want, tol=SUM_TOL):
     """``(max |Δ|, max |plain|)``; fails beyond ``tol``·max|plain|."""
     err = (got - want).abs().max().item()
@@ -1008,6 +1026,8 @@ def _ball_query_case(name, nx, pts, radius, k, timed, want=()):
            "rows": kinds}
     if timed:
         rec["ms"] = time_ms(lambda: kbq.ball_query(nx, pts, radius, k), 20)
+        rec["device_ms"] = graph_ms(
+            lambda: kbq.ball_query(nx, pts, radius, k), 20)
         rec["plain_ms"] = time_ms(
             lambda: kbq.ball_query_plain(nx, pts, radius, k), 3, 1)
         # every (center, point) pair is tested: cnt counts all hits
@@ -1547,7 +1567,7 @@ def _edge_case(name, f, xe, xt, g, timed):
 
     def record(kernel, rec, fn, plain, flops_f32, nbytes):
         if timed:
-            rec["ms"] = time_ms(fn, 10)
+            _kernel_time(kernel, rec, fn)
             rec["plain_ms"] = time_ms(plain, 2, 1)
             rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
                 0.0, flops_f32, nbytes)
@@ -1918,7 +1938,7 @@ def _edge_idx_case(name, f, xe, xt, g, timed):
 
     def record(kernel, rec, fn, plain, flops_f32, nbytes):
         if timed:
-            rec["ms"] = time_ms(fn, 10)
+            _kernel_time(kernel, rec, fn)
             rec["plain_ms"] = time_ms(plain, 2, 1)
             rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
                 0.0, flops_f32, nbytes)
@@ -2045,7 +2065,7 @@ def _edge2_case(name, layer, xe, xt, g, timed):
 
     def record(kernel, rec, fn, plain, ops_bf16, ops_f32, nbytes):
         if timed:
-            rec["ms"] = time_ms(fn, 10)
+            _kernel_time(kernel, rec, fn)
             rec["plain_ms"] = time_ms(plain, 2, 1)
             rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
                 ops_bf16, ops_f32, nbytes)
@@ -2212,8 +2232,7 @@ def phase_dseg_kernels(model, xyz, x_odd):
     small = xyz[:2, :SEG_POINTS // 2].contiguous()  # the block route
     _edge2_case("pair1 small grid", model.edge1, small, small, g, False)
     for name, layer, xe, xt in _dseg_layers(model, x_odd)[:2]:
-        found = _edge2_case(f"partseg {name}", layer, xe, xt, g,
-                            name == "pair2")
+        found = _edge2_case(f"partseg {name}", layer, xe, xt, g, True)
         recs.setdefault("edge2_eval", []).extend(found["edge2_eval"])
     return recs
 
@@ -2516,6 +2535,8 @@ def _kernel_entry(name, source, replaces, recs, paths):
     library = ([r.get("library_ms") for r in timed]
                if all("library_ms" in r for r in timed) else None)
     extra = {}
+    if timed and all("device_ms" in r for r in timed):
+        extra["device_ms"] = sum(r["device_ms"] for r in timed)
     if all("topk_selection_yardstick_ms" in r for r in timed):
         extra["topk_selection_yardstick_ms"] = sum(
             r["topk_selection_yardstick_ms"] for r in timed)
@@ -3239,6 +3260,162 @@ def edgeeval_times() -> None:
                 "share_of_bound": bound_ms / ms, "bit_identical": same,
                 **_errs([err])})
             torch.cuda.empty_cache()
+
+
+def _edge_bwd_bound(b, n, k, c):
+    """``bound()`` of ``edge_bwd`` as ``_edge_tail_cases`` counts it: h,
+    dout, idx and the rows read once, ps, scat's 2C + 1 columns, d1 and
+    d2 written once; 15 operations an edge element."""
+    e = float(b * n * k)
+    return bound(0.0, 15.0 * e * c,
+                 2.0 * e * c + 4.0 * b * n * c + 4.0 * e + 16.0 * c + 8.0 * c
+                 + 4.0 * b * n * (2 * c + 1) + 8.0 * b * n * c)
+
+
+def edgebwd_times() -> None:
+    """``edge_bwd`` at each of its launches of the main paths, with
+    inputs from the models' own train chains: DGCNN's four EdgeConvs at
+    B=32, N=1024 (kNN inside) and N=1,000 (the kNN route), k=20, and part
+    segmentation's EC3 at B=16, N=2,048 and on its kNN route (16 clouds
+    of 1,000 points), k=40; then ``edge2_eval`` at both pairs on that
+    route (the serving chain's inputs). After the device line and the two
+    kernels' registers and spills, one ``edge_bwd:`` or ``edge2_eval:``
+    line a launch with device ms by CUDA graphs (the wrapper's
+    allocations included), the bound and its share and the deviation
+    from the plain version over max|plain| (``edge_bwd``: the count
+    column exact, the sums and the assembled dq, doff, dγ, dβ within
+    1e-3; ``edge2_eval`` within 1e-5). Beside them, by the same device
+    timing: ``edge_f1`` and ``edge_out`` at DGCNN's N=1,000 layers and
+    ``edge_eval`` at part segmentation's EC3 on the kNN route.
+    It times the package beside this file; for old against new, copy
+    this file into the other checkout's root and run it there too:
+
+        python3 -c 'import chip_smoke; chip_smoke.edgebwd_times()'
+    """
+    phase_device()
+    _build.build(SOURCES)
+    emit("edge_bwd build", {"ptxas": {n: _ptxas(n) for n in (
+        "edge_bwd", "edge2_eval")}})
+    g = torch.Generator(device=DEV).manual_seed(12)
+
+    def device(kernel, case, fn, bounds, **extra):
+        bound_ms, ops_ms, bytes_ms = bounds
+        ms = graph_ms(fn, 10)
+        emit(kernel, {"case": case, **extra, "device_ms": ms,
+                      "bound_ms": bound_ms,
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes", "share_of_bound": bound_ms / ms})
+
+    def bwd_case(case, layer, xt):
+        b, n, _ = xt.shape
+        k = layer.k
+        with torch.no_grad():
+            q, off = layer.prepare(xt)
+            if n % 128:
+                idx = kknn.knn(xt, xt, k)[1]
+                f1 = (q.bfloat16(), off, idx)
+                h, psum = kfe.edge_f1(*f1)
+            else:
+                idx, h, psum = kfe.edge_knn_f1(xt, q.bfloat16(), off, k)
+            c = h.shape[-1]
+            st = kfs._stack_stats(*kft._moments(psum, float(b * n * k)),
+                                  layer.bn_scale, layer.bn_bias)
+            if n % 128 and case.startswith("DGCNN EC"):  # as _edge_idx_case
+                e = float(b * n * k * c)
+                shape = {"B": b, "N": n, "k": k, "C": c}
+                device("edge_f1", case, lambda: kfe.edge_f1(*f1), bound(
+                    0.0, 4.0 * e, 6.0 * b * n * c + 4.0 * b * n * k
+                    + 2.0 * e + 8.0 * c), **shape)
+                device("edge_out", case, lambda: kfe.edge_out(h, st), bound(
+                    0.0, 5.0 * e, 2.0 * e + 4.0 * b * n * c + 16.0 * c),
+                    **shape)
+            bw = (h, torch.randn((b, n, c), generator=g, device=DEV), idx,
+                  st, SLOPE, n)
+            got, want = kfe.edge_bwd(*bw), kfe.edge_bwd_plain(*bw)
+            torch.cuda.synchronize()
+            counts = bool(torch.equal(got[1][..., 2 * c],
+                                      want[1][..., 2 * c]))
+            errs = [_check_sums(f"edge_bwd {case} {w}", x, y)
+                    for x, y, w in zip(got, want, ("ps", "scat", "d1", "d2"))]
+            errs += [_check_sums(f"edge_bwd {case} {w}", x, y)
+                     for x, y, w in zip(kfe.assemble_grads(*got, st, k),
+                                        kfe.assemble_grads(*want, st, k),
+                                        ("dq", "doff", "dgamma", "dbeta"))]
+            del got, want
+            ms = graph_ms(lambda: kfe.edge_bwd(*bw), 10)
+            bound_ms, ops_ms, bytes_ms = _edge_bwd_bound(b, n, k, c)
+            emit("edge_bwd", {
+                "case": case, "B": b, "N": n, "k": k, "C": c,
+                "device_ms": ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": bound_ms / ms,
+                "counts_exact": counts, **_errs(errs)})
+            if not counts:
+                fail(f"edge_bwd {case}: scatter counts differ")
+            torch.cuda.empty_cache()
+
+    clouds = SyntheticModelNet(n_points=N_POINTS, size=DGCNN_BATCH,
+                               seed=0).batch(0, DGCNN_BATCH)[0]
+    dg = _model_on_card("dgcnn", random_jax_variables(
+        get_cls_model("dgcnn"), seed=0))
+    for name, f, _, xt in _edge_inputs(dg, torch.from_numpy(clouds).to(DEV)):
+        bwd_case(f"DGCNN {name}", f, xt)
+    xt = synthetic_batch("dgcnn", DGCNN_BATCH, 5,
+                         ODD_TRAIN_POINTS)["xyz"].to(DEV)
+    with torch.no_grad():
+        for i, ec in enumerate(dg.edge):
+            f = ec.fused
+            bwd_case(f"DGCNN EC{i + 1} N={ODD_TRAIN_POINTS}", f, xt)
+            q, off = f.prepare(xt)
+            xt = kfe.fused_edge_conv(q, off, kknn.knn(xt, xt, f.k)[1],
+                                     f.bn_scale, f.bn_bias)[0]
+    del dg
+    dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
+                                                     seed=0))
+    x_odd = SyntheticShapeNetPart(n_points=DSEG_ODD_TRAIN, size=SEG_BATCH,
+                                  seed=3).batch(0, SEG_BATCH)[0]
+    for x in (torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV),
+              torch.from_numpy(x_odd).to(DEV)):
+        layers = _dseg_layers(dseg, x)
+        _, layer, xe, xt = layers[2]
+        bwd_case(f"DGCNN-seg EC3 N={xt.shape[1]}", layer, xt)
+    with torch.no_grad():  # EC3 served on that route (as _edge_idx_case)
+        b, n, _ = xe.shape
+        c = layer.bn_scale.shape[0]
+        q, off = layer.prepare(xe)
+        ev = (q.bfloat16(), off, kknn.knn(xe, xe, layer.k)[1],
+              kfs._stack_stats(layer.mean, layer.var, layer.bn_scale,
+                               layer.bn_bias))
+        e = float(b * n * layer.k * c)
+        _check_sums("edge_eval DGCNN-seg EC3", kfe.edge_eval(*ev),
+                    kfe.edge_eval_plain(*ev), EDGE_TOL)
+        device("edge_eval", f"DGCNN-seg EC3 N={n}", lambda: kfe.edge_eval(*ev),
+               bound(0.0, 5.0 * e, 2.0 * b * n * c + 4.0 * b * n * layer.k
+                     + 8.0 * b * n * c + 16.0 * c),
+               B=b, N=n, k=layer.k, C=c)
+    for name, layer, xe, _ in layers[:2]:
+        b, n, cin = xe.shape
+        k, (c1, c2) = layer.k, layer.w2.shape
+        with torch.no_grad():
+            q, off = layer.prepare(xe)
+            st1, st2 = kfe._folded2(*_pair_params(layer)[1:], layer.stats())
+            ev = (q.bfloat16(), off, kknn.knn(xe, xe, k)[1], st1, st2,
+                  layer.w2)
+            err = _check_sums(f"edge2_eval {name}", kfe.edge2_eval(*ev),
+                              kfe.edge2_eval_plain(*ev), EDGE_TOL)
+            ms = graph_ms(lambda: kfe.edge2_eval(*ev), 10)
+            e = float(b * n * k)
+            # as _edge2_case counts them
+            bound_ms, ops_ms, bytes_ms = bound(
+                2.0 * c1 * c2 * e, (4.0 * c1 + 4.0 * c2) * e,
+                6.0 * b * n * c1 + 4.0 * b * n * c2 + 4.0 * e
+                + 2.0 * c1 * c2 + 32.0 * (c1 + c2))
+            emit("edge2_eval", {
+                "case": f"DGCNN-seg {name} N={n}", "B": b, "N": n, "k": k,
+                "C_in": cin, "C1": c1, "C2": c2,
+                "device_ms": ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": bound_ms / ms, **_errs([err])})
 
 
 # Every FPS launch of the ported paths: (case, clouds, batch, n_samples of

@@ -24,23 +24,15 @@
 // cp.async tiles, lists in 8 lanes' registers, no FMA pass), the lists
 // then written slot-major into the tiles' shared memory (a slot's 64
 // entries of a tile side by side, so the gathers read them without bank
-// conflicts), then the chain on the tensor cores. The block's 128 centers
-// are two tiles of kRows = 64 (edge2.cuh's layout: a tile's row r is
-// slot kk of center r); a step is one slot of one tile:
-//   - warpgroup g forms h2's columns [32 g, 32 g + 32) by wgmma
-//     (edge2_wgmma.cuh chain_issue, the backward passes' product: y1 the
-//     K-major A in the core-matrix layout of wgmma_tile.cuh, W2 the
-//     MN-major B, staged once);
-//   - while it runs, one warp a group of 8 channels stages the next
-//     step's y1 = bf16(leaky(BN1(float(Q[j]) - Off[i]))) into the other
-//     of two y1 tiles, from Q rows gathered by 16-byte __ldg a step
-//     before (Off's rows and the BN rows stay in registers);
-//   - each thread folds max leaky(BN2(h2)) into its accumulator
-//     fragment's fixed rows and channels, and writes them to out after
-//     the tile's last slot.
-// One barrier a step. No gradient follows, so there is no tie walk and no
-// kink band. After the walk its tiles hold the lists, W2 and the y1
-// tiles, so two blocks fit an SM.
+// conflicts), then the chain on the tensor cores (edge2_wgmma.cuh
+// eval_tiles, shared with edge2_eval.cu): the block's 128 centers are two
+// tiles of kRows = 64 (edge2.cuh's layout: a tile's row r is slot kk of
+// center r), a step one slot of one tile, h2 by wgmma (chain_issue,
+// m64n32k16, the backward passes' product) while the next slot's y1 is
+// staged from 16-byte gathers of Q, max leaky(BN2(h2)) in the fragment's
+// fixed rows and channels, one barrier a step. No gradient follows, so
+// there is no tie walk and no kink band. After the walk its tiles hold
+// the lists, W2 and the y1 tiles, so two blocks fit an SM.
 //
 // "block" (edge2_knn_eval_kernel, the first version): knn_block of
 // edge_knn.cuh (64 queries, four walkers a query), then the chain of
@@ -79,17 +71,6 @@ struct E2SelLayout {
   }
 };
 
-// A step's place: the tile of the block's centers and the slot.
-struct E2Slot {
-  int tile, kk;
-  __device__ void next(int k) {
-    if (++kk == k) {
-      kk = 0;
-      ++tile;
-    }
-  }
-};
-
 template <int E, int C1, int C2>
 __global__ void __launch_bounds__(kThreads, 2)
     edge2_knn_eval_select_kernel(const float* __restrict__ x,
@@ -101,12 +82,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                                  float* __restrict__ out, int n, int cin,
                                  int k, float slope) {
   using L = E2SelLayout<C1, C2>;
-  constexpr int Q = L::Q, N2 = C2 / 2;  // h2's columns a warpgroup
-  static_assert(C1 == 8 * kWarps && N2 == 32 && Q == 2 * kRows,
-                "a warp a channel group of y1; m64n32 products; two tiles");
+  constexpr int Q = L::Q;
+  static_assert(Q == 2 * kRows, "two tiles a block");
   extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = tid / wg::kWGThreads, t = tid % wg::kWGThreads;
   const int b = blockIdx.y, q0 = blockIdx.x * Q;
   const int nq = min(Q, n - q0);
   const float* xb = x + (size_t)b * n * cin;
@@ -116,114 +94,11 @@ __global__ void __launch_bounds__(kThreads, 2)
                                         p2g + (size_t)b * n, n, cin, k, smem,
                                         ld, lj);
   const int* nbr = sel_lists<kE2Qpt, E>(lj, nq, k, 1, Q, smem);  // [k][Q]
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem + L::w2(k));
-  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem + L::ys(k));
-  stage_w<C1, C2>(w2, w2s, kThreads);
-
-  // staging: rows lane and lane + 32 of a tile, channels sc .. sc + 7,
-  // their BN1 rows; the fragment's columns g N2 + frag_col(t, n, j) and
-  // their BN2 rows at [2 n + j]
-  const int sc = warp * 8;
-  float sc1[8], bi1[8], sc2[N2 / 4], bi2[N2 / 4];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    sc1[c] = st[sc + c];
-    bi1[c] = st[C1 + sc + c];
-  }
-#pragma unroll
-  for (int nn = 0; nn < N2 / 8; ++nn)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = g * N2 + wg::frag_col(t, nn, j);
-      sc2[2 * nn + j] = st[4 * C1 + col];
-      bi2[2 * nn + j] = st[4 * C1 + C2 + col];
-    }
   const size_t row0 = (size_t)b * n + q0;
-  const __nv_bfloat16* qb = q + (size_t)b * n * C1;
-  const int steps = (nq + kRows - 1) / kRows * k;
-  float offr[2][8];  // Off of the staging rows of the tile being staged
-  uint4 qv[2];       // their gathered Q rows at the slot being staged
-
-  auto gather = [&](const E2Slot& p) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ql = p.tile * kRows + lane + 32 * i;
-      if (ql < nq)
-        qv[i] = __ldg(reinterpret_cast<const uint4*>(
-            qb + (size_t)nbr[p.kk * Q + ql] * C1 + sc));
-    }
-  };
-  auto stage = [&](const E2Slot& p, __nv_bfloat16* dst) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = lane + 32 * i, ql = p.tile * kRows + r;
-      uint4 yv = make_uint4(0, 0, 0, 0);
-      if (ql < nq) {
-        if (p.kk == 0) {
-          const float4* o =
-              reinterpret_cast<const float4*>(off + (row0 + ql) * C1 + sc);
-          const float4 oa = o[0], ob = o[1];
-          offr[i][0] = oa.x, offr[i][1] = oa.y, offr[i][2] = oa.z;
-          offr[i][3] = oa.w, offr[i][4] = ob.x, offr[i][5] = ob.y;
-          offr[i][6] = ob.z, offr[i][7] = ob.w;
-        }
-        float y[8];
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          y[c] = leaky(bn_z(__fsub_rn(bf_at(qv[i], c), offr[i][c]), sc1[c],
-                            bi1[c]),
-                       slope);
-        yv = pack8(y);
-      }
-      *reinterpret_cast<uint4*>(dst + wg::cm(r, sc, C1)) = yv;
-    }
-  };
-
-  E2Slot cur{0, 0}, ahead{0, 0};
-  gather(ahead);
-  stage(ahead, ys);
-  ahead.next(k);
-  if (steps > 1) gather(ahead);
-  wg::fence_to_async();
-  __syncthreads();  // W2 and the first y1 tile are staged
-  float mx[N2 / 2];
-#pragma unroll
-  for (int v = 0; v < N2 / 2; ++v) mx[v] = -INFINITY;
-  for (int s = 0; s < steps; ++s, cur.next(k)) {
-    float h[N2 / 2];
-#pragma unroll
-    for (int v = 0; v < N2 / 2; ++v) h[v] = 0.0f;
-    chain_issue<C1, C2, C1>(h, ys + (s & 1) * kRows * C1, w2s, g);
-    if (s + 1 < steps) {  // ahead is step s + 1, its rows gathered
-      stage(ahead, ys + ((s + 1) & 1) * kRows * C1);
-      ahead.next(k);
-      if (s + 2 < steps) gather(ahead);
-    }
-    wg::wait<0>();
-    wg::fence_regs(h);
-#pragma unroll
-    for (int v = 0; v < N2 / 2; ++v) {
-      const int nj = 2 * (v >> 2) + (v & 1);
-      mx[v] = fmaxf(mx[v], leaky(bn_z(h[v], sc2[nj], bi2[nj]), slope));
-    }
-    if (cur.kk == k - 1) {  // the tile's last slot: its rows of out
-#pragma unroll
-      for (int nn = 0; nn < N2 / 8; ++nn)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int ql = cur.tile * kRows + wg::frag_row(t, i);
-          const int v = 4 * nn + 2 * i;
-          if (ql < nq)
-            *reinterpret_cast<float2*>(
-                out + (row0 + ql) * C2 + g * N2 + wg::frag_col(t, nn, 0)) =
-                make_float2(mx[v], mx[v + 1]);
-        }
-#pragma unroll
-      for (int v = 0; v < N2 / 2; ++v) mx[v] = -INFINITY;
-    }
-    wg::fence_to_async();
-    __syncthreads();  // the next y1 tile is staged; this one is free
-  }
+  eval_tiles<Q / kRows, C1, C2>(
+      nbr, nq, k, q + (size_t)b * n * C1, off + row0 * C1, out + row0 * C2,
+      st, w2, reinterpret_cast<__nv_bfloat16*>(smem + L::w2(k)),
+      reinterpret_cast<__nv_bfloat16*>(smem + L::ys(k)), slope);
 }
 
 __host__ __device__ inline size_t knn_bytes(int cin, int k) {

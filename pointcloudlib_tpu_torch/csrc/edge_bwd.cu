@@ -26,14 +26,23 @@
 // count) of y over the k slots in one walk, then walking them again for
 // dz; the scatter is 16-byte f32 vector atomics (RED.ADD.F32x4 in L2),
 // the threads of a center on neighbouring channel quads of one target
-// row; ps goes through registers, shared memory and one global atomic
-// per channel and block.
+// row, the dz half's only where the quad is not all 0; ps goes through
+// registers, shared memory and one global atomic per channel and block.
 //
 // What bounds it: bytes. It reads h (B*N*k*C*2 bytes), dout and idx,
 // writes d1 and d2, and scat once (B*N*(2C+1)*4), against ~15 f32
-// operations an element of h; in practice the scatter's B*N*k*(2C+1)
-// f32 additions (336 M at layer 4 of DGCNN at B=32), which the vector
-// atomics issue four at a time.
+// operations an element of h. In practice its time splits about evenly
+// between the two walks (2.5x that bound without any reduction: latency,
+// an 8-byte load in flight a thread) and the scatter's reductions
+// (43-48 % of the first version: B*N*k*C/4 of each 16-byte half and the
+// count). dz is 0 at every slot but the few that reach a center's max
+// (about 1 in k), so a thread's four channels are all 0 at ~(1 - 1/k)^4
+// of the slots (81 % at k = 20, 90 % at k = 40): only the other slots'
+// dz quads are reduced (adding +-0 to an f32 sum leaves it as it was).
+// Summing the x^ half and the count target-major from a reverse index
+// of idx, in place of their reductions, was measured and lost: it reads
+// h a second time, and those bytes cost as much as the reductions
+// (PERF.md, slice 19).
 //
 // Numerics: dz, x^ and the ties are bit-identical to the plain version;
 // the sums and the scatter take another order (the atomics' order changes
@@ -132,9 +141,10 @@ __global__ void __launch_bounds__(kThreads)
         ss[u] += dz[u] * xh[u];
       }
       float* sr = sb + (size_t)ir[kk] * sw;
-      atomicAdd(reinterpret_cast<float4*>(sr + c0),
-                make_float4(bf_round(dz[0]), bf_round(dz[1]),
-                            bf_round(dz[2]), bf_round(dz[3])));
+      if (dz[0] != 0.0f || dz[1] != 0.0f || dz[2] != 0.0f || dz[3] != 0.0f)
+        atomicAdd(reinterpret_cast<float4*>(sr + c0),
+                  make_float4(bf_round(dz[0]), bf_round(dz[1]),
+                              bf_round(dz[2]), bf_round(dz[3])));
       atomicAdd(reinterpret_cast<float4*>(sr + c + c0),
                 make_float4(bf_round(xh[0]), bf_round(xh[1]),
                             bf_round(xh[2]), bf_round(xh[3])));

@@ -601,6 +601,9 @@ EDGE2_WIDTHS = ((64, 64),)
 # The forward tails' blocks (csrc/edge2_tail.cu): raw h1 tiles a block
 # (kT2Ring) and the blocks an SM the kernel is built for (kT2Blocks)
 TAIL2_RING, TAIL2_BLOCKS = 3, 2
+# edge2_eval's blocks (csrc/edge2_eval.cu): tiles of 64 centers a block
+# (kE2EvalTiles) and the blocks an SM it is built for
+EVAL2_TILES, EVAL2_BLOCKS = 1, 2
 
 
 def edge2_tail_smem(c1: int, c2: int) -> int:
@@ -610,6 +613,14 @@ def edge2_tail_smem(c1: int, c2: int) -> int:
     rows of C1 + 8 bf16) and two y1 tiles of 64 rows."""
     head = -(-(2 * c1 * c2 + 16 * (c1 + c2) + 8 * c2) // 128) * 128
     return head + TAIL2_RING * 64 * (c1 + 8) * 2 + 2 * 64 * c1 * 2
+
+
+def edge2_eval_smem(c1: int, c2: int, k: int) -> int:
+    """Dynamic shared memory bytes of one block of ``edge2_eval``
+    (``csrc/edge2_eval.cu`` ``E2EvalLayout``): the lists of its centers
+    slot-major (i32), W2 (bf16) and two y1 tiles of 64 rows (bf16)."""
+    lists = -(-4 * EVAL2_TILES * 64 * k // 128) * 128
+    return lists + 2 * c1 * c2 + 2 * 64 * c1 * 2
 
 
 def _chain2(h1f, st1, st2, w2, slope: float):

@@ -1,19 +1,21 @@
 """Design variants of the FPS kernel, of the forward tail's stage 2, of
 forward pass 1, of the row scatter-add and gather, of the standalone kNN,
 of the two-layer EdgeConv's backward passes and forward tails and of the
-EdgeConv kernels with the kNN inside, timed against each other on the
-card. Each variant
+EdgeConv kernels with the kNN inside, of the EdgeConv backward and of
+the two-layer eval kernel from a given index, timed against each other
+on the card. Each variant
 is an edit of the committed source (``csrc/fps.cu``,
 ``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu`` and
 ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``,
 ``csrc/knn.cu``, ``csrc/edge2_bwd_p1.cu``, ``csrc/edge2_bwd_p2.cu``,
 ``csrc/edge_knn_f1.cu``, ``csrc/edge_knn_eval.cu`` and
-``edge2_knn_eval.cu``, ``csrc/edge2_tail.cu``), built beside it by ``nvcc`` with the package's
+``edge2_knn_eval.cu``, ``csrc/edge2_tail.cu``, ``csrc/edge_bwd.cu``,
+``csrc/edge2_eval.cu``), built beside it by ``nvcc`` with the package's
 flags into ``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
         [--only fps tail f1 rows knn edge2p1 edgef1 edge2p2 edgeeval tail2
-                read cluster]
+                edgebwd edge2eval read cluster]
         [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
@@ -101,6 +103,20 @@ beside the variants. Prints one JSON line a case:
   over h1 read flat, ``TAIL2_FLAT``); with ``--parent``, the parent's
   kernel and its split (``PARENT_TAIL2_SPLIT``: the loads, the product
   and the flush alone);
+* ``edgebwd`` (not in the default set): ``edge_bwd`` at its ten
+  launches of the main paths (DGCNN's four EdgeConvs at N=1024 and
+  N=1,000, part segmentation's EC3 at N=2,048 and 1,000; the models' own
+  inputs, seeded weights), device ms by CUDA graphs with the wrapper's
+  two memsets, the count column exact, the deviation of
+  ps, scat, d1 and d2 over max|plain|, with the quads whose dz is not
+  all 0, for the built kernel and
+  ``BWD_VARIANTS``; with ``--parent``, the parent and its split
+  (``PARENT_BWD_SPLIT``: no reductions, each half's alone, the dz half
+  sparse by quads or by channels);
+* ``edge2eval`` (not in the default set): ``edge2_eval`` at part
+  segmentation's two pairs on the kNN route (B=16, N=1,000, k=40), device
+  ms by CUDA graphs and the deviation over max|plain|, for the built
+  kernel and ``E2E_VARIANTS``; with ``--parent``, the parent's kernel;
 * ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
   and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
@@ -298,7 +314,8 @@ def edited(text: str, edits) -> str:
 
 
 def build(sources: Dict[str, tuple]) -> Dict[str, ctypes.CDLL]:
-    """``{name: (source text, include dir)}`` compiled in parallel."""
+    """``{name: (source text, include dir)}`` compiled in parallel, each
+    one's compiler report kept beside it (``build/variants/NAME.log``)."""
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, (text, include) in sources.items():
@@ -311,6 +328,7 @@ def build(sources: Dict[str, tuple]) -> Dict[str, ctypes.CDLL]:
     libs = {}
     for name, job in jobs.items():
         log, _ = job.communicate()
+        (OUT / f"{name}.log").write_text(log)  # -Xptxas -v's report
         if job.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(OUT / f"{name}.so"))
@@ -1858,8 +1876,9 @@ EVAL_VARIANTS: Dict[str, Dict[str, tuple]] = {
   static constexpr int BLOCKS = 2;""")], ()),
     },
     "e2": {
-        "select_only": ([("  const int steps = (nq + kRows - 1) / kRows * k;",
-                          "  const int steps = 0;")], ()),
+        "select_only": ([("  eval_tiles<Q / kRows, C1, C2>(",
+                          "  if (k < 0) eval_tiles<Q / kRows, C1, C2>(")],
+                        ()),
     },
 }
 EV_ARGS = {  # the launchers' arguments, before the routes and after
@@ -1894,7 +1913,10 @@ def run_edgeeval(parent: Optional[Path]) -> None:
     if parent:
         for kind, split in PARENT_EVAL_SPLIT.items():
             src, header = EV_SOURCES[kind]
-            sources[f"{kind}_parent"] = ((parent / src).read_text(), parent)
+            text = (parent / src).read_text()
+            sources[f"{kind}_parent"] = (text, parent)
+            if "int route" in text:  # the split is of the block route's
+                continue             # kernels, before PR 17's select route
             for name, (edits, head) in split.items():
                 sources[f"{kind}_parent_{name}"] = (_with_header(
                     parent, src, header, edits, head), parent)
@@ -2105,6 +2127,249 @@ def run_tail2(parent: Optional[Path]) -> None:
         torch.cuda.empty_cache()
 
 
+# The EdgeConv backward (csrc/edge_bwd.cu) at its launches of the main
+# paths. The parent's split (--parent; a part's output is wrong by
+# design): no_reductions (the two walks, d1, d2 and ps only), dz_only
+# (the dz half's reductions alone), xhat_only (the x^ half's alone, no
+# count), sparse_dz (the dz quads that are all 0 not reduced; the x^ half
+# and the count kept) and sparse_scalar (a scalar reduction for each
+# non-zero dz channel in place of the quad's). This tree's variants:
+# unroll2 / unroll4 (both walks unrolled by the compiler, their loads in
+# flight together).
+BWD_DZ = """      atomicAdd(reinterpret_cast<float4*>(sr + c0),
+                make_float4(bf_round(dz[0]), bf_round(dz[1]),
+                            bf_round(dz[2]), bf_round(dz[3])));
+"""
+BWD_XH = """      atomicAdd(reinterpret_cast<float4*>(sr + c + c0),
+                make_float4(bf_round(xh[0]), bf_round(xh[1]),
+                            bf_round(xh[2]), bf_round(xh[3])));
+"""
+BWD_CNT = "      if (cq == 0) atomicAdd(sr + 2 * c, 1.0f);\n"
+BWD_NONZERO = ("      if (dz[0] != 0.0f || dz[1] != 0.0f || dz[2] != 0.0f "
+               "|| dz[3] != 0.0f)\n  ")
+BWD_SCALAR = """#pragma unroll
+      for (int u = 0; u < kQuad; ++u)
+        if (dz[u] != 0.0f) atomicAdd(sr + c0 + u, bf_round(dz[u]));
+"""
+PARENT_BWD_SPLIT = {
+    "no_reductions": [(BWD_DZ, ""), (BWD_XH, ""), (BWD_CNT, "")],
+    "dz_only": [(BWD_XH, ""), (BWD_CNT, "")],
+    "xhat_only": [(BWD_DZ, ""), (BWD_CNT, "")],
+    "sparse_dz": [(BWD_DZ, BWD_NONZERO + BWD_DZ.replace("\n  ", "\n    "))],
+    "sparse_scalar": [(BWD_DZ, BWD_SCALAR)],
+}
+BWD_WALK = "    for (int kk = 0; kk < k; ++kk) {\n"
+BWD_VARIANTS = {
+    "unroll2": [(BWD_WALK, "#pragma unroll 2\n" + BWD_WALK)],
+    "unroll4": [(BWD_WALK, "#pragma unroll 4\n" + BWD_WALK)],
+}
+BWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_void_p])
+
+
+def edgebwd_cases():
+    """``(case, h, dout, idx, st)``: ``edge_bwd``'s inputs at its
+    launches of the main paths, from the models' own chains (seeded
+    weights; each layer's input from the eval forward of the layers
+    before it, its h and idx from pass 1, BN rows from h's batch moments,
+    a seeded random output gradient): DGCNN's four EdgeConvs at B=32,
+    N=1024 (kNN inside) and N=1,000 (the kNN route), k=20, and part
+    segmentation's EC3 at B=16, N=2,048 and N=1,000, k=40."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+    from pointcloudlib_tpu_torch.ops.kernels.fused_sa import _stack_stats
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+
+    def inputs(layer, x):
+        q, off = layer.prepare(x)
+        b, n, _ = x.shape
+        if n % 128:
+            idx = kknn.knn(x, x, layer.k)[1]
+            h, psum = kfe.edge_f1(q.bfloat16(), off, idx)
+        else:
+            idx, h, psum = kfe.edge_knn_f1(x, q.bfloat16(), off, layer.k)
+        st = _stack_stats(*kft._moments(psum, float(b * n * layer.k)),
+                          layer.bn_scale, layer.bn_bias)
+        dout = torch.randn((b, n, h.shape[-1]), generator=g, device=DEV)
+        return h, dout, idx, st
+
+    model = _seeded("dgcnn")
+    with torch.no_grad():
+        for n in (1024, 1000):
+            x = torch.from_numpy(SyntheticModelNet(
+                n_points=n, size=32, seed=0).batch(0, 32)[0]).to(DEV)
+            for i, ec in enumerate(model.edge):
+                yield (f"DGCNN EC{i + 1} N={n}", *inputs(ec.fused, x))
+                x = ec(x)
+    del model
+    model = _seeded("dgcnn_partseg")
+    with torch.no_grad():
+        for n in (2048, 1000):
+            x = torch.from_numpy(SyntheticShapeNetPart(
+                n_points=n, size=16, seed=0).batch(0, 16)[0]).to(DEV)
+            x = model.edge2(model.edge1(x))
+            yield (f"DGCNN-seg EC3 N={n}", *inputs(model.edge3, x))
+
+
+def run_edgebwd(parent: Optional[Path]) -> None:
+    """The parent's split and this tree's design variants of
+    ``edge_bwd`` at each launch of :func:`edgebwd_cases`: device ms by
+    CUDA graphs with the wrapper's two memsets (``memsets`` times them
+    alone), whether the count column is exact and the largest deviation
+    of ps, scat, d1 and d2 over max|plain|, with the bytes bound."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    src = (_build.CSRC / "edge_bwd.cu").read_text()
+    sources = {"bwd_built": (src, _build.CSRC)}
+    for name, edits in BWD_VARIANTS.items():
+        sources[f"bwd_{name}"] = (edited(src, edits), _build.CSRC)
+    if parent:
+        text = (parent / "edge_bwd.cu").read_text()
+        sources["bwd_parent"] = (text, parent)
+        for name, edits in PARENT_BWD_SPLIT.items():
+            sources[f"bwd_parent_{name}"] = (edited(text, edits), parent)
+    libs = build(sources)
+    for lib in libs.values():
+        lib.edge_bwd_launch.argtypes = BWD_ARGS
+        lib.edge_bwd_launch.restype = ctypes.c_int
+    for case, h, dout, idx, st in edgebwd_cases():
+        b, n, k, c = h.shape
+        want = kfe.edge_bwd_plain(h, dout, idx, st, 0.2, n)
+        ps = torch.empty((2, c), device=DEV)
+        scat = torch.empty((b, n, 2 * c + 4), device=DEV)
+        d1 = torch.empty((b, n, c), device=DEV)
+        d2 = torch.empty((b, n, c), device=DEV)
+        rec: Dict[str, list] = {"memsets": [round(graph_ms(
+            lambda: (ps.zero_(), scat.zero_()), 10), 4)]}
+        for name, lib in libs.items():
+            label = name[4:]
+
+            def call(lib=lib):
+                ps.zero_()
+                scat.zero_()
+                return lib.edge_bwd_launch(
+                    _ptr(h), _ptr(dout), _ptr(idx), _ptr(st), _ptr(ps),
+                    _ptr(scat), _ptr(d1), _ptr(d2), b, n, k, c,
+                    ctypes.c_float(0.2), _stream())
+
+            for t in (ps, scat, d1, d2):
+                t.fill_(float("nan"))
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            got = (ps, scat[..., :2 * c + 1], d1, d2)
+            counts = bool(torch.equal(got[1][..., 2 * c],
+                                      want[1][..., 2 * c]))
+            dev = max(((x - w).abs().max() / w.abs().max()).item()
+                      for x, w in zip(got, want))
+            rec[label] = [round(graph_ms(call, 10), 4), counts,
+                          float(f"{dev:.2e}")]
+        e = float(b * n * k)
+        io = (4.0 * b * n * c + 4.0 * e + 16.0 * c + 8.0 * c
+              + 4.0 * b * n * (2 * c + 1) + 8.0 * b * n * c)
+        nonzero = _dz_nonzero(h, dout, st, k)
+        print(json.dumps({
+            "edge_bwd": case, "B": b, "N": n, "k": k, "C": c,
+            "bytes_bound_ms": 1e3 * (2.0 * e * c + io) / 3.35e12,
+            "nonzero_dz_quads": nonzero, "quads": e * c / 4,
+            "ms_counts_dev": rec}), flush=True)
+        del h, dout, idx, want, scat
+        torch.cuda.empty_cache()
+
+
+def _dz_nonzero(h, dout, st, k) -> float:
+    """Rows and channel quads of the backward whose dz is not all 0: the
+    quads the sparse dz half reduces."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+    from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import _z
+
+    dz = kfe._maxpool_dz(_z(h.float(), st), dout, 0.2)
+    b, n, _, c = dz.shape
+    return float((dz.reshape(b, n, k, c // 4, 4) != 0).any(-1).sum())
+
+
+# The two-layer eval kernel from a given index (csrc/edge2_eval.cu) at
+# DGCNN part segmentation's two pairs on the kNN route: this tree's
+# kernel and its variant tiles2 (two tiles of 64 centers a block), and
+# the parent's kernel (--parent).
+E2E_TILES = "constexpr int kE2EvalTiles = 1;"
+E2E_VARIANTS = {"tiles2": [(E2E_TILES, E2E_TILES.replace("1;", "2;"))]}
+E2E_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
+
+
+def edge2eval_cases():
+    """``(case, q, off, idx, st, w2)``: ``edge2_eval``'s inputs at its two
+    launches of served part segmentation on the kNN route (16 clouds of
+    1,000 points, k=40; the model's eval chain with seeded weights, the
+    kNN kernel's index), ``st`` the stacked rows of both layers, ``w2``
+    bf16."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    model = _seeded("dgcnn_partseg")
+    x = torch.from_numpy(SyntheticShapeNetPart(
+        n_points=1000, size=16, seed=0).batch(0, 16)[0]).to(DEV)
+    with torch.no_grad():
+        for name, layer in (("pair1", model.edge1), ("pair2", model.edge2)):
+            q, off = layer.prepare(x)
+            st1, st2 = kfe._folded2(layer.bn1_scale, layer.bn1_bias,
+                                    layer.bn2_scale, layer.bn2_bias,
+                                    layer.stats())
+            idx = kknn.knn(x, x, layer.k)[1]
+            yield (f"DGCNN-seg {name} N=1000", q.bfloat16(), off, idx,
+                   kfe._st2(st1, st2), layer.w2.bfloat16().contiguous())
+            x = layer(x)
+
+
+def run_edge2eval(parent: Optional[Path]) -> None:
+    """This tree's ``edge2_eval`` and its variants, and
+    the parent's, at each launch of :func:`edge2eval_cases`: device ms by
+    CUDA graphs and the deviation from the plain version over
+    max|plain|, with the bf16 operations bound."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    src = (_build.CSRC / "edge2_eval.cu").read_text()
+    sources = {"e2e_built": (src, _build.CSRC)}
+    for name, edits in E2E_VARIANTS.items():
+        sources[f"e2e_{name}"] = (edited(src, edits), _build.CSRC)
+    if parent:
+        sources["e2e_parent"] = ((parent / "edge2_eval.cu").read_text(),
+                                 parent)
+    libs = build(sources)
+    for name, lib in libs.items():
+        lib.edge2_eval_launch.argtypes = E2E_ARGS
+        lib.edge2_eval_launch.restype = ctypes.c_int
+    for case, q, off, idx, st, w2 in edge2eval_cases():
+        b, n, c1 = q.shape
+        m, k = idx.shape[1:]
+        c2 = w2.shape[1]
+        want = kfe.edge2_eval_plain(q, off, idx, st[:4 * c1].view(4, c1),
+                                    st[4 * c1:].view(4, c2), w2.float())
+        out = torch.empty((b, m, c2), device=DEV)
+        rec: Dict[str, list] = {}
+        for name, lib in libs.items():
+            label = name[4:]
+
+            def call(lib=lib):
+                return lib.edge2_eval_launch(
+                    _ptr(q), _ptr(idx), _ptr(off), _ptr(st), _ptr(w2),
+                    _ptr(out), b, m, n, c1, c2, k, ctypes.c_float(0.2),
+                    _stream())
+
+            out.fill_(float("nan"))
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            dev = ((out - want).abs().max() / want.abs().max()).item()
+            rec[label] = [round(graph_ms(call, 10), 4), float(f"{dev:.2e}")]
+        e = float(b * m * k)
+        print(json.dumps({
+            "edge2_eval": case, "B": b, "M": m, "k": k, "C1": c1, "C2": c2,
+            "bf16_bound_ms": 1e3 * 2.0 * e * c1 * c2 / 989e12,
+            "f32_bound_ms": 1e3 * (4.0 * c1 + 4.0 * c2) * e / 67e12,
+            "ms_dev": rec}), flush=True)
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -2147,8 +2412,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--only", nargs="+", default=["fps", "tail", "f1", "read",
                                                   "cluster"],
                     choices=["fps", "tail", "f1", "rows", "knn", "edge2p1",
-                             "edgef1", "edge2p2", "edgeeval", "tail2", "read",
-                             "cluster"])
+                             "edgef1", "edge2p2", "edgeeval", "tail2",
+                             "edgebwd", "edge2eval", "read", "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2177,6 +2442,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_edgeeval(args.parent)
     if "tail2" in args.only:
         run_tail2(args.parent)
+    if "edgebwd" in args.only:
+        run_edgebwd(args.parent)
+    if "edge2eval" in args.only:
+        run_edge2eval(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

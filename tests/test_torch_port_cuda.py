@@ -785,6 +785,24 @@ EVAL_SERVE_SHAPES = {
 }
 
 
+# edge_bwd at its main-path shapes (DGCNN's EC1–EC4, B=32, N=1024, k=20;
+# part seg's EC3, B=16, N=2048, k=40; the kNN route's N=1,000) and edge
+# cases: duplicate points (max-pool ties), a hub target every center
+# lists, C = 4 and a single cloud
+BWD_SHAPES = {
+    "bwd_ec1": (32, 1024, 20, 3, 64),
+    "bwd_ec2": (32, 1024, 20, 64, 64),
+    "bwd_ec3": (32, 1024, 20, 64, 128),
+    "bwd_ec4": (32, 1024, 20, 128, 256),
+    "bwd_seg_ec3": (16, 2048, 40, 64, 64),
+    "bwd_n1000": (32, 1000, 20, 64, 64),
+    "bwd_duplicates": (4, 1024, 20, 3, 64),
+    "bwd_hub": (4, 1024, 20, 64, 128),
+    "bwd_c4": (2, 256, 20, 3, 4),
+    "bwd_one_cloud": (1, 1024, 20, 64, 64),
+}
+
+
 def _edge_inputs(card, name, seed=0):
     """``x``, ``q`` (bf16), ``off``, the folded BN rows of random running
     statistics and an output gradient; the duplicates cases repeat the
@@ -793,7 +811,7 @@ def _edge_inputs(card, name, seed=0):
     case makes every point of a cloud its first."""
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
 
-    b, n, k, cin, c = {**EDGE_SHAPES, **EVAL_SERVE_SHAPES}[name]
+    b, n, k, cin, c = {**EDGE_SHAPES, **EVAL_SERVE_SHAPES, **BWD_SHAPES}[name]
     rng = np.random.default_rng(seed + n + cin + c)
 
     def t(*shape, scale=1.0):
@@ -929,6 +947,34 @@ def test_edge_bwd_matches_plain(card, name):
     want = kfe.edge_bwd_plain(*args)
     c = h.shape[-1]
     assert torch.equal(got[1][..., 2 * c], want[1][..., 2 * c])
+    for g, w, what in zip(got, want, ("ps", "scat", "d1", "d2")):
+        _close_sums(g, w, what)
+    for g, w, what in zip(kfe.assemble_grads(*got, a["st"], a["k"]),
+                          kfe.assemble_grads(*want, a["st"], a["k"]),
+                          ("dq", "doff", "dgamma", "dbeta")):
+        _close_sums(g, w, what)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_SHAPES))
+def test_edge_bwd_path_shapes_match_plain(card, name):
+    """The backward at its path shapes and edge cases, one launch a call:
+    the count column exact in two calls, the sums and scatter and the
+    assembled dq, doff, dγ, dβ within 1e-3 of each one's largest element
+    (the dz half reduced only where a channel quad is not all 0)."""
+    kfe, a = _edge_inputs(card, name, seed=6)
+    idx, h, _ = kfe.edge_knn_f1_plain(a["x"], a["q"], a["off"], a["k"])
+    if "hub" in name:
+        idx[:, :, 0] = 5  # every center lists point 5
+    n, c = h.shape[1], h.shape[-1]
+    args = (h, a["dout"], idx, a["st"], 0.2, n)
+    before = kfe.edge_bwd.launches
+    got = kfe.edge_bwd(*args)
+    again = kfe.edge_bwd(*args)
+    torch.cuda.synchronize()
+    assert kfe.edge_bwd.launches == before + 2
+    want = kfe.edge_bwd_plain(*args)
+    assert torch.equal(got[1][..., 2 * c], want[1][..., 2 * c])
+    assert torch.equal(again[1][..., 2 * c], want[1][..., 2 * c])
     for g, w, what in zip(got, want, ("ps", "scat", "d1", "d2")):
         _close_sums(g, w, what)
     for g, w, what in zip(kfe.assemble_grads(*got, a["st"], a["k"]),
@@ -1311,6 +1357,16 @@ TAIL2_SHAPES = {
 }
 
 
+# edge2_eval from the kNN's index: both pairs on part seg's kNN route
+# (B=16, N=1,000), and with TAIL2_SHAPES' fewer centers than one tile and
+# BN2 scales below 0, lists whose every other entry repeats the one
+# before it
+EVAL2_IDX_SHAPES = {
+    "pair1_n1000": (16, 1000, 40, 3),
+    "repeated_n1000": (2, 1000, 40, 64),
+}
+
+
 def _edge2_inputs(card, name, seed=0):
     """The two-layer kernels' inputs at C1 = C2 = 64: ``x``, ``q``
     (bf16), ``off``, W2, the plain pass 1's neighbour index and bf16
@@ -1324,7 +1380,8 @@ def _edge2_inputs(card, name, seed=0):
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
     from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import _moments
 
-    b, n, k, cin = {**EDGE2_SHAPES, **EVAL2_SHAPES, **TAIL2_SHAPES}[name]
+    b, n, k, cin = {**EDGE2_SHAPES, **EVAL2_SHAPES, **TAIL2_SHAPES,
+                    **EVAL2_IDX_SHAPES}[name]
     rng = np.random.default_rng(seed + n + cin + k)
 
     def t(*shape, scale=1.0):
@@ -1452,6 +1509,26 @@ def test_edge2_bwd_matches_plain(card, name):
         before[0] + 1, before[1] + 1)
     for g, w, what in zip(got, kfe.edge2_p2_plain(*p2), ("dq", "doff")):
         _tie_robust(g, w, what)
+
+
+@pytest.mark.parametrize("name", ["pair1_n1000", "n1000_b16", "n40_b1",
+                                  "bn2_negative", "repeated_n1000"])
+def test_edge2_eval_idx_shapes_match_plain(card, name):
+    """``edge2_eval`` on the kNN route's pairs and edge cases, one launch
+    a call: within 1e-5 of the largest plain element (a bit-identical y1,
+    h2 summed in another order on the tensor cores)."""
+    kfe, a = _edge2_inputs(card, name, seed=7)
+    idx = a["idx"]
+    if "repeated" in name:
+        idx[..., 1::2] = idx[..., ::2]
+    args = (a["q"], a["off"], idx, a["st1"], a["st2"], a["w2"])
+    before = kfe.edge2_eval.launches
+    got = kfe.edge2_eval(*args)
+    torch.cuda.synchronize()
+    assert kfe.edge2_eval.launches == before + 1
+    want = kfe.edge2_eval_plain(*args)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
 
 
 def test_edge2_kernels_reject_what_they_cannot_run(card):

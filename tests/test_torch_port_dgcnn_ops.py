@@ -33,6 +33,12 @@ from pointcloudlib_tpu.ops.pallas.fused_sa import _stack_stats as jax_stack
 from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
 from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
 from pointcloudlib_tpu_torch.ops.kernels.fused_sa import _stack_stats
+from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
+    _bf,
+    _moments,
+    _xhat,
+    _z,
+)
 
 SLOPE = 0.2
 
@@ -263,3 +269,54 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     kfe.edge_bwd(h, kfe.edge_out(h, st, SLOPE), idx, st, SLOPE, x.shape[1])
     assert before == (kfe.edge_knn_eval.launches, kfe.edge_knn_f1.launches,
                       kfe.edge_out.launches, kfe.edge_bwd.launches)
+
+
+
+def _bwd_sparse_dz(h, dout, idx, st, slope, n):
+    """``edge_bwd_plain``'s result as the kernel forms it: ps, d1 and d2
+    from the walks, scat's dz half reduced from the rows and channel
+    quads whose dz is not all 0 only, its x̂ half and count over every
+    edge."""
+    b, m, k, c = h.shape
+    hf = h.float()
+    dz = kfe._maxpool_dz(_z(hf, st), dout, slope)
+    xh = _xhat(hf, st)
+    ps = torch.stack([dz.sum((0, 1, 2)), (dz * xh).sum((0, 1, 2))])
+    quads = dz.reshape(b, m * k, c // 4, 4)
+    bb, e, u = (quads != 0).any(-1).nonzero(as_tuple=True)
+    rows = idx.reshape(b, m * k).long()[bb, e]
+    at = (((bb * n + rows) * (c // 4) + u)[:, None] * 4
+          + torch.arange(4)).reshape(-1)
+    dzh = torch.zeros(b * n * c).scatter_add_(
+        0, at, _bf(quads)[bb, e, u].reshape(-1)).reshape(b, n, c)
+    tgt = idx.reshape(b, m * k).long()
+    xhh = torch.zeros((b, n, c)).scatter_add_(
+        1, tgt[..., None].expand(-1, -1, c), _bf(xh).reshape(b, m * k, c))
+    deg = torch.zeros((b, n)).scatter_add_(1, tgt, torch.ones(tgt.shape))
+    scat = torch.cat([dzh, xhh, deg[..., None]], dim=-1)
+    return ps, scat, dz.sum(2), xh.sum(2)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bwd_sparse_dz_matches_plain(case):
+    """The kernel's sparse dz scatter (``_bwd_sparse_dz``) against
+    ``edge_bwd_plain``: ps, d1, d2, the dz half and the count bit for bit
+    (the dz quads left out add only zeros), the x̂ half within f32
+    rounding of its largest element (another order of the same sums)."""
+    a = _inputs(case, seed=3)
+    x, q, off = _t(a["x"]), _t(a["q"]).bfloat16(), _t(a["off"])
+    idx, h, psum = kfe.edge_knn_f1_plain(x, q, off, a["k"])
+    b, n, k, c = h.shape
+    st = _stack_stats(*_moments(psum, float(b * n * k)),
+                      _t(a["gamma"]), _t(a["beta"]))
+    dout = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (b, n, c)).astype(np.float32))
+    got = _bwd_sparse_dz(h, dout, idx, st, SLOPE, n)
+    want = kfe.edge_bwd_plain(h, dout, idx, st, SLOPE, n)
+    for g, w in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1][..., :c], want[1][..., :c])
+    assert torch.equal(got[1][..., 2 * c], want[1][..., 2 * c])
+    torch.testing.assert_close(
+        got[1][..., c:2 * c], want[1][..., c:2 * c], rtol=0,
+        atol=1e-6 * want[1][..., c:2 * c].abs().max().item())

@@ -522,3 +522,17 @@ def test_tail_instances_fit_their_blocks_an_sm():
         assert smem <= 227 * 1024, (c1, c2, smem)
         assert kfe.TAIL2_BLOCKS * (smem + 1024) <= 228 * 1024, (c1, c2, smem)
     assert kfe.edge2_tail_smem(64, 64) == 54784
+
+
+@pytest.mark.parametrize("k", [1, 8, 20, 40])
+def test_eval_instances_fit_their_blocks_an_sm(k):
+    """``edge2_eval``'s shared memory, as ``edge2_eval_smem`` mirrors
+    ``csrc/edge2_eval.cu``'s layout (the lists of a block's centers, W2,
+    two y1 tiles), fits the blocks an SM the kernel is built for at every
+    list length the kNN gives (k ≤ 40), as the tails' do."""
+    for c1, c2 in kfe.EDGE2_WIDTHS:
+        smem = kfe.edge2_eval_smem(c1, c2, k)
+        assert smem <= 227 * 1024, (c1, c2, k, smem)
+        assert kfe.EVAL2_BLOCKS * (smem + 1024) <= 228 * 1024, (c1, c2, k)
+    assert kfe.edge2_eval_smem(64, 64, 40) == 34816
+    assert kfe.edge2_eval_smem(64, 64, 1) == 256 + 8192 + 16384
