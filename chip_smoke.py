@@ -77,7 +77,9 @@ once:
    clouds, seeded random weights): FPS 2048→512 and 512→128, the
    ball-query eval, pass-1, tail, p1 and p2 kernels at SA1 and SA2 under
    the bounds above; the 3-NN interpolation at FP2 and FP1 (idx
-   bit-identical, w and out within 1e-6·max|plain|) and the row
+   bit-identical, w and out within 1e-6·max|plain|; each record names
+   the lanes a query its wrapper took, ``three_interp.interp_group``)
+   and the row
    scatter-add at both backward shapes (within 1e-5·max|plain|; f32
    atomics in another order), with ``index_add_`` timed beside it
    (device times from CUDA graphs; the event loop's launch rate kept
@@ -133,7 +135,8 @@ once:
    timed as the library's yardstick, two calls; each record names the
    route the wrapper took, ``knn.knn_route``), ``edge_eval`` within
    1e-5·max|plain| (its plain version taken 8 clouds at a time),
-   ``edge_f1``'s h bit-identical, ``edge_out`` and ``edge_bwd`` as in
+   ``edge_f1``'s h bit-identical (each record names its route,
+   ``fused_edge.edge_f1_route``), ``edge_out`` and ``edge_bwd`` as in
    phase 11; edge cases: duplicate points, k = N, a query cloud of its
    own, N=16,384 at C=128;
 16. main paths at N=4096 and N % 128 ≠ 0 — ``Predictor(batch_size=32)``
@@ -222,7 +225,8 @@ share one source and one wrapper, counted per stage; the given-index
 ``sa_f1``, ``fused_sa_eval`` and ``sa_bwd_p2`` have a second entry each
 for the windowed function they stand for at N ≥ 4096, with the N=4096
 cases and the launches of the N=4096 paths; ``edge_knn_eval``'s entry
-adds the ``torch.topk`` yardstick); the last line is
+adds the ``torch.topk`` yardstick; an entry whose records name routes
+or lane groups lists them as ``kernel_routes``); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 
@@ -239,7 +243,9 @@ DGCNN kernels), ``edgeeval_times`` (the two eval kernels with the kNN
 inside at their seven served launches, with their routes) and
 ``edgebwd_times`` (the EdgeConv backward at its ten launches of the main
 paths, and ``edge2_eval`` at both pairs on part segmentation's kNN
-route).
+route) and ``interp_times`` (the 3-NN interpolation at its six launches
+and ``edge_f1`` at its seven, with the lane group or route, bound and
+the instance's registers).
 """
 
 from __future__ import annotations
@@ -1326,6 +1332,7 @@ def _three_interp_case(name, query, points, feats, timed, self_pairs=0):
     b, m, _ = query.shape
     n, c = feats.shape[1:]
     rec = {"case": name, "B": b, "M": m, "N": n, "C": c,
+           "group": _interp_group(b, m),
            "idx_bit_identical": True, "self_pairs": int(exact.sum()),
            **_errs(errs)}
     if timed:
@@ -1342,6 +1349,14 @@ def _three_interp_case(name, query, points, feats, timed, self_pairs=0):
             + 24.0 * b * m)
     emit("kernel three_interp", rec)
     return rec, (idx, w)
+
+
+def _interp_group(b, m):
+    """The lanes a query ``three_interp`` takes at these shapes
+    (``three_interp.interp_group``; None in a checkout before the lane
+    groups)."""
+    group = getattr(kti, "interp_group", None)
+    return group(b, m) if group else None
 
 
 def _route(name, *args) -> str:
@@ -1976,7 +1991,8 @@ def _edge_idx_case(name, f, xe, xt, g, timed):
         torch.cuda.synchronize()
         if not torch.equal(h.view(torch.int16), wh.view(torch.int16)):
             fail(f"edge_f1 {name}: h not bit-identical to the plain version")
-        rec = {"case": f"{name} N={n}", **shape, "h_bit_identical": True,
+        rec = {"case": f"{name} N={n}", **shape,
+               "route": _edge_f1_route_name(c), "h_bit_identical": True,
                **_errs([_check_sums(f"edge_f1 {name}", psum, wpsum)])}
         del h
         # h, its sum and its square: 4 operations an edge element
@@ -2129,7 +2145,9 @@ def _edge2_case(name, layer, xe, xt, g, timed):
                  f"version")
         del h
         # h, its sum and its square: 4 operations an edge element
-        record(kernel, {"case": f"{name} N={n}", **shape,
+        route = ({"route": _edge_f1_route_name(c1)} if kernel == "edge_f1"
+                 else {})
+        record(kernel, {"case": f"{name} N={n}", **shape, **route,
                         "idx_h_bit_identical": True,
                         **_errs([_check_sums(f"{kernel} {name}", psum,
                                              wpsum)])},
@@ -2540,6 +2558,10 @@ def _kernel_entry(name, source, replaces, recs, paths):
     if all("topk_selection_yardstick_ms" in r for r in timed):
         extra["topk_selection_yardstick_ms"] = sum(
             r["topk_selection_yardstick_ms"] for r in timed)
+    routes = sorted({str(r[key]) for r in recs for key in ("route", "group")
+                     if r.get(key) is not None})
+    if routes:  # the wrapper's routes or lane groups the cases took
+        extra["kernel_routes"] = routes
     return {"name": name, "route": "cuda", "source": CSRC + source,
             "replaces": replaces, "launches": sum(paths.values()),
             "launches_by_path": paths,
@@ -3055,6 +3077,14 @@ def _edge_f1_bound(b, n, cin, c, k):
                  + 8.0 * c)
 
 
+def _edge_f1_route_name(c) -> str:
+    """The route ``edge_f1`` takes at width ``c``
+    (``fused_edge.edge_f1_route``; ``rows`` in a checkout before the
+    routes)."""
+    route = getattr(kfe, "edge_f1_route", None)
+    return "rows" if route is None else kfe.EDGE_F1_ROUTES[route(c)]
+
+
 def _edge_route_label(knn, fn, *shape, layers=0) -> str:
     """The name of the route ``knn.<fn>`` gives these shapes: pass 1's
     (``layers`` 0) or an eval kernel's (1, 2). A checkout from before the
@@ -3416,6 +3446,122 @@ def edgebwd_times() -> None:
                 "device_ms": ms, "bound_ms": bound_ms,
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "share_of_bound": bound_ms / ms, **_errs([err])})
+
+
+def _ptxas_of(name, pattern) -> list:
+    """``_ptxas(name)``'s entries of the kernels whose mangled names match
+    ``pattern``; all of them where none does (a parent's one kernel)."""
+    entries = _ptxas(name)
+    found = [e for e in entries if re.search(pattern, e["fn"])]
+    return found or entries
+
+
+def interp_times() -> None:
+    """``three_interp`` at its six launches of the main paths (PointNet++
+    part segmentation's FP2 and FP1, PointConv part segmentation's four
+    decoders; B=16, N=2,048, the arguments recorded from the models' eval
+    forward) and ``edge_f1`` at its seven (DGCNN's four EdgeConvs in a
+    train step at B=32, N=1,000, k=20; DGCNN part segmentation's two
+    pairs and EC3 in a train step on its kNN route, B=16, N=1,000, k=40).
+    After the device line, one ``three_interp:`` or ``edge_f1:`` line a
+    launch with the lane group or route the wrapper took, device ms by
+    CUDA graphs (the wrapper's allocations included, and ``edge_f1``'s
+    psum memset), the bound and its share, the deviation from the plain
+    version (held: idx or h bit-identical, w and out within
+    1e-6·max|plain|, psum within 1e-3) and the registers, shared memory
+    and spills of the kernel it launched. It times the package beside
+    this file; for old against new, copy this file into the other
+    checkout's root and run it there too:
+
+        python3 -c 'import chip_smoke; chip_smoke.interp_times()'
+    """
+    phase_device()
+    _build.build(SOURCES)
+
+    def device(kernel, rec, fn, bounds, ptxas):
+        bound_ms, ops_ms, bytes_ms = bounds
+        ms = graph_ms(fn, 20)
+        emit(kernel, {**rec, "device_ms": ms, "bound_ms": bound_ms,
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes", "share_of_bound": bound_ms / ms,
+                      "ptxas": ptxas})
+
+    seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
+    onehot = torch.zeros((SEG_BATCH, 16), device=DEV)
+    for tag, name, inputs in (("partseg", PN2_SEG,
+                               (seg_xyz, onehot, seg_xyz)),
+                              ("pointconv seg", PC_SEG, (seg_xyz, onehot))):
+        model = _model_on_card(name, random_jax_variables(build_model(name),
+                                                          seed=0))
+        calls = []
+        orig = _record_calls(kti, "three_interp_fwd", calls)
+        try:
+            with torch.no_grad():
+                model(*inputs)
+        finally:
+            kti.three_interp_fwd = orig
+        del model
+        for q, p, f in calls:
+            b, m, _ = q.shape
+            n, c = f.shape[1:]
+            rec = _three_interp_case(f"{tag} M={m} N={n} C={c}", q, p, f,
+                                     False)[0]
+            instance = f"ILi{rec['group']}ELi{4 if c % 4 == 0 else 1}E"
+            device("three_interp", rec,
+                   lambda: kti.three_interp_fwd(q, p, f),
+                   bound(0.0, 10.0 * b * m * n + 5.0 * b * m * c,
+                         12.0 * b * (m + n) + 4.0 * b * n * c
+                         + 4.0 * b * m * c + 24.0 * b * m),
+                   _ptxas_of("three_interp", instance))
+        torch.cuda.empty_cache()
+
+    def f1_case(case, layer, xt):
+        b, n, _ = xt.shape
+        k = layer.k
+        with torch.no_grad():
+            q, off = layer.prepare(xt)
+            f1 = (q.bfloat16(), off, kknn.knn(xt, xt, k)[1])
+            h, psum = kfe.edge_f1(*f1)
+            wh, wpsum = kfe.edge_f1_plain(*f1)
+            torch.cuda.synchronize()
+            c = h.shape[-1]
+            if not torch.equal(h.view(torch.int16), wh.view(torch.int16)):
+                fail(f"edge_f1 {case}: h not bit-identical to the plain "
+                     f"version")
+            err = _check_sums(f"edge_f1 {case}", psum, wpsum)
+            del h, wh
+            route = _edge_f1_route_name(c)
+            e = float(b * n * k * c)
+            # as _edge_idx_case counts them
+            device("edge_f1", {"case": case, "B": b, "N": n, "k": k, "C": c,
+                               "route": route, "h_bit_identical": True,
+                               **_errs([err])},
+                   lambda: kfe.edge_f1(*f1),
+                   bound(0.0, 4.0 * e, 6.0 * b * n * c + 4.0 * b * n * k
+                         + 2.0 * e + 8.0 * c),
+                   _ptxas_of("edge_f1", f"center_kernelILi{c}E"
+                             if route == "center" else "edge_f1_kernel"))
+            torch.cuda.empty_cache()
+
+    dg = _model_on_card("dgcnn", random_jax_variables(
+        get_cls_model("dgcnn"), seed=0))
+    xt = synthetic_batch("dgcnn", DGCNN_BATCH, 5,
+                         ODD_TRAIN_POINTS)["xyz"].to(DEV)
+    with torch.no_grad():
+        for i, ec in enumerate(dg.edge):
+            f = ec.fused
+            f1_case(f"DGCNN EC{i + 1} N={ODD_TRAIN_POINTS}", f, xt)
+            q, off = f.prepare(xt)
+            xt = kfe.fused_edge_conv(q, off, kknn.knn(xt, xt, f.k)[1],
+                                     f.bn_scale, f.bn_bias)[0]
+    del dg
+    dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
+                                                     seed=0))
+    x_odd = SyntheticShapeNetPart(n_points=DSEG_ODD_TRAIN, size=SEG_BATCH,
+                                  seed=3).batch(0, SEG_BATCH)[0]
+    for name, layer, _, xt in _dseg_layers(dseg,
+                                           torch.from_numpy(x_odd).to(DEV)):
+        f1_case(f"DGCNN-seg {name} N={DSEG_ODD_TRAIN}", layer, xt)
 
 
 # Every FPS launch of the ported paths: (case, clouds, batch, n_samples of

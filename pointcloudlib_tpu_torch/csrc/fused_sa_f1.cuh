@@ -1,8 +1,9 @@
 // The write half of forward pass 1, shared by the kernel with the ball
 // query inside (fused_sa_bq_f1.cu), the one that takes a given idx
 // (fused_sa_f1.cu) and the EdgeConv's pass 1 with the kNN inside
-// (edge_knn_f1.cu, whose h is the same expression of its neighbour
-// lists): one warp writes one center's h1 rows,
+// (edge_knn_f1.cu) or from a given idx (edge_f1.cu), whose h is the same
+// expression of its neighbour lists: one warp writes one center's h1
+// rows,
 //   h1[j] = bf16(float(bf16 Q[idx_j]) - off[center])   (one rounding),
 // and keeps [sum h1, sum h1^2] of the f32 h1 in registers.
 //
@@ -166,6 +167,78 @@ __device__ __forceinline__ void f1_flush(F1Sums& s, int lane, float* red,
   __syncthreads();
   for (int i = threadIdx.x; i < 2 * C1; i += blockDim.x)
     atomicAdd(psum + i, red[i]);
+}
+
+// The pass 1 that takes a given idx [centers, k]: the set abstraction's
+// (fused_sa_f1.cu) and the EdgeConv's (edge_f1.cu). One wave of resident
+// blocks whose warps walk the centers, a center a warp: the warp reads
+// the center's idx row with one vector load a lane into shared memory,
+// then writes its rows with f1_center. Each source wraps f1_idx_walk in
+// a kernel of its own name, so that profiles tell the two apart.
+
+// Dynamic shared memory: an index row a warp, the block's sums.
+inline size_t f1_idx_smem(int k, int c1) {
+  return (size_t)kWarps * ((k + 3) / 4 * 16) + (size_t)2 * c1 * 4;
+}
+
+// q [batch, n, C1] bf16, off [batch, m, C1], idx [batch, m, k] with
+// every entry in [0, n), h1 [batch, m, k, C1]; psum [2, C1] zeroed by the
+// caller. Every thread of the block calls it once.
+template <int C1>
+__device__ __forceinline__ void f1_idx_walk(const __nv_bfloat16* q,
+                                            const float* off, const int* idx,
+                                            __nv_bfloat16* h1, float* psum,
+                                            int n, int m, int k,
+                                            long long centers) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int kp = (k + 3) / 4 * 4;
+  int* nbr = reinterpret_cast<int*>(smem) + warp * kp;
+  float* red = reinterpret_cast<float*>(smem + (size_t)kWarps * kp * 4);
+  for (int i = threadIdx.x; i < 2 * C1; i += kThreads) red[i] = 0.0f;
+  __syncthreads();
+
+  F1Sums s;
+  s.zero();
+  const long long stride = (long long)gridDim.x * kWarps;
+  for (long long center = (long long)blockIdx.x * kWarps + warp;
+       center < centers; center += stride) {
+    const int* ig = idx + center * k;
+    if (k % 4 == 0) {
+      for (int e = 4 * lane; e < k; e += 128)
+        *reinterpret_cast<int4*>(nbr + e) =
+            __ldg(reinterpret_cast<const int4*>(ig + e));
+    } else {
+      for (int e = lane; e < k; e += 32) nbr[e] = __ldg(ig + e);
+    }
+    __syncwarp();
+    f1_center<C1>(q + (center / m) * n * C1, off + center * C1,
+                  h1 + center * k * C1, nbr, k, lane, s);
+    __syncwarp();  // before the next row overwrites nbr
+  }
+  f1_flush<C1>(s, lane, red, psum);
+}
+
+// Launches kernel, a __global__ wrapper of f1_idx_walk<C1> with launch
+// bounds (kThreads, kF1MinBlocks), as one wave of resident blocks (never
+// more blocks than a warp a center needs).
+template <int C1, typename K>
+cudaError_t launch_f1_idx(K kernel, const void* q, const void* off,
+                          const void* idx, void* h1, void* psum, int batch,
+                          int n, int m, int k, cudaStream_t stream) {
+  const size_t smem = f1_idx_smem(k, C1);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  int wave = 0;
+  cudaError_t err = wave_blocks(kernel, smem, &wave);
+  if (err != cudaSuccess) return err;
+  const long long centers = (long long)batch * m;
+  const int blocks =
+      (int)std::min<long long>(wave, (centers + kWarps - 1) / kWarps);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(off),
+      static_cast<const int*>(idx), static_cast<__nv_bfloat16*>(h1),
+      static_cast<float*>(psum), n, m, k, centers);
+  return cudaGetLastError();
 }
 
 }  // namespace pcl

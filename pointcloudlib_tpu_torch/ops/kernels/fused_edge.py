@@ -177,9 +177,9 @@ _SIGNATURES = {
         "edge_eval_smem": ([ctypes.c_int], ctypes.c_longlong),
     },
     "edge_f1": {
-        "edge_f1_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        "edge_f1_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p], ctypes.c_int),
-        "edge_f1_smem": ([ctypes.c_int] * 2, ctypes.c_longlong),
+        "edge_f1_smem": ([ctypes.c_int] * 3, ctypes.c_longlong),
     },
     "edge_out": {
         "edge_out_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
@@ -374,15 +374,35 @@ def edge_eval(q, off, idx, st, slope: float = 0.2):
 edge_eval.launches = 0
 
 
+# the routes of edge_f1 (csrc/edge_f1.cu): the block pass of the first
+# version, and the set abstraction's given-index pass 1 at the widths it
+# is compiled for
+EDGE_F1_ROUTES = {0: "rows", 1: "center"}
+EDGE_F1_CENTER_WIDTHS = (64, 128, 256)
+
+
+def edge_f1_route_fits(route: int, c: int) -> bool:
+    """Whether ``edge_f1``'s route takes width ``c``."""
+    return route == 0 or c in EDGE_F1_CENTER_WIDTHS
+
+
+def edge_f1_route(c: int) -> int:
+    """``edge_f1``'s route at width ``c``: center where it is compiled,
+    else rows."""
+    return 1 if edge_f1_route_fits(1, c) else 0
+
+
 def edge_f1(q, off, idx):
     """Forward pass 1 from a given index → ``(h, psum)`` as
     :func:`edge_f1_plain`: the kernel for CUDA tensors (as
-    :func:`edge_eval` takes them), the plain version for CPU tensors."""
+    :func:`edge_eval` takes them) on the route :func:`edge_f1_route`
+    picks, the plain version for CPU tensors."""
     if not _on_card("edge_f1", q):
         return edge_f1_plain(q, off, idx)
     lib = _lib("edge_f1")
-    b, m, n, c, k = _given_idx("edge_f1", q, off, idx,
-                               lib.edge_f1_smem(q.shape[-1], idx.shape[-1]))
+    route = edge_f1_route(q.shape[-1])
+    b, m, n, c, k = _given_idx("edge_f1", q, off, idx, lib.edge_f1_smem(
+        q.shape[-1], idx.shape[-1], route))
     dev = q.device
     h = torch.empty((b, m, k, c), dtype=torch.bfloat16, device=dev)
     psum = torch.zeros((2, c), dtype=torch.float32, device=dev)
@@ -390,7 +410,7 @@ def edge_f1(q, off, idx):
     with torch.cuda.device(dev):
         err = lib.edge_f1_launch(
             q.data_ptr(), idx.data_ptr(), off.data_ptr(), h.data_ptr(),
-            psum.data_ptr(), b, m, n, c, k, _stream(dev))
+            psum.data_ptr(), b, m, n, c, k, route, _stream(dev))
     _build.check(err, "edge_f1")
     edge_f1.launches += 1
     return h, psum

@@ -23,13 +23,30 @@ from pointcloudlib_tpu_torch.ops.kernels.gather import scatter_rows
 # largest support cloud the kernel stages in shared memory (16 bytes a
 # point, beside 3 KB of the kernel's own)
 MAX_POINTS = 14000
+# lanes a query the kernel is compiled for (a block of 256 threads takes
+# 256 / G queries)
+GROUPS = (2, 4, 8, 16, 32)
+# blocks of a grid that fills an H100 (132 SMs): about two an SM
+FILL_BLOCKS = 256
+
+
+def interp_group(b: int, m: int) -> int:
+    """Lanes a query for ``b`` clouds of ``m`` queries: the fewest whose
+    grid of ``b · ⌈m / (256 / G)⌉`` blocks reaches ``FILL_BLOCKS``, else
+    the most. (Timed at every group at the six main-path launches,
+    ``tools/kernel_variants.py --only interp``: more lanes a query cost
+    merge steps, fewer leave SMs idle.)"""
+    for g in GROUPS:
+        if b * -(-m // (256 // g)) >= FILL_BLOCKS:
+            return g
+    return GROUPS[-1]
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("three_interp")
     fn = lib.three_interp_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -85,7 +102,8 @@ def three_interp_fwd(query: torch.Tensor, points: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().three_interp_launch(
             query.data_ptr(), points.data_ptr(), feats.data_ptr(),
-            out.data_ptr(), idx.data_ptr(), w.data_ptr(), b, n, m, c, stream)
+            out.data_ptr(), idx.data_ptr(), w.data_ptr(), b, n, m, c,
+            interp_group(b, m), stream)
     _build.check(err, "three_interp")
     three_interp_fwd.launches += 1
     return out, idx, w

@@ -1,21 +1,23 @@
 """Design variants of the FPS kernel, of the forward tail's stage 2, of
 forward pass 1, of the row scatter-add and gather, of the standalone kNN,
 of the two-layer EdgeConv's backward passes and forward tails and of the
-EdgeConv kernels with the kNN inside, of the EdgeConv backward and of
-the two-layer eval kernel from a given index, timed against each other
-on the card. Each variant
+EdgeConv kernels with the kNN inside, of the EdgeConv backward, of
+the two-layer eval kernel from a given index, of the 3-NN interpolation
+and of the EdgeConv's given-index pass 1, timed against each other on
+the card. Each variant
 is an edit of the committed source (``csrc/fps.cu``,
 ``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu`` and
 ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``,
 ``csrc/knn.cu``, ``csrc/edge2_bwd_p1.cu``, ``csrc/edge2_bwd_p2.cu``,
 ``csrc/edge_knn_f1.cu``, ``csrc/edge_knn_eval.cu`` and
 ``edge2_knn_eval.cu``, ``csrc/edge2_tail.cu``, ``csrc/edge_bwd.cu``,
-``csrc/edge2_eval.cu``), built beside it by ``nvcc`` with the package's
-flags into ``build/variants/``.
+``csrc/edge2_eval.cu``, ``csrc/three_interp.cu``, ``csrc/edge_f1.cu``),
+built beside it by ``nvcc`` with the package's flags into
+``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
         [--only fps tail f1 rows knn edge2p1 edgef1 edge2p2 edgeeval tail2
-                edgebwd edge2eval read cluster]
+                edgebwd edge2eval interp edgef1idx read cluster]
         [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
@@ -117,6 +119,20 @@ beside the variants. Prints one JSON line a case:
   segmentation's two pairs on the kNN route (B=16, N=1,000, k=40), device
   ms by CUDA graphs and the deviation over max|plain|, for the built
   kernel and ``E2E_VARIANTS``; with ``--parent``, the parent's kernel;
+* ``interp`` (not in the default set): ``three_interp`` at its six
+  launches of the main paths (the part-segmentation models' eval forward,
+  seeded weights), device ms by CUDA graphs, idx bit-identical and the
+  deviation of w and out over max|plain|, for the built kernel at every
+  lane group of ``three_interp.GROUPS`` and for ``TI_VARIANTS`` (output
+  units in flight, launch bounds); with
+  ``--parent``, the parent's kernel and its split (``PARENT_TI_SPLIT``:
+  the staging, the staging and walk, the rows from a given idx);
+* ``edgef1idx`` (not in the default set): ``edge_f1`` at its seven
+  launches (DGCNN's train chain at N=1,000, part segmentation's on its
+  kNN route), device ms with the psum memset, h bit-identical and psum's
+  deviation, for the built kernel on both routes and ``EFG_VARIANTS``;
+  with ``--parent``, the parent's kernel and its split
+  (``PARENT_EFG_SPLIT``: ``load_nbr``, the row pass);
 * ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
   and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
@@ -2370,6 +2386,283 @@ def run_edge2eval(parent: Optional[Path]) -> None:
             "ms_dev": rec}), flush=True)
 
 
+# The 3-NN interpolation (csrc/three_interp.cu) at its six launches of
+# the main paths. The parent's split (--parent; a part's output is wrong
+# by design): stage_only (the support cloud staged, one store a query),
+# walk_only (staging and the selection walk, idx and w stored; no output
+# rows) and write_only (the output rows alone, idx and w read from a
+# copy of the plain version's).
+TI_END = "}\n\n}  // namespace pcl"
+TI_WALK = ("  const int i = m0 + t;\n", TI_END)
+TI_WRITE = ("  // each warp writes its own 32 queries' rows", TI_END)
+TI_SETUP = ("  const float* pg = pts + (size_t)b * n * 3;\n",
+            "  // each warp writes its own 32 queries' rows")
+TI_GIVEN = """  if (m0 + t < m) {
+    const size_t row = (size_t)b * m + m0 + t;
+    for (int s = 0; s < 3; ++s) {
+      s_idx[t][s] = idx[row * 3 + s];
+      s_w[t][s] = wout[row * 3 + s];
+    }
+  }
+  __syncthreads();
+
+"""
+PARENT_TI_SPLIT = {
+    "stage_only": [(TI_WALK, "  if (m0 + t < m)\n    idx[((size_t)b * m + m0 "
+                    "+ t) * 3] = __float_as_int(ptss[t % n].w);\n")],
+    "walk_only": [(TI_WRITE, "")],
+    "write_only": [(TI_SETUP, TI_GIVEN)],
+}
+# This tree's variants: the output units a thread has in flight
+# (unroll2, unroll8) and the launch bounds' blocks an SM (min2, min4).
+TI_UNROLL = "constexpr int kTiUnroll = 4;"
+TI_MIN_BLOCKS = "constexpr int kTiMinBlocks = 3;"
+TI_VARIANTS = {
+    "unroll2": [(TI_UNROLL, TI_UNROLL.replace("4", "2"))],
+    "unroll8": [(TI_UNROLL, TI_UNROLL.replace("4", "8"))],
+    "min2": [(TI_MIN_BLOCKS, TI_MIN_BLOCKS.replace("3", "2"))],
+    "min4": [(TI_MIN_BLOCKS, TI_MIN_BLOCKS.replace("3", "4"))],
+}
+TI_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+
+
+def interp_cases():
+    """``(case, query, points, feats)``: ``three_interp``'s inputs at its
+    six launches of the main paths, recorded from the models' own eval
+    forward with seeded weights: PointNet++ part segmentation's FP2 and
+    FP1 and PointConv part segmentation's four decoders (B=16, N=2,048,
+    xyz as features)."""
+    from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+
+    x = torch.from_numpy(SyntheticShapeNetPart(
+        n_points=2048, size=16, seed=0).batch(0, 16)[0]).to(DEV)
+    onehot = torch.zeros((16, 16), device=DEV)
+    for tag, name, inputs in (("PS", "pointnet2_partseg", (x, onehot, x)),
+                              ("PC-seg", "pointconv_partseg", (x, onehot))):
+        calls, orig = [], kti.three_interp_fwd
+
+        def rec(q, p, f, calls=calls, orig=orig):
+            calls.append(tuple(t.detach().float().contiguous()
+                               for t in (q, p, f)))
+            return orig(q, p, f)
+
+        rec.launches = 0  # the original counts on its module name
+        model = _seeded(name)
+        kti.three_interp_fwd = rec
+        try:
+            with torch.no_grad():
+                model(*inputs)
+        finally:
+            kti.three_interp_fwd = orig
+        del model
+        for q, p, f in calls:
+            yield (f"{tag} (M, N, C) = ({q.shape[1]}, {p.shape[1]}, "
+                   f"{f.shape[2]})", q, p, f)
+
+
+def run_interp(parent: Optional[Path]) -> None:
+    """This tree's ``three_interp`` at every lane group it has, its
+    variants, and the parent's kernel and split, at each launch of
+    :func:`interp_cases`: device ms by CUDA graphs, idx bit-identical to
+    the plain version, and the larger deviation of w and out over
+    max|plain|, with the bytes bound."""
+    from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+
+    src = (_build.CSRC / "three_interp.cu").read_text()
+    sources = {"ti_built": (src, _build.CSRC)}
+    for name, edits in TI_VARIANTS.items():
+        sources[f"ti_{name}"] = (edited(src, _segment_edits(src, edits)),
+                                 _build.CSRC)
+    if parent:
+        text = (parent / "three_interp.cu").read_text()
+        sources["ti_parent"] = (text, parent)
+        for name, edits in PARENT_TI_SPLIT.items():
+            sources[f"ti_parent_{name}"] = (
+                edited(text, _segment_edits(text, edits)), parent)
+    libs = build(sources)
+    grouped = {name for name, (text, _) in sources.items()
+               if "int group" in text}
+    for name, lib in libs.items():
+        lib.three_interp_launch.argtypes = TI_ARGS + (
+            [ctypes.c_int] if name in grouped else []) + [ctypes.c_void_p]
+        lib.three_interp_launch.restype = ctypes.c_int
+    for case, q, p, f in interp_cases():
+        b, m, _ = q.shape
+        n, c = f.shape[1:]
+        wout, widx, ww = kti.three_interp_plain(q, p, f)
+        out, idx, w = map(torch.empty_like, (wout, widx, ww))
+        runs = []
+        for name, lib in libs.items():
+            groups = kti.GROUPS if name in grouped else (None,)
+            runs += [(name[3:] + ("" if g is None else f" g={g}"), lib, g)
+                     for g in groups]
+        rec: Dict[str, list] = {}
+        for label, lib, g in runs:
+            def call(lib=lib, g=g):
+                extra = () if g is None else (g,)
+                return lib.three_interp_launch(
+                    _ptr(q), _ptr(p), _ptr(f), _ptr(out), _ptr(idx), _ptr(w),
+                    b, n, m, c, *extra, _stream())
+
+            if "write_only" in label:
+                idx.copy_(widx)
+                w.copy_(ww)
+            else:
+                idx.fill_(-1)
+                w.fill_(float("nan"))
+            out.fill_(float("nan"))
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            dev = max(((x - y).abs().max() / y.abs().max()).item()
+                      for x, y in ((out, wout), (w, ww)))
+            rec[label] = [round(graph_ms(call, 20), 4),
+                          bool(torch.equal(idx, widx)), float(f"{dev:.2e}")]
+        group = getattr(kti, "interp_group", None)
+        print(json.dumps({
+            "three_interp": case, "B": b, "M": m, "N": n, "C": c,
+            "group": group(b, m) if group else None,
+            "bytes_bound_ms": 1e3 * (12.0 * b * (m + n) + 4.0 * b * n * c
+                                     + 4.0 * b * m * c + 24.0 * b * m)
+            / 3.35e12,
+            "ms_identical_dev": rec}), flush=True)
+
+
+# Pass 1 of the EdgeConv from a given index (csrc/edge_f1.cu) at its
+# seven launches of the main paths (the kNN route). The parent's split
+# (--parent; wrong by design): load_nbr_only (the block's idx slice into
+# shared memory, no rows) and rows_only (the row pass alone, its
+# neighbour lists made up in shared memory from the row and slot).
+EFG_ROWS = ("  edge_f1_rows(nbr, q + (size_t)b * n * c, off + mb, h + mb * k, "
+            "red, c, k,\n               q0, nq);\n")
+EFG_LOAD = "  load_nbr(idx + (size_t)b * m * k, q0, nq, k, nbr);\n"
+EFG_MADE_UP = """  for (int e = tid; e < nq * k; e += kThreads) {
+    const int ql = e / k;
+    nbr[(e - ql * k) * kKnnQ + ql] = (q0 + ql + 37 * (e - ql * k)) % n;
+  }
+  __syncthreads();
+"""
+PARENT_EFG_SPLIT = {
+    "load_nbr_only": [(EFG_ROWS, "  if (tid == 0) red[0] += (float)nbr[(k - 1)"
+                       " * kKnnQ + nq - 1];\n")],
+    "rows_only": [(EFG_LOAD, EFG_MADE_UP)],
+}
+# This tree's variants, edits of the shared write half (fused_sa_f1.cuh):
+# the gathers in flight a lane (unroll2, unroll8) and the launch bounds'
+# blocks an SM (min2, min4), as F1_VARIANTS times them for sa_f1.
+EFG_VARIANTS = {
+    "unroll2": [(F1_UNROLL, F1_UNROLL.replace("4", "2"))],
+    "unroll8": [(F1_UNROLL, F1_UNROLL.replace("4", "8"))],
+    "min2": [(F1_MIN_BLOCKS, F1_MIN_BLOCKS.replace("3", "2"))],
+    "min4": [(F1_MIN_BLOCKS, F1_MIN_BLOCKS.replace("3", "4"))],
+}
+EFG_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+
+
+def edgef1idx_cases():
+    """``(case, q, off, idx)``: ``edge_f1``'s inputs at its seven launches
+    of the main paths, from the models' own train chains on the kNN
+    route with seeded weights: DGCNN's four EdgeConvs (B=32, N=1,000,
+    k=20) and DGCNN part segmentation's two pairs and EC3 (B=16, N=1,000,
+    k=40)."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    x = torch.from_numpy(SyntheticModelNet(
+        n_points=1000, size=32, seed=0).batch(0, 32)[0]).to(DEV)
+    model = _seeded("dgcnn")
+    with torch.no_grad():
+        for i, ec in enumerate(model.edge):
+            f = ec.fused
+            q, off = f.prepare(x)
+            idx = kknn.knn(x, x, f.k)[1]
+            yield f"DGCNN EC{i + 1} N=1000", q.bfloat16(), off, idx
+            x = kfe.fused_edge_conv(q, off, idx, f.bn_scale, f.bn_bias)[0]
+    del model
+    x = torch.from_numpy(SyntheticShapeNetPart(
+        n_points=1000, size=16, seed=0).batch(0, 16)[0]).to(DEV)
+    model = _seeded("dgcnn_partseg")
+    with torch.no_grad():
+        for name, layer in (("pair1", model.edge1), ("pair2", model.edge2),
+                            ("EC3", model.edge3)):
+            q, off = layer.prepare(x)
+            idx = kknn.knn(x, x, layer.k)[1]
+            yield f"DGCNN-seg {name} N=1000", q.bfloat16(), off, idx
+            if name != "EC3":
+                x = kfe.fused_edge2_conv(
+                    q, off, idx, layer.w2, layer.bn1_scale, layer.bn1_bias,
+                    layer.bn2_scale, layer.bn2_bias)[0]
+
+
+def run_edgef1idx(parent: Optional[Path]) -> None:
+    """This tree's ``edge_f1`` on every route that takes the shapes, its
+    variants, and the parent's kernel and split, at each launch of
+    :func:`edgef1idx_cases`: device ms by CUDA graphs with the psum
+    memset, h bit-identical to the plain version and psum's deviation
+    over max|plain|, with the bytes bound."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    src = (_build.CSRC / "edge_f1.cu").read_text()
+    sources = {"efg_built": (src, _build.CSRC)}
+    for name, head in EFG_VARIANTS.items():
+        sources[f"efg_{name}"] = (_with_header(
+            _build.CSRC, "edge_f1.cu", "fused_sa_f1.cuh", [], head),
+            _build.CSRC)
+    if parent:
+        text = (parent / "edge_f1.cu").read_text()
+        sources["efg_parent"] = (text, parent)
+        for name, edits in PARENT_EFG_SPLIT.items():
+            sources[f"efg_parent_{name}"] = (
+                edited(text, _segment_edits(text, edits)), parent)
+    libs = build(sources)
+    routed = {name for name, (text, _) in sources.items()
+              if "int route" in text}
+    for name, lib in libs.items():
+        lib.edge_f1_launch.argtypes = EFG_ARGS + (
+            [ctypes.c_int] if name in routed else []) + [ctypes.c_void_p]
+        lib.edge_f1_launch.restype = ctypes.c_int
+    for case, q, off, idx in edgef1idx_cases():
+        b, m, k = idx.shape
+        n, c = q.shape[1:]
+        wh, wpsum = kfe.edge_f1_plain(q, off, idx)
+        h, psum = torch.empty_like(wh), torch.zeros_like(wpsum)
+        runs = []
+        for name, lib in libs.items():
+            routes = (None,)
+            if name in routed:
+                routes = [r for r in kfe.EDGE_F1_ROUTES
+                          if kfe.edge_f1_route_fits(r, c)]
+            runs += [(name[4:] + ("" if r is None else
+                                  f" {kfe.EDGE_F1_ROUTES[r]}"), lib, r)
+                     for r in routes]
+        rec: Dict[str, list] = {}
+        for label, lib, route in runs:
+            def call(lib=lib, route=route):
+                psum.zero_()
+                extra = () if route is None else (route,)
+                return lib.edge_f1_launch(
+                    _ptr(q), _ptr(idx), _ptr(off), _ptr(h), _ptr(psum),
+                    b, m, n, c, k, *extra, _stream())
+
+            h.zero_()
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            same = bool(torch.equal(h.view(torch.int16),
+                                    wh.view(torch.int16)))
+            dev = ((psum - wpsum).abs().max() / wpsum.abs().max()).item()
+            rec[label] = [round(graph_ms(call, 10), 4), same,
+                          float(f"{dev:.2e}")]
+        e = float(b * m * k)
+        print(json.dumps({
+            "edge_f1": case, "B": b, "M": m, "k": k, "C": c,
+            "bytes_bound_ms": 1e3 * (2.0 * b * n * c + 4.0 * b * m * c
+                                     + 4.0 * e + 2.0 * e * c + 8.0 * c)
+            / 3.35e12,
+            "ms_identical_dev": rec}), flush=True)
+        del h, wh
+        torch.cuda.empty_cache()
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -2413,7 +2706,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                                                   "cluster"],
                     choices=["fps", "tail", "f1", "rows", "knn", "edge2p1",
                              "edgef1", "edge2p2", "edgeeval", "tail2",
-                             "edgebwd", "edge2eval", "read", "cluster"])
+                             "edgebwd", "edge2eval", "interp", "edgef1idx",
+                             "read", "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2446,6 +2740,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_edgebwd(args.parent)
     if "edge2eval" in args.only:
         run_edge2eval(args.parent)
+    if "interp" in args.only:
+        run_interp(args.parent)
+    if "edgef1idx" in args.only:
+        run_edgef1idx(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

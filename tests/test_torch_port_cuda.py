@@ -593,6 +593,14 @@ THREE_INTERP_SHAPES = {  # B, M (queries), N (support), C
     "fp1": (16, 2048, 512, 128),
     "n36": (1, 40, 36, 64),        # PointConv decoders' coarse levels
     "n100": (2, 16, 100, 3),
+    # PointConv part segmentation's four decoders, B=16
+    "pc_seg_n36": (16, 64, 36, 512),
+    "pc_seg_n64": (16, 256, 64, 512),
+    "pc_seg_n256": (16, 1024, 256, 256),
+    "pc_seg_n1024": (16, 2048, 1024, 128),
+    "n101": (3, 77, 101, 24),      # N and M no multiple of any lane group
+    "n3": (2, 50, 3, 16),          # the fewest support points it takes
+    "c6": (2, 300, 70, 6),         # C % 4 != 0: one channel a unit
 }
 
 
@@ -651,6 +659,46 @@ def test_three_interp_duplicate_support(card):
         assert torch.equal(idx, pidx)
         torch.testing.assert_close(out, pout, rtol=0,
                                    atol=1e-6 * pout.abs().max().item())
+
+
+@pytest.mark.parametrize("group", [2, 4, 8, 16, 32])
+def test_three_interp_every_group_bit_identical(card, group, monkeypatch):
+    """Each lane group the kernel is compiled for, forced by replacing
+    ``interp_group``, gives the plain version's idx bit for bit, and w
+    and out within 1e-6·max|plain|: at two decoder shapes, at N = 3, on
+    support points that repeat three times in a row, so that tied copies
+    sit in neighbouring lanes' strides (queries on them tie at d² = 0,
+    the others at their own d²) and the merge across lanes must keep the
+    lower index first; on a grid of points moved by 1e3, whose expanded
+    d² cancels to a few units of its last place (exact ties)."""
+    from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+
+    monkeypatch.setattr(kti, "interp_group", lambda b, m: group)
+    rng = np.random.default_rng(group)
+    base = _sphere(rng, 2, 40, card)
+    dup = base.repeat_interleave(3, dim=1)               # 120 points
+    axis = torch.arange(6, dtype=torch.float32, device=card) * 0.25
+    grid = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"),
+                       -1).reshape(1, -1, 3).expand(2, -1, -1) + 1e3
+    near = grid[:, ::2] + torch.from_numpy(rng.uniform(
+        -0.2, 0.2, (2, 108, 3)).astype(np.float32)).to(card)
+    cases = [(_sphere(rng, 2, 200, card), dup), (dup, dup),
+             (near, grid.contiguous()), (grid[:, ::3].contiguous(),
+                                         grid.contiguous())]
+    for name in ("pc_seg_n64", "n3"):
+        q, pts, _ = _three_interp_inputs(card, name)
+        cases.append((q, pts))
+    for q, pts in cases:
+        b, n = pts.shape[:2]
+        f = torch.from_numpy(rng.standard_normal((b, n, 20)).astype(
+            np.float32)).to(card)
+        out, idx, w = kti.three_interp_fwd(q, pts, f)
+        pout, pidx, pw = kti.three_interp_plain(q, pts, f)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, pidx), (group, n)
+        for got, want in ((w, pw), (out, pout)):
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-6 * want.abs().max().item())
 
 
 def test_three_interp_rejects_what_it_cannot_run(card):
@@ -776,6 +824,14 @@ EDGE_SHAPES = {  # B, N, k, C_in, C: DGCNN's four EdgeConvs, and edge cases
     "seg_translated_1e3": (4, 2048, 40, 64, 64),  # the expanded d² cancels
     "seg_all_equal": (2, 2048, 40, 64, 64),       # every d² ties: the index
 }
+# the kernels that take a given index only: part seg's width 256 at
+# k = 40, k > N (the kNN repeats its last index) and a width on edge_f1's
+# rows route
+F1_SHAPES = {
+    "f1_c256_k40": (4, 1000, 40, 128, 256),
+    "f1_k_over_n": (2, 30, 40, 16, 64),
+    "f1_c4": (2, 256, 20, 3, 4),
+}
 # the served launches of the eval kernel with the kNN inside at their
 # batch sizes: DGCNN's EC2 and EC4 (B=32, N=1024), part seg's EC3
 EVAL_SERVE_SHAPES = {
@@ -811,7 +867,8 @@ def _edge_inputs(card, name, seed=0):
     case makes every point of a cloud its first."""
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
 
-    b, n, k, cin, c = {**EDGE_SHAPES, **EVAL_SERVE_SHAPES, **BWD_SHAPES}[name]
+    b, n, k, cin, c = {**EDGE_SHAPES, **F1_SHAPES, **EVAL_SERVE_SHAPES,
+                       **BWD_SHAPES}[name]
     rng = np.random.default_rng(seed + n + cin + c)
 
     def t(*shape, scale=1.0):
@@ -1214,11 +1271,12 @@ def test_knn_rejects_what_it_cannot_run(card):
                                                       1, 5, 3))
 
 
-@pytest.mark.parametrize("name", sorted(EDGE_SHAPES))
+@pytest.mark.parametrize("name", sorted({**EDGE_SHAPES, **F1_SHAPES}))
 def test_edge_f1_eval_out_match_plain(card, name):
     """The EdgeConv kernels that take a given index (the kNN's): pass 1's
     bf16 h bit-identical and Σ/Σ² within 1e-3 of the largest; eval and
-    pass 2 within 1e-5 of the largest plain element."""
+    pass 2 within 1e-5 of the largest plain element; where k ≤ N, the
+    kernel with the kNN inside gives the same eval output."""
     kfe, a = _edge_inputs(card, name, seed=3)
     from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
 
@@ -1235,10 +1293,35 @@ def test_edge_f1_eval_out_match_plain(card, name):
     want = kfe.edge_eval_plain(a["q"], a["off"], idx, a["st"])
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
-    # the kNN-inside kernels give the same from the same neighbours
-    torch.testing.assert_close(got, kfe.edge_knn_eval(
-        a["x"], a["q"], a["off"], a["st"], a["k"]), rtol=0,
-        atol=1e-5 * want.abs().max().item())
+    if a["k"] <= a["x"].shape[1]:
+        # the kNN-inside kernels give the same from the same neighbours
+        torch.testing.assert_close(got, kfe.edge_knn_eval(
+            a["x"], a["q"], a["off"], a["st"], a["k"]), rtol=0,
+            atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("name", ["ec1", "ec4", "seg_pair1", "f1_c256_k40",
+                                  "f1_k_over_n"])
+def test_edge_f1_every_route_bit_identical(card, name, monkeypatch):
+    """``edge_f1`` on each route that takes the width, forced by
+    replacing ``edge_f1_route``: h bit-identical to the plain version,
+    Σ/Σ² within 1e-3 of the largest, one launch a call."""
+    kfe, a = _edge_inputs(card, name, seed=4)
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    idx = kknn.knn(a["x"], a["x"], a["k"])[1]
+    wh, wpsum = kfe.edge_f1_plain(a["q"], a["off"], idx)
+    c = a["q"].shape[-1]
+    routes = [r for r in kfe.EDGE_F1_ROUTES if kfe.edge_f1_route_fits(r, c)]
+    assert routes == [0, 1]
+    for route in routes:
+        monkeypatch.setattr(kfe, "edge_f1_route", lambda c, r=route: r)
+        before = kfe.edge_f1.launches
+        h, psum = kfe.edge_f1(a["q"], a["off"], idx)
+        torch.cuda.synchronize()
+        assert kfe.edge_f1.launches == before + 1
+        assert torch.equal(h.view(torch.int16), wh.view(torch.int16)), route
+        _close_sums(psum, wpsum, f"psum, route {route}")
 
 
 def test_given_index_edge_kernels_reject_what_they_cannot_run(card):

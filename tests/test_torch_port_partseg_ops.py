@@ -56,6 +56,11 @@ CASES = {  # (B, M, N, C): the decoders' shapes and the coarse levels
     "fp2": (2, 32, 128, 256),
     "n36": (1, 40, 36, 64),
     "n100": (1, 16, 100, 3),
+    # PointConv part segmentation's four decoders, at B = 1-2
+    "pc_seg_n36": (2, 64, 36, 512),
+    "pc_seg_n64": (2, 256, 64, 512),
+    "pc_seg_n256": (1, 1024, 256, 256),
+    "pc_seg_n1024": (1, 2048, 1024, 128),
 }
 
 
