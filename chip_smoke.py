@@ -128,7 +128,9 @@ once:
    given-index pass 1, eval kernel and p2 at SA1 (which stand for the
    JAX package's windowed ``_k_f1w``, ``_k_evalw``, ``_k_p2w``), the
    tails and p1 at SA1, SA2's kernels with the ball query inside, under
-   the bounds above;
+   the bounds above (the ball query on its cull route there, MSG's on its
+   scan route, ``ball_query.ball_query_route``; the cull's record gives
+   the pairs it tests and the bytes as its bound);
 15. kNN-route kernels — DGCNN's four EdgeConvs at N % 128 ≠ 0 (serving
    B=32, N=10,000; training B=32, N=1,000): ``knn`` idx and d²
    bit-identical to the plain version (``torch.cdist`` + ``torch.topk``
@@ -243,9 +245,11 @@ DGCNN kernels), ``edgeeval_times`` (the two eval kernels with the kNN
 inside at their seven served launches, with their routes) and
 ``edgebwd_times`` (the EdgeConv backward at its ten launches of the main
 paths, and ``edge2_eval`` at both pairs on part segmentation's kNN
-route) and ``interp_times`` (the 3-NN interpolation at its six launches
+route), ``interp_times`` (the 3-NN interpolation at its six launches
 and ``edge_f1`` at its seven, with the lane group or route, bound and
-the instance's registers).
+the instance's registers) and ``neighbor_times`` (the fused kNN + gather
+and the ball query at their three launches each, with the route, bound
+and the pairs the ball query's cull route tests).
 """
 
 from __future__ import annotations
@@ -1026,21 +1030,38 @@ def _ball_query_case(name, nx, pts, radius, k, timed, want=()):
     for kind in want:
         if kinds[kind] < 1:
             fail(f"ball_query {name}: the case holds no {kind} row")
+    route = kbq.ball_query_route(n)
     rec = {"case": name, "B": b, "N": n, "M": m, "k": k, "radius": radius,
-           "bit_identical": True, "max_abs_err": 0.0,
-           "cnt_mean": cnt.float().mean().item(), "cnt_max": cnt.max().item(),
-           "rows": kinds}
+           "route": kbq.ROUTES[route], "bit_identical": True,
+           "max_abs_err": 0.0, "cnt_mean": cnt.float().mean().item(),
+           "cnt_max": cnt.max().item(), "rows": kinds}
     if timed:
         rec["ms"] = time_ms(lambda: kbq.ball_query(nx, pts, radius, k), 20)
         rec["device_ms"] = graph_ms(
             lambda: kbq.ball_query(nx, pts, radius, k), 20)
         rec["plain_ms"] = time_ms(
             lambda: kbq.ball_query_plain(nx, pts, radius, k), 3, 1)
-        # every (center, point) pair is tested: cnt counts all hits
-        rec["bound_ms"], rec["ops_ms"], rec["bytes_ms"] = bound(
-            0.0, 10.0 * b * m * n, 12.0 * b * (m + n) + 4.0 * b * m * (k + 1))
+        rec.update(_ball_query_bound(nx, pts, radius, k))
     emit("kernel ball_query", rec)
     return rec
+
+
+def _ball_query_bound(nx, pts, radius, k) -> dict:
+    """The ball query's bound: on the scan route every (center, point)
+    pair at ~10 f32 operations (cnt counts all hits) beside the bytes; on
+    the cull route the bytes alone, since the pairs it tests (given as
+    ``pairs_tested``) depend on the data and are no floor."""
+    b, m, _ = nx.shape
+    n = pts.shape[1]
+    out = {"pairs": b * m * n}
+    ops = 10.0 * b * m * n
+    route = getattr(kbq, "ball_query_route", None)  # none before the cull
+    if route and route(n) == 1:
+        out["pairs_tested"] = kbq.pairs_tested(nx, pts, radius)
+        ops = 0.0
+    out["bound_ms"], out["ops_ms"], out["bytes_ms"] = bound(
+        0.0, ops, 12.0 * b * (m + n) + 4.0 * b * m * (k + 1))
+    return out
 
 
 def _eval_idx_case(name, sa, q, off, idx, cnt, timed):
@@ -2319,7 +2340,9 @@ def _knn_gather_case(name, query, points, values, k, stride, timed):
     b, m, c = query.shape
     n, cv = values.shape[1:]
     rec = {"case": name, "B": b, "M": m, "N": n, "C": c, "Cv": cv, "k": k,
-           "stride": stride, "bit_identical": True, "max_abs_err": 0.0}
+           "stride": stride,
+           "route": kkg.ROUTES[kkg.knn_gather_route(n, k, stride)],
+           "bit_identical": True, "max_abs_err": 0.0}
     if timed:  # device times, as the row gather's
         rec["ms"] = graph_ms(
             lambda: kkg.knn_gather(query, points, values, k, stride), 10)
@@ -3562,6 +3585,119 @@ def interp_times() -> None:
     for name, layer, _, xt in _dseg_layers(dseg,
                                            torch.from_numpy(x_odd).to(DEV)):
         f1_case(f"DGCNN-seg {name} N={DSEG_ODD_TRAIN}", layer, xt)
+
+
+def _neighbor_calls():
+    """``(knn_gathers, ball_queries)``: the arguments of the fused kNN +
+    gather at its three launches of the main paths (the PointConv models'
+    eval forward: classification at B=32, N=1024 with normals, part
+    segmentation at B=16, N=2048) and of the ball query at its three (the
+    MSG model's eval forward at B=32, N=1024; SSG's at B=32, N=4096, the
+    clouds Hilbert-sorted as the train step and the Predictor sort them),
+    seeded weights, the main run's data."""
+    clouds, normals, _ = SyntheticModelNet(
+        n_points=N_POINTS, size=N_CLOUDS, seed=0).batch(0, N_CLOUDS)
+    xyz = torch.from_numpy(clouds[:BATCH]).to(DEV)
+    nrm = torch.from_numpy(normals[:BATCH]).to(DEV)
+    seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
+    fused = []
+    for name, inputs in (("pointconv", (xyz[:PC_BATCH], nrm[:PC_BATCH])),
+                         (PC_SEG, (seg_xyz, torch.zeros((SEG_BATCH, 16),
+                                                        device=DEV)))):
+        model = _model_on_card(name, random_jax_variables(build_model(name),
+                                                          seed=0))
+        fused += _pointconv_calls(model, *inputs)[1]
+        del model
+    big, big_n, _ = SyntheticModelNet(
+        n_points=BIG_POINTS, size=BIG_CLOUDS - BIG_BATCH, seed=0).batch(
+        0, BIG_CLOUDS - BIG_BATCH)
+    big = spatial.canonicalize(torch.from_numpy(big[:BIG_BATCH]).to(DEV),
+                               torch.from_numpy(big_n[:BIG_BATCH]).to(DEV))
+    bqs = []
+    for name, inputs in (("pointnet2_msg", (xyz[:MSG_BATCH],
+                                            nrm[:MSG_BATCH])),
+                         ("pointnet2", big[:2])):
+        model = _model_on_card(name, random_jax_variables(build_model(name),
+                                                          seed=0))
+        orig = _record_calls(kbq, "ball_query", bqs)
+        try:
+            with torch.no_grad():
+                model(*inputs)
+        finally:
+            kbq.ball_query = orig
+        del model
+    return fused, bqs
+
+
+def neighbor_times() -> None:
+    """``knn_gather`` at its three launches of the main paths (PointConv's
+    SA2; PointConv part segmentation's SA2 and SA3) and ``ball_query`` at
+    its three (MSG's two k=128 scales; SSG's SA1 at N=4096, sorted), the
+    arguments recorded from the models' eval forward (:func:`_neighbor_calls`).
+    After the device line, one ``knn_gather:`` or ``ball_query:`` line a
+    launch with the route the wrapper took, device ms by CUDA graphs (the
+    wrapper's allocations included), the bound and its share, bit identity
+    with the plain version (held), the pairs the ball query's cull route
+    tests, and the registers, shared memory and spills of the kernels of
+    its source. It times the package beside this file; for old against
+    new, copy this file into the other checkout's root and run it there
+    too:
+
+        python3 -c 'import chip_smoke; chip_smoke.neighbor_times()'
+    """
+    phase_device()
+    _build.build(["knn_gather", "ball_query"])
+    fused, bqs = _neighbor_calls()
+    kg_route = getattr(kkg, "knn_gather_route", None)
+    bq_route = getattr(kbq, "ball_query_route", None)
+
+    def device(kernel, rec, fn, bounds, ptxas):
+        bound_ms, ops_ms, bytes_ms = bounds
+        ms = graph_ms(fn, 20)
+        emit(kernel, {**rec, "device_ms": ms, "bound_ms": bound_ms,
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes", "share_of_bound": bound_ms / ms,
+                      "ptxas": ptxas})
+
+    for q, p, v, k, stride in fused:
+        b, m, c = q.shape
+        n, cv = v.shape[1:]
+        idx, grouped = kkg.knn_gather(q, p, v, k, stride)
+        widx, wgrouped = kkg.knn_gather_plain(q, p, v, k, stride)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, widx) and torch.equal(grouped, wgrouped)):
+            fail(f"knn_gather M={m} N={n}: not bit-identical to the plain "
+                 f"version")
+        del idx, grouped, wgrouped
+        route = kkg.ROUTES[kg_route(n, k, stride)] if kg_route else "parent"
+        device("knn_gather",
+               {"case": f"M={m} N={n} Cv={cv} k={k}", "B": b, "C": c,
+                "route": route, "bit_identical": True},
+               lambda: kkg.knn_gather(q, p, v, k, stride),
+               bound(0.0, b * m * n * (2.0 * c + 3.0),
+                     4.0 * b * n * cv + 4.0 * b * m * k
+                     + 4.0 * b * m * k * cv),
+               _ptxas_of("knn_gather", f"{route}_kernel"))
+        torch.cuda.empty_cache()
+    for nx, p, radius, k in bqs:
+        b, m, _ = nx.shape
+        n = p.shape[1]
+        idx, cnt = kbq.ball_query(nx, p, radius, k)
+        widx, wcnt = kbq.ball_query_plain(nx, p, radius, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, widx) and torch.equal(cnt, wcnt)):
+            fail(f"ball_query M={m} N={n}: not bit-identical to the plain "
+                 f"version")
+        route = kbq.ROUTES[bq_route(n)] if bq_route else "parent"
+        bd = _ball_query_bound(nx, p, radius, k)
+        device("ball_query",
+               {"case": f"M={m} N={n} r={radius} k={k}", "B": b,
+                "route": route, "bit_identical": True,
+                "cnt_mean": wcnt.float().mean().item(), "pairs": bd["pairs"],
+                "pairs_tested": bd.get("pairs_tested")},
+               lambda: kbq.ball_query(nx, p, radius, k),
+               (bd["bound_ms"], bd["ops_ms"], bd["bytes_ms"]),
+               _ptxas_of("ball_query", route))
 
 
 # Every FPS launch of the ported paths: (case, clouds, batch, n_samples of

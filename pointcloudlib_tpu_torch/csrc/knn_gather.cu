@@ -12,48 +12,94 @@
 // The TPU kernel holds a [mt, N] distance tile in VMEM and runs k*D
 // masked argmin rounds over it, each round's mask doubling as the one-hot
 // row of a gather matmul (hi/lo bf16 halves), and writes [B, k, M, Cv]
-// for a swap afterwards. Here one warp takes one query:
-//   * its d2 row over the N points goes to shared memory (N floats a
-//     warp), each lane forming the d2 of points lane, lane + 32, ... in
-//     the plain square_distance's operations and order (products and sums
-//     rounded one at a time, no FMA), so the order is bit-identical to
-//     knn_plain's; each lane keeps the least (d2, j) of its own points;
-//   * a round is a warp-wide argmin of the 32 lane minima by shuffles on
-//     (d2, j), lexicographic, so the lower index wins a tie; the winner's
-//     owner lane masks it (NaN, which no comparison selects) and rescans
-//     its N/32 points for its next minimum;
-//   * on a kept rank the warp copies that point's values row to
-//     grouped[b, m, slot, :], lanes over Cv (float4 where Cv % 4 == 0),
-//     so reads and writes coalesce and the layout is final.
-// No list is kept, so k has no register limit (the kNN kernels of
-// edge_knn.cuh stop at 40; PointConv's SA2 takes k = 64); N is bounded
-// by shared memory, N*4 bytes a warp.
+// for a swap afterwards. Here one warp takes one query and forms its d2
+// row over the N points in shared memory, in the plain square_distance's
+// operations and order (products and sums rounded one at a time, no
+// FMA), so the order is bit-identical to knn_plain's. Two routes
+// (kg_route, ops/kernels/knn_gather.py knn_gather_route):
+//
+// select (R = (k-1)*D + 1 ranks, at most kKgSelMaxRanks, where a warp's
+// row, list and slots fit in shared memory): every rank is chosen before
+// any row is copied.
+//   * At C = 3, where a block's queries share a batch, the block first
+//     stages the cloud as (x, y, z, |p|^2); the lanes form the d2 of
+//     consecutive points.
+//   * A point's order key is its d2's bits with the sign cleared (d2 >= 0,
+//     so the bits order as the values; -0 counts as +0), then its index.
+//   * The R-th smallest key is found by bisection on the 31 key bits,
+//     each step one count of the keys below a bound, read four at a time
+//     from shared memory by all 32 lanes and summed by redux.sync. It
+//     stops as soon as exactly R keys lie below the bound. Once the bounds
+//     hold at most kKgCand keys, those go to registers and the bisection
+//     goes on there; where equal keys straddle rank R, a second bisection
+//     on the index takes the lower indices among them.
+//   * The R chosen points go by ballots into a list of 64-bit (key,
+//     index) words; each one's rank is the count of smaller words in the
+//     list, and ranks 0, D, 2D, ... go to idx and to the warp's slots.
+//   * The k rows are then copied in one pass over the query's k*Cv
+//     output words, contiguous in grouped: 16-byte units at Cv % 4 == 0
+//     (else 4-byte units), kKgInFlight loads in flight a lane, streaming
+//     stores. No lane idles at a row's end.
+// rounds (the first version, for more ranks or rows of up to 58,112
+// points): (k-1)*D + 1 serial rounds of a shuffle argmin over the lanes'
+// minima on (d2, j), each followed by a copy of a kept rank's row and a
+// rescan of the winner's N/32 entries by its owner lane.
 //
 // What bounds it: bytes at PointConv's shapes: the grouped rows written,
 // B*M*k*Cv*4 (138 MB at classification's SA2), beside values read and idx
 // written once, against B*M*N pairs at 2*C + 3 f32 operations (the
-// convention of the kNN kernels), under 1 % of it there.
+// convention of the kNN kernels), under 1 % of it there. The rounds route
+// pays k global-load latencies and k one-lane rescans in series a query;
+// the select route keeps its loads for one streamed pass.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pcl {
 
 constexpr int kKgMaxWarps = 8;               // queries a block
 constexpr int kKgSmem = 227 * 1024;          // shared memory a block may use
+constexpr int kKgSelMaxRanks = 256;          // ranks of the select route
+constexpr int kKgInFlight = 8;               // copy units in flight a lane
+constexpr int kKgCand = 64;                  // candidates a warp's bisection
+                                             // finishes in registers
 
 __device__ __forceinline__ bool kg_better(float d, int j, float bd, int bj) {
   return d < bd || (d == bd && j < bj);
 }
 
+// d2 of query qp against point pj, in knn_plain's order (q2 given)
+__device__ __forceinline__ float kg_d2(const float* qp, const float* pj,
+                                       float q2, int c) {
+  float inner = __fmul_rn(qp[0], __ldg(pj));
+  float p2 = __fmul_rn(__ldg(pj), __ldg(pj));
+  for (int ch = 1; ch < c; ++ch) {
+    const float v = __ldg(pj + ch);
+    inner = __fadd_rn(inner, __fmul_rn(qp[ch], v));
+    p2 = __fadd_rn(p2, __fmul_rn(v, v));
+  }
+  return fmaxf(__fadd_rn(__fsub_rn(q2, __fmul_rn(2.0f, inner)), p2), 0.0f);
+}
+
+__device__ __forceinline__ float kg_q2(const float* qp, int c) {
+  float q2 = __fmul_rn(qp[0], qp[0]);
+  for (int ch = 1; ch < c; ++ch) q2 = __fadd_rn(q2, __fmul_rn(qp[ch], qp[ch]));
+  return q2;
+}
+
+// ---------------------------------------------------------------- rounds
+
 template <bool VEC>
 __global__ void __launch_bounds__(kKgMaxWarps * 32)
-    knn_gather_kernel(const float* __restrict__ query,
-                      const float* __restrict__ pts,
-                      const float* __restrict__ values, int* __restrict__ idx,
-                      float* __restrict__ grouped, long long queries, int m,
-                      int n, int c, int cv, int k, int stride) {
+    knn_gather_rounds_kernel(const float* __restrict__ query,
+                             const float* __restrict__ pts,
+                             const float* __restrict__ values,
+                             int* __restrict__ idx,
+                             float* __restrict__ grouped, long long queries,
+                             int m, int n, int c, int cv, int k, int stride) {
   extern __shared__ float d2s[];  // [warps][n]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -64,22 +110,12 @@ __global__ void __launch_bounds__(kKgMaxWarps * 32)
   const float* qp = query + qid * c;
   const float* pb = pts + (size_t)b * n * c;
   const float* vb = values + (size_t)b * n * cv;
-
-  float q2 = __fmul_rn(qp[0], qp[0]);
-  for (int ch = 1; ch < c; ++ch) q2 = __fadd_rn(q2, __fmul_rn(qp[ch], qp[ch]));
+  const float q2 = kg_q2(qp, c);
 
   float bd = INFINITY;
   int bj = 0x7fffffff;
   for (int j = lane; j < n; j += 32) {
-    const float* pj = pb + (size_t)j * c;
-    float inner = __fmul_rn(qp[0], pj[0]);
-    float p2 = __fmul_rn(pj[0], pj[0]);
-    for (int ch = 1; ch < c; ++ch) {
-      inner = __fadd_rn(inner, __fmul_rn(qp[ch], pj[ch]));
-      p2 = __fadd_rn(p2, __fmul_rn(pj[ch], pj[ch]));
-    }
-    const float d =
-        fmaxf(__fadd_rn(__fsub_rn(q2, __fmul_rn(2.0f, inner)), p2), 0.0f);
+    const float d = kg_d2(qp, pb + (size_t)j * c, q2, c);
     row[j] = d;
     if (kg_better(d, j, bd, bj)) {
       bd = d;
@@ -130,26 +166,345 @@ __global__ void __launch_bounds__(kKgMaxWarps * 32)
   }
 }
 
-// Queries a block for n points: as many warps as shared memory holds, at
-// most kKgMaxWarps; 0 when one warp's row does not fit.
-inline int kg_warps(int n) {
-  const long long fit = kKgSmem / (4LL * n);
-  return fit < kKgMaxWarps ? (int)fit : kKgMaxWarps;
+// ---------------------------------------------------------------- select
+
+// A d2's order key: its bits with the sign cleared (d2 >= 0; -0 is +0).
+__device__ __forceinline__ uint32_t kg_key(float d) {
+  return __float_as_uint(d) & 0x7fffffffu;
 }
 
-template <bool VEC>
-cudaError_t launch(const void* query, const void* pts, const void* values,
-                   void* idx, void* grouped, int b, int m, int n, int c,
-                   int cv, int k, int stride, cudaStream_t stream) {
-  const int warps = kg_warps(n);
-  const size_t smem = (size_t)warps * n * 4;
+// Keys of the row below thr (lane reads words lane, lane + 32, ...),
+// summed over the warp. Padding keys hold 0xffffffff, above every bound.
+__device__ __forceinline__ int kg_count(const uint4* row4, int words,
+                                        int lane, uint32_t thr) {
+  int c = 0;
+#pragma unroll 4
+  for (int i = lane; i < words; i += 32) {
+    const uint4 v = row4[i];
+    c += (v.x < thr) + (v.y < thr) + (v.z < thr) + (v.w < thr);
+  }
+  return __reduce_add_sync(0xffffffffu, c);
+}
+
+// Keys equal to key with index below jthr, summed over the warp.
+__device__ __forceinline__ int kg_count_ties(const uint4* row4, int words,
+                                             int lane, uint32_t key,
+                                             int jthr) {
+  int c = 0;
+  for (int i = lane; i < words; i += 32) {
+    const uint4 v = row4[i];
+    const int j = 4 * i;
+    c += (v.x == key && j < jthr) + (v.y == key && j + 1 < jthr) +
+         (v.z == key && j + 2 < jthr) + (v.w == key && j + 3 < jthr);
+  }
+  return __reduce_add_sync(0xffffffffu, c);
+}
+
+// The ballots' compaction: where sel, w goes to out[base + rank among the
+// lanes]; returns base plus the warp's count.
+__device__ __forceinline__ int kg_push(bool sel, unsigned long long w,
+                                       unsigned long long* out, int base,
+                                       int lane) {
+  const unsigned bal = __ballot_sync(0xffffffffu, sel);
+  if (sel) out[base + __popc(bal & ((1u << lane) - 1u))] = w;
+  return base + __popc(bal);
+}
+
+__device__ __forceinline__ unsigned long long kg_word(uint32_t key, int j) {
+  return (unsigned long long)key << 32 | (unsigned)j;
+}
+
+// Bytes of one warp's part of a select block: its key row (n rounded up
+// to whole uint4 words), its list of R words, the candidates' kKgCand
+// words and its k slots, rounded up to 16 bytes.
+__host__ __device__ inline size_t kg_sel_warp_bytes(int n, int k, int ranks) {
+  const size_t row = (size_t)((n + 3) / 4) * 16;
+  return (row + 8 * ((size_t)ranks + kKgCand) + 4 * (size_t)k + 15) / 16 *
+         16;
+}
+
+// STAGED: C = 3 and every query of the block in one batch; the block's
+// cloud goes to shared memory as (x, y, z, |p|^2) first.
+template <bool VEC, bool STAGED>
+__global__ void __launch_bounds__(kKgMaxWarps * 32)
+    knn_gather_select_kernel(const float* __restrict__ query,
+                             const float* __restrict__ pts,
+                             const float* __restrict__ values,
+                             int* __restrict__ idx,
+                             float* __restrict__ grouped, long long queries,
+                             int m, int n, int c, int cv, int k, int stride) {
+  extern __shared__ __align__(16) unsigned char kg_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const long long qid = (long long)blockIdx.x * warps + warp;
+  const int ranks = (k - 1) * stride + 1;
+  const int words = (n + 3) / 4;
+  const float4* cloud = reinterpret_cast<const float4*>(kg_smem);
+  unsigned char* mine = kg_smem + (STAGED ? (size_t)n * 16 : 0) +
+                        (size_t)warp * kg_sel_warp_bytes(n, k, ranks);
+  uint4* row4 = reinterpret_cast<uint4*>(mine);
+  uint32_t* row = reinterpret_cast<uint32_t*>(mine);
+  unsigned long long* list =
+      reinterpret_cast<unsigned long long*>(mine + (size_t)words * 16);
+  unsigned long long* cand = list + ranks;
+  int* slots = reinterpret_cast<int*>(cand + kKgCand);
+  if (STAGED) {
+    const long long b0 = (long long)blockIdx.x * warps / m;
+    const float* pg = pts + (size_t)b0 * n * 3;
+    float4* dst = reinterpret_cast<float4*>(kg_smem);
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const float x = __ldg(pg + 3 * j), y = __ldg(pg + 3 * j + 1),
+                  z = __ldg(pg + 3 * j + 2);
+      dst[j] = make_float4(
+          x, y, z,
+          __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                    __fmul_rn(z, z)));
+    }
+    __syncthreads();
+  }
+  if (qid >= queries) return;  // no block-wide barrier follows
+  const long long b = qid / m;
+  const float* qp = query + qid * c;
+  const float q2 = kg_q2(qp, c);
+
+  // the key row, lanes on consecutive points
+  const float qx = qp[0], qy = STAGED ? qp[1] : 0.0f,
+              qz = STAGED ? qp[2] : 0.0f;
+  for (int j = lane; j < 4 * words; j += 32) {
+    uint32_t key = 0xffffffffu;
+    if (j < n) {
+      if (STAGED) {
+        const float4 p = cloud[j];
+        const float inner = __fadd_rn(
+            __fadd_rn(__fmul_rn(qx, p.x), __fmul_rn(qy, p.y)),
+            __fmul_rn(qz, p.z));
+        key = kg_key(fmaxf(
+            __fadd_rn(__fsub_rn(q2, __fmul_rn(2.0f, inner)), p.w), 0.0f));
+      } else {
+        key = kg_key(kg_d2(qp, pts + ((size_t)b * n + j) * c, q2, c));
+      }
+    }
+    row[j] = key;
+  }
+  __syncwarp();
+
+  // bisection on the full row while the bounds hold more than kKgCand
+  // keys: count(key < lo) = clo < ranks <= count(key < hi) = chi
+  uint32_t lo = 0, hi = 0x80000000u;
+  int clo = 0, chi = n;
+  while (chi != ranks && hi - lo > 1 && chi - clo > kKgCand) {
+    const uint32_t mid = lo + ((hi - lo) >> 1);
+    const int cm = kg_count(row4, words, lane, mid);
+    if (cm >= ranks) {
+      hi = mid;
+      chi = cm;
+    } else {
+      lo = mid;
+      clo = cm;
+    }
+  }
+
+  if (chi != ranks && chi - clo <= kKgCand) {
+    // the keys below lo go to the list, those in [lo, hi) to the
+    // candidates, whose bisection goes on in registers
+    int nl = 0, nc = 0;
+    for (int j0 = 0; j0 < 4 * words; j0 += 32) {
+      const int j = j0 + lane;
+      const uint32_t key = j < n ? row[j] : 0xffffffffu;
+      nl = kg_push(key < lo, kg_word(key, j), list, nl, lane);
+      nc = kg_push(key >= lo && key < hi, kg_word(key, j), cand, nc, lane);
+    }
+    __syncwarp();
+    unsigned long long mine_c[kKgCand / 32];
+#pragma unroll
+    for (int t = 0; t < kKgCand / 32; ++t)
+      mine_c[t] = 32 * t + lane < nc ? cand[32 * t + lane] : ~0ull;
+    const int base = clo;
+    while (chi != ranks && hi - lo > 1) {
+      const uint32_t mid = lo + ((hi - lo) >> 1);
+      int cm = 0;
+#pragma unroll
+      for (int t = 0; t < kKgCand / 32; ++t) cm += (mine_c[t] >> 32) < mid;
+      cm = base + __reduce_add_sync(0xffffffffu, cm);
+      if (cm >= ranks) {
+        hi = mid;
+        chi = cm;
+      } else {
+        lo = mid;
+        clo = cm;
+      }
+    }
+    // chosen: key < hi (exact count), else key < lo or (key == lo, j <
+    // tj): the lower indices among equal keys
+    uint32_t tk = hi;
+    unsigned tj = 0;
+    if (chi != ranks) {
+      tk = lo;
+      const int need = ranks - clo;
+      int jlo = 0, jhi = n;
+      while (jhi - jlo > 1) {
+        const int mid = (jlo + jhi) >> 1;
+        int cm = 0;
+#pragma unroll
+        for (int t = 0; t < kKgCand / 32; ++t)
+          cm += (mine_c[t] >> 32) == lo && (unsigned)mine_c[t] < (unsigned)mid;
+        if (__reduce_add_sync(0xffffffffu, cm) >= need)
+          jhi = mid;
+        else
+          jlo = mid;
+      }
+      tj = jhi;
+    }
+#pragma unroll
+    for (int t = 0; t < kKgCand / 32; ++t) {
+      const uint32_t key = mine_c[t] >> 32;
+      nl = kg_push(key < tk || (key == tk && (unsigned)mine_c[t] < tj),
+                   mine_c[t], list, nl, lane);
+    }
+  } else {
+    // exact count below hi, or equal keys at lo straddling rank R (more
+    // of them than the candidates hold): the lower indices among them
+    uint32_t tk = hi;
+    int tj = 0;
+    if (chi != ranks) {
+      tk = lo;
+      const int need = ranks - clo;
+      int jlo = 0, jhi = n;
+      while (jhi - jlo > 1) {
+        const int mid = (jlo + jhi) >> 1;
+        if (kg_count_ties(row4, words, lane, lo, mid) >= need)
+          jhi = mid;
+        else
+          jlo = mid;
+      }
+      tj = jhi;
+    }
+    int nl = 0;
+    for (int j0 = 0; j0 < 4 * words; j0 += 32) {
+      const int j = j0 + lane;
+      const uint32_t key = j < n ? row[j] : 0xffffffffu;
+      nl = kg_push(key < tk || (key == tk && j < tj), kg_word(key, j), list,
+                   nl, lane);
+    }
+  }
+  __syncwarp();
+
+  // ranks: the count of smaller words; ranks 0, D, 2D, ... are kept
+  for (int e = lane; e < ranks; e += 32) {
+    const unsigned long long w = list[e];
+    int r = 0;
+#pragma unroll 8
+    for (int f = 0; f < ranks; ++f) r += list[f] < w;
+    if (r % stride == 0) {
+      const int j = (int)(w & 0xffffffffu);
+      slots[r / stride] = j;
+      idx[qid * k + r / stride] = j;
+    }
+  }
+  __syncwarp();
+
+  // the rows: unit u of the query's k * Cv output words (16-byte units at
+  // VEC) comes from row slots[u / per] of values, at u % per
+  using Unit = typename std::conditional<VEC, float4, float>::type;
+  const int per = VEC ? cv / 4 : cv;
+  const int units = k * per;
+  const Unit* vb =
+      reinterpret_cast<const Unit*>(values + (size_t)b * n * cv);
+  Unit* dst = reinterpret_cast<Unit*>(grouped + qid * k * cv);
+  const float inv = 1.0f / (float)per;
+  for (int u0 = 0; u0 < units; u0 += 32 * kKgInFlight) {
+    Unit v[kKgInFlight];
+#pragma unroll
+    for (int t = 0; t < kKgInFlight; ++t) {
+      const int u = u0 + 32 * t + lane;
+      if (u < units) {
+        // u / per by a float estimate, then corrected (by at most one
+        // step while u < 2^24)
+        int s = __float2int_rz(__int2float_rn(u) * inv);
+        while ((s + 1) * per <= u) ++s;
+        while (s * per > u) --s;
+        v[t] = __ldg(vb + (size_t)slots[s] * per + (u - s * per));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kKgInFlight; ++t) {
+      const int u = u0 + 32 * t + lane;
+      if (u < units) __stcs(dst + u, v[t]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// Queries a block: as many warps as shared memory holds beside fixed
+// bytes, at most kKgMaxWarps; 0 when one warp's part does not fit.
+inline int kg_fit(size_t warp_bytes, size_t fixed = 0) {
+  if (fixed + warp_bytes > (size_t)kKgSmem) return 0;
+  const size_t fit = (kKgSmem - fixed) / warp_bytes;
+  return fit < (size_t)kKgMaxWarps ? (int)fit : kKgMaxWarps;
+}
+inline int kg_rounds_warps(int n) { return kg_fit(4 * (size_t)n); }
+inline int kg_select_warps(int n, int k, int stride, size_t fixed = 0) {
+  const long long ranks = (long long)(k - 1) * stride + 1;
+  if (ranks > kKgSelMaxRanks) return 0;
+  return kg_fit(kg_sel_warp_bytes(n, k, (int)ranks), fixed);
+}
+
+// The route for these sizes: 1 (select) where its ranks and shared
+// memory fit, else 0 (rounds).
+inline int kg_route(int n, int k, int stride) {
+  return kg_select_warps(n, k, stride) >= 1 ? 1 : 0;
+}
+
+template <bool VEC, bool STAGED>
+cudaError_t launch_select(int warps, const void* query, const void* pts,
+                          const void* values, void* idx, void* grouped, int b,
+                          int m, int n, int c, int cv, int k, int stride,
+                          cudaStream_t stream) {
+  const size_t smem = (STAGED ? (size_t)n * 16 : 0) +
+                      warps * kg_sel_warp_bytes(n, k, (k - 1) * stride + 1);
+  auto kernel = knn_gather_select_kernel<VEC, STAGED>;
   cudaError_t err = cudaFuncSetAttribute(
-      knn_gather_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long queries = (long long)b * m;
   const long long blocks = (queries + warps - 1) / warps;
-  knn_gather_kernel<VEC><<<(unsigned)blocks, warps * 32, smem, stream>>>(
+  kernel<<<(unsigned)blocks, warps * 32, smem, stream>>>(
+      static_cast<const float*>(query), static_cast<const float*>(pts),
+      static_cast<const float*>(values), static_cast<int*>(idx),
+      static_cast<float*>(grouped), queries, m, n, c, cv, k, stride);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch(int route, const void* query, const void* pts,
+                   const void* values, void* idx, void* grouped, int b, int m,
+                   int n, int c, int cv, int k, int stride,
+                   cudaStream_t stream) {
+  if (route == 1) {
+    // staged where C = 3 and a block's queries (as many warps as fit
+    // beside the cloud, dividing M) share a batch
+    int warps = c == 3 ? kg_select_warps(n, k, stride, (size_t)n * 16) : 0;
+    while (warps > 1 && m % warps) --warps;
+    if (warps >= 1 && m % warps == 0)
+      return launch_select<VEC, true>(warps, query, pts, values, idx,
+                                      grouped, b, m, n, c, cv, k, stride,
+                                      stream);
+    return launch_select<VEC, false>(kg_select_warps(n, k, stride), query,
+                                     pts, values, idx, grouped, b, m, n, c,
+                                     cv, k, stride, stream);
+  }
+  const int warps = kg_rounds_warps(n);
+  const size_t smem = (size_t)warps * n * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_gather_rounds_kernel<VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long queries = (long long)b * m;
+  const long long blocks = (queries + warps - 1) / warps;
+  knn_gather_rounds_kernel<VEC><<<(unsigned)blocks, warps * 32, smem,
+                                  stream>>>(
       static_cast<const float*>(query), static_cast<const float*>(pts),
       static_cast<const float*>(values), static_cast<int*>(idx),
       static_cast<float*>(grouped), queries, m, n, c, cv, k, stride);
@@ -159,24 +514,40 @@ cudaError_t launch(const void* query, const void* pts, const void* values,
 }  // namespace pcl
 
 // query [b, m, c], pts [b, n, c], values [b, n, cv] f32; idx [b, m, k] i32,
-// grouped [b, m, k, cv] f32; all contiguous. Returns the launch's
-// cudaGetLastError() code, or cudaErrorInvalidValue for sizes it does not
-// take (empty sizes, k * stride > n, n above 58,112: one warp's d2 row in
-// shared memory).
-extern "C" int knn_gather_launch(const void* query, const void* pts,
-                                 const void* values, void* idx, void* grouped,
-                                 int b, int m, int n, int c, int cv, int k,
-                                 int stride, void* stream) {
+// grouped [b, m, k, cv] f32; all contiguous; route 0 (rounds) or 1
+// (select). Returns the launch's cudaGetLastError() code, or
+// cudaErrorInvalidValue for sizes the route does not take (empty sizes,
+// k * stride > n; rounds: n above 58,112, one warp's d2 row in shared
+// memory; select: (k - 1) * stride + 1 above 256 ranks, or one warp's
+// part above the shared memory).
+extern "C" int knn_gather_route_launch(const void* query, const void* pts,
+                                       const void* values, void* idx,
+                                       void* grouped, int b, int m, int n,
+                                       int c, int cv, int k, int stride,
+                                       int route, void* stream) {
   if (b < 1 || m < 1 || n < 1 || c < 1 || cv < 1 || k < 1 || stride < 1 ||
-      (long long)k * stride > n || pcl::kg_warps(n) < 1)
+      (long long)k * stride > n || route < 0 || route > 1 ||
+      (route == 0 ? pcl::kg_rounds_warps(n)
+                  : pcl::kg_select_warps(n, k, stride)) < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = cv % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(grouped) % 16 == 0;
   if (vec)
-    return pcl::launch<true>(query, pts, values, idx, grouped, b, m, n, c, cv,
-                             k, stride, s);
-  return pcl::launch<false>(query, pts, values, idx, grouped, b, m, n, c, cv,
-                            k, stride, s);
+    return pcl::launch<true>(route, query, pts, values, idx, grouped, b, m,
+                             n, c, cv, k, stride, s);
+  return pcl::launch<false>(route, query, pts, values, idx, grouped, b, m, n,
+                            c, cv, k, stride, s);
+}
+
+// The same on the route the sizes take (pcl::kg_route).
+extern "C" int knn_gather_launch(const void* query, const void* pts,
+                                 const void* values, void* idx, void* grouped,
+                                 int b, int m, int n, int c, int cv, int k,
+                                 int stride, void* stream) {
+  if (n < 1 || k < 1 || stride < 1) return cudaErrorInvalidValue;
+  return knn_gather_route_launch(query, pts, values, idx, grouped, b, m, n,
+                                 c, cv, k, stride,
+                                 pcl::kg_route(n, k, stride), stream);
 }

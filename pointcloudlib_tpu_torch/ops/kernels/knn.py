@@ -78,17 +78,20 @@ def knn_route(b: int, m: int, n: int, c: int, k: int) -> int:
     where C % 4 == 0 and the clouds have at least :data:`_SEL_MIN_N`
     points (over fewer tiles its first, exact tiles and the pairs it
     forms again outweigh it), 256 queries a block and a ring of 2 tiles
-    at C ≥ 96 and k ≤ 24, else 128 queries and 3 tiles. Else, or where
-    its shared memory does not fit a block, 0 (the block route)."""
+    at C ≥ 96 and k ≤ 24 where they fit a block (C ≤ 148), else 128
+    queries and 3 tiles. Else, or where no select instance fits a block,
+    0 (the block route)."""
     block_fits = block_smem(c, k) <= _SMEM_LIMIT
     if block_fits and n < _SEL_MIN_N and b * -(-m // 128) < _SEL_MIN_BLOCKS:
         return 0
     fast = c % 4 == 0 and n >= _SEL_MIN_N
-    want = (8, 2, True) if fast and c >= 96 and k <= _SEL_MAX_K8 else (
-        4, 3, fast)
-    for route, inst in SELECT.items():
-        if inst == want and select_smem(*inst[:2], c) <= _SMEM_LIMIT:
-            return route
+    wants = [(4, 3, fast)]
+    if fast and c >= 96 and k <= _SEL_MAX_K8:
+        wants.insert(0, (8, 2, True))
+    for want in wants:
+        for route, inst in SELECT.items():
+            if inst == want and select_smem(*inst[:2], c) <= _SMEM_LIMIT:
+                return route
     return 0
 
 

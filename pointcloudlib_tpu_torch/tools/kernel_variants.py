@@ -2,22 +2,23 @@
 forward pass 1, of the row scatter-add and gather, of the standalone kNN,
 of the two-layer EdgeConv's backward passes and forward tails and of the
 EdgeConv kernels with the kNN inside, of the EdgeConv backward, of
-the two-layer eval kernel from a given index, of the 3-NN interpolation
-and of the EdgeConv's given-index pass 1, timed against each other on
-the card. Each variant
+the two-layer eval kernel from a given index, of the 3-NN interpolation,
+of the EdgeConv's given-index pass 1, of the fused kNN + gather and of
+the ball query, timed against each other on the card. Each variant
 is an edit of the committed source (``csrc/fps.cu``,
 ``csrc/fused_sa_tail.cu``, ``csrc/fused_sa_bq_f1.cu`` and
 ``fused_sa_f1.cu``, ``csrc/scatter_rows.cu`` and ``gather_rows.cu``,
 ``csrc/knn.cu``, ``csrc/edge2_bwd_p1.cu``, ``csrc/edge2_bwd_p2.cu``,
 ``csrc/edge_knn_f1.cu``, ``csrc/edge_knn_eval.cu`` and
 ``edge2_knn_eval.cu``, ``csrc/edge2_tail.cu``, ``csrc/edge_bwd.cu``,
-``csrc/edge2_eval.cu``, ``csrc/three_interp.cu``, ``csrc/edge_f1.cu``),
+``csrc/edge2_eval.cu``, ``csrc/three_interp.cu``, ``csrc/edge_f1.cu``,
+``csrc/knn_gather.cu``, ``csrc/ball_query.cu``),
 built beside it by ``nvcc`` with the package's flags into
 ``build/variants/``.
 
     python -m pointcloudlib_tpu_torch.tools.kernel_variants \
         [--only fps tail f1 rows knn edge2p1 edgef1 edge2p2 edgeeval tail2
-                edgebwd edge2eval interp edgef1idx read cluster]
+                edgebwd edge2eval interp edgef1idx kg bq read cluster]
         [--parent DIR]
 
 ``--parent DIR`` names another checkout's ``csrc/`` (the parent commit's,
@@ -133,6 +134,20 @@ beside the variants. Prints one JSON line a case:
   deviation, for the built kernel on both routes and ``EFG_VARIANTS``;
   with ``--parent``, the parent's kernel and its split
   (``PARENT_EFG_SPLIT``: ``load_nbr``, the row pass);
+* ``kg`` (not in the default set): the fused kNN + gather at its three
+  launches of the main paths (the PointConv models' eval forward, seeded
+  weights), device ms by CUDA graphs and idx and grouped against the plain
+  version, for the built kernel on both routes of ``knn_gather.ROUTES``
+  and ``KG_VARIANTS``; with ``--parent``, the parent's kernel and its split
+  (``PARENT_KG_SPLIT``: the d² row, the selection, the rows from a given
+  idx);
+* ``bq`` (not in the default set): the ball query at its three launches
+  (the MSG model's two k=128 scales, SSG's SA1 at N=4096 Hilbert-sorted),
+  device ms by CUDA graphs and idx and cnt against the plain version, the
+  pairs the cull route tests, for the built kernel on both routes of
+  ``ball_query.ROUTES`` and ``BQ_VARIANTS``; with ``--parent``, the
+  parent's kernel and its split (``PARENT_BQ_SPLIT``: staging, ballots,
+  stores, fill);
 * ``read``: the card's rate reading 268 MB by plain 16-byte vector loads,
   and writing it by 16-byte stores with and without the streaming hint;
 * ``cluster``: ns an exchange shaped like one pick's (each warp writes a
@@ -2663,6 +2678,354 @@ def run_edgef1idx(parent: Optional[Path]) -> None:
         torch.cuda.empty_cache()
 
 
+# The fused kNN + gather (csrc/knn_gather.cu) at its three launches of the
+# main paths. The parent's split (--parent; a part's output is wrong by
+# design): d2_only (the d² row alone, one store a query), select_only
+# (the selection rounds, idx written, no rows copied) and copy_only (the
+# rows copied from a given idx: the plain version's, which the harness
+# leaves in the idx buffer; no d² row, no selection).
+KG_END = "\n// Queries a block for n points"
+KG_COPY = ("      const float* src = vb + (size_t)wj * cv;",
+           "    if (lane == (wj & 31)) {")
+KG_GIVEN = """  for (int s = 0; s < k; ++s) {
+    const long long slot = qid * k + s;
+    const int wj = idx[slot];
+    const float* src = vb + (size_t)wj * cv;
+    float* dst = grouped + slot * cv;
+    if (VEC) {
+      const float4* s4 = reinterpret_cast<const float4*>(src);
+      float4* d4 = reinterpret_cast<float4*>(dst);
+      for (int e = lane; e < cv / 4; e += 32) d4[e] = __ldg(s4 + e);
+    } else {
+      for (int e = lane; e < cv; e += 32) dst[e] = __ldg(src + e);
+    }
+  }
+  (void)row;
+  (void)pb;
+  (void)qp;
+}
+
+"""
+PARENT_KG_SPLIT = {
+    "d2_only": [(("  const int rounds = (k - 1) * stride + 1;", KG_END),
+                 "  if (lane == 0) idx[qid * k] = bj;\n}\n\n")],
+    "select_only": [(KG_COPY, "    }\n")],
+    "copy_only": [(("  float q2 = __fmul_rn(qp[0], qp[0]);", KG_END),
+                   KG_GIVEN)],
+}
+# This tree's variants: the copy units in flight a lane (inflight4), the
+# queries a block (warps16), the candidates the bisection finishes in
+# registers (cand32, cand128), and the selection alone (select_only: no
+# rows copied; grouped wrong by design).
+KG_INFLIGHT = "constexpr int kKgInFlight = 8;"
+KG_WARPS = "constexpr int kKgMaxWarps = 8;"
+KG_CAND = "constexpr int kKgCand = 64;"
+KG_VARIANTS = {
+    "inflight4": [(KG_INFLIGHT, KG_INFLIGHT.replace("8", "4"))],
+    "warps16": [(KG_WARPS, KG_WARPS.replace("8", "16"))],
+    "cand32": [(KG_CAND, KG_CAND.replace("64", "32"))],
+    "cand128": [(KG_CAND, KG_CAND.replace("64", "128"))],
+    "select_only": [(("  // the rows: unit u of the query's",
+                      "// ---------------------------------------------------"
+                      "------------- launch"), "}\n\n")],
+}
+KG_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+
+
+def kg_cases():
+    """``(case, query, points, values, k, stride)``: the fused kNN +
+    gather's inputs at its three launches of the main paths, recorded from
+    the PointConv models' own eval forward with seeded weights:
+    classification's SA2 (B=32, N=1024 with normals) and part
+    segmentation's SA2 and SA3 (B=16, N=2048, xyz only)."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+
+    cls = SyntheticModelNet(n_points=1024, size=32, seed=0).batch(0, 32)
+    seg = torch.from_numpy(SyntheticShapeNetPart(
+        n_points=2048, size=16, seed=0).batch(0, 16)[0]).to(DEV)
+    for tag, name, inputs in (
+            ("cls", "pointconv", (torch.from_numpy(cls[0]).to(DEV),
+                                  torch.from_numpy(cls[1]).to(DEV))),
+            ("seg", "pointconv_partseg",
+             (seg, torch.zeros((16, 16), device=DEV)))):
+        calls, orig = [], kkg.knn_gather
+
+        def rec(q, p, v, k, stride=1, calls=calls, orig=orig):
+            calls.append((q.detach().clone(), p.detach().clone(),
+                          v.detach().clone(), k, stride))
+            return orig(q, p, v, k, stride)
+
+        rec.launches = 0  # the original counts on its module name
+        model = _seeded(name)
+        kkg.knn_gather = rec
+        try:
+            with torch.no_grad():
+                model(*inputs)
+        finally:
+            kkg.knn_gather = orig
+        del model
+        for q, p, v, k, stride in calls:
+            yield (f"{tag} M={q.shape[1]} N={p.shape[1]} Cv={v.shape[2]} "
+                   f"k={k}", q, p, v, k, stride)
+
+
+def run_kg(parent: Optional[Path]) -> None:
+    """This tree's fused kNN + gather on every route it has, its variants,
+    and the parent's kernel and split, at each launch of
+    :func:`kg_cases`: device ms by CUDA graphs, idx and grouped
+    bit-identical to the plain version, with the bytes bound."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+
+    src = (_build.CSRC / "knn_gather.cu").read_text()
+    sources = {"kg_built": (src, _build.CSRC)}
+    for name, edits in KG_VARIANTS.items():
+        sources[f"kg_{name}"] = (edited(src, _segment_edits(src, edits)),
+                                 _build.CSRC)
+    if parent:
+        text = (parent / "knn_gather.cu").read_text()
+        sources["kg_parent"] = (text, parent)
+        for name, edits in PARENT_KG_SPLIT.items():
+            sources[f"kg_parent_{name}"] = (
+                edited(text, _segment_edits(text, edits)), parent)
+    libs = build(sources)
+    routed = {name for name, (text, _) in sources.items()
+              if "knn_gather_route_launch" in text}
+    for name, lib in libs.items():
+        lib.knn_gather_launch.argtypes = KG_ARGS + [ctypes.c_void_p]
+        lib.knn_gather_launch.restype = ctypes.c_int
+        if name in routed:
+            fn = lib.knn_gather_route_launch
+            fn.argtypes = KG_ARGS + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    for case, q, p, v, k, stride in kg_cases():
+        b, m, c = q.shape
+        n, cv = v.shape[1:]
+        widx, wg = kkg.knn_gather_plain(q, p, v, k, stride)
+        idx, grouped = torch.empty_like(widx), torch.empty_like(wg)
+        runs = []
+        for name, lib in libs.items():
+            routes = kkg.ROUTES if name in routed else (None,)
+            runs += [(name[3:] + ("" if r is None else f" {kkg.ROUTES[r]}"),
+                      lib, r) for r in routes]
+        rec: Dict[str, list] = {}
+        for label, lib, route in runs:
+            def call(lib=lib, route=route):
+                args = (_ptr(q), _ptr(p), _ptr(v), _ptr(idx), _ptr(grouped),
+                        b, m, n, c, cv, k, stride)
+                if route is None:
+                    return lib.knn_gather_launch(*args, _stream())
+                return lib.knn_gather_route_launch(*args, route, _stream())
+
+            if "copy_only" in label:
+                idx.copy_(widx)
+            else:
+                idx.fill_(-1)
+            grouped.fill_(float("nan"))
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            rec[label] = [round(graph_ms(call, 10), 4),
+                          bool(torch.equal(idx, widx)),
+                          bool(torch.equal(grouped, wg))]
+        route = getattr(kkg, "knn_gather_route", None)
+        print(json.dumps({
+            "knn_gather": case, "B": b, "M": m, "N": n, "C": c, "Cv": cv,
+            "k": k, "stride": stride,
+            "route": kkg.ROUTES[route(n, k, stride)] if route else None,
+            "bytes_bound_ms": 1e3 * (4.0 * b * n * cv + 4.0 * b * m * k
+                                     + 4.0 * b * m * k * cv) / 3.35e12,
+            "ms_idx_grouped_identical": rec}), flush=True)
+        del grouped, wg
+        torch.cuda.empty_cache()
+
+
+# The standalone ball query (csrc/ball_query.cu) at its three launches of
+# the main paths. The parent's split (--parent; a part's output is wrong
+# by design): stage_only (the cloud staged, one store a block), ballots
+# (the scan with its ballots, cnt stored, no idx stores, no fill), stores
+# (the scan with its idx stores, no fill) and fill_only (the fill alone,
+# count and slot 0 given: the plain version's cnt and idx, which the
+# harness leaves in the buffers; no staging, no scan).
+BQ_LOOP = ("  for (int c = warp; c < mt; c += kWarps) {",
+           "}\n\n}  // namespace pcl")
+BQ_SCAN = """    const int count =
+        bq_scan(new_xyz + center * 3, ptss, n, k, r2, lane, row);
+"""
+BQ_FILL = "    bq_fill(row, count, k, lane);\n"
+BQ_STAGE = ("  stage_cloud(pts + (size_t)b * n * 3, n, ptss, threadIdx.x, "
+            "kThreads);\n  __syncthreads();\n")
+BQ_BALLOTS = """    const float* cp = new_xyz + center * 3;
+    const float cx = cp[0], cy = cp[1], cz = cp[2];
+    const float c2 = sumsq3(cx, cy, cz);
+    int count = 0;
+    for (int base = 0; base < n; base += kScanStep) {
+      unsigned bal[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int j = base + 32 * s + lane;
+        bal[s] = __ballot_sync(
+            0xffffffffu, j < n && sq_dist(cx, cy, cz, c2, ptss[j]) < r2);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) count += __popc(bal[s]);
+    }
+"""
+PARENT_BQ_SPLIT = {
+    "stage_only": [(BQ_LOOP, "  if (threadIdx.x == 0) cnt[(size_t)b * m + "
+                    "m0] = __float_as_int(ptss[n - 1].w);\n")],
+    "ballots": [(BQ_SCAN, BQ_BALLOTS), (BQ_FILL, "")],
+    "stores": [(BQ_FILL, "")],
+    "fill_only": [(BQ_STAGE, ""),
+                  (BQ_SCAN, "    const int count = cnt[center];\n")],
+}
+# This tree's variants, alone and combined (names joined by "+"): the
+# blocks the scan's grid aims at (min1056: fewer centers a warp), its
+# sets a step (sets4: 4 at one center a warp), the near chunks a cull step
+# walks (inflight4), the cull's centers a block (cull_c128), and the
+# split (wrong by design): emit_none (no flush stores), cull_stage_only
+# (staging and boxes, one store a block), cull_no_tests (the centers'
+# loop without box tests or walks) and cull_no_visits (the box tests
+# without walks, cnt the near chunks: the harness adds the points they
+# hold).
+BQ_MIN = "constexpr int kBqScanMinBlocks = 528;"
+BQ_SETS = "constexpr int kSets = R == 1 ? 8 : 4 / R;"
+BQ_FLIGHT = "constexpr int kBqInFlight = 8;"
+BQ_CC = "constexpr int kBqCullCenters = 64;"
+BQ_CENTERS = ("  const unsigned below = (1u << lane) - 1u;\n",
+              "// ---------------------------------------------------------"
+              "------- launch")
+BQ_NEAR = "sc < supers && !bq_far("
+BQ_WALK = "    for (int t = 0; t < nn; t += kBqInFlight) {"
+_BQ = {
+    "min1056": (BQ_MIN, BQ_MIN.replace("528", "1056")),
+    "sets4": (BQ_SETS, "constexpr int kSets = R < 4 ? 4 / R : 1;"),
+    "inflight4": (BQ_FLIGHT, BQ_FLIGHT.replace("8", "4")),
+    "cull_c128": (BQ_CC, BQ_CC.replace("64", "128")),
+}
+BQ_VARIANTS = {
+    **{"+".join(names): [_BQ[x] for x in names] for names in (
+        ("min1056",), ("sets4",), ("inflight4",), ("cull_c128",))},
+    "emit_none": [("  } else if (r.count < r.k) {", "  } else if (false) {"),
+                  ("      if (h < take) r.row[r.count + h] = js + pos;\n",
+                   "")],
+    "cull_stage_only": [(BQ_CENTERS, "  if (threadIdx.x == 0) cnt[(size_t)b "
+                         "* m + m0] = __float_as_int(cloud_l1);\n}\n\n")],
+    "cull_no_tests": [(BQ_NEAR, "false && !bq_far(")],
+    "cull_no_visits": [(BQ_WALK, "    rw.count += nn;\n"
+                        "    for (int t = 0; t < 0; t += kBqInFlight) {")],
+}
+BQ_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+
+
+def bq_cases():
+    """``(case, centers, points, radius, k)``: the ball query's inputs at
+    its three launches of the main paths, recorded from the models' own
+    eval forward with seeded weights: PointNet++ MSG's two k=128 scales
+    (B=32, N=1024 with normals) and SSG's SA1 at N=4096 (B=32, the clouds
+    Hilbert-sorted as the train step and the Predictor sort them)."""
+    from pointcloudlib_tpu_torch.ops import spatial
+    from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
+
+    msg = SyntheticModelNet(n_points=1024, size=32, seed=0).batch(0, 32)
+    big = SyntheticModelNet(n_points=4096, size=32, seed=0).batch(0, 32)
+    big = spatial.canonicalize(torch.from_numpy(big[0]).to(DEV),
+                               torch.from_numpy(big[1]).to(DEV))
+    for tag, name, inputs in (
+            ("MSG", "pointnet2_msg", (torch.from_numpy(msg[0]).to(DEV),
+                                      torch.from_numpy(msg[1]).to(DEV))),
+            ("SSG4096", "pointnet2", big[:2])):
+        calls, orig = [], kbq.ball_query
+
+        def rec(c, p, radius, k, calls=calls, orig=orig):
+            calls.append((c.detach().clone(), p.detach().clone(), radius, k))
+            return orig(c, p, radius, k)
+
+        rec.launches = 0
+        model = _seeded(name)
+        kbq.ball_query = rec
+        try:
+            with torch.no_grad():
+                model(*inputs)
+        finally:
+            kbq.ball_query = orig
+        del model
+        for c, p, radius, k in calls:
+            yield (f"{tag} M={c.shape[1]} N={p.shape[1]} r={radius} k={k}",
+                   c, p, radius, k)
+
+
+def run_bq(parent: Optional[Path]) -> None:
+    """This tree's ball query on every route it has, its variants, and the
+    parent's kernel and split, at each launch of :func:`bq_cases`: device
+    ms by CUDA graphs, idx and cnt bit-identical to the plain version,
+    with the bounds (every pair's ~10 operations; bytes) and the pairs the
+    culling route tests."""
+    from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
+
+    src = (_build.CSRC / "ball_query.cu").read_text()
+    sources = {"bq_built": (src, _build.CSRC)}
+    for name, edits in BQ_VARIANTS.items():
+        sources[f"bq_{name}"] = (edited(src, _segment_edits(src, edits)),
+                                 _build.CSRC)
+    if parent:
+        text = (parent / "ball_query.cu").read_text()
+        sources["bq_parent"] = (text, parent)
+        for name, edits in PARENT_BQ_SPLIT.items():
+            sources[f"bq_parent_{name}"] = (
+                edited(text, _segment_edits(text, edits)), parent)
+    libs = build(sources)
+    routed = {name for name, (text, _) in sources.items()
+              if "int route" in text}
+    for name, lib in libs.items():
+        lib.ball_query_launch.argtypes = BQ_ARGS + (
+            [ctypes.c_int] if name in routed else []) + [ctypes.c_void_p]
+        lib.ball_query_launch.restype = ctypes.c_int
+    for case, nx, p, radius, k in bq_cases():
+        b, m, _ = nx.shape
+        n = p.shape[1]
+        widx, wcnt = kbq.ball_query_plain(nx, p, radius, k)
+        idx, cnt = torch.empty_like(widx), torch.empty_like(wcnt)
+        runs = []
+        for name, lib in libs.items():
+            routes = kbq.ROUTES if name in routed else (None,)
+            runs += [(name[3:] + ("" if r is None else f" {kbq.ROUTES[r]}"),
+                      lib, r) for r in routes]
+        rec: Dict[str, list] = {}
+        for label, lib, route in runs:
+            def call(lib=lib, route=route):
+                extra = () if route is None else (route,)
+                return lib.ball_query_launch(
+                    _ptr(nx), _ptr(p), _ptr(idx), _ptr(cnt), b, n, m, k,
+                    ctypes.c_float(radius * radius), *extra, _stream())
+
+            if "fill_only" in label:
+                idx.copy_(widx)
+                cnt.copy_(wcnt)
+            else:
+                idx.fill_(-1)
+                cnt.fill_(-1)
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            rec[label] = [round(graph_ms(call, 20), 4),
+                          bool(torch.equal(idx, widx) and
+                               torch.equal(cnt, wcnt))]
+            if "no_visits" in label:  # cnt: the near chunks, 32 points each
+                rec[label].append(32 * int(cnt.sum()))
+        route = getattr(kbq, "ball_query_route", None)
+        tested = getattr(kbq, "pairs_tested", None)
+        print(json.dumps({
+            "ball_query": case, "B": b, "M": m, "N": n, "k": k,
+            "route": kbq.ROUTES[route(n)] if route else None,
+            "cnt_mean": round(wcnt.float().mean().item(), 2),
+            "pairs": b * m * n,
+            "pairs_tested_culling": tested(nx, p, radius) if tested else None,
+            "ops_bound_ms": 1e3 * 10.0 * b * m * n / 67e12,
+            "bytes_bound_ms": 1e3 * (12.0 * b * (m + n)
+                                     + 4.0 * b * m * (k + 1)) / 3.35e12,
+            "ms_identical": rec}), flush=True)
+
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -2707,7 +3070,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                     choices=["fps", "tail", "f1", "rows", "knn", "edge2p1",
                              "edgef1", "edge2p2", "edgeeval", "tail2",
                              "edgebwd", "edge2eval", "interp", "edgef1idx",
-                             "read", "cluster"])
+                             "kg", "bq", "read", "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2744,6 +3107,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_interp(args.parent)
     if "edgef1idx" in args.only:
         run_edgef1idx(args.parent)
+    if "kg" in args.only:
+        run_kg(args.parent)
+    if "bq" in args.only:
+        run_bq(args.parent)
     if "read" in args.only:
         run_read()
     if "cluster" in args.only:

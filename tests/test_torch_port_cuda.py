@@ -172,28 +172,83 @@ def test_predictor_card_matches_cpu(card, n, model):
 # ------------------------------- ball query and the kernels that take idx
 
 
-@pytest.mark.parametrize("b,n,m,radius,k", [
-    (4, 1024, 512, 0.4, 128),     # MSG1's k=128 scale: most rows short
-    (4, 512, 128, 0.8, 128),      # MSG2's: cnt above and below k
-    (2, 1000, 70, 0.3, 16),       # N % 32 != 0, ragged center tile
-    (2, 128, 33, 0.4, 128),       # k = N: every row short
-    (2, 300, 64, 2.5, 8),         # every point a hit: cnt = N > k
-    (1, 37, 5, 0.5, 64),          # N just above one warp, k > N
-])
-def test_ball_query_bit_identical(card, b, n, m, radius, k):
-    rng = np.random.default_rng(n + k)
+BQ_CASES = {  # B, N, M, radius, k, cloud
+    "msg1_k128": (4, 1024, 512, 0.4, 128, "sphere"),  # most rows short
+    "msg2_k128": (4, 512, 128, 0.8, 128, "sphere"),   # cnt above and below k
+    "n1000_k16": (2, 1000, 70, 0.3, 16, "sphere"),    # N % 32 != 0
+    "k_eq_n": (2, 128, 33, 0.4, 128, "sphere"),       # every row short
+    "every_point": (2, 300, 64, 2.5, 8, "sphere"),    # cnt = N > k
+    "n37_k64": (1, 37, 5, 0.5, 64, "sphere"),         # N just above a warp
+    # SSG's SA1 at N=4096 on a Hilbert-sorted cloud, the cull route's
+    "ssg4096_sorted": (4, 4096, 512, 0.2, 64, "sorted"),
+    "r_pm_1ulp": (2, 4096, 128, 0.2, 64, "ulp"),      # points at r ± 1 ulp
+    "translated_1e3": (2, 4096, 256, 0.2, 64, "translated"),  # d² cancels
+    "duplicates": (2, 4096, 256, 0.2, 64, "duplicates"),  # each point 4 times
+    "hollow_boxes": (2, 4096, 64, 0.2, 64, "hollow"),  # a box holds the
+}                                                      # center, no hit
+
+
+def _bq_inputs(card, name):
+    """``(centers, points, radius, k)`` of :data:`BQ_CASES` ``name``,
+    the first center far from every point (an empty row)."""
+    from pointcloudlib_tpu_torch.ops import spatial
+
+    b, n, m, radius, k, cloud = BQ_CASES[name]
+    rng = np.random.default_rng(n + k + (cloud != "sphere") * len(name))
     pts = _sphere(rng, b, n, card)
-    nx = pts[:, :m].clone()
-    nx[0, 0] = 50.0                         # an empty row
-    before = kbq.ball_query.launches
-    idx, cnt = kbq.ball_query(nx, pts, radius, k)
-    torch.cuda.synchronize()
-    assert kbq.ball_query.launches == before + 1
+    if cloud == "sorted":
+        pts = spatial.canonicalize(pts)[0]
+    if cloud == "duplicates":
+        pts = pts[:, :n // 4].repeat(1, 4, 1)
+    nx = pts[:, rng.permutation(n)[:m]] if cloud != "sphere" else pts[:, :m]
+    nx = nx.clone()
+    if cloud in ("ulp", "hollow"):
+        # chunks of 32 points around the first 32 centers: at r and one
+        # f32 unit inside or outside it, or at the corners of a cube of
+        # half side 0.15 (|corner| = 0.26 > r: the box holds its center,
+        # no point is a hit)
+        own = nx[:, :32].repeat_interleave(32, dim=1)
+        if cloud == "ulp":
+            d = torch.nn.functional.normalize(torch.from_numpy(
+                rng.standard_normal((b, 1024, 3)).astype(np.float32)), dim=-1)
+            near = (own.cpu() + radius * d).numpy()
+            step = np.where(rng.random(near.shape) < 0.5, np.inf, -np.inf)
+            near = np.nextafter(near, step.astype(np.float32))
+        else:
+            corners = torch.tensor([[x, y, z] for x in (-1, 1)
+                                    for y in (-1, 1) for z in (-1, 1)],
+                                   dtype=torch.float32).repeat(128, 1)
+            near = (own.cpu() + 0.15 * corners).numpy()
+        pts = pts.clone()
+        pts[:, :1024] = torch.from_numpy(near).to(card)
+    if cloud == "translated":
+        pts, nx = pts + 1e3, nx + 1e3
+    nx[0, 0] = 1e4                          # an empty row
+    return nx.contiguous(), pts.contiguous(), radius, k
+
+
+@pytest.mark.parametrize("name", sorted(BQ_CASES))
+def test_ball_query_bit_identical(card, name, monkeypatch):
+    """idx and cnt bit-identical to the plain version on every route
+    (scan, cull), each forced in turn through ``ball_query_route``; one
+    launch a call."""
+    nx, pts, radius, k = _bq_inputs(card, name)
     want_idx, want_cnt = kbq.ball_query_plain(nx, pts, radius, k)
-    assert int(cnt[0, 0]) == 0 and (idx[0, 0] == 0).all()
-    assert idx.dtype == torch.int32 and cnt.dtype == torch.int32
-    assert torch.equal(cnt, want_cnt)
-    assert torch.equal(idx, want_idx)
+    assert int(want_cnt[0, 0]) == 0 and (want_cnt > 0).any()
+    if name == "hollow_boxes":  # the box of chunk i holds center i
+        lo, hi = kbq.chunk_boxes(pts)
+        c = nx[:, 1:32]
+        assert ((lo[:, 1:32] <= c) & (c <= hi[:, 1:32])).all()
+    for route in kbq.ROUTES:
+        monkeypatch.setattr(kbq, "ball_query_route", lambda n, r=route: r)
+        before = kbq.ball_query.launches
+        idx, cnt = kbq.ball_query(nx, pts, radius, k)
+        torch.cuda.synchronize()
+        assert kbq.ball_query.launches == before + 1
+        assert int(cnt[0, 0]) == 0 and (idx[0, 0] == 0).all()
+        assert idx.dtype == torch.int32 and cnt.dtype == torch.int32
+        assert torch.equal(cnt, want_cnt), kbq.ROUTES[route]
+        assert torch.equal(idx, want_idx), kbq.ROUTES[route]
 
 
 IDX_SHAPES = {  # widths, B, N, M, radius, k
@@ -1186,7 +1241,10 @@ KNN_SHAPES = {  # B, M (queries), N, C, k
     "translated_1e3": (2, 2000, 2000, 64, 20),  # the expanded form cancels
     "m257_n129_c64": (2, 257, 129, 64, 20),   # one past the 64-point tile
     "m257_n129_c128": (2, 257, 129, 128, 20),  # and the 128 / 256-query
-}                                             # blocks
+    # blocks; C = 160: the 256-query select instance does not fit, the
+    # 128-query one with the fast pass does
+    "c160_n2048": (2, 2048, 2048, 160, 16),
+}
 
 
 def _knn_inputs(card, name):
@@ -1219,6 +1277,10 @@ def test_knn_bit_identical(card, name):
     wd2, widx = kknn.knn_plain(q, p, k)
     assert idx.dtype == torch.int32 and torch.equal(idx, widx)
     assert torch.equal(d2, wd2)
+    if name == "c160_n2048":
+        b, m, c = q.shape
+        route = kknn.knn_route(b, m, p.shape[1], c, k)
+        assert kknn.SELECT[route] == (4, 3, True)
     if "duplicates" in name:  # a point and its twin, both at d² = 0
         n = idx.shape[1]
         pts = torch.arange(n, device=card) % (n // 2)
@@ -1775,37 +1837,45 @@ KNN_GATHER_SHAPES = {  # B, M, N, Cv, k, stride
     "stride 2, M=13, Cv=7": (3, 13, 256, 7, 16, 2),
     "N=4096": (2, 64, 4096, 16, 32, 1),
     "duplicate points": (2, 40, 256, 16, 48, 1),
+    "cls SA2 duplicate points": (32, 128, 512, 132, 64, 1),
+    "C=6, M=12": (2, 12, 256, 16, 24, 1),  # d² from global memory
 }
 
 
 def _knn_gather_inputs(card, name):
     b, m, n, cv, k, stride = KNN_GATHER_SHAPES[name]
     rng = np.random.default_rng(n + cv)
-    pts = rng.standard_normal((b, n, 3)).astype(np.float32)
+    c = 6 if name.startswith("C=6") else 3
+    pts = rng.standard_normal((b, n, c)).astype(np.float32)
     pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
-    if name == "duplicate points":  # every point four times: exact ties
+    if "duplicate points" in name:  # every point four times: exact ties
         pts[:, n // 4:] = np.tile(pts[:, :n // 4], (1, 3, 1))
     query = pts[:, rng.permutation(n)[:m]].copy()
     vals = rng.standard_normal((b, n, cv)).astype(np.float32)
-    vals[..., :3] = pts
+    vals[..., :3] = pts[..., :3]
     return (torch.from_numpy(query).to(card), torch.from_numpy(pts).to(card),
             torch.from_numpy(vals).to(card), k, stride)
 
 
 @pytest.mark.parametrize("name", sorted(KNN_GATHER_SHAPES))
-def test_knn_gather_bit_identical(card, name):
+def test_knn_gather_bit_identical(card, name, monkeypatch):
     """idx and grouped bit-identical to ``knn_gather_plain`` (d² in the
-    plain order, ties to the lower index, exact copies); one launch."""
+    plain order, ties to the lower index, exact copies) on every route
+    (rounds, select), each forced in turn through ``knn_gather_route``;
+    one launch a call."""
     from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
 
     query, pts, vals, k, stride = _knn_gather_inputs(card, name)
-    before = kkg.knn_gather.launches
-    idx, grouped = kkg.knn_gather(query, pts, vals, k, stride)
-    torch.cuda.synchronize()
-    assert kkg.knn_gather.launches == before + 1
     pidx, pgrouped = kkg.knn_gather_plain(query, pts, vals, k, stride)
-    assert torch.equal(idx, pidx)
-    assert torch.equal(grouped, pgrouped)
+    assert kkg.knn_gather_route(pts.shape[1], k, stride) == 1
+    for route in kkg.ROUTES:
+        monkeypatch.setattr(kkg, "knn_gather_route", lambda *_, r=route: r)
+        before = kkg.knn_gather.launches
+        idx, grouped = kkg.knn_gather(query, pts, vals, k, stride)
+        torch.cuda.synchronize()
+        assert kkg.knn_gather.launches == before + 1
+        assert torch.equal(idx, pidx), kkg.ROUTES[route]
+        assert torch.equal(grouped, pgrouped), kkg.ROUTES[route]
 
 
 def test_knn_gather_gradient(card):
