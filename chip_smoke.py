@@ -135,8 +135,10 @@ once:
    B=32, N=10,000; training B=32, N=1,000): ``knn`` idx and d²
    bit-identical to the plain version (``torch.cdist`` + ``torch.topk``
    timed as the library's yardstick, two calls; each record names the
-   route the wrapper took, ``knn.knn_route``), ``edge_eval`` within
-   1e-5·max|plain| (its plain version taken 8 clouds at a time),
+   route the wrapper took, ``knn.knn_route``), ``edge_eval``
+   bit-identical (``torch.equal``; its plain version taken 8 clouds at a
+   time; each record names its route, ``fused_edge.edge_eval_route``,
+   and has a device time by CUDA graphs),
    ``edge_f1``'s h bit-identical (each record names its route,
    ``fused_edge.edge_f1_route``), ``edge_out`` and ``edge_bwd`` as in
    phase 11; edge cases: duplicate points, k = N, a query cloud of its
@@ -754,7 +756,7 @@ def phase_serving(name, variables, data, power, batch, per_batch, extra):
 
 # DGCNN kernels whose records also time the device by CUDA graphs
 # (graph_ms), beside the event loop's ms
-DEVICE_TIMED = ("edge_bwd", "edge2_eval", "edge_f1", "edge_out")
+DEVICE_TIMED = ("edge_bwd", "edge2_eval", "edge_f1", "edge_out", "edge_eval")
 
 
 def _kernel_time(kernel, rec, fn) -> None:
@@ -772,6 +774,16 @@ def _check_sums(what, got, want, tol=SUM_TOL):
     if not torch.isfinite(got).all() or not err <= tol * scale:
         fail(f"{what}: |Δ| {err} beyond {tol}·max|plain| ({scale})")
     return err, scale
+
+
+def _check_equal(what, got, want):
+    """``(0.0, max |plain|)``; fails unless ``torch.equal`` (which counts
+    -0 and +0 as equal)."""
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{what}: {(got != want).sum().item()} elements differ from the "
+             f"plain version (max |Δ| {(got - want).abs().max().item()})")
+    return 0.0, want.abs().max().item()
 
 
 def _check_tie_robust(what, got, want) -> float:
@@ -1931,6 +1943,14 @@ def _knn_route_name(b, m, n, c, k) -> str:
             else kknn.route_name(route(b, m, n, c, k)))
 
 
+def _edge_eval_route_name(c) -> str:
+    """The route ``edge_eval`` takes at width ``c``
+    (``fused_edge.edge_eval_route``; ``rows`` in a checkout before the
+    routes)."""
+    route = getattr(kfe, "edge_eval_route", None)
+    return "rows" if route is None else kfe.EDGE_EVAL_ROUTES[route(c)]
+
+
 def _knn_case(name, query, points, k, timed):
     """The kNN kernel against its plain version: idx and d² bit-identical;
     with ``timed``, ``torch.cdist`` + ``torch.topk`` (two calls) timed as
@@ -1992,11 +2012,12 @@ def _edge_idx_case(name, f, xe, xt, g, timed):
         idx = kknn.knn(xe, xe, k)[1]
         st = kfs._stack_stats(f.mean, f.var, f.bn_scale, f.bn_bias)
         ev = (qb, off, idx, st)
-        err = _check_sums(f"edge_eval {name}", kfe.edge_eval(*ev),
-                          _per_clouds(kfe.edge_eval_plain, *ev), EDGE_TOL)
+        err = _check_equal(f"edge_eval {name}", kfe.edge_eval(*ev),
+                           _per_clouds(kfe.edge_eval_plain, *ev))
         # gather, BN, LeakyReLU and max: ~5 operations an edge element
         record("edge_eval", {"case": f"{name} N={n}", "B": b, "N": n, "k": k,
-                             "C": c, **_errs([err])},
+                             "C": c, "route": _edge_eval_route_name(c),
+                             "bit_identical": True, **_errs([err])},
                lambda: kfe.edge_eval(*ev),
                lambda: _per_clouds(kfe.edge_eval_plain, *ev), 5.0 * edges,
                2.0 * b * n * c + 4.0 * b * n * k + 8.0 * b * n * c
@@ -3315,6 +3336,73 @@ def edgeeval_times() -> None:
             torch.cuda.empty_cache()
 
 
+
+def edgeevalidx_times() -> None:
+    """``edge_eval`` at its six launches of the served paths on the kNN
+    route, each layer's input from the models' serving chains with seeded
+    weights: DGCNN's four EdgeConvs at 32 clouds of 10,000 points (k=20)
+    and DGCNN part segmentation's EC3 at 16 clouds of 1,000 and of 5,000
+    points (k=40). After the device line, one ``edge_eval:`` line a launch
+    with the route the wrapper took (``rows`` in a checkout before the
+    routes), device ms by CUDA graphs (the wrapper's allocation included),
+    the bytes bound and its share, the L2 gather volume B·M·k·C·2 bytes,
+    bit identity with the plain version (held) and the route's kernel's
+    registers, shared memory and spills. It times the package beside this
+    file; for old against new, copy this file into the other checkout's
+    root and run it there too:
+
+        python3 -c 'import chip_smoke; chip_smoke.edgeevalidx_times()'
+    """
+    phase_device()
+    _build.build(["knn", "edge_eval", "edge2_eval"])
+    routed = hasattr(kfe, "edge_eval_route")
+
+    def case(name, f, x):
+        b, n, _ = x.shape
+        k, c = f.k, f.bn_scale.shape[0]
+        q, off = f.prepare(x)
+        ev = (q.bfloat16(), off, kknn.knn(x, x, k)[1],
+              kfs._stack_stats(f.mean, f.var, f.bn_scale, f.bn_bias))
+        _check_equal(f"edge_eval {name}", kfe.edge_eval(*ev),
+                     _per_clouds(kfe.edge_eval_plain, *ev))
+        ms = graph_ms(lambda: kfe.edge_eval(*ev), 10)
+        e = float(b * n * k * c)
+        # as _edge_idx_case counts them
+        bound_ms, ops_ms, bytes_ms = bound(
+            0.0, 5.0 * e, 2.0 * b * n * c + 4.0 * b * n * k
+            + 8.0 * b * n * c + 16.0 * c)
+        route = _edge_eval_route_name(c)
+        lib = kfe._lib("edge_eval")
+        smem = (lib.edge_eval_smem(c, k, kfe.edge_eval_route(c)) if routed
+                else lib.edge_eval_smem(k))
+        emit("edge_eval", {
+            "case": f"{name} N={n}", "B": b, "N": n, "k": k, "C": c,
+            "route": route, "device_ms": ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "share_of_bound": bound_ms / ms, "l2_gather_gb": 2.0 * e / 1e9,
+            "bit_identical": True, "dynamic_smem": smem,
+            "ptxas": _ptxas_of("edge_eval", f"center_kernelILi{c}E"
+                               if route == "center" else "edge_eval_kernel")})
+        torch.cuda.empty_cache()
+
+    dg = _model_on_card("dgcnn", random_jax_variables(
+        get_cls_model("dgcnn"), seed=0))
+    x = torch.from_numpy(SyntheticModelNet(
+        n_points=ODD_SERVE_POINTS, size=DGCNN_BATCH, seed=0).batch(
+        0, DGCNN_BATCH)[0]).to(DEV)
+    with torch.no_grad():
+        for i, ec in enumerate(dg.edge):
+            case(f"DGCNN EC{i + 1}", ec.fused, x)
+            x = ec(x)
+    del dg, x
+    dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
+                                                     seed=0))
+    for n in (DSEG_ODD_TRAIN, DSEG_ODD_POINTS):
+        x = torch.from_numpy(SyntheticShapeNetPart(
+            n_points=n, size=SEG_BATCH, seed=0).batch(0, SEG_BATCH)[0]).to(DEV)
+        with torch.no_grad():  # the serving chain up to EC3 (kNN route)
+            case("DGCNN-seg EC3", dseg.edge3, dseg.edge2(dseg.edge1(x)))
+
 def _edge_bwd_bound(b, n, k, c):
     """``bound()`` of ``edge_bwd`` as ``_edge_tail_cases`` counts it: h,
     dout, idx and the rows read once, ps, scat's 2C + 1 columns, d1 and
@@ -3339,7 +3427,8 @@ def edgebwd_times() -> None:
     column exact, the sums and the assembled dq, doff, dγ, dβ within
     1e-3; ``edge2_eval`` within 1e-5). Beside them, by the same device
     timing: ``edge_f1`` and ``edge_out`` at DGCNN's N=1,000 layers and
-    ``edge_eval`` at part segmentation's EC3 on the kNN route.
+    ``edge_eval`` at part segmentation's EC3 on the kNN route (held bit
+    for bit, with its route).
     It times the package beside this file; for old against new, copy
     this file into the other checkout's root and run it there too:
 
@@ -3440,12 +3529,13 @@ def edgebwd_times() -> None:
               kfs._stack_stats(layer.mean, layer.var, layer.bn_scale,
                                layer.bn_bias))
         e = float(b * n * layer.k * c)
-        _check_sums("edge_eval DGCNN-seg EC3", kfe.edge_eval(*ev),
-                    kfe.edge_eval_plain(*ev), EDGE_TOL)
+        _check_equal("edge_eval DGCNN-seg EC3", kfe.edge_eval(*ev),
+                     kfe.edge_eval_plain(*ev))
         device("edge_eval", f"DGCNN-seg EC3 N={n}", lambda: kfe.edge_eval(*ev),
                bound(0.0, 5.0 * e, 2.0 * b * n * c + 4.0 * b * n * layer.k
                      + 8.0 * b * n * c + 16.0 * c),
-               B=b, N=n, k=layer.k, C=c)
+               B=b, N=n, k=layer.k, C=c, route=_edge_eval_route_name(c),
+               bit_identical=True)
     for name, layer, xe, _ in layers[:2]:
         b, n, cin = xe.shape
         k, (c1, c2) = layer.k, layer.w2.shape

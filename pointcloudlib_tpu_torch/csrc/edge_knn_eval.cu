@@ -25,7 +25,8 @@
 // knn_norms_kernel before; no FMA pass, which lost at N = 2,048 and k =
 // 40 in pass 1), the lists then written into the tiles' shared memory,
 // and an eval half shaped like pass 1's write half (fused_sa_f1.cuh
-// f1_center): one warp a center, 8 channels a lane, each neighbour's Q
+// f1_center), eval_center of edge_eval.cuh (shared with edge_eval.cu's
+// variants): one warp a center, 8 channels a lane, each neighbour's Q
 // row read from L2 by 16-byte __ldg (kF1Unroll of them in flight a
 // lane), the running max in registers over the lane's slots, folded
 // across the warp's slot groups by shuffles, out written by 16-byte
@@ -47,7 +48,7 @@
 // its order, and the max of a set does not depend on its order, so out is
 // bit-identical too.
 
-#include "fused_sa_f1.cuh"
+#include "edge_eval.cuh"
 #include "knn_select.cuh"
 
 namespace pcl {
@@ -68,55 +69,6 @@ __host__ __device__ inline size_t eval_sel_smem(int qpt, int stages, int cin,
   const size_t walk = sel_smem(qpt, stages, cin);
   const size_t lists = (size_t)4 * 32 * qpt * k;
   return ((walk > lists ? walk : lists) + 15) / 16 * 16;
-}
-
-// One warp takes the k slots of one center: qg the cloud's Q [N, C],
-// offc the center's Off [C], outc its out row [C], nbr its list in shared
-// memory; sc, bi the folded rows of this lane's 8 channels.
-template <int C>
-__device__ __forceinline__ void eval_center(const __nv_bfloat16* qg,
-                                            const float* offc, float* outc,
-                                            const int* nbr, int k,
-                                            const float (&sc)[8],
-                                            const float (&bi)[8], float slope,
-                                            int lane) {
-  constexpr int L = F1Lanes<C>::L, RPW = F1Lanes<C>::RPW;
-  const int cg = lane % L, rr = lane / L;
-  const float4 oa = reinterpret_cast<const float4*>(offc)[2 * cg];
-  const float4 ob = reinterpret_cast<const float4*>(offc)[2 * cg + 1];
-  const float off[8] = {oa.x, oa.y, oa.z, oa.w, ob.x, ob.y, ob.z, ob.w};
-  const __nv_bfloat16* qc = qg + cg * 8;
-  float m[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) m[c] = -INFINITY;
-  for (int j = rr; j < k; j += RPW * kF1Unroll) {
-    uint4 v[kF1Unroll];
-#pragma unroll
-    for (int u = 0; u < kF1Unroll; ++u) {
-      const int jj = j + u * RPW;
-      if (jj < k)
-        v[u] = __ldg(reinterpret_cast<const uint4*>(qc + (size_t)nbr[jj] * C));
-    }
-#pragma unroll
-    for (int u = 0; u < kF1Unroll; ++u) {
-      if (j + u * RPW >= k) break;
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        m[c] = fmaxf(m[c], leaky(bn_z(__fsub_rn(bf_at(v[u], c), off[c]),
-                                      sc[c], bi[c]),
-                                 slope));
-    }
-  }
-#pragma unroll
-  for (int o = L; o < 32; o *= 2)
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      m[c] = fmaxf(m[c], __shfl_xor_sync(0xffffffffu, m[c], o));
-  if (rr == 0) {
-    float4* o = reinterpret_cast<float4*>(outc + cg * 8);
-    o[0] = make_float4(m[0], m[1], m[2], m[3]);
-    o[1] = make_float4(m[4], m[5], m[6], m[7]);
-  }
 }
 
 template <int E, int C>

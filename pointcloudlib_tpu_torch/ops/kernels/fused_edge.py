@@ -171,10 +171,10 @@ _SIGNATURES = {
         "edge_knn_f1_smem": ([ctypes.c_int] * 3, ctypes.c_longlong),
     },
     "edge_eval": {
-        "edge_eval_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        "edge_eval_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                              + [ctypes.c_float, ctypes.c_void_p],
                              ctypes.c_int),
-        "edge_eval_smem": ([ctypes.c_int], ctypes.c_longlong),
+        "edge_eval_smem": ([ctypes.c_int] * 3, ctypes.c_longlong),
     },
     "edge_f1": {
         "edge_f1_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -331,10 +331,11 @@ def edge_knn_f1(x, q, off, k: int):
 edge_knn_f1.launches = 0
 
 
-def _given_idx(what: str, q, off, idx, smem: int):
+def _given_idx(what: str, q, off, idx, smem: int, route: str = ""):
     """``(b, m, n, c, k)`` of a given-index EdgeConv kernel's inputs
     (``q`` bfloat16, ``off`` float32, ``idx`` int32); raise on what the
-    kernel does not take."""
+    kernel (on its ``route``, needing ``smem`` bytes a block) does not
+    take."""
     b, n, c = q.shape
     m, k = idx.shape[1:]
     _width_ok(what, c)
@@ -342,8 +343,9 @@ def _given_idx(what: str, q, off, idx, smem: int):
             off=(off, (b, m, c), torch.float32),
             idx=(idx, (b, m, k), torch.int32))
     if smem > _SMEM_LIMIT:
+        on = f" on the {route} route" if route else ""
         raise ValueError(f"{what}: k={k} needs {smem} bytes of shared "
-                         f"memory, above one block's {_SMEM_LIMIT}")
+                         f"memory{on}, above one block's {_SMEM_LIMIT}")
     return b, m, n, c, k
 
 
@@ -351,13 +353,17 @@ def edge_eval(q, off, idx, st, slope: float = 0.2):
     """Eval-mode EdgeConv from a given index → ``out [B, M, C]`` float32,
     as :func:`edge_eval_plain`. ``q [B, N, C]`` bfloat16, ``off [B, M,
     C]`` float32, ``idx [B, M, k]`` int32 with every entry in ``[0, N)``,
-    ``st [4, C]`` the folded BN rows. The kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    ``st [4, C]`` the folded BN rows. The kernel for CUDA tensors on the
+    route :func:`edge_eval_route` picks, the plain version for CPU
+    tensors."""
     if not _on_card("edge_eval", q):
         return edge_eval_plain(q, off, idx, st, slope)
     lib = _lib("edge_eval")
-    b, m, n, c, k = _given_idx("edge_eval", q, off, idx,
-                               lib.edge_eval_smem(idx.shape[-1]))
+    route = edge_eval_route(q.shape[-1])
+    b, m, n, c, k = _given_idx(
+        "edge_eval", q, off, idx,
+        lib.edge_eval_smem(q.shape[-1], idx.shape[-1], route),
+        EDGE_EVAL_ROUTES[route])
     _expect("edge_eval", q.device, st=(st, (4, c), torch.float32))
     dev = q.device
     out = torch.empty((b, m, c), dtype=torch.float32, device=dev)
@@ -365,13 +371,32 @@ def edge_eval(q, off, idx, st, slope: float = 0.2):
     with torch.cuda.device(dev):
         err = lib.edge_eval_launch(
             q.data_ptr(), idx.data_ptr(), off.data_ptr(), st.data_ptr(),
-            out.data_ptr(), b, m, n, c, k, slope, _stream(dev))
+            out.data_ptr(), b, m, n, c, k, route, slope, _stream(dev))
     _build.check(err, "edge_eval")
     edge_eval.launches += 1
     return out
 
 
 edge_eval.launches = 0
+
+
+# the routes of edge_eval (csrc/edge_eval.cu): the block pass of the first
+# version, and a warp a center with the extreme of the rows taken first
+# at the widths it is compiled for
+EDGE_EVAL_ROUTES = {0: "rows", 1: "center"}
+EDGE_EVAL_CENTER_WIDTHS = (64, 128, 256)
+
+
+def edge_eval_route_fits(route: int, c: int) -> bool:
+    """Whether ``edge_eval``'s route takes width ``c``."""
+    return route == 0 or c in EDGE_EVAL_CENTER_WIDTHS
+
+
+def edge_eval_route(c: int) -> int:
+    """``edge_eval``'s route at width ``c``: center where it is compiled,
+    else rows. Distinct from ``knn.edge_eval_route``, which routes the
+    eval kernels with the kNN inside."""
+    return 1 if edge_eval_route_fits(1, c) else 0
 
 
 # the routes of edge_f1 (csrc/edge_f1.cu): the block pass of the first
@@ -402,7 +427,7 @@ def edge_f1(q, off, idx):
     lib = _lib("edge_f1")
     route = edge_f1_route(q.shape[-1])
     b, m, n, c, k = _given_idx("edge_f1", q, off, idx, lib.edge_f1_smem(
-        q.shape[-1], idx.shape[-1], route))
+        q.shape[-1], idx.shape[-1], route), EDGE_F1_ROUTES[route])
     dev = q.device
     h = torch.empty((b, m, k, c), dtype=torch.bfloat16, device=dev)
     psum = torch.zeros((2, c), dtype=torch.float32, device=dev)

@@ -3026,6 +3026,215 @@ def run_bq(parent: Optional[Path]) -> None:
             "ms_identical": rec}), flush=True)
 
 
+
+# The eval-mode EdgeConv from a given index (csrc/edge_eval.cu) at its six
+# launches of the served paths on the kNN route. The parent's split
+# (--parent; a part's output is wrong by design): staging_only (load_nbr
+# and its barrier, no rows), gathers_only (the max of the raw Q values,
+# no BN, no LeakyReLU, no Off) and no_stores (the gathers and the
+# arithmetic, out stored only behind a test no value passes).
+EEV_ROWS = ("  edge_eval_rows(nbr, q + (size_t)b * n * c, off + mb, st, "
+            "out + mb, c, k,\n                 slope, q0, nq);\n")
+EEV_MAX0 = ("      m0 = fmaxf(m0, leaky(bn_z(__fsub_rn(bf_lo(w), o0), sc0, "
+            "bi0), slope));\n")
+EEV_MAX1 = ("      m1 = fmaxf(m1, leaky(bn_z(__fsub_rn(bf_hi(w), o1), sc1, "
+            "bi1), slope));\n")
+EEV_STORE = ("    *reinterpret_cast<float2*>(out + row * c + cc) = "
+             "make_float2(m0, m1);\n")
+PARENT_EEV_SPLIT = {
+    "staging_only": ([(EEV_ROWS, "  if (threadIdx.x == 0) out[mb] = "
+                       "(float)nbr[(k - 1) * kKnnQ + nq - 1];\n")], ()),
+    "gathers_only": ((), [(EEV_MAX0, "      m0 = fmaxf(m0, bf_lo(w));\n"),
+                          (EEV_MAX1, "      m1 = fmaxf(m1, bf_hi(w));\n")]),
+    "no_stores": ((), [(EEV_STORE, "    if (__float_as_uint(m0) == "
+                        "0x7fc00001u)\n  " + EEV_STORE)]),
+}
+# This tree's variants of the center route, edits of edge_eval.cu and of
+# edge_eval.cuh: the reduction in the plain order (eval_center, the eval
+# half of edge_knn_eval's select route: every slot's leaky(BN(.)), then
+# the max, a warp a center), the lanes a center (a warp, or 16: two
+# centers a warp at C = 64), the gathers in flight a lane (kEvUnroll 2,
+# 6, 8), the launch bounds' blocks an SM (2, 3, 5), out by streaming
+# stores, and the split idx_only (the walk and the idx rows alone, no
+# gathers).
+EEV_UNROLL = "constexpr int kEvUnroll = 4;"
+EEV_MIN_BLOCKS = "constexpr int kEvMinBlocks = 4;"
+EEV_LANES = "constexpr int kEvLanes = 8;"
+EEV_CALL = """    eval_center_extreme<C, kEvUnroll, W>(
+        q + (center / m) * n * C, off + center * C,
+        c0 + grp < centers ? out + center * C : nullptr, nbr, k, stc, flip,
+        slope, gl);
+"""
+EEV_PLAIN = """    float sc[8], bi[8];
+    for (int c = 0; c < 8; ++c) {
+      sc[c] = stc[c];
+      bi[c] = stc[C + c];
+    }
+    eval_center<C, kEvUnroll>(q + (center / m) * n * C, off + center * C,
+                              out + center * C, nbr, k, sc, bi, slope, gl);
+"""
+EEV_STORES = """  o[0] = make_float4(r[0], r[1], r[2], r[3]);
+  o[1] = make_float4(r[4], r[5], r[6], r[7]);
+}"""
+EEV_VARIANTS = {
+    "plain_order": ([(EEV_LANES, EEV_LANES.replace("8", "32")),
+                     (EEV_CALL, EEV_PLAIN)], ()),
+    "lanes32": ([(EEV_LANES, EEV_LANES.replace("8", "32"))], ()),
+    "lanes16": ([(EEV_LANES, EEV_LANES.replace("8", "16"))], ()),
+    "unroll2": ([(EEV_UNROLL, EEV_UNROLL.replace("4", "2"))], ()),
+    "unroll6": ([(EEV_UNROLL, EEV_UNROLL.replace("4", "6"))], ()),
+    "unroll8": ([(EEV_UNROLL, EEV_UNROLL.replace("4", "8"))], ()),
+    "min2": ([(EEV_MIN_BLOCKS, EEV_MIN_BLOCKS.replace("4", "2"))], ()),
+    "min3": ([(EEV_MIN_BLOCKS, EEV_MIN_BLOCKS.replace("4", "3"))], ()),
+    "min5": ([(EEV_MIN_BLOCKS, EEV_MIN_BLOCKS.replace("4", "5"))], ()),
+    "streaming_stores": ((), [(EEV_STORES, """  __stcs(o, make_float4(r[0], r[1], r[2], r[3]));
+  __stcs(o + 1, make_float4(r[4], r[5], r[6], r[7]));
+}""")]),
+    "idx_only": ([(EEV_CALL, "    if (c0 + grp < centers && gl == 0) "
+                   "out[center * C] = (float)nbr[k - 1];\n")], ()),
+}
+EEV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+
+
+def edgeevalidx_cases():
+    """``(case, q, off, idx, st)``: ``edge_eval``'s inputs at its six
+    launches of the served paths, from the models' own eval chains on
+    the kNN route with seeded weights (running statistics): DGCNN's four
+    EdgeConvs at 32 clouds of 10,000 points (k=20) and DGCNN part
+    segmentation's EC3 at 16 clouds of 1,000 and of 5,000 points
+    (k=40)."""
+    from pointcloudlib_tpu_torch.ops.kernels.fused_sa import _stack_stats
+
+    def ev(f, x):
+        q, off = f.prepare(x)
+        st = _stack_stats(f.mean, f.var, f.bn_scale, f.bn_bias)
+        return q.bfloat16(), off, kknn.knn(x, x, f.k)[1], st
+
+    x = torch.from_numpy(SyntheticModelNet(
+        n_points=10000, size=32, seed=0).batch(0, 32)[0]).to(DEV)
+    model = _seeded("dgcnn")
+    with torch.no_grad():
+        for i, ec in enumerate(model.edge):
+            yield f"DGCNN EC{i + 1} N=10000", *ev(ec.fused, x)
+            x = ec(x)
+    del model, x
+    model = _seeded("dgcnn_partseg")
+    for n in (1000, 5000):
+        x = torch.from_numpy(SyntheticShapeNetPart(
+            n_points=n, size=16, seed=0).batch(0, 16)[0]).to(DEV)
+        with torch.no_grad():
+            x = model.edge2(model.edge1(x))
+            yield f"DGCNN-seg EC3 N={n}", *ev(model.edge3, x)
+
+
+def _sass_of(lib: Path, pattern: str) -> Dict[str, str]:
+    """``{function: instructions}`` of the kernels in ``lib`` whose names
+    match ``pattern``, from ``cuobjdump -sass`` with the addresses and
+    encodings left out."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    out: Dict[str, List[str]] = {}
+    fn = None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            fn = fn if re.search(pattern, fn) else None
+            if fn:
+                out[fn] = []
+        elif fn:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", ln)
+            if m:
+                out[fn].append(m.group(1))
+    return {f: "\n".join(v) for f, v in out.items()}
+
+
+def run_edgeevalidx(parent: Optional[Path]) -> None:
+    """This tree's ``edge_eval`` on every route that takes the shapes, its
+    variants, and the parent's kernel (built twice) and split, at each
+    launch of :func:`edgeevalidx_cases`: device ms by CUDA graphs with the
+    wrapper's output left out, out bit-identical (``torch.equal``) to the
+    plain version, with the bytes bound and the L2 gather volume
+    (B·M·k·C·2 bytes). With ``--parent``, first whether this tree's
+    ``edge_knn_eval.cu`` compiles its select route to the parent's code
+    (``cuobjdump -sass``)."""
+    from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
+
+    src = (_build.CSRC / "edge_eval.cu").read_text()
+    sources = {"eev_built": (src, _build.CSRC)}
+    for name, (edits, head) in EEV_VARIANTS.items():
+        sources[f"eev_{name}"] = (_with_header(
+            _build.CSRC, "edge_eval.cu", "edge_eval.cuh", edits, head),
+            _build.CSRC)
+    if parent:
+        text = (parent / "edge_eval.cu").read_text()
+        sources["eev_parent"] = (text, parent)
+        sources["eev_parent_again"] = (text, parent)
+        for name, (edits, head) in PARENT_EEV_SPLIT.items():
+            sources[f"eev_parent_{name}"] = (_with_header(
+                parent, "edge_eval.cu", "edge_knn.cuh", edits, head), parent)
+        sources["knn_eval_parent"] = (
+            (parent / "edge_knn_eval.cu").read_text(), parent)
+        sources["knn_eval_built"] = (
+            (_build.CSRC / "edge_knn_eval.cu").read_text(), _build.CSRC)
+    libs = build(sources)
+    if parent:
+        del libs["knn_eval_parent"], libs["knn_eval_built"]
+        old, new = (_sass_of(OUT / f"knn_eval_{w}.so", "select_kernel")
+                    for w in ("parent", "built"))
+        print(json.dumps({
+            "edge_knn_eval_select_sass": {
+                f: {"instructions": len(old[f].splitlines()),
+                    "same_as_parent": new.get(f) == old[f]}
+                for f in sorted(old)}}), flush=True)
+    routed = {name for name, (text, _) in sources.items()
+              if "int route" in text}
+    for name, lib in libs.items():
+        lib.edge_eval_launch.argtypes = EEV_ARGS + (
+            [ctypes.c_int] if name in routed else []) + [
+            ctypes.c_float, ctypes.c_void_p]
+        lib.edge_eval_launch.restype = ctypes.c_int
+    for case, q, off, idx, st in edgeevalidx_cases():
+        b, m, k = idx.shape
+        n, c = q.shape[1:]
+        want = torch.cat([kfe.edge_eval_plain(q[s:s + 8], off[s:s + 8],
+                                              idx[s:s + 8], st)
+                          for s in range(0, b, 8)])
+        out = torch.empty_like(want)
+        runs = []
+        for name, lib in libs.items():
+            routes = (None,)
+            if name in routed:  # the variants: the center route only
+                routes = [r for r in kfe.EDGE_EVAL_ROUTES
+                          if kfe.edge_eval_route_fits(r, c)
+                          and (r == 1 or name == "eev_built")]
+            runs += [(name[4:] + ("" if r is None else
+                                  f" {kfe.EDGE_EVAL_ROUTES[r]}"), lib, r)
+                     for r in routes]
+        rec: Dict[str, list] = {}
+        for label, lib, route in runs:
+            def call(lib=lib, route=route):
+                extra = () if route is None else (route,)
+                return lib.edge_eval_launch(
+                    _ptr(q), _ptr(idx), _ptr(off), _ptr(st), _ptr(out),
+                    b, m, n, c, k, *extra, 0.2, _stream())
+
+            out.fill_(float("nan"))
+            if call() != 0:
+                raise RuntimeError(f"{label} {case}: launch error")
+            torch.cuda.synchronize()
+            rec[label] = [round(graph_ms(call, 10), 4),
+                          bool(torch.equal(out, want))]
+        print(json.dumps({
+            "edge_eval": case, "B": b, "M": m, "N": n, "k": k, "C": c,
+            "bytes_bound_ms": 1e3 * (2.0 * b * n * c + 8.0 * b * m * c
+                                     + 4.0 * b * m * k + 16.0 * c)
+            / 3.35e12,
+            "l2_gather_GB": 2.0 * b * m * k * c / 1e9,
+            "ms_identical": rec}), flush=True)
+        del out, want
+        torch.cuda.empty_cache()
+
 def run_read() -> None:
     lib = build({"read": (READ, _build.CSRC)})["read"]
     x = torch.empty(2 ** 27, dtype=torch.bfloat16, device=DEV).normal_()
@@ -3070,7 +3279,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                     choices=["fps", "tail", "f1", "rows", "knn", "edge2p1",
                              "edgef1", "edge2p2", "edgeeval", "tail2",
                              "edgebwd", "edge2eval", "interp", "edgef1idx",
-                             "kg", "bq", "read", "cluster"])
+                             "edgeevalidx", "kg", "bq", "read",
+                             "cluster"])
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3107,6 +3317,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         run_interp(args.parent)
     if "edgef1idx" in args.only:
         run_edgef1idx(args.parent)
+    if "edgeevalidx" in args.only:
+        run_edgeevalidx(args.parent)
     if "kg" in args.only:
         run_kg(args.parent)
     if "bq" in args.only:

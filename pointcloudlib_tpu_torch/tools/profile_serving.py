@@ -82,7 +82,7 @@ STAGES = (
     (r"edge_knn_f1_kernel|edge_knn_f1_select_kernel", "edge_knn_f1 kernel"),
     (r"edge_out_kernel", "edge_out kernel"),
     (r"edge_bwd_kernel", "edge_bwd kernel"),
-    (r"edge_eval_kernel", "edge_eval kernel"),
+    (r"edge_eval_kernel|edge_eval_center_kernel", "edge_eval kernel"),
     (r"edge_f1_kernel|edge_f1_center_kernel", "edge_f1 kernel"),
     # |p|^2 before the select route of knn and of the EdgeConv kernels
     # with the kNN inside

@@ -887,6 +887,12 @@ F1_SHAPES = {
     "f1_k_over_n": (2, 30, 40, 16, 64),
     "f1_c4": (2, 256, 20, 3, 4),
 }
+# the eval kernel from a given index only: BN scales of both signs and
+# zero, and a list length that is not a multiple of 4
+EVAL_IDX_SHAPES = {
+    "eval_signed_scales": (4, 1000, 20, 64, 128),
+    "eval_k33": (2, 500, 33, 64, 64),
+}
 # the served launches of the eval kernel with the kNN inside at their
 # batch sizes: DGCNN's EC2 and EC4 (B=32, N=1024), part seg's EC3
 EVAL_SERVE_SHAPES = {
@@ -918,12 +924,13 @@ def _edge_inputs(card, name, seed=0):
     """``x``, ``q`` (bf16), ``off``, the folded BN rows of random running
     statistics and an output gradient; the duplicates cases repeat the
     first half of each cloud (exact kNN ties at d² = 0, exact max-pool
-    ties), the translated case moves the clouds by 1e3 and the all-equal
-    case makes every point of a cloud its first."""
+    ties), the translated case moves the clouds by 1e3, the all-equal
+    case makes every point of a cloud its first and the signed-scales
+    case makes every third BN scale negative and every seventh 0."""
     from pointcloudlib_tpu_torch.ops.kernels import fused_edge as kfe
 
     b, n, k, cin, c = {**EDGE_SHAPES, **F1_SHAPES, **EVAL_SERVE_SHAPES,
-                       **BWD_SHAPES}[name]
+                       **BWD_SHAPES, **EVAL_IDX_SHAPES}[name]
     rng = np.random.default_rng(seed + n + cin + c)
 
     def t(*shape, scale=1.0):
@@ -942,6 +949,9 @@ def _edge_inputs(card, name, seed=0):
     off = x.bfloat16().float() @ (wa - wb).bfloat16().float()
     st = kfs._stack_stats(t(c, scale=0.1), t(c).abs() + 0.5,
                           t(c, scale=0.2) + 1.0, t(c, scale=0.1))
+    if "signed_scales" in name:
+        st[0, ::3] = -st[0, ::3]
+        st[0, ::7] = 0.0
     return kfe, dict(x=x, q=q, off=off, st=st, k=k, dout=t(b, n, c))
 
 
@@ -1336,9 +1346,9 @@ def test_knn_rejects_what_it_cannot_run(card):
 @pytest.mark.parametrize("name", sorted({**EDGE_SHAPES, **F1_SHAPES}))
 def test_edge_f1_eval_out_match_plain(card, name):
     """The EdgeConv kernels that take a given index (the kNN's): pass 1's
-    bf16 h bit-identical and Σ/Σ² within 1e-3 of the largest; eval and
-    pass 2 within 1e-5 of the largest plain element; where k ≤ N, the
-    kernel with the kNN inside gives the same eval output."""
+    bf16 h bit-identical and Σ/Σ² within 1e-3 of the largest; eval
+    bit-identical (``torch.equal``); where k ≤ N, the kernel with the kNN
+    inside gives the same eval output."""
     kfe, a = _edge_inputs(card, name, seed=3)
     from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
 
@@ -1353,8 +1363,7 @@ def test_edge_f1_eval_out_match_plain(card, name):
     assert torch.equal(h.view(torch.int16), wh.view(torch.int16))
     _close_sums(psum, wpsum, "psum")
     want = kfe.edge_eval_plain(a["q"], a["off"], idx, a["st"])
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, want)
     if a["k"] <= a["x"].shape[1]:
         # the kNN-inside kernels give the same from the same neighbours
         torch.testing.assert_close(got, kfe.edge_knn_eval(
@@ -1386,16 +1395,63 @@ def test_edge_f1_every_route_bit_identical(card, name, monkeypatch):
         _close_sums(psum, wpsum, f"psum, route {route}")
 
 
-def test_given_index_edge_kernels_reject_what_they_cannot_run(card):
+@pytest.mark.parametrize("name", ["ec1", "ec3", "ec4", "n65", "seg_pair2",
+                                  "f1_c256_k40", "f1_k_over_n", "k8_n128",
+                                  "eval_signed_scales", "eval_k33"])
+def test_edge_eval_every_route_bit_identical(card, name, monkeypatch):
+    """``edge_eval`` on each route that takes the width (rows everywhere,
+    center at C = 64, 128 and 256), forced by replacing
+    ``edge_eval_route``: out ``torch.equal`` to the plain version, one
+    launch a call. The cases: DGCNN's widths, N one past a 64-row block,
+    k = 40 at C = 64 and 256, k > N (the kNN repeats its last index in a
+    row), C = 32 (rows only), BN scales of both signs and 0, k = 33."""
+    kfe, a = _edge_inputs(card, name, seed=5)
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    idx = kknn.knn(a["x"], a["x"], a["k"])[1]
+    args = (a["q"], a["off"], idx, a["st"])
+    want = kfe.edge_eval_plain(*args)
+    c = a["q"].shape[-1]
+    routes = [r for r in kfe.EDGE_EVAL_ROUTES
+              if kfe.edge_eval_route_fits(r, c)]
+    assert routes == ([0] if c == 32 else [0, 1])
+    for route in routes:
+        monkeypatch.setattr(kfe, "edge_eval_route", lambda c, r=route: r)
+        before = kfe.edge_eval.launches
+        got = kfe.edge_eval(*args)
+        torch.cuda.synchronize()
+        assert kfe.edge_eval.launches == before + 1
+        assert torch.equal(got, want), kfe.EDGE_EVAL_ROUTES[route]
+
+
+def test_given_index_edge_kernels_reject_what_they_cannot_run(card,
+                                                              monkeypatch):
+    """Widths and index types the kernels do not take raise; ``edge_eval``
+    raises one past each route's own shared-memory limit, naming the
+    route, and runs at the limit."""
+    from pointcloudlib_tpu_torch.ops.kernels.fused_sa import _SMEM_LIMIT
+
     kfe, a = _edge_inputs(card, "k8_n128")
     idx = torch.zeros((2, 128, 8), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="width C=6"):
         kfe.edge_f1(a["q"][..., :6], a["off"][..., :6], idx)
     with pytest.raises(ValueError, match="int32"):
         kfe.edge_eval(a["q"], a["off"], idx.long(), a["st"])
-    with pytest.raises(ValueError, match="shared memory"):
-        kfe.edge_eval(a["q"], a["off"], torch.zeros(
-            (2, 128, 1000), dtype=torch.int32, device=card), a["st"])
+    kfe, a = _edge_inputs(card, "n65")  # C = 64: both routes take it
+    q, off = a["q"][:1, :16], a["off"][:1, :16]
+    smem = kfe._lib("edge_eval").edge_eval_smem
+    for route, name in kfe.EDGE_EVAL_ROUTES.items():
+        monkeypatch.setattr(kfe, "edge_eval_route", lambda c, r=route: r)
+        limit = max(k for k in range(1, 10000)
+                    if smem(64, k, route) <= _SMEM_LIMIT)
+        idx = torch.randint(0, 16, (1, 16, limit + 1), dtype=torch.int32,
+                            device=card)
+        with pytest.raises(ValueError, match=f"shared memory on the {name} "
+                                             f"route"):
+            kfe.edge_eval(q, off, idx, a["st"])
+        idx = idx[..., :limit].contiguous()
+        assert torch.equal(kfe.edge_eval(q, off, idx, a["st"]),
+                           kfe.edge_eval_plain(q, off, idx, a["st"])), name
 
 
 @pytest.mark.parametrize("n", [100, 1000])

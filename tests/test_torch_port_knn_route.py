@@ -244,6 +244,60 @@ def test_edge_eval_plain_matches_pallas():
                                atol=1e-5)
 
 
+
+@pytest.mark.parametrize("c,want", [(64, "center"), (128, "center"),
+                                    (256, "center"), (4, "rows"),
+                                    (32, "rows"), (512, "rows")])
+def test_edge_eval_route(c, want):
+    """``edge_eval``'s route, a function of the width alone: the center
+    route at DGCNN's widths, where it is compiled, the rows route at
+    every other; the rows route fits every width."""
+    assert kfe.EDGE_EVAL_ROUTES[kfe.edge_eval_route(c)] == want
+    assert kfe.edge_eval_route_fits(0, c)
+    assert kfe.edge_eval_route_fits(1, c) == (want == "center")
+
+
+def _extreme_first(q, off, idx, st, slope):
+    """The center route's order (``csrc/edge_eval.cuh``
+    ``eval_center_extreme``): per channel the max of the gathered bf16 Q
+    rows where the BN scale is not negative, the min where it is, then
+    the subtraction, BN and LeakyReLU once a center."""
+    rows = ops.geometry.index_points(q.float(), idx)  # bf16 values, exact
+    ext = torch.where(st[0] < 0, rows.amin(dim=2), rows.amax(dim=2))
+    return kfe._leaky(kfe._z(ext - off, st), slope)
+
+
+@pytest.mark.parametrize("k", [7, 40])
+@pytest.mark.parametrize("ties", [False, True])
+def test_edge_eval_extreme_first_equals_plain(k, ties):
+    """The extreme of the rows taken first, then BN and LeakyReLU (each
+    rounded step is monotone in the gathered value, so the max of g over
+    the rows is g of the max, or of the min where the scale is negative):
+    ``torch.equal`` to ``edge_eval_plain`` (which counts -0 and +0 as
+    equal) with positive, negative and zero BN scales, repeated
+    neighbours in a row and Q values that tie."""
+    rng = np.random.default_rng(100 + k + ties)
+    b, m, n, c = 2, 60, 50, 32
+    q = rng.standard_normal((b, n, c)).astype(np.float32)
+    if ties:  # few distinct values: ties across rows, and rows equal to off
+        q = np.round(q * 2) / 2
+    off = rng.standard_normal((b, m, c)).astype(np.float32)
+    if ties:
+        off = np.round(off * 2) / 2
+    idx = rng.integers(0, n, (b, m, k)).astype(np.int32)
+    idx[:, :, 1::3] = idx[:, :, :1]  # slot 0 repeated in the row
+    sc = rng.standard_normal(c).astype(np.float32)
+    sc[::5] = 0.0
+    sc[1::5] = -np.abs(sc[1::5])
+    st = np.stack([sc, rng.standard_normal(c).astype(np.float32) * 0.1,
+                   np.ones(c, np.float32), np.zeros(c, np.float32)])
+    if ties:
+        st[1, ::2] = 0.0  # bias 0: results of 0 from both signs of zero
+    args = (_t(q).bfloat16(), _t(off), _t(idx), _t(st), SLOPE)
+    want = kfe.edge_eval_plain(*args)
+    assert (st[0] < 0).any() and (st[0] == 0).any() and (st[0] > 0).any()
+    assert torch.equal(_extreme_first(*args), want)
+
 def test_train_vjp_matches_jax():
     """``FusedEdgeTrain`` (plain ``edge_f1``, ``edge_out``, ``edge_bwd``
     and the dq/doff assembly) against ``jax.vjp`` of ``fused_edge_conv``
