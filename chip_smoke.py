@@ -221,7 +221,32 @@ once:
    ``knn``, 2 of the fused kNN + gather, 3 of the row gather, 4 of the
    3-NN interpolation; 2 clouds against the CPU) and
    ``make_seg_train_step`` at B=16, lr 0.01, as in phase 10 (per step
-   those and 9 scatter-adds).
+   those and 9 scatter-adds);
+25. PointCNN kernels — the fused kNN + gather at its twelve launches
+   (classification at B=32, N=1024, xyz only: (M, N, k, stride) (1024,
+   1024, 8, 1), (384, 1024, 12, 2), (128, 384, 16, 2), (128, 128, 16, 3);
+   part segmentation at B=16, N=2048: four encoders and four decoders),
+   FPS at its five (1024→384→128; 2048→768→384→128) and the scatter-add
+   at the twelve of the backward, their arguments recorded from the
+   models' eval forward and train-mode backward with seeded weights,
+   against their plain versions as in phase 21 (idx and values
+   bit-identical, each record naming the route the wrapper took), device
+   times from CUDA graphs beside the library's yardsticks;
+26. PointNet — ``Predictor(batch_size=64)`` on 256 clouds at N=1024,
+   ``make_cls_train_step`` at B=64 (lr 0.1 flat, ``bench.py:168``),
+   ``SegPredictor(batch_size=16)`` on 64 clouds at N=2048 and
+   ``make_seg_train_step`` at B=16 (lr 0.01), as in phases 6, 7, 9 and 10:
+   no kernel launches at all (dense layers, BatchNorm and max), card
+   against CPU, the gradient check;
+27. PointCNN classification — ``Predictor(batch_size=32)`` (xyz only) and
+   ``make_cls_train_step`` at B=32 (lr 0.1 flat): per served batch exactly
+   2 launches of FPS and 4 of the fused kNN + gather, per step those and
+   4 of the scatter-add;
+28. PointCNN part segmentation — ``SegPredictor(batch_size=16)`` and
+   ``make_seg_train_step`` at B=16 (lr 0.01): per served batch exactly 3
+   launches of FPS and 8 of the fused kNN + gather, per step those and 8
+   of the scatter-add; card against CPU on 2 clouds, the gradient check
+   on 8.
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
 entry per TPU kernel replaced (thirty-one; the three forward tails
@@ -250,8 +275,8 @@ paths, and ``edge2_eval`` at both pairs on part segmentation's kNN
 route), ``interp_times`` (the 3-NN interpolation at its six launches
 and ``edge_f1`` at its seven, with the lane group or route, bound and
 the instance's registers) and ``neighbor_times`` (the fused kNN + gather
-and the ball query at their three launches each, with the route, bound
-and the pairs the ball query's cull route tests).
+at its fifteen launches and the ball query at its three, with the route,
+bound and the pairs the ball query's cull route tests).
 """
 
 from __future__ import annotations
@@ -271,7 +296,12 @@ from pointcloudlib_tpu_torch.data.synthetic import (
 )
 from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
 from pointcloudlib_tpu_torch.models import get_cls_model
-from pointcloudlib_tpu_torch.models.dgcnn import Fused2EdgeConv
+from pointcloudlib_tpu_torch.models.dgcnn import DGCNNPartSeg, Fused2EdgeConv
+from pointcloudlib_tpu_torch.models.pointnet2 import (
+    PointNet2MSG,
+    PointNet2PartSeg,
+    PointNet2SSG,
+)
 from pointcloudlib_tpu_torch.ops import geometry, spatial
 from pointcloudlib_tpu_torch.ops.kernels import _build
 from pointcloudlib_tpu_torch.ops.kernels import ball_query as kbq
@@ -290,6 +320,7 @@ from pointcloudlib_tpu_torch.tools.grad_check import (
     NORMALS,
     SEG,
     build_model,
+    cancelled_by_structure,
     grad_agreement,
     synthetic_batch,
 )
@@ -336,6 +367,9 @@ DSEG_ODD_TRAIN, DSEG_ODD_BATCH = 1000, 4    # the kNN route in training
 SLOPE = 0.2                        # LeakyReLU of the DGCNN models
 PC_BATCH, PC_LR = 32, 0.1          # bench.py:344-345 (normals), bench.py:168
 PC_SEG = "pointconv_partseg"       # grad_check's name; B=16, N=2048, lr 0.01
+PN_BATCH, PCNN_BATCH = 64, 32      # bench.py:334-335, 342-343 (xyz only)
+CLS_LR = 0.1                       # bench.py:168, PointNet and PointCNN
+PN_SEG, PCNN_SEG = "pointnet_partseg", "pointcnn_partseg"  # grad_check's
 # The CUDA-core sa_bwd_p1 / sa_bwd_p2 that the tensor-core kernels
 # replaced, at this script's train cases: device ms a call by graph_ms on
 # an NVIDIA H100 80GB HBM3 at 700 W, from bwd_times() run on the checkout
@@ -366,6 +400,7 @@ CUDA_CORE_EVAL_MS = {
                       "SSG4096 SA1": (1.117, 1.118)},
 }
 PC_CHECK = 2                       # PointConv part-seg clouds on the CPU too
+SEG_CHECK = 2                      # PointNet / PointCNN part-seg clouds, too
 CSRC = "pointcloudlib_tpu_torch/csrc/"
 SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
            "three_interp", "scatter_rows", "knn", "gather_rows",
@@ -676,6 +711,14 @@ PC_STEP = {**PC_SERVE, "scatter_rows": 2}
 PCSEG_SERVE = {"fps": 4, "knn": 6, "knn_gather": 2, "gather_neighbors": 3,
                "three_interp": 4}
 PCSEG_STEP = {**PCSEG_SERVE, "scatter_rows": 9}
+# PointNet: dense layers, BatchNorm and max only. PointCNN: FPS where a
+# layer keeps fewer points, every layer's dilated kNN and gather of [xyz ‖
+# features] by the fused kNN + gather, its backward the scatter-add
+PN_SERVE = PN_STEP = {}
+PCNN_SERVE = {"fps": 2, "knn_gather": 4}
+PCNN_STEP = {**PCNN_SERVE, "scatter_rows": 4}
+PCNNSEG_SERVE = {"fps": 3, "knn_gather": 8}
+PCNNSEG_STEP = {**PCNNSEG_SERVE, "scatter_rows": 8}
 
 
 def _zero_counts() -> None:
@@ -1249,11 +1292,12 @@ def phase_train(name, variables, power, batch_size, per_step,
         name, batch_size, 5, n_points).items()}
     model = build_model(name)
     from_jax_variables(model, variables)
+    flat_lr = {"dgcnn": DGCNN_LR, "pointconv": PC_LR, "pointnet": CLS_LR,
+               "pointcnn": CLS_LR}
     if name in SEG:
         lr, make = SEG_LR, make_seg_train_step
-    elif name in ("dgcnn", "pointconv"):
-        lr = DGCNN_LR if name == "dgcnn" else PC_LR
-        make = make_cls_train_step
+    elif name in flat_lr:
+        lr, make = flat_lr[name], make_cls_train_step
     else:  # ModelNet40's training set
         lr, make = reference_flat_lr(0.02, 9840, batch_size), \
             make_cls_train_step
@@ -1281,15 +1325,18 @@ def phase_train(name, variables, power, batch_size, per_step,
     still = [k for k, v in before.items() if v.dtype.is_floating_point
              and torch.equal(v, after[k])]
     # gradients that are exactly 0 (a train-mode BN removes the shift)
-    # may leave a parameter where it was: SA3's last BN bias, the Dense
-    # bias in front of a BatchNorm (a DenseBNAct's: the part-segmentation
-    # head, DGCNN's fc2, PointConv's; a PointConv layer's output Dense)
-    # and DGCNN part segmentation's conv6 BN bias; so may a parameter
-    # whose last update rounds away in every element
+    # may leave a parameter where it was: the structural ones of
+    # grad_check.cancelled_by_structure, PointNet++'s SA3 last BN bias
+    # and DGCNN part segmentation's conv6 BN bias (0 where the pooled
+    # values are positive throughout); so may a parameter whose last
+    # update rounds away in every element
+    cancelled = cancelled_by_structure(model)
+    if isinstance(model, (PointNet2SSG, PointNet2MSG, PointNet2PartSeg)):
+        cancelled.add("sa3.mlp.2.bn.bias")
+    if isinstance(model, DGCNNPartSeg):
+        cancelled.add("conv6.bn.bias")
     params = dict(model.named_parameters())
-    stuck = [k for k in still
-             if k not in ("sa3.mlp.2.bn.bias", "conv6.bn.bias")
-             and not k.endswith("dense.bias")
+    stuck = [k for k in still if k not in cancelled
              and not (k in params and _update_rounds_away(params[k], opt))]
     if stuck:
         moved = _moved_by_a_step(step, batch, gen, model, stuck)
@@ -2405,7 +2452,7 @@ def _record_calls(module, name, calls):
     return orig
 
 
-def _pointconv_calls(model, *inputs):
+def _gather_calls(model, *inputs):
     """``(gathers, knn_gathers)``: the arguments of every row gather and
     fused kNN + gather of one eval forward of ``model`` on ``inputs``."""
     gathers, fused = [], []
@@ -2419,7 +2466,7 @@ def _pointconv_calls(model, *inputs):
     return gathers, fused
 
 
-def _pointconv_path_calls(model, *inputs):
+def _path_calls(model, *inputs):
     """``{kernel: [args]}`` of FPS, the kNN and the 3-NN interpolation in
     one eval forward of ``model``, and of the row scatter-add in one
     train-mode forward and backward (the gathers' gradients)."""
@@ -2452,60 +2499,64 @@ def _pointconv_path_calls(model, *inputs):
     return calls
 
 
-def phase_pointconv_path(cls_model, seg_model, xyz, nrm, seg_xyz):
-    """``{kernel: [records]}`` of FPS, ``knn``, ``three_interp`` and
-    ``scatter_rows`` at the PointConv paths' own shapes (arguments
-    recorded from the models' forward and backward), checked and timed."""
+def phase_path_kernels(paths):
+    """``{kernel: [records]}`` of the kernels at the model paths' own
+    shapes, for each ``(tag, model, inputs, want)`` of ``paths``: the row
+    gather and the fused kNN + gather (idx and values bit-identical, the
+    route the wrapper took named, ``torch.cdist`` + ``torch.topk`` +
+    ``torch.gather`` timed as the yardstick), FPS, ``knn`` and the 3-NN
+    interpolation with their arguments recorded from the model's eval
+    forward, the row scatter-add from its train-mode backward; each
+    against its plain version, timed by CUDA graphs. Fails where a path
+    made other than ``want[kernel]`` calls of a kernel ``want`` names."""
     recs = {}
-    onehot = torch.zeros((seg_xyz.shape[0], 16), device=DEV)
-    for tag, model, inputs in (("pointconv cls", cls_model, (xyz, nrm)),
-                               ("pointconv seg", seg_model,
-                                (seg_xyz, onehot))):
-        calls = _pointconv_path_calls(model, *inputs)
-        for x, m, skip in calls["fps"]:
-            recs.setdefault("fps", []).append(_fps_case(
-                f"{tag} {x.shape[1]}->{m}", x, m, skip, True))
-        for query, points, k in calls["knn"]:
-            recs.setdefault("knn", []).append(_knn_case(
-                f"{tag} M={query.shape[1]} N={points.shape[1]} k={k}",
-                query, points, k, True))
-        for query, points, feats in calls["three_interp"]:
-            recs.setdefault("three_interp", []).append(_three_interp_case(
-                f"{tag} M={query.shape[1]} N={points.shape[1]} "
-                f"C={feats.shape[2]}", query, points, feats, True)[0])
-        for g, idx, n in calls["scatter_rows"]:
-            recs.setdefault("scatter_rows", []).append(_scatter_case(
-                f"{tag} backward rows={idx[0].numel()} n={n} "
-                f"C={g.shape[-1]}", g, idx, n, True))
-    return recs
+    for tag, model, inputs, want in paths:
+        got = dict.fromkeys(want, 0)
 
+        def add(kernel, rec):
+            recs.setdefault(kernel, []).append(rec)
+            got[kernel] = got.get(kernel, 0) + 1
 
-def phase_pointconv_kernels(cls_model, seg_model, xyz, nrm, seg_xyz):
-    """``{kernel: [records]}`` of the two PointConv kernels at the shapes
-    of the main paths, their inputs taken from the models' own forward
-    (classification at B=32, N=1024 with normals; part segmentation at
-    B=16, N=2048), timed; and edge cases, untimed: sentinel indices and a
-    2-D idx, M not a multiple of 8, C = 1 and C = 5 (gather); duplicate
-    points, k·stride = N, stride 2 and N = 4096 (kNN + gather)."""
-    recs = {"gather_neighbors": [], "knn_gather": []}
-    onehot = torch.zeros((seg_xyz.shape[0], 16), device=DEV)
-    for tag, model, inputs in (("cls", cls_model, (xyz, nrm)),
-                               ("seg", seg_model, (seg_xyz, onehot))):
-        gathers, fused = _pointconv_calls(model, *inputs)
+        gathers, fused = _gather_calls(model, *inputs)
         for points, idx in gathers:
-            recs["gather_neighbors"].append(_gather_case(
+            add("gather_neighbors", _gather_case(
                 f"{tag} N={points.shape[1]} C={points.shape[2]}", points,
                 idx, True))
         for query, points, values, k, stride in fused:
-            recs["knn_gather"].append(_knn_gather_case(
+            add("knn_gather", _knn_gather_case(
                 f"{tag} M={query.shape[1]} N={points.shape[1]} "
-                f"Cv={values.shape[2]} k={k}", query, points, values, k,
-                stride, True))
-    got = {k: len(v) for k, v in recs.items()}
-    if got != {"gather_neighbors": 5, "knn_gather": 3}:
-        fail(f"PointConv kernels: the forwards made {got} calls, expected "
-             f"5 row gathers and 3 fused kNN + gathers")
+                f"Cv={values.shape[2]} k={k} stride={stride}", query,
+                points, values, k, stride, True))
+        del gathers, fused
+        calls = _path_calls(model, *inputs)
+        for x, m, skip in calls["fps"]:
+            add("fps", _fps_case(f"{tag} {x.shape[1]}->{m}", x, m, skip,
+                                 True))
+        for query, points, k in calls["knn"]:
+            add("knn", _knn_case(
+                f"{tag} M={query.shape[1]} N={points.shape[1]} k={k}",
+                query, points, k, True))
+        for query, points, feats in calls["three_interp"]:
+            add("three_interp", _three_interp_case(
+                f"{tag} M={query.shape[1]} N={points.shape[1]} "
+                f"C={feats.shape[2]}", query, points, feats, True)[0])
+        for g, idx, n in calls["scatter_rows"]:
+            add("scatter_rows", _scatter_case(
+                f"{tag} backward rows={idx[0].numel()} n={n} "
+                f"C={g.shape[-1]}", g, idx, n, True))
+        del calls
+        torch.cuda.empty_cache()
+        got = {k: got[k] for k in want}
+        if got != want:
+            fail(f"{tag}: the model made {got} calls, expected {want}")
+    return recs
 
+
+def phase_gather_edge_cases():
+    """The row gather and the fused kNN + gather against their plain
+    versions at edge cases, untimed: sentinel indices and a 2-D idx, M
+    not a multiple of 8, C = 1 and C = 5 (gather); duplicate points,
+    k·stride = N, stride 2 and N = 4096 (kNN + gather)."""
     g = torch.Generator(device=DEV).manual_seed(13)
 
     def randn(*shape):
@@ -2532,7 +2583,6 @@ def phase_pointconv_kernels(cls_model, seg_model, xyz, nrm, seg_xyz):
         vals = torch.cat([p, randn(p.shape[0], p.shape[1], cv - 3)], -1)
         _knn_gather_case(case, q.contiguous(), p.contiguous(), vals, k,
                          stride, False)
-    return recs
 
 
 # TPU kernel replaced: (entry name, source, file:line, key of its records
@@ -2810,7 +2860,7 @@ def f1_times() -> None:
 def rows_times() -> None:
     """The row scatter-add and the row gather at every shape of the main
     paths, inputs recorded from the models' own forward and backward
-    (``_pointconv_path_calls``, ``_pointconv_calls``): the scatters of
+    (``_path_calls``, ``_gather_calls``): the scatters of
     PointNet++ part segmentation's (FP2, FP1), PointConv classification's
     and PointConv part segmentation's train steps and the gathers of the
     PointConv forwards; after the device line, one ``kernel scatter_rows``
@@ -2836,12 +2886,12 @@ def rows_times() -> None:
             ("pointconv seg", PC_SEG, (seg_xyz, onehot))):
         model = _model_on_card(name, random_jax_variables(
             build_model(name), seed=0))
-        for g, idx, n in _pointconv_path_calls(model,
+        for g, idx, n in _path_calls(model,
                                                *inputs)["scatter_rows"]:
             _scatter_case(f"{tag} backward rows={idx[0].numel()} n={n} "
                           f"C={g.shape[-1]}", g, idx, n, True)
         if name != PN2_SEG:
-            for points, idx in _pointconv_calls(model, *inputs)[0]:
+            for points, idx in _gather_calls(model, *inputs)[0]:
                 _gather_case(f"{tag} N={points.shape[1]} "
                              f"C={points.shape[2]}", points, idx, True)
         del model
@@ -2878,7 +2928,7 @@ def _knn_path_inputs():
                 (SEG_BATCH, 16), device=DEV)))):
         model = _model_on_card(name, random_jax_variables(
             build_model(name), seed=0))
-        for q, p, k in _pointconv_path_calls(model, *inputs)["knn"]:
+        for q, p, k in _path_calls(model, *inputs)["knn"]:
             yield f"{tag} M={q.shape[1]} N={p.shape[1]} k={k}", q, p, k
         del model
     dseg = _model_on_card(DSEG, random_jax_variables(build_model(DSEG),
@@ -3679,9 +3729,10 @@ def interp_times() -> None:
 
 def _neighbor_calls():
     """``(knn_gathers, ball_queries)``: the arguments of the fused kNN +
-    gather at its three launches of the main paths (the PointConv models'
-    eval forward: classification at B=32, N=1024 with normals, part
-    segmentation at B=16, N=2048) and of the ball query at its three (the
+    gather at its fifteen launches of the main paths (the PointConv and
+    PointCNN models' eval forward: classification at B=32, N=1024, with
+    normals for PointConv, part segmentation at B=16, N=2048) and of the
+    ball query at its three (the
     MSG model's eval forward at B=32, N=1024; SSG's at B=32, N=4096, the
     clouds Hilbert-sorted as the train step and the Predictor sort them),
     seeded weights, the main run's data."""
@@ -3691,12 +3742,14 @@ def _neighbor_calls():
     nrm = torch.from_numpy(normals[:BATCH]).to(DEV)
     seg_xyz = torch.from_numpy(_seg_data(SEG_BATCH)[0]).to(DEV)
     fused = []
+    onehot = torch.zeros((SEG_BATCH, 16), device=DEV)
     for name, inputs in (("pointconv", (xyz[:PC_BATCH], nrm[:PC_BATCH])),
-                         (PC_SEG, (seg_xyz, torch.zeros((SEG_BATCH, 16),
-                                                        device=DEV)))):
+                         (PC_SEG, (seg_xyz, onehot)),
+                         ("pointcnn", (xyz[:PCNN_BATCH],)),
+                         (PCNN_SEG, (seg_xyz, onehot))):
         model = _model_on_card(name, random_jax_variables(build_model(name),
                                                           seed=0))
-        fused += _pointconv_calls(model, *inputs)[1]
+        fused += _gather_calls(model, *inputs)[1]
         del model
     big, big_n, _ = SyntheticModelNet(
         n_points=BIG_POINTS, size=BIG_CLOUDS - BIG_BATCH, seed=0).batch(
@@ -3720,8 +3773,9 @@ def _neighbor_calls():
 
 
 def neighbor_times() -> None:
-    """``knn_gather`` at its three launches of the main paths (PointConv's
-    SA2; PointConv part segmentation's SA2 and SA3) and ``ball_query`` at
+    """``knn_gather`` at its fifteen launches of the main paths
+    (PointConv's SA2; PointConv part segmentation's SA2 and SA3; PointCNN's
+    four layers and its part segmentation's eight) and ``ball_query`` at
     its three (MSG's two k=128 scales; SSG's SA1 at N=4096, sorted), the
     arguments recorded from the models' eval forward (:func:`_neighbor_calls`).
     After the device line, one ``knn_gather:`` or ``ball_query:`` line a
@@ -3761,7 +3815,8 @@ def neighbor_times() -> None:
         del idx, grouped, wgrouped
         route = kkg.ROUTES[kg_route(n, k, stride)] if kg_route else "parent"
         device("knn_gather",
-               {"case": f"M={m} N={n} Cv={cv} k={k}", "B": b, "C": c,
+               {"case": f"M={m} N={n} Cv={cv} k={k} stride={stride}",
+                "B": b, "C": c,
                 "route": route, "bit_identical": True},
                lambda: kkg.knn_gather(q, p, v, k, stride),
                bound(0.0, b * m * n * (2.0 * c + 3.0),
@@ -3800,6 +3855,8 @@ FPS_PATHS = (
     ("SSG4096", "modelnet4096", BIG_BATCH, (512, 128), True),
     ("pointconv", "modelnet", PC_BATCH, (512, 128), False),
     ("pointconv partseg", "shapenet", SEG_BATCH, (1024, 256, 64, 36), False),
+    ("pointcnn", "modelnet", PCNN_BATCH, (384, 128), True),
+    ("pointcnn partseg", "shapenet", SEG_BATCH, (768, 384, 128), True),
 )
 
 
@@ -4021,14 +4078,25 @@ def main() -> None:
     del dg_model
     pc_vars = random_jax_variables(get_cls_model("pointconv"), seed=0)
     pcseg_vars = random_jax_variables(build_model(PC_SEG), seed=0)
-    pc_models = (_model_on_card("pointconv", pc_vars),
-                 _model_on_card(PC_SEG, pcseg_vars))
-    recs.update(phase_pointconv_kernels(*pc_models, xyz[:PC_BATCH],
-                                        nrm[:PC_BATCH], seg_xyz))
-    for kernel, rs in phase_pointconv_path(*pc_models, xyz[:PC_BATCH],
-                                           nrm[:PC_BATCH], seg_xyz).items():
+    pn_vars = random_jax_variables(get_cls_model("pointnet"), seed=0)
+    pnseg_vars = random_jax_variables(build_model(PN_SEG), seed=0)
+    pcnn_vars = random_jax_variables(get_cls_model("pointcnn"), seed=0)
+    pcnnseg_vars = random_jax_variables(build_model(PCNN_SEG), seed=0)
+    onehot = torch.zeros((seg_xyz.shape[0], 16), device=DEV)
+    for kernel, rs in phase_path_kernels((
+            ("pointconv cls", _model_on_card("pointconv", pc_vars),
+             (xyz[:PC_BATCH], nrm[:PC_BATCH]),
+             {"gather_neighbors": 2, "knn_gather": 1}),
+            ("pointconv seg", _model_on_card(PC_SEG, pcseg_vars),
+             (seg_xyz, onehot), {"gather_neighbors": 3, "knn_gather": 2}),
+            ("pointcnn cls", _model_on_card("pointcnn", pcnn_vars),
+             (xyz[:PCNN_BATCH],),
+             {"knn_gather": 4, "fps": 2, "scatter_rows": 4}),
+            ("pointcnn seg", _model_on_card(PCNN_SEG, pcnnseg_vars),
+             (seg_xyz, onehot),
+             {"knn_gather": 8, "fps": 3, "scatter_rows": 8}))).items():
         recs.setdefault(kernel, []).extend(rs)
-    del pc_models
+    phase_gather_edge_cases()
     torch.cuda.empty_cache()
 
     cnt = {"ball_query_cnt": {r["case"].replace(" serving", ""): {
@@ -4087,6 +4155,24 @@ def main() -> None:
         PC_SEG, pcseg_vars, power, PCSEG_SERVE, PC_CHECK)
     paths["pointconv_partseg_train"] = phase_train(
         PC_SEG, pcseg_vars, power, SEG_BATCH, PCSEG_STEP)
+    paths["pointnet_serving"] = phase_serving(
+        "pointnet", pn_vars, (clouds, normals), power, PN_BATCH, PN_SERVE,
+        {})
+    paths["pointnet_train"] = phase_train("pointnet", pn_vars, power,
+                                          PN_BATCH, PN_STEP)
+    paths["pointnet_partseg_serving"] = phase_seg_serving(
+        PN_SEG, pnseg_vars, power, PN_SERVE, SEG_CHECK)
+    paths["pointnet_partseg_train"] = phase_train(
+        PN_SEG, pnseg_vars, power, SEG_BATCH, PN_STEP)
+    paths["pointcnn_serving"] = phase_serving(
+        "pointcnn", pcnn_vars, (clouds, normals), power, PCNN_BATCH,
+        PCNN_SERVE, {})
+    paths["pointcnn_train"] = phase_train("pointcnn", pcnn_vars, power,
+                                          PCNN_BATCH, PCNN_STEP)
+    paths["pointcnn_partseg_serving"] = phase_seg_serving(
+        PCNN_SEG, pcnnseg_vars, power, PCNNSEG_SERVE, SEG_CHECK)
+    paths["pointcnn_partseg_train"] = phase_train(
+        PCNN_SEG, pcnnseg_vars, power, SEG_BATCH, PCNNSEG_STEP)
 
     kernels = []
     for name, source, replaces, key, *counted in KERNELS:

@@ -1,19 +1,22 @@
-"""PointConv's Dense precision on the card: what each choice costs in
-device time, and how far each leaves the train step's gradients from the
-CPU's.
+"""PointConv's and PointNet's Dense precision on the card: what each
+choice costs in device time, and how far each leaves the train step's
+gradients from the CPU's.
 
     python -m pointcloudlib_tpu_torch.tools.dense_precision \
-        [--model pointconv pointconv_partseg] [--seeds 5 6] [--clouds 8]
+        [--model pointconv pointconv_partseg pointnet pointnet_partseg] \
+        [--seeds 5 6] [--clouds 8]
 
 The JAX package's ``DenseBNAct`` takes bf16 operands with f32 sums on its
-accelerator; the port's PointConv takes f32 in every Dense layer
-(``models/pointconv.py``). This tool builds each model at its bench row
-(full width, seeded random weights) and sets the ``dtype`` of its
-``DenseBNAct`` layers to each precision of :data:`PRECISIONS` in turn:
+accelerator; the port's PointConv and PointNet take f32 in every Dense
+layer (``models/pointconv.py``, ``models/pointnet.py``). This tool builds
+each model at its bench row (full width, seeded random weights) and sets
+the ``dtype`` of its ``DenseBNAct`` layers to each precision of
+:data:`PRECISIONS` that it has the layers of, in turn:
 
 * ``bf16``: every layer by the package rule (bf16 operands on the card);
-* ``density_f32``: the DensityNets in f32, the rest bf16;
-* ``density_weight_f32``: the DensityNets and the WeightNets in f32;
+* ``density_f32``: the DensityNets in f32, the rest bf16 (PointConv);
+* ``density_weight_f32``: the DensityNets and the WeightNets in f32
+  (PointConv);
 * ``f32``: every layer in f32 (the model as built).
 
 For each model and precision it prints one JSON line with
@@ -77,6 +80,7 @@ PRECISIONS = {"bf16": (), "density_f32": ("density_net",),
               "density_weight_f32": ("density_net", "weight_net"),
               "f32": None}
 WALL, PROFILED = 10, 5
+MODELS = ("pointconv", "pointconv_partseg", "pointnet", "pointnet_partseg")
 
 
 def set_precision(model: torch.nn.Module, precision: str) -> torch.nn.Module:
@@ -88,6 +92,14 @@ def set_precision(model: torch.nn.Module, precision: str) -> torch.nn.Module:
             m.dtype = (torch.float32 if f32 is None
                        or set(name.split(".")) & set(f32) else None)
     return model
+
+
+def precisions(model: torch.nn.Module) -> List[str]:
+    """The precisions of :data:`PRECISIONS` that ``model`` has the layers
+    of: a mixed one only where it has the sub-nets the precision names."""
+    parts = {part for name, _ in model.named_modules()
+             for part in name.split(".")}
+    return [p for p, f32 in PRECISIONS.items() if not f32 or set(f32) & parts]
 
 
 def _timed(run: Callable[[], None]) -> Dict[str, float]:
@@ -128,7 +140,7 @@ def measure(name: str, seeds: Sequence[int], clouds: int) -> List[dict]:
     from_jax_variables(base, variables)
     n_points = N_POINTS[name]
     recs = {p: {"model": name, "precision": p, "grads": []}
-            for p in PRECISIONS}
+            for p in precisions(base)}
     for seed in seeds:
         batch = synthetic_batch(name, clouds, seed, n_points)
         cpu = model_grads(copy.deepcopy(base), name, batch)
@@ -152,10 +164,10 @@ def measure(name: str, seeds: Sequence[int], clouds: int) -> List[dict]:
     batch = {k: v.to(dev) for k, v in synthetic_batch(
         name, BATCH[name], 5, n_points).items()}
     args = ((batch["xyz"], batch["cls_onehot"]) if name in SEG
-            else (batch["xyz"], batch["feats"]))
+            else (batch["xyz"], batch.get("feats")))
     make = make_seg_train_step if name in SEG else make_cls_train_step
     runs = {}
-    for p in PRECISIONS:
+    for p in recs:
         m = set_precision(copy.deepcopy(model), p).to(dev)
         step = make(m, sgd_momentum(m.parameters(), LR[name]))
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -168,7 +180,7 @@ def measure(name: str, seeds: Sequence[int], clouds: int) -> List[dict]:
                 m(*args)
         return run
 
-    order = list(PRECISIONS)
+    order = list(recs)
     for p in order + order[::-1]:
         m, step, gen = runs[p]
         for tag, t in (("serve", _timed(serve(m))),
@@ -182,7 +194,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", nargs="+",
                     default=["pointconv", "pointconv_partseg"],
-                    choices=["pointconv", "pointconv_partseg"])
+                    choices=MODELS)
     ap.add_argument("--seeds", type=int, nargs="+", default=[5, 6])
     ap.add_argument("--clouds", type=int, default=8)
     args = ap.parse_args(argv)

@@ -2,13 +2,14 @@
 train-mode forward and backward from the same weights, with dropout 0.
 
     python -m pointcloudlib_tpu_torch.tools.grad_check \
-        [--model pointnet2|pointnet2_msg|pointnet2_partseg|dgcnn|
-                 dgcnn_partseg|pointconv|pointconv_partseg] \
+        [--model pointnet|pointnet_partseg|pointnet2|pointnet2_msg|
+                 pointnet2_partseg|dgcnn|dgcnn_partseg|pointconv|
+                 pointconv_partseg|pointcnn|pointcnn_partseg] \
         [--clouds 8 ...] [--seeds 5 ...] [--n-points N] [--jitter REL]
 
 On the card the model runs the hand-written kernels with bf16 dense
-operands (PointConv's DensityNet in f32), on the CPU their plain
-versions with f32 dense layers. The
+operands (PointNet's, PointConv's and PointCNN's Dense layers in f32),
+on the CPU their plain versions with f32 dense layers. The
 bounds are fixed (:data:`LOSS_RTOL`, :data:`GRAD_COS`,
 :data:`GRAD_NORM`): a last-bit difference can move a max-pool's winner and
 reroute that point's gradient, so the gradients agree in direction and
@@ -29,8 +30,13 @@ exact arithmetic and hold rounding residue:
   train-mode BatchNorm removes that shift;
 * the Dense bias of a ``DenseBNAct`` (part segmentation's head, DGCNN's
   ``fc2``, every PointConv ``DensityNet`` and ``WeightNet`` layer and
-  PointConv's head) or of a PointConv layer's output Dense: its own
+  PointConv's head), of a PointConv layer's output Dense or of a PointCNN
+  ``DenseBlock`` whose BatchNorm directly follows its Dense: its own
   train-mode BatchNorm removes the shift;
+* the BN bias of PointNet part segmentation's ``conv5`` (BatchNorm
+  without an activation): it shifts every point's map and the global max
+  of it by the same amount, which the head's first train-mode BatchNorm
+  removes;
 * the BN bias of DGCNN part segmentation's ``conv6`` when every cloud's
   global max of it is positive in the CPU run: the bias then moves every
   max by the same amount, which reaches the decoder as a constant of all
@@ -49,10 +55,12 @@ norm moves by 7.6 % under a 1e-6 weight jitter (part segmentation's
 
 ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py`` call
 :func:`grad_agreement`. ``pointnet2_partseg`` is PointNet++ part
-segmentation with xyz as features, ``dgcnn_partseg`` and
-``pointconv_partseg`` DGCNN and PointConv part segmentation on xyz
-alone, all with plain per-point cross entropy; the classification models
-take the label-smoothed loss (DGCNN ignores the normals it is given). The
+segmentation with xyz as features, ``pointnet_partseg``,
+``dgcnn_partseg``, ``pointconv_partseg`` and ``pointcnn_partseg``
+PointNet, DGCNN, PointConv and PointCNN part segmentation on xyz alone,
+all with plain per-point cross entropy; the classification models take
+the label-smoothed loss, with normals as features where their bench rows
+take them (:data:`NORMALS`), else xyz alone. The
 command line prints one JSON line per seed and cloud count (synthetic
 surface clouds, seeded random weights; N defaults to 1024, 2048 for part
 segmentation) with the worst cosine and norm ratio; it needs a CUDA device unless ``--jitter
@@ -80,11 +88,13 @@ from pointcloudlib_tpu_torch.data.synthetic import (
 )
 from pointcloudlib_tpu_torch.models import get_cls_model, get_seg_model
 from pointcloudlib_tpu_torch.models.dgcnn import DGCNNPartSeg
+from pointcloudlib_tpu_torch.models.pointcnn import DenseBlock
 from pointcloudlib_tpu_torch.models.pointconv import (
     DensityNet,
     PointConvInterp,
     PointConvSA,
 )
+from pointcloudlib_tpu_torch.models.pointnet import PointNetPartSeg
 from pointcloudlib_tpu_torch.models.pointnet2 import N_CATEGORIES
 from pointcloudlib_tpu_torch.nn.layers import DenseBNAct, FusedSetAbstraction
 from pointcloudlib_tpu_torch.train import cross_entropy_seg, soft_cross_entropy
@@ -100,15 +110,21 @@ from pointcloudlib_tpu_torch.utils.interop import (
 # (chip_smoke.py and the card test): cosine ≥ 0.956, norms within 9.1 %.
 # DGCNN at N=1024 (this tool at seeds 5 to 7 on 8 and 16 clouds,
 # chip_smoke.py and the card test): cosine ≥ 0.955, norms within 10.4 %.
+# PointNet (every Dense f32) and PointCNN at seeds 5 and 6 on 8 clouds
+# (N=1024; part segmentation N=2048; an NVIDIA H100 80GB HBM3 at 700 W):
+# cosine ≥ 0.99996 and ≥ 0.9995, norms within 0.18 % and 1.3 %.
 LOSS_RTOL, GRAD_COS = 1e-2, 0.85
-GRAD_NORM = {"pointnet2": 0.15, "pointnet2_msg": 0.25,
+GRAD_NORM = {"pointnet": 0.15, "pointnet_partseg": 0.15,
+             "pointnet2": 0.15, "pointnet2_msg": 0.25,
              "pointnet2_partseg": 0.15, "dgcnn": 0.15,
              "dgcnn_partseg": 0.15, "pointconv": 0.15,
-             "pointconv_partseg": 0.15}
+             "pointconv_partseg": 0.15, "pointcnn": 0.15,
+             "pointcnn_partseg": 0.15}
 FLOOR, CANCELLED_NORM = 1e-6, 1e-3
 # the part-segmentation models by this tool's name -> the seg registry's
-SEG = {"pointnet2_partseg": "pointnet2", "dgcnn_partseg": "dgcnn",
-       "pointconv_partseg": "pointconv"}
+SEG = {"pointnet_partseg": "pointnet", "pointnet2_partseg": "pointnet2",
+       "dgcnn_partseg": "dgcnn", "pointconv_partseg": "pointconv",
+       "pointcnn_partseg": "pointcnn"}
 # the classification models whose bench rows take normals as features
 # (bench.py:333-346)
 NORMALS = ("pointnet2", "pointnet2_msg", "pointconv")
@@ -123,9 +139,10 @@ def build_model(name: str, **kw) -> torch.nn.Module:
 def synthetic_batch(name: str, clouds: int, seed: int, n_points: int
                     ) -> Dict[str, torch.Tensor]:
     """A batch of labelled synthetic clouds for model ``name`` on the
-    CPU: surface clouds with normals and class labels, or for
-    :data:`SEG` ShapeNet-part-shaped clouds, the category one-hot and
-    part labels, with xyz as features for PointNet++."""
+    CPU: surface clouds and class labels, with normals as features for
+    :data:`NORMALS`, or for :data:`SEG` ShapeNet-part-shaped clouds, the
+    category one-hot and part labels, with xyz as features for
+    PointNet++."""
     if name in SEG:
         xyz, labels, seg = SyntheticShapeNetPart(
             n_points=n_points, size=clouds, seed=seed).batch(0, clouds)
@@ -138,8 +155,30 @@ def synthetic_batch(name: str, clouds: int, seed: int, n_points: int
         return batch
     xyz, normals, labels = SyntheticModelNet(
         n_points=n_points, size=clouds, seed=seed).batch(0, clouds)
-    return {"xyz": torch.from_numpy(xyz), "feats": torch.from_numpy(normals),
-            "label": torch.from_numpy(labels).long()}
+    batch = {"xyz": torch.from_numpy(xyz),
+             "label": torch.from_numpy(labels).long()}
+    if name in NORMALS:
+        batch["feats"] = torch.from_numpy(normals)
+    return batch
+
+
+def cancelled_by_structure(model: torch.nn.Module) -> set:
+    """Names of the parameters of ``model`` whose gradient its layers make
+    0 in exact arithmetic on any data: the Dense bias of every
+    ``DenseBNAct`` with one, of every PointConv layer's output Dense and
+    of every PointCNN ``DenseBlock`` whose BatchNorm directly follows its
+    Dense (its own train-mode BatchNorm removes the shift), and the BN
+    bias of PointNet part segmentation's ``conv5`` (the head's first
+    train-mode BatchNorm removes it)."""
+    out = {"conv5.bn.bias"} if isinstance(model, PointNetPartSeg) else set()
+    for layer, module in model.named_modules():
+        if (isinstance(module, (PointConvSA, PointConvInterp))
+                or isinstance(module, DenseBNAct)
+                and module.dense.bias is not None
+                or isinstance(module, DenseBlock)
+                and module.bn is not None and not module.act_before_bn):
+            out.add(f"{layer}.dense.bias")
+    return out
 
 
 def model_grads(model: torch.nn.Module, name: str,
@@ -149,8 +188,10 @@ def model_grads(model: torch.nn.Module, name: str,
     and backward of ``model`` (model ``name``, on its device, dropout 0)
     on ``batch``. ``cancelled`` names the last BN bias of every fused set
     abstraction whose pooled output was positive throughout, every
-    ``DenseBNAct``'s Dense bias, every PointConv layer's output Dense bias
-    and DGCNN part segmentation's ``conv6`` BN bias where every global max
+    ``DenseBNAct``'s Dense bias, every PointConv layer's output Dense bias,
+    the Dense bias of every PointCNN ``DenseBlock`` with BatchNorm right
+    after its Dense, PointNet part segmentation's ``conv5`` BN bias and
+    DGCNN part segmentation's ``conv6`` BN bias where every global max
     of it was positive; ``fragile`` the first Dense weight of every
     PointConv ``DensityNet``."""
     model.train()
@@ -170,13 +211,10 @@ def model_grads(model: torch.nn.Module, name: str,
     hooks = []
     if isinstance(model, DGCNNPartSeg):
         hooks.append(model.conv6.register_forward_hook(note_max))
+    cancelled |= cancelled_by_structure(model)
     for layer, module in model.named_modules():
         if isinstance(module, FusedSetAbstraction):
             hooks.append(module.register_forward_hook(note(layer)))
-        if (isinstance(module, (PointConvSA, PointConvInterp))
-                or isinstance(module, DenseBNAct)
-                and module.dense.bias is not None):
-            cancelled.add(f"{layer}.dense.bias")
         if isinstance(module, DensityNet):
             fragile.add(f"{layer}.0.dense.weight")
     put = {k: v.to(dev) for k, v in batch.items()}

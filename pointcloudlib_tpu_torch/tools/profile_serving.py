@@ -1,16 +1,18 @@
 """Where the serving time goes: the port's Predictor under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_serving \
-        [--model pointnet2|pointnet2_msg|dgcnn|pointconv|
-                 pointnet2_partseg|dgcnn_partseg|pointconv_partseg] \
+        [--model pointnet|pointnet2|pointnet2_msg|dgcnn|pointconv|pointcnn|
+                 pointnet_partseg|pointnet2_partseg|dgcnn_partseg|
+                 pointconv_partseg|pointcnn_partseg] \
         [--n-points N] [--out DIR]
 
 Serves PointNet++ SSG at B=64, MSG and PointConv at B=32 (``Predictor``,
-normals as features, N=1024, 256 synthetic surface clouds) or DGCNN at
-B=32 (the same clouds, xyz only), or part
+normals as features, N=1024, 256 synthetic surface clouds), PointNet at
+B=64 or DGCNN and PointCNN at B=32 (the same clouds, xyz only), or part
 segmentation at B=16 (``SegPredictor.predict``, N=2048, 64
 ShapeNet-part-shaped synthetic clouds; PointNet++ with xyz as features,
-DGCNN at k=40 and PointConv on xyz alone), full width with seeded random
+DGCNN at k=40, PointNet, PointConv and PointCNN on xyz alone), the
+JAX package's bench rows (``bench.py:334-355``), full width with seeded random
 weights, after a warm-up request. ``--n-points`` serves clouds of N
 points instead (4096: the sorted route of the given-index kernels; above
 4096 and not a multiple of 128, e.g. 10000: DGCNN's standalone kNN).
@@ -60,17 +62,15 @@ from pointcloudlib_tpu_torch.tools.grad_check import (
 from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
 
 # the JAX package's rows: batch, points, clouds a request
-BATCH = {"pointnet2": 64, "pointnet2_msg": 32, "dgcnn": 32, "pointconv": 32,
-         **{name: 16 for name in SEG}}
-N_POINTS = {"pointnet2": 1024, "pointnet2_msg": 1024, "dgcnn": 1024,
-            "pointconv": 1024, **{name: 2048 for name in SEG}}
-N_CLOUDS = {"pointnet2": 256, "pointnet2_msg": 256, "dgcnn": 256,
-            "pointconv": 256, **{name: 64 for name in SEG}}
+BATCH = {"pointnet": 64, "pointnet2": 64, "pointnet2_msg": 32, "dgcnn": 32,
+         "pointconv": 32, "pointcnn": 32, **{name: 16 for name in SEG}}
+N_POINTS = {**{name: 1024 for name in BATCH}, **{name: 2048 for name in SEG}}
+N_CLOUDS = {**{name: 256 for name in BATCH}, **{name: 64 for name in SEG}}
 
 # kernel-name pattern -> stage, first match wins
 STAGES = (
     (r"gather_rows_kernel", "gather_neighbors kernel"),
-    (r"knn_gather_kernel", "knn_gather kernel"),
+    (r"knn_gather_(select_|rounds_)?kernel", "knn_gather kernel"),
     (r"edge2_knn_eval_(select_)?kernel", "edge2_knn_eval kernel"),
     (r"edge2_eval_kernel", "edge2_eval kernel"),
     (r"edge2_tail_kernel<64, 64, false>", "edge2_stats2 kernel"),

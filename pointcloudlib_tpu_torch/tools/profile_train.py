@@ -2,18 +2,21 @@
 ``make_seg_train_step`` under torch.profiler.
 
     python -m pointcloudlib_tpu_torch.tools.profile_train \
-        [--model pointnet2|pointnet2_msg|dgcnn|pointconv|
-                 pointnet2_partseg|dgcnn_partseg|pointconv_partseg] \
+        [--model pointnet|pointnet2|pointnet2_msg|dgcnn|pointconv|pointcnn|
+                 pointnet_partseg|pointnet2_partseg|dgcnn_partseg|
+                 pointconv_partseg|pointcnn_partseg] \
         [--n-points N] [--out DIR]
 
 Trains PointNet++ SSG at B=64 or MSG at B=32 (normals as features,
 N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
-0.02), DGCNN at B=32 (the same clouds, xyz only, lr 0.1, ``bench.py:168``),
-PointConv at B=32 (normals as features, lr 0.1), or part segmentation at
-B=16 (N=2048, ShapeNet-part-shaped synthetic clouds, lr 0.01,
-``bench.py:233``; PointNet++ with xyz as features, DGCNN at k=40 and
-PointConv on xyz alone), full width with
-seeded random weights and the models' dropout (0.5; PointConv 0.4), on
+0.02), PointNet at B=64 or DGCNN and PointCNN at B=32 (the same clouds,
+xyz only, lr 0.1, ``bench.py:168``), PointConv at B=32 (normals as
+features, lr 0.1), or part segmentation at B=16 (N=2048,
+ShapeNet-part-shaped synthetic clouds, lr 0.01, ``bench.py:233``;
+PointNet++ with xyz as features, DGCNN at k=40, PointNet, PointConv and
+PointCNN on xyz alone), full width with
+seeded random weights and the models' dropout (0.5; PointConv 0.4; none
+in PointNet's and PointCNN's part segmentation), on
 one batch, after 3 warm-up
 steps; ``--n-points`` trains on clouds of N points instead (4096: the
 sorted route of the given-index kernels; 1000: DGCNN's standalone kNN).
@@ -69,8 +72,9 @@ from pointcloudlib_tpu_torch.utils.interop import (
     random_jax_variables,
 )
 
-LR = {"pointnet2": 0.02, "pointnet2_msg": 0.02, "dgcnn": 0.1,
-      "pointconv": 0.1, **{name: 0.01 for name in SEG}}
+LR = {"pointnet": 0.1, "pointnet2": 0.02, "pointnet2_msg": 0.02,
+      "dgcnn": 0.1, "pointconv": 0.1, "pointcnn": 0.1,
+      **{name: 0.01 for name in SEG}}
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
 

@@ -35,7 +35,21 @@ abstraction is on:
   ``WeightNet`` Dense has a bias), ``Dense_0/{kernel,bias}`` and
   ``BatchNorm_0/{scale,bias}`` with batch stats ``mean``/``var``; then
   ``DenseBNAct_{0,1}`` (classification's head; part segmentation's
-  ``DenseBNAct_0``), each Dense with a bias, and ``Dense_0/{kernel,bias}``.
+  ``DenseBNAct_0``), each Dense with a bias, and ``Dense_0/{kernel,bias}``;
+* PointNet: ``PointMLP_0/DenseBNAct_{0..4}``, ``DenseBNAct_0`` and
+  ``Dense_0/{kernel,bias}``; part segmentation: ``STN_{0,1}`` (the input
+  and the feature transformer, each ``PointMLP_{0,1}/DenseBNAct_i`` and
+  ``Dense_0/{kernel,bias}``), ``PointMLP_{0..3}`` (the maps out1–out4),
+  ``DenseBNAct_0`` (conv5), ``PointMLP_4`` (the head) and
+  ``Dense_0/{kernel,bias}``;
+* PointCNN: ``PointCNNLayer_i`` (classification 0–3; part segmentation
+  0–3 the encoders, 4–7 the decoders), each with ``DenseBlock_0`` (the
+  feature lift) and ``XConv_0/{DenseBlock_{0..4}, depthwise,
+  depthwise_bias, Dense_0/kernel, BatchNorm_0}``; a ``DenseBlock`` is
+  ``Dense_0/{kernel,bias}`` and, with BatchNorm, ``BatchNorm_0``; then
+  ``DenseBlock_{0,1,2}`` (classification's head) or ``DenseBlock_{0..3}``
+  (the decoders' fuse blocks). A lone ``PointCNNLayer`` maps as a flax
+  ``PointCNNLayer``'s own tree (``DenseBlock_0``, ``XConv_0``).
 
 A checkpoint in the unfused layout goes through the JAX package's own
 ``pointcloudlib_tpu.utils.interop.convert_variables`` first, with an
@@ -53,9 +67,20 @@ import numpy as np
 import torch
 
 from pointcloudlib_tpu_torch.models.dgcnn import DGCNN, DGCNNPartSeg
+from pointcloudlib_tpu_torch.models.pointcnn import (
+    DenseBlock,
+    PointCNNCls,
+    PointCNNLayer,
+    PointCNNPartSeg,
+)
 from pointcloudlib_tpu_torch.models.pointconv import (
     PointConvDensityCls,
     PointConvPartSeg,
+)
+from pointcloudlib_tpu_torch.models.pointnet import (
+    STN,
+    PointNet,
+    PointNetPartSeg,
 )
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     ClsHead,
@@ -78,11 +103,23 @@ def _dense_bn(blk: DenseBNAct, path: Tuple[str, ...], out: _Entries):
     out[("params", *path, "Dense_0", "kernel")] = (blk.dense.weight, True)
     if blk.dense.bias is not None:
         out[("params", *path, "Dense_0", "bias")] = (blk.dense.bias, False)
-    bn = (*path, "BatchNorm_0")
-    out[("params", *bn, "scale")] = (blk.bn.weight, False)
-    out[("params", *bn, "bias")] = (blk.bn.bias, False)
-    out[("batch_stats", *bn, "mean")] = (blk.bn.running_mean, False)
-    out[("batch_stats", *bn, "var")] = (blk.bn.running_var, False)
+    _bn(blk.bn, path, out)
+
+
+def _bn(bn, path: Tuple[str, ...], out: _Entries):
+    """A BatchNorm's scale, bias and running statistics at
+    ``path/BatchNorm_0``."""
+    bn_path = (*path, "BatchNorm_0")
+    out[("params", *bn_path, "scale")] = (bn.weight, False)
+    out[("params", *bn_path, "bias")] = (bn.bias, False)
+    out[("batch_stats", *bn_path, "mean")] = (bn.running_mean, False)
+    out[("batch_stats", *bn_path, "var")] = (bn.running_var, False)
+
+
+def _mlp(mlp, path: Tuple[str, ...], out: _Entries):
+    """A stack of ``DenseBNAct`` blocks as ``path/DenseBNAct_i``."""
+    for i, blk in enumerate(mlp):
+        _dense_bn(blk, (*path, f"DenseBNAct_{i}"), out)
 
 
 def _fused(sa: FusedSetAbstraction, path: Tuple[str, ...], out: _Entries):
@@ -102,8 +139,7 @@ def _set_abstraction(sa: SetAbstraction, path, out: _Entries):
     if sa.n_points is not None:
         _fused(sa.fused, (*path, "FusedSetAbstraction_0"), out)
         return
-    for i, blk in enumerate(sa.mlp):
-        _dense_bn(blk, (*path, "PointMLP_0", f"DenseBNAct_{i}"), out)
+    _mlp(sa.mlp, (*path, "PointMLP_0"), out)
 
 
 def _dense(dense, path, out: _Entries):
@@ -122,9 +158,7 @@ def _partseg(model: PointNet2PartSeg) -> _Entries:
     for i, sa in enumerate((model.sa1, model.sa2, model.sa3)):
         _set_abstraction(sa, (f"SetAbstraction_{i}",), out)
     for i, fp in enumerate((model.fp3, model.fp2, model.fp1)):
-        for j, blk in enumerate(fp.mlp):
-            _dense_bn(blk, (f"FeaturePropagation_{i}", "PointMLP_0",
-                            f"DenseBNAct_{j}"), out)
+        _mlp(fp.mlp, (f"FeaturePropagation_{i}", "PointMLP_0"), out)
     _dense_bn(model.head, ("DenseBNAct_0",), out)
     _dense(model.out, (), out)
     return out
@@ -168,14 +202,9 @@ def _pointconv_layer(layer, path, out: _Entries):
     for sub, seq in (("DensityNet_0", layer.density_net),
                      ("PointMLP_0", layer.mlp),
                      ("WeightNet_0", layer.weight_net)):
-        for i, blk in enumerate(seq):
-            _dense_bn(blk, (*path, sub, f"DenseBNAct_{i}"), out)
+        _mlp(seq, (*path, sub), out)
     _dense(layer.dense, path, out)
-    bn = (*path, "BatchNorm_0")
-    out[("params", *bn, "scale")] = (layer.bn.weight, False)
-    out[("params", *bn, "bias")] = (layer.bn.bias, False)
-    out[("batch_stats", *bn, "mean")] = (layer.bn.running_mean, False)
-    out[("batch_stats", *bn, "var")] = (layer.bn.running_var, False)
+    _bn(layer.bn, path, out)
 
 
 def _pointconv(model) -> _Entries:
@@ -197,7 +226,70 @@ def _pointconv(model) -> _Entries:
     return out
 
 
+def _stn(stn: STN, path, out: _Entries):
+    _mlp(stn.mlp1, (*path, "PointMLP_0"), out)
+    _mlp(stn.mlp2, (*path, "PointMLP_1"), out)
+    _dense(stn.dense, path, out)
+
+
+def _pointnet(model) -> _Entries:
+    out: _Entries = {}
+    if isinstance(model, PointNet):
+        _mlp(model.mlp, ("PointMLP_0",), out)
+        _dense_bn(model.fc, ("DenseBNAct_0",), out)
+    else:
+        _stn(model.stn, ("STN_0",), out)
+        _stn(model.fstn, ("STN_1",), out)
+        for i, mlp in enumerate((model.mlp1, model.mlp2, model.mlp3,
+                                 model.mlp4, model.head)):
+            _mlp(mlp, (f"PointMLP_{i}",), out)
+        _dense_bn(model.conv5, ("DenseBNAct_0",), out)
+    _dense(model.out, (), out)
+    return out
+
+
+def _dense_block(blk: DenseBlock, path, out: _Entries):
+    _dense(blk.dense, path, out)
+    if blk.bn is not None:
+        _bn(blk.bn, path, out)
+
+
+def _pointcnn_layer(layer: PointCNNLayer, path, out: _Entries):
+    if layer.lift is not None:
+        _dense_block(layer.lift, (*path, "DenseBlock_0"), out)
+    x = layer.xconv
+    xpath = (*path, "XConv_0")
+    for i, blk in enumerate((x.lift1, x.lift2, x.x1, x.x2, x.x3)):
+        _dense_block(blk, (*xpath, f"DenseBlock_{i}"), out)
+    out[("params", *xpath, "depthwise")] = (x.depthwise, False)
+    out[("params", *xpath, "depthwise_bias")] = (x.depthwise_bias, False)
+    out[("params", *xpath, "Dense_0", "kernel")] = (x.dense.weight, True)
+    _bn(x.bn, xpath, out)
+
+
+def _pointcnn(model) -> _Entries:
+    out: _Entries = {}
+    if isinstance(model, PointCNNCls):
+        layers, blocks = model.layers, (model.fc1, model.fc2, model.out)
+    else:
+        layers = [*model.encoders, *model.decoders]
+        blocks = model.fuse
+    for i, layer in enumerate(layers):
+        _pointcnn_layer(layer, (f"PointCNNLayer_{i}",), out)
+    for i, blk in enumerate(blocks):
+        _dense_block(blk, (f"DenseBlock_{i}",), out)
+    return out
+
+
 def _entries(model) -> _Entries:
+    if isinstance(model, (PointNet, PointNetPartSeg)):
+        return _pointnet(model)
+    if isinstance(model, (PointCNNCls, PointCNNPartSeg)):
+        return _pointcnn(model)
+    if isinstance(model, PointCNNLayer):  # a lone layer: its own tree
+        out: _Entries = {}
+        _pointcnn_layer(model, (), out)
+        return out
     if isinstance(model, (PointConvDensityCls, PointConvPartSeg)):
         return _pointconv(model)
     if isinstance(model, PointNet2PartSeg):
@@ -294,7 +386,8 @@ def to_jax_variables(model) -> Dict:
 def random_jax_variables(model, seed: int = 0) -> Dict:
     """A seeded numpy tree in the layout :func:`from_jax_variables`
     takes: kernels (Dense ``kernel``, the fused layers' ``w`` and
-    ``w1``–``w3``) U(±1/√fan_in), BN scales U(0.8, 1.2), biases and
+    ``w1``–``w3``) U(±1/√fan_in), XConv's ``depthwise [c, K, dm]``
+    U(±1/√K) (its fan), BN scales U(0.8, 1.2), biases and
     running means N(0, 0.05²), running variances U(0.05, 0.5). For
     tests and the chip smoke run, where no trained checkpoint exists."""
     rng = np.random.default_rng(seed)
@@ -302,6 +395,9 @@ def random_jax_variables(model, seed: int = 0) -> Dict:
     def leaf(name: str, shape):
         if name in ("kernel", "w", "w1", "w2", "w3"):
             bound = 1.0 / np.sqrt(shape[0])
+            return rng.uniform(-bound, bound, shape)
+        if name == "depthwise":
+            bound = 1.0 / np.sqrt(shape[1])
             return rng.uniform(-bound, bound, shape)
         if name.endswith("scale"):
             return rng.uniform(0.8, 1.2, shape)

@@ -2053,3 +2053,159 @@ def test_pointconv_train_step_card_matches_cpu(card, name, n):
     assert got["cosine_only"] and all(
         k.endswith("density_net.0.dense.weight")
         for k in got["cosine_only"]), got["cosine_only"]
+
+
+# The fused kNN + gather at PointCNN's twelve launches: B, M (queries), N,
+# Cv, k, stride; classification L1–L4 (B=32, N=1024), part segmentation's
+# encoders E1–E4 and decoders D4–D1 (B=16, N=2048). A decoder's queries are
+# the finer level's points, more than the coarse cloud it reads.
+PCNN_KNN_GATHER_SHAPES = {
+    "cls L1": (32, 1024, 1024, 27, 8, 1),
+    "cls L2": (32, 384, 1024, 51, 12, 2),
+    "cls L3": (32, 128, 384, 99, 16, 2),
+    "cls L4": (32, 128, 128, 195, 16, 3),
+    "seg E1": (16, 2048, 2048, 131, 8, 1),
+    "seg E2": (16, 768, 2048, 131, 12, 1),
+    "seg E3": (16, 384, 768, 259, 16, 1),
+    "seg E4": (16, 128, 384, 515, 16, 1),
+    "seg D4": (16, 128, 128, 515, 16, 1),
+    "seg D3": (16, 384, 128, 259, 16, 1),
+    "seg D2": (16, 768, 384, 131, 12, 1),
+    "seg D1": (16, 2048, 768, 28, 8, 1),
+}
+
+
+def _pcnn_knn_gather_inputs(card, name):
+    """Unit-sphere points, the queries a subset of them (or, for a
+    decoder, all of them and more), values ``[xyz ‖ features]``."""
+    b, m, n, cv, k, stride = PCNN_KNN_GATHER_SHAPES[name]
+    rng = np.random.default_rng(m + n + cv)
+    x = rng.standard_normal((b, max(m, n), 3)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    pts = x[:, :n]
+    query = x[:, :m] if m > n else pts[:, rng.permutation(n)[:m]]
+    vals = rng.standard_normal((b, n, cv)).astype(np.float32)
+    vals[..., :3] = pts
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(card)
+                 for a in (query, pts, vals)) + (k, stride)
+
+
+@pytest.mark.parametrize("name", sorted(PCNN_KNN_GATHER_SHAPES))
+def test_knn_gather_pointcnn_shapes_bit_identical(card, name):
+    """At each PointCNN launch the wrapper takes the select route ((k −
+    1)·stride + 1 ≤ 46 ranks) and its idx and values are bit-identical to
+    ``knn_gather_plain``; one launch a call."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+
+    query, pts, vals, k, stride = _pcnn_knn_gather_inputs(card, name)
+    assert kkg.ROUTES[kkg.knn_gather_route(pts.shape[1], k, stride)] == \
+        "select"
+    before = kkg.knn_gather.launches
+    idx, grouped = kkg.knn_gather(query, pts, vals, k, stride)
+    torch.cuda.synchronize()
+    assert kkg.knn_gather.launches == before + 1
+    pidx, pgrouped = kkg.knn_gather_plain(query, pts, vals, k, stride)
+    assert torch.equal(idx, pidx)
+    assert torch.equal(grouped, pgrouped)
+
+
+@pytest.mark.parametrize("name", sorted(PCNN_KNN_GATHER_SHAPES))
+def test_scatter_rows_pointcnn_backward_shapes(card, name):
+    """The scatter-add of ``KnnGather``'s backward at each PointCNN
+    launch: the grouped gradient ``[B, M, k, Cv]`` into ``[B, N, Cv]`` at
+    the kernel's own idx, on the wide route (out[b] above 16 KB), within
+    1e-5 of the largest plain element."""
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+
+    query, pts, vals, k, stride = _pcnn_knn_gather_inputs(card, name)
+    b, n, cv = vals.shape
+    idx, _ = kkg.knn_gather(query, pts, vals, k, stride)
+    g = torch.randn((*idx.shape, cv), device=card,
+                    generator=torch.Generator(device=card).manual_seed(n))
+    assert kga.scatter_route(n, cv) == "wide"
+    before = kga.scatter_rows.launches
+    got = kga.scatter_rows(g, idx, n)
+    torch.cuda.synchronize()
+    assert kga.scatter_rows.launches == before + 1
+    want = kga.scatter_rows_plain(g, idx, n)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("name,batch,counts", [
+    ("pointnet", 64, {}),
+    ("pointnet_partseg", 16, {}),
+    ("pointcnn", 32, {"fps": 2, "knn_gather": 4}),
+    ("pointcnn_partseg", 16, {"fps": 3, "knn_gather": 8})])
+def test_pointnet_pointcnn_served_batch_card_matches_cpu(card, name, batch,
+                                                         counts):
+    """One served batch of PointNet and PointCNN classification (N=1024,
+    xyz only) and part segmentation (N=2048) on the card through the
+    Predictor and the SegPredictor, with exactly these launches (none for
+    PointNet), and 2 of the clouds on the CPU from the same weights:
+    probabilities within 5e-3."""
+    from pointcloudlib_tpu_torch.inference import SegPredictor
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+    from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
+    from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        SEG,
+        build_model,
+        synthetic_batch,
+    )
+
+    counted = {"fps": kfps.fps, "ball_query": kbq.ball_query,
+               "fused_sa_bq_eval": kfs.fused_sa_bq_eval, "knn": kknn.knn,
+               "gather_neighbors": kga.gather_neighbors,
+               "knn_gather": kkg.knn_gather,
+               "three_interp": kti.three_interp_fwd,
+               "scatter_rows": kga.scatter_rows}
+    variables = random_jax_variables(build_model(name), seed=3)
+    n = 2048 if name in SEG else 1024
+    data = synthetic_batch(name, batch, 7, n)
+    xyz = data["xyz"].numpy()
+    probs = []
+    for dev, rows in ((card, batch), ("cpu", 2)):
+        if name in SEG:
+            pred = SegPredictor.from_variables(SEG[name], variables,
+                                               batch_size=rows, device=dev)
+            serve = lambda: pred.predict_proba(  # noqa: E731
+                xyz[:rows], data["cls_onehot"].numpy()[:rows].argmax(-1))
+        else:
+            pred = Predictor.from_variables(name, variables,
+                                            batch_size=rows, device=dev)
+            serve = lambda: pred.predict_proba(xyz[:rows])  # noqa: E731
+        before = {k: f.launches for k, f in counted.items()}
+        probs.append(serve()[:2])
+        if dev == card:
+            assert {k: f.launches - before[k] for k, f in counted.items()
+                    } == {k: counts.get(k, 0) for k in counted}
+    assert np.isfinite(probs[0]).all()
+    assert np.abs(probs[0] - probs[1]).max() <= 5e-3
+
+
+@pytest.mark.parametrize("name", ["pointnet", "pointnet_partseg", "pointcnn",
+                                  "pointcnn_partseg"])
+def test_pointnet_pointcnn_train_step_card_matches_cpu(card, name):
+    """One train-mode forward and backward of PointNet and PointCNN
+    classification and part segmentation on 8 synthetic clouds, on the
+    card and on the CPU from the same weights with dropout 0, under
+    ``tools/grad_check.py``'s bounds."""
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        SEG,
+        build_model,
+        grad_agreement,
+        synthetic_batch,
+    )
+
+    variables = random_jax_variables(build_model(name), seed=5)
+    got = grad_agreement(name, variables, synthetic_batch(
+        name, 8, 11, 2048 if name in SEG else 1024), card)
+    agree = got["agree"]
+    print(f"{name} card against CPU: least cosine",
+          min(agree.items(), key=lambda kv: kv[1][0]),
+          "largest norm deviation",
+          max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)))
+    assert not got["failures"], got["failures"]

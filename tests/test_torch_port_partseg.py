@@ -130,6 +130,17 @@ def _shapes(module, batch):
     return jax.tree_util.tree_map(lambda a: tuple(a.shape), tree)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """The port's CPU work on 2 threads: beside the other workers of a
+    parallel test run (``pytest -n 6``), more only contend for the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Everything that needs the JAX part-segmentation model, computed

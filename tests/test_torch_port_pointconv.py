@@ -159,6 +159,17 @@ def _state(apply_fn, start):
         tx=jax_sgd(LR))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """The port's CPU work on 2 threads: beside the other workers of a
+    parallel test run (``pytest -n 6``), more only contend for the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Everything that needs the JAX models, computed once: the variable

@@ -99,15 +99,19 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "pointcloudlib_tpu")
              or m.startswith(("jax.", "flax.", "pointcloudlib_tpu.")))
-print(bad)
-sys.exit(1 if bad else 0)
+models = ("pointnet", "pointnet2", "dgcnn", "pointconv", "pointcnn")
+unseen = [m for m in models
+          if "pointcloudlib_tpu_torch.models." + m not in sys.modules]
+print(bad, unseen)
+sys.exit(1 if bad or unseen else 0)
 """
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py import nothing of JAX, flax or the JAX
-    package (``pointcloudlib_tpu_torch`` shares the JAX package's name
-    as a prefix, hence the exact-name and dotted-prefix tests)."""
+    """The port, every one of its model modules included, and
+    chip_smoke.py import nothing of JAX, flax or the JAX package
+    (``pointcloudlib_tpu_torch`` shares the JAX package's name as a
+    prefix, hence the exact-name and dotted-prefix tests)."""
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
