@@ -246,7 +246,25 @@ once:
    ``make_seg_train_step`` at B=16 (lr 0.01): per served batch exactly 3
    launches of FPS and 8 of the fused kNN + gather, per step those and 8
    of the scatter-add; card against CPU on 2 clouds, the gradient check
-   on 8.
+   on 8;
+29. the training CLIs — through ``main(argv)`` on the card: a ModelNet40
+   text tree of 64 train and 32 test synthetic clouds (2,048 points × 6
+   columns) written to a temporary directory, then ``train_cls --model
+   pointnet2`` at B=32, N=1024 on it for 2 epochs of 2 steps: per step
+   exactly the SSG step's launches of phase 7, per eval batch 2 of FPS
+   and of the ball-query eval kernel; ``--eval`` prints the last epoch's
+   OA exactly, as do ``--eval --confusion`` and
+   ``Predictor.from_checkpoint(which="current")`` on the test clouds
+   (whose probabilities on 8 clouds are within 5e-3 of a CPU Predictor's
+   from the same file); ``--eval --votes 2`` runs; ``--resume --epochs 3``
+   starts at epoch 2 with the best OA carried; one step on the card and
+   one with ``--device cpu`` from the same seed, both without dropout (the
+   two generators draw other masks), give first losses within 1e-2
+   relative; then ``train_partseg --model dgcnn`` at B=16, N=2048 on 32
+   synthetic clouds (per step the DGCNN part-seg step's launches of
+   phase 19, per eval batch its served batch's), and one more epoch with
+   ``--num-workers 2`` (a fork pool after CUDA is initialised). Each run's
+   launches count for the kernels line as a path of its own.
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
 entry per TPU kernel replaced (thirty-one; the three forward tails
@@ -732,12 +750,17 @@ def _read_counts(what: str, per_unit: dict, units: int) -> dict:
     """The launch counts since :func:`_zero_counts`, with the tail's per
     stage; fails unless each kernel launched exactly ``per_unit`` times
     for each of the ``units`` batches or steps."""
+    return _read_totals(f"{what} ({units} batches or steps)",
+                        {name: c * units for name, c in per_unit.items()})
+
+
+def _read_totals(what: str, want: dict) -> dict:
+    """As :func:`_read_counts`, against ``want`` launches in all."""
     launches = {name: fn.launches for name, fn in COUNTED.items()}
     for name, count in launches.items():
-        want = per_unit.get(name, 0) * units
-        if count != want:
-            fail(f"{what}: {name} launched {count} times in {units} "
-                 f"batches or steps; expected {want}")
+        if count != want.get(name, 0):
+            fail(f"{what}: {name} launched {count} times; expected "
+                 f"{want.get(name, 0)}")
     by_stage = dict(kft.sa_tail.launches_by_stage)
     if any(3 * c != launches["sa_tail"] for c in by_stage.values()):
         fail(f"{what}: tail stages launched unevenly: {by_stage}")
@@ -4010,6 +4033,170 @@ def eval_times() -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ the training CLIs
+
+CLI_TRAIN, CLI_TEST = 64, 32       # clouds of the phase's ModelNet40 tree
+CLI_BATCH, CLI_STEPS = 32, 2       # train_cls: B and steps an epoch
+CLI_SEG_SIZE = 32                  # train_partseg: 2 steps at B=16, 64 test
+
+
+def _cli_run(what, main, argv, want, total):
+    """``main(argv)`` with the counts zeroed just before and read just
+    after: exactly ``want`` launches of each kernel, added to ``total``."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    launches = _read_totals(what, want)
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+    out["launches"] = {k: c for k, c in launches.items() if c}
+    return out
+
+
+def _times(per_step, steps, per_batch, batches):
+    return {k: per_step.get(k, 0) * steps + per_batch.get(k, 0) * batches
+            for k in set(per_step) | set(per_batch)}
+
+
+def _no_dropout(x, rate, training, generator):
+    return x
+
+
+def phase_cli(power) -> dict:
+    """Both training CLIs on the card through ``main(argv)``: ``train_cls``
+    on a ModelNet40 text tree written here (trains, evaluates, votes,
+    serves from its checkpoint and resumes; its first step against a CPU
+    run's), ``train_partseg`` on synthetic part-segmentation clouds, one
+    epoch in the prefetch thread and one with two forked workers → the
+    launches of each CLI over the phase, by kernel."""
+    import tempfile
+    from unittest import mock
+
+    from pointcloudlib_tpu_torch.cli import train_cls, train_partseg
+    from pointcloudlib_tpu_torch.data.modelnet40 import (
+        ModelNet40,
+        write_synthetic_tree,
+    )
+    from pointcloudlib_tpu_torch.models import pointnet2 as pn2_module
+
+    t_phase = time.perf_counter()
+    cls_total, seg_total = {}, {}
+    evals = -(-CLI_TEST // CLI_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_synthetic_tree(f"{tmp}/modelnet40", CLI_TRAIN, CLI_TEST,
+                                    n_points=2 * N_POINTS, seed=0)
+        ck = f"{tmp}/ck"
+        base = ["--model", "pointnet2", "--data-root", str(root),
+                "--batch_size", str(CLI_BATCH), "--num_points",
+                str(N_POINTS), "--checkpoint-dir", ck, "--log-dir",
+                f"{tmp}/log", "--steps-per-epoch", str(CLI_STEPS)]
+
+        def cls(what, extra, steps, batches):
+            return _cli_run(f"train_cls {what}", train_cls.main,
+                            base + extra,
+                            _times(SSG_STEP, steps, SSG_SERVE, batches),
+                            cls_total)
+
+        run = cls("2 epochs", ["--epochs", "2"], 2 * CLI_STEPS, 2 * evals)
+        if run["epochs"] != [0, 1] or run["steps"] != 2 * CLI_STEPS or \
+                not np.isfinite([run["first_loss"], run["last_loss"]]).all():
+            fail(f"train_cls: {run}")
+        last = run["test_oa"][1]
+        ev = cls("--eval", ["--eval"], 0, evals)
+        conf = cls("--eval --confusion", ["--eval", "--confusion"], 0, evals)
+        votes = cls("--eval --votes 2", ["--eval", "--votes", "2"], 0,
+                    2 * evals)
+        if ev["eval_oa"] != last or conf["eval_oa"] != last:
+            fail(f"train_cls --eval OA {ev['eval_oa']}, with --confusion "
+                 f"{conf['eval_oa']}; the last epoch printed {last}")
+        if not 0.0 <= votes["eval_oa"] <= 100.0:
+            fail(f"train_cls --votes 2: {votes}")
+
+        test = ModelNet40(N_POINTS, train=False, data_root=str(root))
+        pts, nrm, labels = test.get_batch(np.arange(len(test)))
+        _zero_counts()
+        served = Predictor.from_checkpoint(
+            f"{ck}/pointnet2", "pointnet2", which="current",
+            batch_size=CLI_BATCH).predict_proba(pts, nrm)
+        served_launches = _read_totals("Predictor.from_checkpoint",
+                                       _times({}, 0, SSG_SERVE, evals))
+        for name, count in served_launches.items():
+            cls_total[name] = cls_total.get(name, 0) + count
+        served_oa = 100.0 * int((served.argmax(-1) == labels).sum()) / \
+            len(labels)
+        ref = Predictor.from_checkpoint(
+            f"{ck}/pointnet2", "pointnet2", which="current", batch_size=8,
+            device="cpu").predict_proba(pts[:8], nrm[:8])
+        prob_diff = float(np.abs(ref - served[:8]).max())
+        if served_oa != ev["eval_oa"] or prob_diff > PROB_ATOL:
+            fail(f"Predictor.from_checkpoint: OA {served_oa} against "
+                 f"--eval's {ev['eval_oa']}; card vs CPU probabilities "
+                 f"{prob_diff} > {PROB_ATOL}")
+
+        res = cls("--resume --epochs 3", ["--resume", "--epochs", "3"],
+                  CLI_STEPS, evals)
+        if (res["start_epoch"], res["epochs"], res["steps"]) != \
+                (2, [2], 3 * CLI_STEPS) or \
+                res["best_at_start"] != run["best_oa"]:
+            fail(f"train_cls --resume: {res}; the first run: {run}")
+
+        # the card's and the CPU's generators draw other dropout masks
+        # (Philox, Mersenne Twister), and a mask alone moves SSG's first
+        # loss past the bound: the two first steps run without dropout
+        with mock.patch.object(pn2_module, "dropout", _no_dropout):
+            card = cls("1 step, no dropout",
+                       ["--epochs", "1", "--checkpoint-dir", f"{tmp}/ck1",
+                        "--steps-per-epoch", "1"], 1, evals)
+            t0 = time.perf_counter()
+            cpu = train_cls.main(base + [
+                "--epochs", "1", "--checkpoint-dir", f"{tmp}/ck2",
+                "--steps-per-epoch", "1", "--device", "cpu"])
+            cpu["seconds"] = time.perf_counter() - t0
+        loss_diff = abs(card["first_loss"] - cpu["first_loss"]) / \
+            abs(cpu["first_loss"])
+        if loss_diff > LOSS_RTOL:
+            fail(f"train_cls first-step loss: card {card['first_loss']}, "
+                 f"CPU {cpu['first_loss']} ({loss_diff} > {LOSS_RTOL})")
+        emit("cli train_cls pointnet2", {
+            "card": power, "batch": CLI_BATCH, "n_points": N_POINTS,
+            "train_clouds": CLI_TRAIN, "test_clouds": CLI_TEST,
+            "run": run, "eval": ev, "confusion": conf, "votes": votes,
+            "served_oa": served_oa, "served_launches": {
+                k: c for k, c in served_launches.items() if c},
+            "served_max_abs_prob_diff_vs_cpu": prob_diff, "resume": res,
+            "first_step_no_dropout": {"card": card["first_loss"],
+                                      "cpu": cpu["first_loss"],
+                                      "rel_diff": loss_diff,
+                                      "cpu_seconds": cpu["seconds"]},
+            "launches": cls_total})
+
+        seg = ["--model", "dgcnn", "--synthetic", "--synthetic-size",
+               str(CLI_SEG_SIZE), "--batch_size", str(SEG_BATCH),
+               "--num_points", str(SEG_POINTS), "--checkpoint-dir", ck,
+               "--log-dir", f"{tmp}/log"]
+        steps = CLI_SEG_SIZE // SEG_BATCH
+        batches = -(-max(64, CLI_SEG_SIZE // 4) // SEG_BATCH)
+        want = _times(DSEG_STEP, steps, DSEG_SERVE, batches)
+        first = _cli_run("train_partseg dgcnn", train_partseg.main,
+                         seg + ["--epochs", "1"], want, seg_total)
+        forked = _cli_run("train_partseg dgcnn --num-workers 2",
+                          train_partseg.main,
+                          seg + ["--resume", "--epochs", "2",
+                                 "--num-workers", "2"], want, seg_total)
+        for r, epochs in ((first, [0]), (forked, [1])):
+            if r["epochs"] != epochs or not np.isfinite(
+                    [r["first_loss"], r["last_loss"]]).all():
+                fail(f"train_partseg: {r}")
+        emit("cli train_partseg dgcnn", {
+            "card": power, "batch": SEG_BATCH, "n_points": SEG_POINTS,
+            "synthetic_size": CLI_SEG_SIZE, "run": first,
+            "num_workers_2": forked, "launches": seg_total})
+    emit("cli phase", {"seconds": time.perf_counter() - t_phase})
+    return {"cli_train_cls": cls_total, "cli_train_partseg": seg_total}
+
+
 def _model_on_card(name, variables):
     model = build_model(name)
     from_jax_variables(model, variables)
@@ -4173,6 +4360,7 @@ def main() -> None:
         PCNN_SEG, pcnnseg_vars, power, PCNNSEG_SERVE, SEG_CHECK)
     paths["pointcnn_partseg_train"] = phase_train(
         PCNN_SEG, pcnnseg_vars, power, SEG_BATCH, PCNNSEG_STEP)
+    paths.update(phase_cli(power))
 
     kernels = []
     for name, source, replaces, key, *counted in KERNELS:

@@ -1,0 +1,274 @@
+"""ModelNet40 classification training CLI (counterpart of the repository's
+``train_cls.py``)::
+
+    python -m pointcloudlib_tpu_torch.cli.train_cls --model pointnet2 \\
+        --data-root data/modelnet40_normal_resampled
+    python -m pointcloudlib_tpu_torch.cli.train_cls --model dgcnn \\
+        --synthetic --device cpu --epochs 1 --steps-per-epoch 2
+
+Every flag of the JAX CLI, with its default, plus ``--device`` (``cuda``
+by default; without a card the run raises unless it is ``cpu``). KPConv,
+several devices, the activation audit and ``--debug`` are not ported yet:
+those flags exit naming their ROADMAP item.
+
+The loop is the JAX CLI's: shuffled epochs (seed ``seed + epoch``) that
+drop the last partial batch, batches assembled in a prefetch thread (and
+with ``--num-workers`` in forked processes), the train step's metrics
+read back only every ``--log-every`` steps and at the end of an epoch,
+the test set in padded batches masked by ``valid``, a checkpoint every
+epoch under ``<checkpoint-dir>/<model>`` (``current.pt``; ``best.pt`` by
+test OA), ``--eval`` / ``--confusion`` / ``--votes`` from ``current``
+and ``--resume``. The model's parameters are made on the CPU under
+``torch.manual_seed(seed)`` and then moved; dropout draws from one
+generator on the device, seeded by ``seed``.
+
+``main(argv)`` returns a summary dict: for training ``start_epoch``,
+``best_at_start`` (a resumed run's bar), ``epochs``,
+``steps``, ``first_loss``, ``last_loss``, ``test_oa`` and
+``samples_per_s`` by epoch, ``best_oa``; for ``--eval`` ``eval_oa``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pointcloudlib_tpu_torch.cli import common
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Point cloud classification (PyTorch port)")
+    p.add_argument("--model", default="pointnet2",
+                   help="pointnet | pointnet2 | pointnet2_msg | dgcnn | "
+                        "pointcnn | pointconv | kpconv")
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--num_points", type=int, default=1024)
+    p.add_argument("--epochs", type=int, default=200)
+    p.add_argument("--lr", type=float, default=0.02)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint and continue")
+    p.add_argument("--confusion", action="store_true",
+                   help="print per-class accuracy at eval (fast_confusion)")
+    p.add_argument("--votes", type=int, default=1,
+                   help="voting eval: average softmax over N re-augmented "
+                        "passes")
+    p.add_argument("--data-root", default="data/modelnet40_normal_resampled")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on the procedural synthetic dataset")
+    p.add_argument("--synthetic-size", type=int, default=512)
+    p.add_argument("--steps-per-epoch", type=int, default=None,
+                   help="cap steps per epoch (smoke tests)")
+    p.add_argument("--deform-lr-factor", type=float, default=0.0,
+                   help="kpconv_deform only; not ported yet")
+    p.add_argument("--kp-buckets", type=int, default=2,
+                   help="KPConv only; not ported yet")
+    p.add_argument("--kp-cap-quantile", type=float, default=0.9,
+                   help="KPConv only; not ported yet")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="devices (default: one); more are not ported yet")
+    p.add_argument("--dp", default="auto",
+                   choices=["auto", "spmd", "shard_map"],
+                   help="multi-device mode; shard_map is not ported yet")
+    p.add_argument("--debug", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--multihost", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num-workers", type=int, default=0,
+                   help="forked batch-assembly processes; 0 = assemble "
+                        "in the prefetch thread")
+    p.add_argument("--diff-checkpoint", default=None, metavar="CK.pt",
+                   help="activation audit; not ported yet")
+    p.add_argument("--diff-trace", default=None, metavar="NPZ",
+                   help="activation audit; not ported yet")
+    p.add_argument("--dump-trace", default=None, metavar="NPZ",
+                   help="activation audit; not ported yet")
+    p.add_argument("--diff-atol", type=float, default=1e-2,
+                   help="activation audit; not ported yet")
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--log-dir", default=None,
+                   help="write JSONL metrics here")
+    common.add_device_flag(p)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    common.refuse_unported(args)
+    dev = common.device_of(args)
+
+    from pointcloudlib_tpu_torch.data import (
+        cls_batches,
+        make_modelnet40,
+        prefetch,
+    )
+    from pointcloudlib_tpu_torch.models import get_cls_model
+    from pointcloudlib_tpu_torch.train import (
+        fast_confusion,
+        make_cls_eval_step,
+        make_cls_pred_step,
+        make_cls_train_step,
+    )
+    from pointcloudlib_tpu_torch.utils.checkpoint import CheckpointManager
+    from pointcloudlib_tpu_torch.utils.logging import MetricsLogger
+
+    print(f"device: {common.device_name(dev)}, model={args.model}, "
+          f"N={args.num_points}, B={args.batch_size}")
+    # only PointNet++ takes normals as features
+    with_normals = args.model.startswith("pointnet2")
+    train_ds = make_modelnet40(
+        args.num_points, train=True, data_root=args.data_root,
+        synthetic=args.synthetic, synthetic_size=args.synthetic_size,
+        seed=args.seed)
+    test_size = max(64, args.synthetic_size // 4)
+    test_ds = make_modelnet40(
+        args.num_points, train=False, data_root=args.data_root,
+        synthetic=args.synthetic, synthetic_size=test_size, seed=args.seed)
+
+    model = common.seeded_model(lambda: get_cls_model(
+        args.model, n_classes=40, feat_channels=3 if with_normals else 0),
+        args.seed).to(dev)
+    opt = common.make_optimizer(args, model, len(train_ds))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"params: {n_params/1e6:.2f}M")
+    train_step = make_cls_train_step(model, opt, device=dev)
+    eval_step = make_cls_eval_step(model, device=dev)
+    ckpt = CheckpointManager(Path(args.checkpoint_dir) / args.model)
+
+    def evaluate(confusion=False):
+        correct = torch.zeros((), dtype=torch.int64, device=dev)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        trues, preds = [], []
+        # one forward a batch: the ids come back and the counts are made
+        # from them on the host
+        pred_step = make_cls_pred_step(model, device=dev) if confusion \
+            else None
+        for batch in cls_batches(test_ds, args.batch_size,
+                                 with_normals=with_normals):
+            if confusion:
+                pred = pred_step(batch).cpu().numpy()
+                valid = batch["valid"]
+                correct += int(((pred == batch["label"]) & valid).sum())
+                total += int(valid.sum())
+                trues.append(batch["label"][valid])
+                preds.append(pred[valid])
+            else:
+                c, t = eval_step(batch)
+                correct += c
+                total += t
+        if confusion and trues:
+            cm = fast_confusion(np.concatenate(trues),
+                                np.concatenate(preds), 40)
+            per_class = np.diag(cm) / np.maximum(cm.sum(1), 1)
+            for c_id in np.nonzero(cm.sum(1))[0]:
+                print(f"  class {c_id:2d}: acc {per_class[c_id]*100:5.1f}% "
+                      f"({cm[c_id].sum()} samples)")
+        return 100.0 * int(correct) / max(int(total), 1)
+
+    def evaluate_voting(n_votes):
+        """The softmax averaged over ``n_votes`` passes of the test set,
+        each re-augmented (the reference's incremental average)."""
+        prob_step = make_cls_pred_step(model, probs=True, device=dev)
+        vote_ds = make_modelnet40(
+            args.num_points, train=False, data_root=args.data_root,
+            synthetic=args.synthetic, synthetic_size=test_size,
+            seed=args.seed, augment=True)
+        probs, labels, valids = None, [], []
+        for v in range(n_votes):
+            pv, first = [], probs is None
+            for batch in cls_batches(vote_ds, args.batch_size,
+                                     with_normals=with_normals):
+                pv.append(prob_step(batch).cpu().numpy())
+                if first:
+                    labels.append(batch["label"])
+                    valids.append(batch["valid"])
+            pv = np.concatenate(pv)
+            probs = pv if first else probs + (pv - probs) / (v + 1)
+        labels = np.concatenate(labels)
+        valid = np.concatenate(valids)
+        pred = probs.argmax(-1)
+        return 100.0 * ((pred == labels) & valid).sum() / valid.sum()
+
+    if args.eval:
+        if ckpt.restore_variables(model, name="current") is None:
+            print(f"no checkpoint under {ckpt.directory}: evaluating the "
+                  "initial weights")
+        if args.votes > 1:
+            oa = float(evaluate_voting(args.votes))
+            print(f"eval OA ({args.votes} votes): {oa:.2f}%")
+        else:
+            oa = evaluate(confusion=args.confusion)
+            print(f"eval OA: {oa:.2f}%")
+        return {"eval_oa": oa, "votes": args.votes}
+
+    best_oa, step_count, start_epoch = 0.0, 0, 0
+    if args.resume:
+        restored = ckpt.restore_with_step(model, opt)
+        if restored is not None:
+            step_count, start_epoch = restored
+            start_epoch += 1
+            best_oa = ckpt.best_metric() or 0.0
+            print(f"resumed from epoch {start_epoch - 1} "
+                  f"(best OA so far {best_oa:.2f}%)")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    mlog = MetricsLogger(args.log_dir, run_name=f"cls_{args.model}")
+    summary = {"start_epoch": start_epoch, "best_at_start": best_oa,
+               "epochs": [], "steps": step_count, "first_loss": None,
+               "last_loss": None, "test_oa": {}, "samples_per_s": {}}
+    first = None
+    try:
+        for epoch in range(start_epoch, args.epochs):
+            t0, seen, pending = time.perf_counter(), 0, None
+            batches = cls_batches(
+                train_ds, args.batch_size, shuffle=True,
+                seed=args.seed + epoch, drop_last=True,
+                with_normals=with_normals, workers=args.num_workers)
+            for i, batch in enumerate(prefetch(common.staged(batches,
+                                                              dev))):
+                if args.steps_per_epoch and i >= args.steps_per_epoch:
+                    break
+                # metrics read later: no sync
+                pending = train_step(common.to_device(batch, dev), gen)
+                if first is None:
+                    first = pending["loss"]
+                seen += args.batch_size
+                step_count += 1
+                if (i + 1) % args.log_every == 0:
+                    print(f"epoch {epoch} step {i+1}: "
+                          f"loss={float(pending['loss']):.4f} "
+                          f"acc={float(pending['acc'])*100:.2f}%")
+            common.synchronize(dev)
+            dt = time.perf_counter() - t0
+            loss = (float(pending["loss"]) if pending is not None
+                    else float("nan"))
+            oa = evaluate()
+            print(f"epoch {epoch}: loss={loss:.4f} test OA={oa:.2f}% "
+                  f"({seen/dt:.1f} samples/s)")
+            mlog.log("epoch", epoch=epoch, loss=loss, test_oa=oa,
+                     samples_per_sec=seen / dt)
+            ckpt.save(model, opt, step=epoch, best=oa > best_oa, metric=oa,
+                      train_steps=step_count)
+            best_oa = max(best_oa, oa)
+            summary["epochs"].append(epoch)
+            summary["last_loss"] = loss
+            summary["test_oa"][epoch] = oa
+            summary["samples_per_s"][epoch] = seen / dt
+    finally:
+        mlog.close()
+    print(f"best OA: {best_oa:.2f}%")
+    summary.update(steps=step_count, best_oa=best_oa,
+                   first_loss=None if first is None else float(first))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,18 +1,22 @@
 """Procedural synthetic point clouds (counterpart of
-``pointcloudlib_tpu/data/synthetic.py``): classification without
-augmentation, and ShapeNet-part-shaped segmentation.
+``pointcloudlib_tpu/data/synthetic.py``): ModelNet40-shaped
+classification, with the train-time augmentation, and ShapeNet-part-shaped
+segmentation.
 
 Parametric surface primitives (sphere, cube, cylinder, cone, torus,
 plane, helix, two spheres) with per-class deformation, normalized to the
 unit sphere: real ball-query occupancy for the serving path, which
-Gaussian noise would not give.
+Gaussian noise would not give. The same arguments give the JAX
+package's items, bit for bit.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
-from pointcloudlib_tpu_torch.data.augment import normalize_unit_sphere
+from pointcloudlib_tpu_torch.data import augment as A
 from pointcloudlib_tpu_torch.train.metrics import INDEX_START, SEG_NUM
 
 _SHAPES = [
@@ -86,10 +90,18 @@ def _sample_shape(kind: str, n: int, rng: np.random.Generator):
 
 
 class SyntheticModelNet:
-    """ModelNet40-shaped synthetic classification set, without train-time
-    augmentation: per item ``(pts [N,3] f32, normals [N,3] f32, label)``.
-    The same ``seed`` and ``train`` give the same items as the JAX
-    package's ``SyntheticModelNet(..., augment=False)``."""
+    """ModelNet40-shaped synthetic classification set: per item ``(pts
+    [N,3] f32, normals [N,3] f32, label)``, unit-sphere normalized, and
+    with ``augment`` the train-time scale, translation and point shuffle.
+
+    ``train`` defaults to False here (the JAX class defaults to True): the
+    port's tools and ``chip_smoke.py`` take un-augmented test-split items
+    without naming the split. ``augment=None`` follows ``train``, as in
+    the JAX class. The per-item seeds are the first draws of the
+    dataset's generator ``_rng``; each augmented item then draws a child
+    generator from it, so a pass's augmentations depend on the items read
+    before (fresh randomness per epoch and vote). The same arguments and
+    reads give the JAX package's items, bit for bit."""
 
     def __init__(
         self,
@@ -98,13 +110,16 @@ class SyntheticModelNet:
         size: int = 512,
         train: bool = False,
         seed: int = 0,
+        augment: Optional[bool] = None,
     ):
         self.n_points = n_points
         self.n_classes = n_classes
         self.size = size
-        rng = np.random.default_rng(seed + (0 if train else 10_000))
+        self.train = train
+        self.augment = train if augment is None else augment
+        self._rng = np.random.default_rng(seed + (0 if train else 10_000))
         # fixed per-item seeds -> deterministic dataset
-        self._seeds = rng.integers(0, 2**31 - 1, size)
+        self._seeds = self._rng.integers(0, 2**31 - 1, size)
         self._labels = (np.arange(size) % n_classes).astype(np.int32)
 
     def __len__(self):
@@ -120,8 +135,15 @@ class SyntheticModelNet:
         variant = label // len(_SHAPES)
         stretch = 1.0 + 0.15 * variant
         pts = pts * np.array([1.0, stretch, 1.0 / stretch])
-        pts = normalize_unit_sphere(pts.astype(np.float32))
-        return pts.astype(np.float32), nrm.astype(np.float32), label
+        pts = A.normalize_unit_sphere(pts.astype(np.float32))
+        nrm = nrm.astype(np.float32)
+        if self.augment:
+            # voting passes need fresh randomness per epoch/vote
+            arng = np.random.default_rng(self._rng.integers(2**31 - 1))
+            pts = A.random_scale_translate(pts, arng)
+            perm = arng.permutation(self.n_points)
+            pts, nrm = pts[perm], nrm[perm]
+        return pts.astype(np.float32), nrm, label
 
     def batch(self, start: int, count: int):
         """Items ``[start, start+count)`` stacked: ``(pts [count,N,3],
@@ -136,17 +158,32 @@ class SyntheticShapeNetPart:
     """ShapeNet-part-shaped synthetic segmentation set: per item ``(pts
     [N,3] f32, label int (16 categories, in turn), seg [N] int32 (50
     parts))``, the parts being bands of the shape along a
-    category-dependent axis. The same arguments give the same items as
-    the JAX package's ``SyntheticShapeNetPart``."""
+    category-dependent axis; with ``class_choice`` (a name of
+    :data:`CATEGORIES`) every item is of that category. The same
+    arguments give the same items as the JAX package's
+    ``SyntheticShapeNetPart``."""
+
+    N_CATEGORIES = 16
+    N_PARTS = 50
+    # the category order of the reference's hdf5 set
+    CATEGORIES = ["airplane", "bag", "cap", "car", "chair", "earphone",
+                  "guitar", "knife", "lamp", "laptop", "motorbike", "mug",
+                  "pistol", "rocket", "skateboard", "table"]
 
     def __init__(self, n_points: int = 2048, size: int = 256,
-                 train: bool = True, seed: int = 0):
+                 train: bool = True, seed: int = 0,
+                 class_choice: Optional[str] = None):
         self.n_points = n_points
         self.size = size
         self.train = train
         rng = np.random.default_rng(seed + (0 if train else 20_000))
         self._seeds = rng.integers(0, 2**31 - 1, size)
-        self._labels = (np.arange(size) % len(SEG_NUM)).astype(np.int32)
+        if class_choice is not None:
+            cat = self.CATEGORIES.index(class_choice.lower())
+            self._labels = np.full(size, cat, np.int32)
+        else:
+            self._labels = (
+                np.arange(size) % self.N_CATEGORIES).astype(np.int32)
 
     def __len__(self):
         return self.size

@@ -14,12 +14,15 @@ part-segmentation model, in eval mode on one device:
 * softmax on the device, only the probabilities copied back.
 
 The device defaults to the card and raises when there is none; pass
-``device="cpu"`` for the plain PyTorch versions on the CPU. Orbax
-checkpoint restore comes with a later slice (ROADMAP.md); weights arrive
-through ``from_variables``.
+``device="cpu"`` for the plain PyTorch versions on the CPU. Weights come
+from the port's checkpoints (``from_checkpoint``, ``utils/checkpoint.py``)
+or from the JAX package's variables as numpy leaves
+(``from_variables``).
 
 Example::
 
+    p = Predictor.from_checkpoint("checkpoints/pointnet2", "pointnet2")
+    probs = p.predict_proba(clouds, normals)      # [B, 40]
     p = Predictor.from_variables("pointnet2", jax_variables)
     probs = p.predict_proba(clouds, normals)      # [B, 40]
     s = SegPredictor.from_variables("pointnet2", jax_seg_variables)
@@ -34,6 +37,7 @@ segmentation models.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Mapping, Optional, Union
 
 import numpy as np
@@ -43,11 +47,41 @@ from pointcloudlib_tpu_torch.models import get_cls_model, get_seg_model
 from pointcloudlib_tpu_torch.models.pointnet2 import N_CATEGORIES
 from pointcloudlib_tpu_torch.ops.dispatch import resolve_device
 from pointcloudlib_tpu_torch.ops.spatial import canonicalize_batch, unsort_rows
+from pointcloudlib_tpu_torch.utils.checkpoint import CheckpointManager
 from pointcloudlib_tpu_torch.utils.interop import from_jax_variables
 
 # power-of-two-ish point-count buckets: few shapes, bounded padding;
 # above 4096 a cloud keeps its own N (``inference.py:35,58-62``)
 _BUCKETS = (128, 256, 512, 1024, 2048, 4096)
+
+
+def _restore_required(model: torch.nn.Module, ckpt_dir, which: str) -> None:
+    """Load checkpoint ``which`` (else ``current``) of ``ckpt_dir`` into
+    ``model``, or raise: serving initial weights is never right."""
+    mgr = CheckpointManager(Path(ckpt_dir))
+    if (mgr.restore_variables(model, name=which) is None
+            and mgr.restore_variables(model, name="current") is None):
+        raise FileNotFoundError(
+            f"no '{which}' or 'current' checkpoint under {mgr.directory} "
+            "— refusing to serve randomly-initialized weights")
+
+
+def _cls_model(model_name: str, n_classes: int,
+               with_normals: Optional[bool]):
+    """``(model, with_normals)``: by default only PointNet++ reads the
+    normals."""
+    if with_normals is None:
+        with_normals = model_name.startswith("pointnet2")
+    return get_cls_model(model_name, n_classes=n_classes,
+                         feat_channels=3 if with_normals else 0), with_normals
+
+
+def _seg_model(model_name: str, part_num: int):
+    """``(model, with_xyz_feats)``: PointNet++ takes xyz again as its point
+    features."""
+    with_xyz = model_name.startswith("pointnet2")
+    return get_seg_model(model_name, part_num=part_num,
+                         feat_channels=3 if with_xyz else 0), with_xyz
 
 
 def _bucket(n: int) -> int:
@@ -111,11 +145,31 @@ class Predictor:
     ) -> "Predictor":
         """Build ``model_name`` and load the JAX package's fused-layout
         ``variables`` (numpy leaves) through the weight bridge."""
-        if with_normals is None:
-            with_normals = model_name.startswith("pointnet2")
-        model = get_cls_model(model_name, n_classes=n_classes,
-                              feat_channels=3 if with_normals else 0)
+        model, with_normals = _cls_model(model_name, n_classes, with_normals)
         from_jax_variables(model, variables)
+        return cls(model, with_normals=with_normals, batch_size=batch_size,
+                   device=device)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        ckpt_dir: Union[str, Path],
+        model_name: str,
+        n_classes: int = 40,
+        with_normals: Optional[bool] = None,
+        which: str = "best",
+        sample_points: int = 1024,
+        batch_size: int = 32,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "Predictor":
+        """Build ``model_name`` and load checkpoint ``which`` (falling back
+        to ``current``) of ``ckpt_dir``, as ``train_cls`` writes it;
+        ``FileNotFoundError`` if there is neither. ``sample_points`` is
+        the JAX signature's init shape, which a torch model does not
+        need."""
+        del sample_points
+        model, with_normals = _cls_model(model_name, n_classes, with_normals)
+        _restore_required(model, ckpt_dir, which)
         return cls(model, with_normals=with_normals, batch_size=batch_size,
                    device=device)
 
@@ -186,10 +240,30 @@ class SegPredictor:
     ) -> "SegPredictor":
         """Build ``model_name`` and load the JAX package's fused-layout
         ``variables`` (numpy leaves) through the weight bridge."""
-        with_xyz = model_name.startswith("pointnet2")
-        model = get_seg_model(model_name, part_num=part_num,
-                              feat_channels=3 if with_xyz else 0)
+        model, with_xyz = _seg_model(model_name, part_num)
         from_jax_variables(model, variables)
+        return cls(model, with_xyz_feats=with_xyz, batch_size=batch_size,
+                   device=device)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        ckpt_dir: Union[str, Path],
+        model_name: str,
+        part_num: int = 50,
+        which: str = "best",
+        sample_points: int = 2048,
+        batch_size: int = 16,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "SegPredictor":
+        """Build ``model_name`` and load checkpoint ``which`` (falling back
+        to ``current``) of ``ckpt_dir``, as ``train_partseg`` writes it
+        (``<checkpoint-dir>/<model>_partseg``); ``FileNotFoundError`` if
+        there is neither. ``sample_points`` is unused, as in
+        :meth:`Predictor.from_checkpoint`."""
+        del sample_points
+        model, with_xyz = _seg_model(model_name, part_num)
+        _restore_required(model, ckpt_dir, which)
         return cls(model, with_xyz_feats=with_xyz, batch_size=batch_size,
                    device=device)
 

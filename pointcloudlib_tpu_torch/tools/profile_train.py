@@ -5,7 +5,7 @@
         [--model pointnet|pointnet2|pointnet2_msg|dgcnn|pointconv|pointcnn|
                  pointnet_partseg|pointnet2_partseg|dgcnn_partseg|
                  pointconv_partseg|pointcnn_partseg] \
-        [--n-points N] [--out DIR]
+        [--n-points N] [--batch B] [--out DIR]
 
 Trains PointNet++ SSG at B=64 or MSG at B=32 (normals as features,
 N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
@@ -19,7 +19,8 @@ seeded random weights and the models' dropout (0.5; PointConv 0.4; none
 in PointNet's and PointCNN's part segmentation), on
 one batch, after 3 warm-up
 steps; ``--n-points`` trains on clouds of N points instead (4096: the
-sorted route of the given-index kernels; 1000: DGCNN's standalone kNN).
+sorted route of the given-index kernels; 1000: DGCNN's standalone kNN),
+``--batch`` at B clouds a step.
 Prints one JSON line with:
 
 * ``wall_ms_per_step`` — host clock per step, ending in a synchronize,
@@ -85,8 +86,10 @@ def main(argv=None) -> None:
     ap.add_argument("--model", default="pointnet2", choices=sorted(BATCH))
     ap.add_argument("--n-points", type=int, default=None,
                     help="points a cloud (default: the model's row)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="clouds a step (default: the model's row)")
     args = ap.parse_args(argv)
-    bsz = BATCH[args.model]
+    bsz = args.batch or BATCH[args.model]
     n_points = args.n_points or N_POINTS[args.model]
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA device")

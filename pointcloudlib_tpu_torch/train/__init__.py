@@ -12,9 +12,14 @@ from pointcloudlib_tpu_torch.train.schedules import (
     step_decay,
 )
 from pointcloudlib_tpu_torch.train.state import sgd_momentum
-from pointcloudlib_tpu_torch.train.metrics import shape_ious
+from pointcloudlib_tpu_torch.train.metrics import (
+    balanced_accuracy,
+    fast_confusion,
+    shape_ious,
+)
 from pointcloudlib_tpu_torch.train.trainer import (
     make_cls_eval_step,
+    make_cls_pred_step,
     make_cls_train_step,
     make_seg_eval_step,
     make_seg_train_step,
@@ -22,9 +27,12 @@ from pointcloudlib_tpu_torch.train.trainer import (
 
 __all__ = [
     "accuracy",
+    "balanced_accuracy",
     "cosine_with_warmup",
     "cross_entropy_seg",
+    "fast_confusion",
     "make_cls_eval_step",
+    "make_cls_pred_step",
     "make_cls_train_step",
     "make_seg_eval_step",
     "make_seg_train_step",

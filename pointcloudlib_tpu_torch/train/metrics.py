@@ -1,6 +1,6 @@
-"""Part-segmentation metrics (counterpart of
-``pointcloudlib_tpu/train/metrics.py:1-31``): the ShapeNet part table and
-the per-shape mean part IoU, in numpy."""
+"""Evaluation metrics (counterpart of ``pointcloudlib_tpu/train/metrics.py``):
+the ShapeNet part table, the per-shape mean part IoU, the confusion
+matrix and the balanced accuracy, in numpy."""
 
 from __future__ import annotations
 
@@ -29,3 +29,24 @@ def shape_ious(pred: np.ndarray, seg: np.ndarray, label: np.ndarray
             ious.append(1.0 if union == 0 else inter / union)
         out[i] = np.mean(ious)
     return out
+
+
+def balanced_accuracy(true: np.ndarray, pred: np.ndarray, n_classes: int
+                      ) -> float:
+    """Mean recall over the classes present in ``true`` (sklearn's
+    ``balanced_accuracy_score``, which the reference uses); 0 when none
+    is."""
+    cm = fast_confusion(true, pred, n_classes)
+    per_class = np.diag(cm) / np.maximum(cm.sum(axis=1), 1)
+    present = cm.sum(axis=1) > 0
+    return float(per_class[present].mean()) if present.any() else 0.0
+
+
+def fast_confusion(true: np.ndarray, pred: np.ndarray, n_classes: int
+                   ) -> np.ndarray:
+    """Confusion matrix ``[n_classes, n_classes]`` int64 by one bincount:
+    row = true class, column = predicted class."""
+    idx = true.astype(np.int64) * n_classes + pred.astype(np.int64)
+    return np.bincount(idx, minlength=n_classes * n_classes).reshape(
+        n_classes, n_classes
+    )

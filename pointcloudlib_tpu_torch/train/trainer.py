@@ -108,6 +108,26 @@ def make_cls_eval_step(model: torch.nn.Module, device: Device = None
     return step
 
 
+def make_cls_pred_step(model: torch.nn.Module, probs: bool = False,
+                       device: Device = None
+                       ) -> Callable[[Mapping], torch.Tensor]:
+    """``pred_step(batch) -> [B]`` argmax class ids on the device, or with
+    ``probs`` the softmax probabilities ``[B, n_classes]``
+    (``trainer.py:177``): the confusion-matrix eval and the voting test.
+    The points are canonicalized as in the eval step."""
+    dev = resolve_device(device)
+    model.to(dev)
+
+    @torch.no_grad()
+    def step(batch: Mapping) -> torch.Tensor:
+        xyz, feats, _ = _inputs(batch, dev)
+        model.eval()
+        logits = model(xyz, feats)
+        return torch.softmax(logits, -1) if probs else logits.argmax(-1)
+
+    return step
+
+
 def make_seg_train_step(model: torch.nn.Module,
                         optimizer: torch.optim.Optimizer,
                         device: Device = None

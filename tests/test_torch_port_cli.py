@@ -1,0 +1,282 @@
+"""The port's checkpoints, serving from a checkpoint, the prediction
+step, the metrics log and both training CLIs, on the CPU, with PointNet
+(the cheapest full-width model, no kernel) at B=4, N=64 on synthetic
+data: the checkpoint round trip and the step after a restore, the
+predictors built from a checkpoint, ``make_cls_pred_step`` against the
+JAX pred step, ``MetricsLogger``'s records, two epochs of each CLI with
+``--eval``, ``--resume``, ``--votes`` and ``--confusion``, the flags
+against the JAX CLIs' parsers and the refusal of the flags not ported."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import optax
+
+import train_cls as jax_train_cls
+import train_partseg as jax_train_partseg
+from pointcloudlib_tpu.models import get_cls_model as jax_cls_model
+from pointcloudlib_tpu.train.state import TrainState
+from pointcloudlib_tpu.train.trainer import (
+    make_cls_pred_step as jax_pred_step,
+)
+from pointcloudlib_tpu.utils.logging import MetricsLogger as JaxLogger
+
+from pointcloudlib_tpu_torch.cli import common, train_cls, train_partseg
+from pointcloudlib_tpu_torch.data import SyntheticModelNet
+from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
+from pointcloudlib_tpu_torch.models import get_cls_model, get_seg_model
+from pointcloudlib_tpu_torch.train import (
+    make_cls_pred_step,
+    make_cls_train_step,
+    sgd_momentum,
+)
+from pointcloudlib_tpu_torch.utils.checkpoint import CheckpointManager
+from pointcloudlib_tpu_torch.utils.interop import (
+    from_jax_variables,
+    random_jax_variables,
+)
+from pointcloudlib_tpu_torch.utils.logging import MetricsLogger
+
+B, N = 4, 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """The port's CPU work on 2 threads beside the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _batch(seed):
+    xyz, _, label = SyntheticModelNet(n_points=N, size=B, seed=seed).batch(
+        0, B)
+    return {"xyz": xyz, "label": label}
+
+
+def _trained(seed=0):
+    """A PointNet one SGD step (momentum 0.9) from its seeded start, with
+    its optimizer and the dropout generator after the step."""
+    model = common.seeded_model(lambda: get_cls_model("pointnet"), seed)
+    opt = sgd_momentum(model.parameters(), 0.05)
+    gen = torch.Generator().manual_seed(seed)
+    make_cls_train_step(model, opt, device="cpu")(_batch(1), gen)
+    return model, opt, gen
+
+
+def _state_equal(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """Parameters, BN buffers, SGD momentum, step, ``save_step`` and the
+    best metric survive a save; ``step_0050.pt`` at the periodic gap;
+    the step after a restore into a fresh model and optimizer equals the
+    uninterrupted step bit for bit; the file names are not the JAX
+    manager's (``current``, ``best``, ``step_0050``,
+    ``best_metric.json``)."""
+    mgr = CheckpointManager(tmp_path / "ck")
+    assert mgr.restore(get_cls_model("pointnet")) is None
+    assert mgr.best_metric() is None
+    assert not (tmp_path / "ck").exists()
+    model, opt, gen = _trained()
+    mgr.save(model, opt, step=50, best=True, metric=12.5, train_steps=7)
+    mgr.save(model, opt, step=51, metric=3.0, train_steps=8)
+    names = sorted(p.name for p in (tmp_path / "ck").iterdir())
+    assert names == ["best.pt", "current.pt", "step_0050.pt"]
+    assert not {"current", "best", "step_0050", "best_metric.json"} & \
+        set(names)
+    assert mgr.best_metric() == 12.5
+
+    fresh = get_cls_model("pointnet")
+    fresh_opt = sgd_momentum(fresh.parameters(), 0.05)
+    assert mgr.restore_with_step(fresh, fresh_opt) == (8, 51)
+    _state_equal(fresh.state_dict(), model.state_dict())
+    assert any(k.endswith("running_mean") for k in model.state_dict())
+    for p, q in zip(model.parameters(), fresh.parameters()):
+        assert torch.equal(opt.state[p]["momentum_buffer"],
+                           fresh_opt.state[q]["momentum_buffer"])
+    assert mgr.restore(get_cls_model("pointnet"), name="step_0050") == 7
+    CheckpointManager(tmp_path / "bare").save(model, None, step=1)
+    with pytest.raises(ValueError, match="no optimizer"):
+        CheckpointManager(tmp_path / "bare").restore(fresh, fresh_opt)
+
+    gen2 = torch.Generator().manual_seed(0)
+    gen2.set_state(gen.get_state())
+    batch = _batch(2)
+    want = make_cls_train_step(model, opt, device="cpu")(batch, gen)
+    got = make_cls_train_step(fresh, fresh_opt, device="cpu")(batch, gen2)
+    assert torch.equal(got["loss"], want["loss"])
+    _state_equal(fresh.state_dict(), model.state_dict())
+
+
+def test_predictors_from_checkpoint(tmp_path):
+    """``from_checkpoint`` serves the saved weights: equal to a predictor
+    on the model in memory; ``best`` falls back to ``current``; a
+    directory without either raises."""
+    model, opt, _ = _trained()
+    CheckpointManager(tmp_path / "cls").save(model, opt, step=0)
+    clouds, normals, _ = SyntheticModelNet(n_points=50, size=3,
+                                           seed=4).batch(0, 3)
+    got = Predictor.from_checkpoint(tmp_path / "cls", "pointnet",
+                                    batch_size=2, device="cpu")
+    want = Predictor(model, batch_size=2, device="cpu")
+    assert not got.with_normals
+    np.testing.assert_array_equal(got.predict_proba(clouds),
+                                  want.predict_proba(clouds))
+    with pytest.raises(FileNotFoundError, match="refusing to serve"):
+        Predictor.from_checkpoint(tmp_path / "none", "pointnet",
+                                  device="cpu")
+
+    seg = common.seeded_model(lambda: get_seg_model("pointnet"), 1)
+    seg.train()
+    with torch.no_grad():  # move the BN statistics off their start
+        seg(torch.from_numpy(clouds), torch.eye(16)[[0, 3, 5]])
+    CheckpointManager(tmp_path / "seg").save(seg, None, step=0, best=True)
+    labels = np.array([0, 3, 5])
+    got = SegPredictor.from_checkpoint(tmp_path / "seg", "pointnet",
+                                       batch_size=2, device="cpu")
+    want = SegPredictor(seg, batch_size=2, device="cpu")
+    np.testing.assert_array_equal(got.predict_proba(clouds, labels),
+                                  want.predict_proba(clouds, labels))
+    with pytest.raises(FileNotFoundError):
+        SegPredictor.from_checkpoint(tmp_path / "none", "pointnet",
+                                     device="cpu")
+
+
+def test_pred_step_matches_jax():
+    """``make_cls_pred_step`` (ids and probabilities) against the JAX
+    pred step's probabilities on the same variables (one jitted JAX
+    forward); f32 on both sides."""
+    model = get_cls_model("pointnet")
+    variables = random_jax_variables(model, seed=3)
+    from_jax_variables(model, variables)
+    state = TrainState.create(
+        apply_fn=None, params=variables["params"],
+        batch_stats=variables["batch_stats"], tx=optax.identity())
+    batch = _batch(5)
+    want = np.asarray(jax_pred_step(jax_cls_model("pointnet"), probs=True)(
+        state, {"xyz": jnp.asarray(batch["xyz"])}))
+    probs = make_cls_pred_step(model, probs=True, device="cpu")(batch)
+    ids = make_cls_pred_step(model, device="cpu")(batch)
+    np.testing.assert_allclose(probs.numpy(), want, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(ids.numpy(), want.argmax(-1))
+
+
+def test_metrics_logger_records(tmp_path):
+    """The JAX logger's records: ``event``, ``t`` and the fields, tensor
+    and numpy scalars as floats."""
+    fields = dict(epoch=3, loss=torch.tensor(0.25), oa=np.float32(0.5),
+                  name="x")
+    for cls, sub in ((MetricsLogger, "port"), (JaxLogger, "jax")):
+        log = cls(str(tmp_path / sub), run_name="cls_pointnet")
+        log.log("epoch", **fields)
+        log.close()
+    got, want = ([json.loads(line) for line in
+                  (tmp_path / sub / "cls_pointnet.jsonl").read_text()
+                  .splitlines()] for sub in ("port", "jax"))
+    assert [r.pop("t") >= 0 for r in got + want] == [True, True]
+    assert got == want == [{"event": "epoch", "epoch": 3, "loss": 0.25,
+                            "oa": 0.5, "name": "x"}]
+    MetricsLogger(None).log("epoch", x=1)  # no directory: nothing written
+
+
+def _args(tmp_path, *extra):
+    return ["--model", "pointnet", "--synthetic", "--synthetic-size", "16",
+            "--batch_size", str(B), "--num_points", str(N),
+            "--steps-per-epoch", "2", "--device", "cpu",
+            "--checkpoint-dir", str(tmp_path / "ck"),
+            "--log-dir", str(tmp_path / "log"), *extra]
+
+
+def test_train_cls_trains_evaluates_resumes(tmp_path):
+    """Two epochs, then ``--eval`` gives the last epoch's test OA, as do
+    ``--confusion`` and ``Predictor.from_checkpoint``; ``--votes 2``
+    runs; ``--resume --epochs 3`` continues at epoch 2 with the best OA
+    and the step count; the JSONL log holds one record an epoch."""
+    run = train_cls.main(_args(tmp_path, "--epochs", "2"))
+    assert run["epochs"] == [0, 1] and run["steps"] == 4
+    assert np.isfinite(run["first_loss"]) and np.isfinite(run["last_loss"])
+    last = run["test_oa"][1]
+    assert train_cls.main(_args(tmp_path, "--eval"))["eval_oa"] == last
+    assert train_cls.main(_args(tmp_path, "--eval", "--confusion")
+                          )["eval_oa"] == last
+    voted = train_cls.main(_args(tmp_path, "--eval", "--votes", "2"))
+    assert voted["votes"] == 2 and 0 <= voted["eval_oa"] <= 100
+
+    test = SyntheticModelNet(n_points=N, size=64, seed=0)
+    clouds, _, labels = test.batch(0, 64)
+    served = Predictor.from_checkpoint(tmp_path / "ck" / "pointnet",
+                                       "pointnet", which="current",
+                                       batch_size=B, device="cpu")
+    assert 100.0 * (served.predict(clouds) == labels).mean() == last
+
+    resumed = train_cls.main(_args(tmp_path, "--resume", "--epochs", "3"))
+    assert resumed["epochs"] == [2] and resumed["steps"] == 6
+    assert resumed["best_oa"] == max(run["best_oa"], resumed["test_oa"][2])
+    records = [json.loads(line) for line in
+               (tmp_path / "log" / "cls_pointnet.jsonl").read_text()
+               .splitlines()]
+    assert [r["epoch"] for r in records] == [0, 1, 2]
+    assert records[1]["test_oa"] == last
+
+
+def test_train_partseg_trains_evaluates_resumes(tmp_path):
+    run = train_partseg.main(_args(tmp_path, "--epochs", "2"))
+    assert run["epochs"] == [0, 1] and run["steps"] == 4
+    last = (run["test_acc"][1], run["test_balanced_acc"][1],
+            run["test_iou"][1])
+    got = train_partseg.main(_args(tmp_path, "--eval"))
+    assert (got["eval_acc"], got["eval_balanced_acc"],
+            got["eval_iou"]) == last
+    assert (tmp_path / "ck" / "pointnet_partseg" / "best.pt").exists()
+    resumed = train_partseg.main(_args(tmp_path, "--resume", "--epochs",
+                                       "3", "--class-choice", "mug"))
+    assert resumed["epochs"] == [2] and resumed["steps"] == 6
+
+
+@pytest.mark.parametrize("cli,jax_cli", [
+    (train_cls, jax_train_cls), (train_partseg, jax_train_partseg)])
+def test_flags_are_the_jax_flags(cli, jax_cli):
+    """Every flag of the JAX parser, with its default, and ``--device``
+    (``cuda``) besides."""
+    got, want = vars(cli.parse_args([])), vars(jax_cli.parse_args([]))
+    assert got.pop("device") == "cuda"
+    assert got == want
+
+
+UNPORTED = {
+    "train_cls": [["--model", "kpconv"], ["--model", "kpconv_deform"],
+                  ["--kp-buckets", "1"], ["--kp-cap-quantile", "0.5"],
+                  ["--deform-lr-factor", "0.1"], ["--n-devices", "2"],
+                  ["--dp", "shard_map"], ["--multihost"],
+                  ["--diff-checkpoint", "a.pt"], ["--diff-trace", "a.npz"],
+                  ["--dump-trace", "b.npz"], ["--diff-atol", "1e-4"],
+                  ["--debug"]],
+    "train_partseg": [["--n-devices", "4"], ["--dp", "shard_map"],
+                      ["--multihost"], ["--debug"]],
+}
+
+
+@pytest.mark.parametrize("name,flags", [
+    (name, flags) for name, cases in UNPORTED.items() for flags in cases],
+    ids=lambda v: v if isinstance(v, str) else " ".join(v))
+def test_unported_flags_exit_naming_their_item(name, flags):
+    cli = {"train_cls": train_cls, "train_partseg": train_partseg}[name]
+    with pytest.raises(SystemExit, match=r"ROADMAP.md queue 1, item [6-9]"):
+        cli.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("cli", [train_cls, train_partseg])
+def test_no_card_raises_without_device_cpu(cli, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--synthetic", "--checkpoint-dir", str(tmp_path)])
+    assert not (tmp_path / "pointnet2").exists()

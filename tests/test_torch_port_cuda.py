@@ -2209,3 +2209,46 @@ def test_pointnet_pointcnn_train_step_card_matches_cpu(card, name):
           "largest norm deviation",
           max(agree.items(), key=lambda kv: abs(kv[1][1] - 1)))
     assert not got["failures"], got["failures"]
+
+
+def test_train_cls_cli_epoch_and_served_checkpoint(card, tmp_path):
+    """One epoch of ``train_cls --model pointnet2`` on synthetic clouds at
+    B=32, N=1024 (2 steps, then the 64 test clouds in 2 batches): per
+    step exactly 2 launches of FPS, the ball-query pass 1, p1 and p2 and 6
+    of the tail, per eval batch 2 of FPS and the ball-query eval; then
+    ``Predictor.from_checkpoint`` serves the epoch's checkpoint on the
+    card with the eval's launches and the epoch's test OA."""
+    from pointcloudlib_tpu_torch.cli import train_cls
+    from pointcloudlib_tpu_torch.data import SyntheticModelNet
+    from pointcloudlib_tpu_torch.ops.kernels import fused_sa_train as kft
+
+    counted = {"fps": kfps.fps, "ball_query": kbq.ball_query,
+               "fused_sa_bq_eval": kfs.fused_sa_bq_eval,
+               "fused_sa_eval": kfs.fused_sa_eval, "bq_f1": kft.bq_f1,
+               "sa_f1": kft.sa_f1, "sa_tail": kft.sa_tail,
+               "sa_bwd_p1": kft.sa_bwd_p1, "sa_bwd_p2": kft.sa_bwd_p2}
+    step = {"fps": 2, "bq_f1": 2, "sa_tail": 6, "sa_bwd_p1": 2,
+            "sa_bwd_p2": 2}
+    serve = {"fps": 2, "fused_sa_bq_eval": 2}
+
+    def launches(fn):
+        before = {k: f.launches for k, f in counted.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: f.launches - before[k] for k, f in counted.items()}
+
+    run, got = launches(lambda: train_cls.main([
+        "--model", "pointnet2", "--synthetic", "--synthetic-size", "64",
+        "--batch_size", "32", "--num_points", "1024", "--epochs", "1",
+        "--steps-per-epoch", "2", "--checkpoint-dir", str(tmp_path)]))
+    assert got == {k: 2 * step.get(k, 0) + 2 * serve.get(k, 0)
+                   for k in counted}
+    assert run["steps"] == 2 and np.isfinite(run["last_loss"])
+    clouds, normals, labels = SyntheticModelNet(n_points=1024, size=64,
+                                                seed=0).batch(0, 64)
+    pred = Predictor.from_checkpoint(tmp_path / "pointnet2", "pointnet2",
+                                     which="current")
+    probs, got = launches(lambda: pred.predict_proba(clouds, normals))
+    assert got == {k: 2 * serve.get(k, 0) for k in counted}
+    oa = 100.0 * int((probs.argmax(-1) == labels).sum()) / 64
+    assert oa == run["test_oa"][0]

@@ -117,24 +117,47 @@ def _shapes(module, *args):
 
 
 def _eval(module):
-    return jax.jit(lambda v, *a: module.apply(v, *a, training=False))
+    """The model's eval forward → ``(logits, softmax)``, one program."""
+    def forward(v, *a):
+        logits = module.apply(v, *a, training=False)
+        return logits, jax.nn.softmax(logits, -1)
+
+    return jax.jit(forward)
 
 
 def _served(arrays, forward, size=2):
     """``forward`` on each batch of ``size`` a predictor serves for
     ``arrays`` (the last filled by repeating its last cloud), the real rows
-    joined."""
-    return np.concatenate([np.asarray(forward(*chunks))[:real]
-                           for chunks, real in _batches(arrays, size)])
+    of each of its outputs joined."""
+    outs = [[np.asarray(o)[:real] for o in forward(*chunks)]
+            for chunks, real in _batches(arrays, size)]
+    return tuple(np.concatenate(o) for o in zip(*outs))
+
+
+def _port_served(predict, model):
+    """``predict()`` of a predictor over ``model`` → ``(its output, the
+    model's logits on each batch it served)``: one forward for both."""
+    logits = []
+    hook = model.register_forward_hook(lambda m, a, o: logits.append(o))
+    try:
+        return predict(), logits
+    finally:
+        hook.remove()
 
 
 def _state(apply_fn, start):
-    """The JAX train state at ``start``, made in one program (optax's
-    eager init compiles one for each parameter's shape)."""
+    """The JAX train state at ``start``: ``TrainState.create``'s fields,
+    optax's momentum zeros in the structure its init makes (traced, not
+    compiled; eager init compiles a program for each parameter's
+    shape)."""
     tx = jax_sgd(LR)
-    return jax.jit(lambda params, stats: TrainState.create(
-        apply_fn=apply_fn, params=params, batch_stats=stats, tx=tx))(
-        start["params"], start["batch_stats"])
+    params = jax.tree_util.tree_map(jnp.asarray, start["params"])
+    opt_state = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(np.zeros(a.shape, a.dtype)),
+        jax.eval_shape(tx.init, params))
+    return TrainState(step=0, apply_fn=apply_fn, params=params, tx=tx,
+                      opt_state=opt_state, batch_stats=jax.tree_util.tree_map(
+                          jnp.asarray, start["batch_stats"]))
 
 
 def _two_steps(step, jstep, state, model, batch):
@@ -197,25 +220,26 @@ def runs():
         out["cls_shapes"] = (_shapes(jm, jnp.asarray(xyz)),
                              jax_variable_shapes(model))
         served = _pad_points([clouds], 500)
-        model.eval()
+        # the Predictor's forward gives the model's logits too
+        pp = Predictor.from_variables("pointcnn", start, batch_size=2,
+                                      device="cpu")
         calls = _record_knn_gathers(mp)
-        with torch.no_grad():
-            got = _served(served, lambda x: model(torch.from_numpy(x)))
+        probs, logits = _port_served(lambda: pp.predict_proba(clouds),
+                                     pp.model)
         out["cls_calls"] = [(q.shape, p.shape, k, s)
                             for q, p, k, s in calls[:4]]
         mp.undo()
+        got = np.concatenate([o.numpy()[:real] for o, (_, real) in
+                              zip(logits, _batches(served, 2))])
         fwd = _eval(jm)
-        want = _served(served, lambda x: fwd(start, jnp.asarray(x)))
+        want, want_probs = _served(
+            served, lambda x: fwd(start, jnp.asarray(x)))
         out["cls_logits"] = (got, want)
-        pp = Predictor.from_variables("pointcnn", start, batch_size=2,
-                                      device="cpu")
-        out["cls_probs"] = (pp.predict_proba(clouds),
-                            np.asarray(jax.nn.softmax(want, -1)),
-                            pp.with_normals)
+        out["cls_probs"] = (probs, want_probs, pp.with_normals)
         batch = {"xyz": _grid_clouds(rng, STEP_B, CLS_N),
                  "label": np.array([3, 17])}
         correct, total = make_cls_eval_step(model, device="cpu")(batch)
-        want_pred = np.asarray(fwd(start, jnp.asarray(batch["xyz"])))
+        want_pred = np.asarray(fwd(start, jnp.asarray(batch["xyz"]))[0])
         out["cls_eval_step"] = (int(correct), int(total),
                                 int((want_pred.argmax(-1)
                                      == batch["label"]).sum()))
@@ -238,23 +262,21 @@ def runs():
                                      jnp.asarray(onehot)),
                              jax_variable_shapes(model))
         served = _pad_points([clouds], 1000) + [onehot[1:]]
-        model.eval()
+        sp = SegPredictor.from_variables("pointcnn", start, batch_size=1,
+                                         device="cpu")
         calls = _record_knn_gathers(mp)
-        with torch.no_grad():
-            got = _served(served, lambda x, o: model(torch.from_numpy(x),
-                                                     torch.from_numpy(o)), 1)
+        probs, logits = _port_served(
+            lambda: sp.predict_proba(clouds, labels), sp.model)
         out["seg_calls"] = [(q.shape, p.shape, k, s)
                             for q, p, k, s in calls]
         mp.undo()
+        got = np.concatenate([o.numpy() for o in logits])
         fwd = _eval(jm)
-        want = _served(served, lambda x, o: fwd(start, jnp.asarray(x),
-                                                jnp.asarray(o)), 1)
+        want, want_probs = _served(
+            served, lambda x, o: fwd(start, jnp.asarray(x), jnp.asarray(o)),
+            1)
         out["seg_logits"] = (got, want)
-        sp = SegPredictor.from_variables("pointcnn", start, batch_size=1,
-                                         device="cpu")
-        out["seg_predictor"] = (sp.predict_proba(clouds, labels),
-                                np.asarray(jax.nn.softmax(want[:, :1000],
-                                                          -1)),
+        out["seg_predictor"] = (probs, want_probs[:, :1000],
                                 sp.with_xyz_feats)
         # the eval step on the served batch, the train steps on smaller
         # clouds (the port's CPU time goes as B·N)
@@ -509,13 +531,18 @@ def test_neighbour_lists_match_jax_but_for_near_ties(monkeypatch):
             model.eval()(*(torch.from_numpy(np.asarray(a, np.float32))
                            for a in args))
     assert len(calls) == 12
-    jax_lists = jax.jit(lambda q, p, kd: (jax_d2(q, p), jax_knn(q, p, kd)[1]),
-                        static_argnums=2)
+    # the twelve calls' d² and lists in one JAX program
+    jax_lists = jax.jit(
+        lambda pairs, kds: [(jax_d2(q, p), jax_knn(q, p, kd)[1])
+                            for (q, p), kd in zip(pairs, kds)],
+        static_argnums=1)
+    lists = jax_lists(
+        tuple((jnp.asarray(q.numpy()), jnp.asarray(p.numpy()))
+              for q, p, _, _ in calls),
+        tuple(k * stride for _, _, k, stride in calls))
     rows = differ = 0
-    for query, points, k, stride in calls:
+    for (query, points, k, stride), (d2, jidx) in zip(calls, lists):
         _, idx = geometry.knn_plain(query, points, k * stride)
-        d2, jidx = jax_lists(jnp.asarray(query.numpy()),
-                             jnp.asarray(points.numpy()), k * stride)
         idx, d2, jidx = idx.numpy(), np.asarray(d2), np.asarray(jidx)
         kept = slice(None, None, stride)
         bad = (idx[..., kept] != jidx[..., kept]).any(-1)

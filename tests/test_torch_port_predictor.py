@@ -100,16 +100,22 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "pointcloudlib_tpu")
              or m.startswith(("jax.", "flax.", "pointcloudlib_tpu.")))
 models = ("pointnet", "pointnet2", "dgcnn", "pointconv", "pointcnn")
-unseen = [m for m in models
-          if "pointcloudlib_tpu_torch.models." + m not in sys.modules]
+modules = ["models." + m for m in models] + [
+    "data.augment", "data.loader", "data.modelnet40", "data.shapenet",
+    "data.synthetic", "data.workers", "utils.checkpoint", "utils.logging",
+    "train.metrics", "train.trainer", "inference", "cli.common",
+    "cli.train_cls", "cli.train_partseg"]
+unseen = [m for m in modules
+          if "pointcloudlib_tpu_torch." + m not in sys.modules]
 print(bad, unseen)
 sys.exit(1 if bad or unseen else 0)
 """
 
 
 def test_port_imports_no_jax():
-    """The port, every one of its model modules included, and
-    chip_smoke.py import nothing of JAX, flax or the JAX package
+    """The port, every one of its model, data, checkpoint, logging,
+    training and CLI modules included, and chip_smoke.py import nothing
+    of JAX, flax or the JAX package
     (``pointcloudlib_tpu_torch`` shares the JAX package's name as a
     prefix, hence the exact-name and dotted-prefix tests)."""
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
