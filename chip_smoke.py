@@ -263,8 +263,37 @@ once:
    relative; then ``train_partseg --model dgcnn`` at B=16, N=2048 on 32
    synthetic clouds (per step the DGCNN part-seg step's launches of
    phase 19, per eval batch its served batch's), and one more epoch with
-   ``--num-workers 2`` (a fork pool after CUDA is initialised). Each run's
-   launches count for the kernels line as a path of its own.
+   ``--num-workers 2`` (a fork pool after CUDA is initialised); and
+   ``train_cls --model kpconv`` at B=16 with ``--kp-buckets 2`` for 2
+   epochs of at most 2 steps (each bucket's steps at its calibrated
+   shapes), ``--eval --votes 2`` (``evaluate_voting_kpconv``) and
+   ``Predictor.from_checkpoint("kpconv")`` (the uncalibrated shapes, as
+   the JAX package's), card against CPU on 8 clouds, each run's launches
+   exact as the shapes and the gates give them (the runs' summaries name
+   the calibration and the steps of each bucket). Each CLI's runs count
+   for the kernels line as a path of their own;
+30. KPConv, rigid and deformable — full width (15 blocks, 64 → 1024
+   features, 15 kernel points, the 1024-wide head) with seeded weights in
+   the JAX layout, the pyramid calibrated as ``bench.py:129-155`` does on
+   its 16 surface clouds at N=1024 (0.9 occupancy quantile, margin 1.0;
+   each variant's own architecture), on the card and on the CPU
+   (equal): the launch counts the shapes and gates give (per served
+   batch 6 of ``knn`` and 11 of the row gather, per step those and 11 of
+   the scatter-add) must be those expected; two pyramid builds on the
+   card bit-identical and equal to the CPU's; ``knn`` at its six
+   launches (masked supports at 1e9) bit-identical, the row gather at its
+   11 and the scatter-add at its 11 (arguments recorded from the model)
+   against their plain versions as in phase 21, device times by CUDA
+   graphs with bound and library yardstick, summed into a ``kernel
+   column`` line; then ``Predictor(batch_size=16)`` as phase 6 (three
+   requests of 256 clouds, one at N=1000, exact launches a batch, 8
+   clouds against the CPU within 5e-3) and ``make_cls_train_step`` at
+   B=16 as phase 7 with the gradient check: the rigid model at lr 0.1,
+   momentum 0.9 (``bench.py:168``), the deformable one by the CLI's
+   KPConv recipe (clip 100, momentum 0.98, lr 1e-2, offsets at 0.1 ×;
+   ``bench.py``'s step diverges from its seeded weights); for the
+   deformable model first its regulariser (finite, positive, and the
+   first step's loss the cross entropy plus it).
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
 entry per TPU kernel replaced (thirty-one; the three forward tails
@@ -315,6 +344,12 @@ from pointcloudlib_tpu_torch.data.synthetic import (
 from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
 from pointcloudlib_tpu_torch.models import get_cls_model
 from pointcloudlib_tpu_torch.models.dgcnn import DGCNNPartSeg, Fused2EdgeConv
+from pointcloudlib_tpu_torch.models.kpconv.calibrate import bench_calibration
+from pointcloudlib_tpu_torch.models.kpconv.pyramid import (
+    KNN_MIN_SUPPORTS,
+    layer_blocks,
+    pyramid_shapes,
+)
 from pointcloudlib_tpu_torch.models.pointnet2 import (
     PointNet2MSG,
     PointNet2PartSeg,
@@ -343,10 +378,13 @@ from pointcloudlib_tpu_torch.tools.grad_check import (
     synthetic_batch,
 )
 from pointcloudlib_tpu_torch.train import (
+    KPCONV_CLIP_NORM,
+    kpconv_optimizer,
     make_cls_train_step,
     make_seg_train_step,
     reference_flat_lr,
     sgd_momentum,
+    soft_cross_entropy,
 )
 from pointcloudlib_tpu_torch.utils.interop import (
     from_jax_variables,
@@ -419,6 +457,8 @@ CUDA_CORE_EVAL_MS = {
 }
 PC_CHECK = 2                       # PointConv part-seg clouds on the CPU too
 SEG_CHECK = 2                      # PointNet / PointCNN part-seg clouds, too
+KP_BATCH = 16                      # bench.py:346-347 (xyz only)
+KP_NAMES = ("kpconv", "kpconv_deform")
 CSRC = "pointcloudlib_tpu_torch/csrc/"
 SOURCES = ("fps", "ball_query", "fused_sa_bq_eval", "fused_sa_eval",
            "three_interp", "scatter_rows", "knn", "gather_rows",
@@ -737,6 +777,12 @@ PCNN_SERVE = {"fps": 2, "knn_gather": 4}
 PCNN_STEP = {**PCNN_SERVE, "scatter_rows": 4}
 PCNNSEG_SERVE = {"fps": 3, "knn_gather": 8}
 PCNNSEG_STEP = {**PCNNSEG_SERVE, "scatter_rows": 8}
+# KPConv at bench.py's calibration of its 16 clouds (caps 896, 640, 256,
+# 80, 24): the kNN over the supports of layers 0-2 (self-neighbours and
+# pools), the row gather of layers 0-2 (the first block's is narrow: 4
+# channels), the scatter-add of each of those in the backward
+KP_SERVE = {"knn": 6, "gather_neighbors": 11}
+KP_STEP = {**KP_SERVE, "scatter_rows": 11}
 
 
 def _zero_counts() -> None:
@@ -768,10 +814,23 @@ def _read_totals(what: str, want: dict) -> dict:
     return launches
 
 
-def phase_serving(name, variables, data, power, batch, per_batch, extra):
+def _predictor(name, variables, batch, build=None, device=None):
+    """A Predictor of model ``name`` with ``variables``: built by the
+    registry's defaults, or by ``build()`` (KPConv's calibrated shapes)
+    with the weights loaded."""
+    if build is None:
+        return Predictor.from_variables(name, variables, batch_size=batch,
+                                        with_normals=name in NORMALS,
+                                        device=device)
+    model = from_jax_variables(build(), variables)
+    return Predictor(model, with_normals=name in NORMALS, batch_size=batch,
+                     device=device)
+
+
+def phase_serving(name, variables, data, power, batch, per_batch, extra,
+                  build=None):
     clouds, normals = data
-    pred = Predictor.from_variables(name, variables, batch_size=batch,
-                                    with_normals=name in NORMALS)
+    pred = _predictor(name, variables, batch, build)
     pred.predict_proba(clouds[:batch], normals[:batch])  # warm-up
     odd = SyntheticModelNet(n_points=1000, size=8, seed=3).batch(0, 8)
 
@@ -797,9 +856,7 @@ def phase_serving(name, variables, data, power, batch, per_batch, extra):
     if any(not np.array_equal(o, probs) for o in outs[1:]):
         fail("repeated requests gave different probabilities")
 
-    cpu = Predictor.from_variables(name, variables, batch_size=8,
-                                   with_normals=name in NORMALS,
-                                   device="cpu")
+    cpu = _predictor(name, variables, 8, build, device="cpu")
     ref = cpu.predict_proba(clouds[:8], normals[:8])
     diff = float(np.abs(ref - probs[:8]).max())
     if diff > PROB_ATOL:
@@ -1302,21 +1359,24 @@ def _moved_by_a_step(step, batch, gen, model, keys):
 
 
 def phase_train(name, variables, power, batch_size, per_step,
-                n_points=None, grad_check=True):
+                n_points=None, grad_check=True, model_kw=None, recipe=None):
     """``name`` trains at ``batch_size``: a classification model on
     ModelNet40-shaped clouds at N=1024 (or ``n_points``) with the
     reference's flat lr, or a part-segmentation model (:data:`SEG`) on
-    ShapeNet-part-shaped clouds at N=2048 with lr 0.01; with
-    ``grad_check`` the card-vs-CPU gradient check follows."""
+    ShapeNet-part-shaped clouds at N=2048 with lr 0.01, built with
+    ``model_kw`` (KPConv's pyramid shapes), or with ``recipe(model) →
+    (optimizer, clip norm, description)`` in place of SGD at that lr;
+    with ``grad_check`` the card-vs-CPU gradient check follows."""
     tag = name if n_points is None else f"{name} N={n_points}"
     if n_points is None:
         n_points = SEG_POINTS if name in SEG else N_POINTS
     batch = {k: v.to(DEV) for k, v in synthetic_batch(
         name, batch_size, 5, n_points).items()}
-    model = build_model(name)
+    model = build_model(name, **(model_kw or {}))
     from_jax_variables(model, variables)
     flat_lr = {"dgcnn": DGCNN_LR, "pointconv": PC_LR, "pointnet": CLS_LR,
-               "pointcnn": CLS_LR}
+               "pointcnn": CLS_LR, "kpconv": CLS_LR,
+               "kpconv_deform": CLS_LR}
     if name in SEG:
         lr, make = SEG_LR, make_seg_train_step
     elif name in flat_lr:
@@ -1324,8 +1384,12 @@ def phase_train(name, variables, power, batch_size, per_step,
     else:  # ModelNet40's training set
         lr, make = reference_flat_lr(0.02, 9840, batch_size), \
             make_cls_train_step
-    opt = sgd_momentum(model.parameters(), lr)
-    step = make(model, opt)
+    if recipe is None:
+        opt = sgd_momentum(model.parameters(), lr)
+        step = make(model, opt)
+    else:
+        opt, clip, lr = recipe(model)
+        step = make(model, opt, clip_norm=clip)
     gen = torch.Generator(device=DEV).manual_seed(0)
     losses = [step(batch, gen)["loss"] for _ in range(WARMUP_STEPS)]
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -4033,6 +4097,199 @@ def eval_times() -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- KPConv
+
+
+def _kp_model(name, variables, shapes, device=None):
+    """KPConv model ``name`` at pyramid ``shapes`` (a calibration, or
+    ``None`` for the uncalibrated defaults) with ``variables``, on
+    ``device`` in eval mode."""
+    kw = {} if shapes is None else dict(
+        caps=shapes.caps, neighborhood_limits=shapes.neighborhood_limits)
+    model = from_jax_variables(get_cls_model(name, **kw), variables)
+    return model.to(device or DEV).eval()
+
+
+def _kp_counts(model, batch, n_points=N_POINTS):
+    """``(per served batch, per train step)`` launches of ``knn``, the row
+    gather and the scatter-add of KPConv ``model`` at ``batch`` clouds of
+    ``n_points`` (the served bucket, for uncalibrated caps), derived from
+    its pyramid's shapes and the wrappers' gates: ``knn`` at each
+    neighbour search over a support layer of at least
+    ``KNN_MIN_SUPPORTS`` points (self-neighbours and pools), the row
+    gather at each KPConv's ``[xyz ‖ features]`` (the deformable ones'
+    offset convolution too) and each strided block's max-pool where
+    ``geometry.gather_takes_kernel`` takes it, in a train step a
+    scatter-add for each of those whose input carries a gradient (all
+    but the first block's)."""
+    cfg = model.cfg
+    n_layers = len(layer_blocks(cfg.architecture))
+    caps, ks = pyramid_shapes(n_points, n_layers, cfg.neighborhood_limits)
+    caps = list(cfg.caps) if cfg.caps is not None else caps
+    knn = sum(caps[l] >= KNN_MIN_SUPPORTS for l in range(n_layers)) + sum(
+        caps[l] >= KNN_MIN_SUPPORTS for l in range(n_layers - 1))
+    gathers = scatters = 0
+    for i, (layer, blk) in enumerate(zip(model.kpcnn.layers,
+                                         model.kpcnn.blocks)):
+        if not hasattr(blk, "conv"):  # a unary block gathers nothing
+            continue
+        m = caps[layer + 1] if blk.strided else caps[layer]
+        rows = batch * m * ks[layer]
+        conv_in = blk.conv.weights.shape[1]
+        widths = [3 + conv_in] * (2 if blk.conv.deformable else 1)
+        if blk.strided and hasattr(blk, "unary2"):  # the max-pool of x
+            widths.append(conv_in if blk.unary1 is None
+                          else blk.unary1.dense.in_features)
+        taken = sum(geometry.gather_takes_kernel(caps[layer], c, rows)
+                    for c in widths)
+        gathers += taken
+        scatters += taken if i else 0
+    serve = {"knn": knn, "gather_neighbors": gathers}
+    return serve, {**serve, "scatter_rows": scatters}
+
+
+def _kp_bench_clouds():
+    """``bench.py``'s 16 surface clouds at N=1024 (``_surface_clouds``,
+    seed 0), which it calibrates KPConv's pyramid on."""
+    return SyntheticModelNet(n_points=N_POINTS, size=KP_BATCH, train=True,
+                             seed=0).batch(0, KP_BATCH)[0]
+
+
+def _pyramid_tensors(pyr):
+    return [t for field in pyr for t in (field if isinstance(field, list)
+                                         else [field])]
+
+
+def phase_kpconv_kernels(name, variables):
+    """KPConv ``name`` at full width with the pyramid calibrated as
+    ``bench.py`` does, on the card and on the CPU (equal); its launch
+    counts derived from the shapes must be :data:`KP_SERVE` and
+    :data:`KP_STEP`; two pyramid builds on the card are bit-identical and
+    equal to the CPU's; ``knn``, the row gather and the scatter-add at
+    their launches (arguments recorded from the model's eval forward and
+    train-mode backward) against their plain versions as in phase 21.
+    Returns ``(calibration, {kernel: [records]})``."""
+    xyz = _kp_bench_clouds()
+    arch = get_cls_model(name).cfg.architecture
+    cal = bench_calibration(xyz, arch, device=DEV)
+    cal_cpu = bench_calibration(xyz, arch, device="cpu")
+    if cal != cal_cpu:
+        fail(f"{name}: the card's calibration {cal} is not the CPU's "
+             f"{cal_cpu}")
+    model = _kp_model(name, variables, cal)
+    counts = _kp_counts(model, KP_BATCH)
+    if counts != (KP_SERVE, KP_STEP):
+        fail(f"{name}: launches by the gates {counts}, expected "
+             f"{(KP_SERVE, KP_STEP)}")
+    x = torch.from_numpy(xyz).to(DEV)
+    with torch.no_grad():
+        first = _pyramid_tensors(model.kpcnn.pyramid(x))
+        again = _pyramid_tensors(model.kpcnn.pyramid(x))
+        cpu = _pyramid_tensors(_kp_model(name, variables, cal, "cpu")
+                               .kpcnn.pyramid(x.cpu()))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail(f"{name}: two pyramid builds on the card differ")
+    differ = [i for i, (a, b) in enumerate(zip(first, cpu))
+              if not torch.equal(a.cpu(), b)]
+    if differ:
+        fail(f"{name}: the card's pyramid differs from the CPU's in "
+             f"tensors {differ}")
+    pyr = model.kpcnn.pyramid(x)
+    far = [int((~m).sum()) for m in pyr.masks]
+    emit(f"kpconv {name} calibration", {
+        "caps": list(cal.caps), "limits": list(cal.neighborhood_limits),
+        "max_occupancy": list(cal.max_occupancy),
+        "masked_points_by_layer": far,
+        "voxel_overflow": int(pyr.overflow.sum()),
+        "pyramid_bit_identical_twice_and_to_cpu": True,
+        "serve": counts[0], "step": counts[1]})
+    recs = phase_path_kernels(((f"{name}", model, (x,), {
+        "knn": KP_SERVE["knn"],
+        "gather_neighbors": KP_SERVE["gather_neighbors"],
+        "scatter_rows": KP_STEP["scatter_rows"]}),))
+    return cal, recs
+
+
+def _kp_reg_check(name, variables, cal, batch):
+    """The deformable model's regulariser on ``batch``: finite and
+    positive, and the first train step's loss is the cross entropy plus
+    it (within 1e-5 relative)."""
+    model = _kp_model(name, variables, cal)
+    model.train()
+    with torch.no_grad():
+        logits = model(batch["xyz"])
+        ce = soft_cross_entropy(logits, batch["label"])
+        reg = model.aux["reg_loss"]
+    model = build_model(name, caps=cal.caps,
+                        neighborhood_limits=cal.neighborhood_limits)
+    from_jax_variables(model, variables)
+    step = make_cls_train_step(model, sgd_momentum(model.parameters(),
+                                                   CLS_LR))
+    loss = step(batch)["loss"]
+    got = {"cross_entropy": ce.item(), "reg_loss": reg.item(),
+           "step_loss": loss.item()}
+    if not (np.isfinite(got["reg_loss"]) and got["reg_loss"] > 0):
+        fail(f"{name}: regulariser {got}")
+    if abs(got["step_loss"] - got["cross_entropy"] - got["reg_loss"]) > \
+            1e-5 * abs(got["step_loss"]):
+        fail(f"{name}: the step's loss is not the cross entropy plus the "
+             f"regulariser: {got}")
+    return got
+
+
+def _kp_deform_recipe(model):
+    """The CLI's KPConv recipe (``train.kpconv_optimizer`` and its clip)
+    at the original KPConv's offset factor 0.1, lr 1e-2 throughout the
+    phase: the deformable model's train phase. At ``bench.py``'s step
+    (SGD, lr 0.1, momentum 0.9, no clip) its seeded weights diverge (loss
+    38.2 → 4,089 → NaN in four steps, card and CPU alike: the
+    regulariser's gradient)."""
+    opt, set_lr = kpconv_optimizer(model, 9840 // KP_BATCH, 0.1)
+    set_lr(0)
+    return opt, KPCONV_CLIP_NORM, (
+        "kpconv recipe: clip 100, momentum 0.98, lr 1e-2, offsets x0.1")
+
+
+def phase_kpconv(name, variables, power, cal, data):
+    """Serving (``Predictor(batch_size=16)`` on the model at ``cal``'s
+    shapes, as phase 6: three requests of 256 clouds and one at N=1000,
+    exact launches a batch, card against CPU on 8 clouds) and training
+    (``make_cls_train_step`` at B=16 as phase 7, with the gradient check:
+    the rigid model at ``bench.py``'s lr 0.1 and momentum 0.9, the
+    deformable one by :func:`_kp_deform_recipe`); for the deformable
+    model first :func:`_kp_reg_check`. Returns the two paths'
+    launches."""
+    shapes = dict(caps=cal.caps, neighborhood_limits=cal.neighborhood_limits)
+    serving = phase_serving(name, variables, data, power, KP_BATCH,
+                            KP_SERVE, {"calibration": shapes},
+                            build=lambda: get_cls_model(name, **shapes))
+    if name == "kpconv_deform":
+        batch = {k: v.to(DEV) for k, v in synthetic_batch(
+            name, KP_BATCH, 5, N_POINTS).items()}
+        emit(f"kpconv {name} regulariser",
+             _kp_reg_check(name, variables, cal, batch))
+    train = phase_train(name, variables, power, KP_BATCH, KP_STEP,
+                        model_kw=shapes,
+                        recipe=_kp_deform_recipe if name == "kpconv_deform"
+                        else None)
+    return serving, train
+
+
+def _kp_column(recs):
+    """``PERF.md``'s KPConv column: each kernel's device ms, plain ms,
+    library ms, bound ms and records summed over KPConv's cases."""
+    out = {}
+    for kernel, rs in recs.items():
+        timed = [r for r in rs if "ms" in r]
+        out[kernel] = {key: sum(r[key] for r in timed) for key in
+                       ("ms", "plain_ms", "bound_ms", "library_ms")}
+        out[kernel]["cases"] = len(timed)
+        if kernel == "knn":
+            out[kernel]["device_ms"] = sum(r["device_ms"] for r in timed)
+    return out
+
+
 # ------------------------------------------------ the training CLIs
 
 CLI_TRAIN, CLI_TEST = 64, 32       # clouds of the phase's ModelNet40 tree
@@ -4042,13 +4299,14 @@ CLI_SEG_SIZE = 32                  # train_partseg: 2 steps at B=16, 64 test
 
 def _cli_run(what, main, argv, want, total):
     """``main(argv)`` with the counts zeroed just before and read just
-    after: exactly ``want`` launches of each kernel, added to ``total``."""
+    after: exactly ``want`` launches of each kernel (or ``want(summary)``
+    of the run's summary), added to ``total``."""
     _zero_counts()
     t0 = time.perf_counter()
     out = main(argv)
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
-    launches = _read_totals(what, want)
+    launches = _read_totals(what, want(out) if callable(want) else want)
     for name, count in launches.items():
         total[name] = total.get(name, 0) + count
     out["launches"] = {k: c for k, c in launches.items() if c}
@@ -4062,6 +4320,87 @@ def _times(per_step, steps, per_batch, batches):
 
 def _no_dropout(x, rate, training, generator):
     return x
+
+
+def _kp_cli_want(evals):
+    """``want(summary)`` of a ``train_cls --model kpconv`` run: each
+    bucket's step launches (:func:`_kp_counts` at its calibrated shapes)
+    times its steps, and the merged shapes' served launches times
+    ``evals`` eval batches."""
+    def want(summary):
+        cal = summary["calibration"]
+
+        def counts(c):
+            return _kp_counts(get_cls_model(
+                "kpconv", caps=c["caps"],
+                neighborhood_limits=c["neighborhood_limits"]), KP_BATCH)
+
+        out = _times({}, 0, counts(cal)[0], evals)
+        for b, steps in summary.get("steps_by_bucket", {}).items():
+            for k, v in counts(cal["buckets"][b])[1].items():
+                out[k] = out.get(k, 0) + v * steps
+        return out
+
+    return want
+
+
+def _kp_cli(root, tmp, power) -> dict:
+    """``train_cls --model kpconv`` on the phase's ModelNet40 tree at B=16
+    (``--kp-buckets 2``, 2 epochs of at most 2 steps), ``--eval --votes
+    2`` (``evaluate_voting_kpconv``) and ``Predictor.from_checkpoint``
+    (the uncalibrated shapes, as the JAX package's) on the test clouds,
+    card against CPU on 8 → the launches over these runs."""
+    from pointcloudlib_tpu_torch.cli import train_cls
+    from pointcloudlib_tpu_torch.data.modelnet40 import ModelNet40
+
+    total = {}
+    evals = -(-CLI_TEST // KP_BATCH)
+    ck = f"{tmp}/ck_kpconv"
+    base = ["--model", "kpconv", "--data-root", str(root), "--batch_size",
+            str(KP_BATCH), "--num_points", str(N_POINTS), "--checkpoint-dir",
+            ck, "--log-dir", f"{tmp}/log", "--steps-per-epoch",
+            str(CLI_STEPS), "--kp-buckets", "2"]
+    run = _cli_run("train_cls --model kpconv", train_cls.main,
+                   base + ["--epochs", "2"], _kp_cli_want(2 * evals), total)
+    cal = run["calibration"]
+    steps = sum(run["steps_by_bucket"].values())
+    if run["epochs"] != [0, 1] or not 2 <= steps <= 2 * CLI_STEPS or \
+            steps != run["steps"] or len(cal["buckets"]) != 2 or \
+            not np.isfinite([run["first_loss"], run["last_loss"]]).all():
+        fail(f"train_cls --model kpconv: {run}")
+    votes = _cli_run("train_cls --model kpconv --eval --votes 2",
+                     train_cls.main, base + ["--eval", "--votes", "2"],
+                     _kp_cli_want(2 * evals), total)
+    if not 0.0 <= votes["eval_oa"] <= 100.0 or \
+            votes["calibration"] != cal:
+        fail(f"train_cls --model kpconv --eval --votes 2: {votes}")
+
+    test = ModelNet40(N_POINTS, train=False, data_root=str(root))
+    pts = test.get_batch(np.arange(len(test)))[0]
+    default = _kp_counts(get_cls_model("kpconv"), KP_BATCH)[0]
+    _zero_counts()
+    served = Predictor.from_checkpoint(
+        f"{ck}/kpconv", "kpconv", which="current",
+        batch_size=KP_BATCH).predict_proba(pts)
+    launches = _read_totals("Predictor.from_checkpoint('kpconv')",
+                            _times({}, 0, default, evals))
+    for k, c in launches.items():
+        total[k] = total.get(k, 0) + c
+    ref = Predictor.from_checkpoint(
+        f"{ck}/kpconv", "kpconv", which="current", batch_size=8,
+        device="cpu").predict_proba(pts[:8])
+    diff = float(np.abs(ref - served[:8]).max())
+    if served.shape != (len(pts), 40) or not np.isfinite(served).all() \
+            or diff > PROB_ATOL:
+        fail(f"Predictor.from_checkpoint('kpconv'): shape {served.shape}, "
+             f"card vs CPU {diff} > {PROB_ATOL}")
+    emit("cli train_cls kpconv", {
+        "card": power, "batch": KP_BATCH, "n_points": N_POINTS,
+        "run": run, "votes": votes, "served_launches": {
+            k: c for k, c in launches.items() if c},
+        "served_default_shapes": default,
+        "served_max_abs_prob_diff_vs_cpu": diff, "launches": total})
+    return total
 
 
 def phase_cli(power) -> dict:
@@ -4172,6 +4511,8 @@ def phase_cli(power) -> dict:
                                       "cpu_seconds": cpu["seconds"]},
             "launches": cls_total})
 
+        kp_total = _kp_cli(root, tmp, power)
+
         seg = ["--model", "dgcnn", "--synthetic", "--synthetic-size",
                str(CLI_SEG_SIZE), "--batch_size", str(SEG_BATCH),
                "--num_points", str(SEG_POINTS), "--checkpoint-dir", ck,
@@ -4194,7 +4535,8 @@ def phase_cli(power) -> dict:
             "synthetic_size": CLI_SEG_SIZE, "run": first,
             "num_workers_2": forked, "launches": seg_total})
     emit("cli phase", {"seconds": time.perf_counter() - t_phase})
-    return {"cli_train_cls": cls_total, "cli_train_partseg": seg_total}
+    return {"cli_train_cls": cls_total, "cli_train_cls_kpconv": kp_total,
+            "cli_train_partseg": seg_total}
 
 
 def _model_on_card(name, variables):
@@ -4361,6 +4703,15 @@ def main() -> None:
     paths["pointcnn_partseg_train"] = phase_train(
         PCNN_SEG, pcnnseg_vars, power, SEG_BATCH, PCNNSEG_STEP)
     paths.update(phase_cli(power))
+    for name in KP_NAMES:
+        kp_vars = random_jax_variables(get_cls_model(name), seed=0)
+        cal, kp_recs = phase_kpconv_kernels(name, kp_vars)
+        for kernel, rs in kp_recs.items():
+            recs.setdefault(kernel, []).extend(rs)
+        emit(f"kpconv {name} kernel column", _kp_column(kp_recs))
+        paths[f"{name}_serving"], paths[f"{name}_train"] = phase_kpconv(
+            name, kp_vars, power, cal, (clouds, normals))
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, source, replaces, key, *counted in KERNELS:

@@ -13,7 +13,6 @@ import torch
 from pointcloudlib_tpu_torch.ops.dispatch import resolve_device
 from pointcloudlib_tpu_torch.train import reference_flat_lr, sgd_momentum
 
-KPCONV = "ROADMAP.md queue 1, item 6 (KPConv)"
 PARALLEL = "ROADMAP.md queue 1, item 7 (parallelism)"
 ACTDIFF = "ROADMAP.md queue 1, item 8 (the activation audit)"
 DEBUG = "ROADMAP.md queue 1, item 9 (the debug checks)"
@@ -30,13 +29,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
     """Exit naming the ROADMAP item of each flag that asks for what the
     port does not do yet; a flag at its default passes."""
     checks = (
-        (str(getattr(args, "model", "")).startswith("kpconv"),
-         f"--model {getattr(args, 'model', '')}", KPCONV),
-        (getattr(args, "kp_buckets", 2) != 2, "--kp-buckets", KPCONV),
-        (getattr(args, "kp_cap_quantile", 0.9) != 0.9,
-         "--kp-cap-quantile", KPCONV),
-        (getattr(args, "deform_lr_factor", 0.0) != 0.0,
-         "--deform-lr-factor", KPCONV),
         ((args.n_devices or 1) > 1, f"--n-devices {args.n_devices}",
          PARALLEL),
         (args.dp == "shard_map", "--dp shard_map", PARALLEL),

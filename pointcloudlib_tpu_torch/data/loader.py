@@ -4,8 +4,9 @@ Every batch has the same shape: a last partial batch is padded by
 repeating its last item and flagged in a boolean ``valid`` mask, which
 eval divides by, so padding never skews a metric; training passes
 ``drop_last=True``. Batches are numpy arrays: the caller copies them to
-its device. KPConv's ``kpconv_cls_batches`` comes with KPConv
-(ROADMAP.md, queue 1, item 6).
+its device. ``kpconv_cls_batches`` is KPConv's epoch: potential-sampled
+items, each augmented on its own, optionally gathered by occupancy
+bucket.
 """
 
 from __future__ import annotations
@@ -166,6 +167,89 @@ def cls_batches(
         return
     for chunk in chunks:
         yield _cls_batch_from(dataset, chunk, batch_size, with_normals)
+
+
+def kpconv_cls_batches(
+    dataset,
+    batch_size: int,
+    sampler,
+    rng: np.random.Generator,
+    epoch_n: int | None = None,
+    augment: bool = True,
+    rotation: str = "none",
+    drop_last: bool = True,
+    bucket_of=None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """KPConv's epoch (``loader.py:176``): ``epoch_n`` items (default
+    all) picked by ``sampler`` (a :class:`~pointcloudlib_tpu_torch.data.
+    sampler.PotentialSampler`), each cloud augmented by ``kpconv_augment``
+    from ``rng`` unless ``augment`` is false, as ``{"xyz", "label",
+    "valid"}`` batches; with ``drop_last`` a partial batch is dropped
+    and its items' potential bumps refunded.
+
+    ``bucket_of`` (``BucketedCalibration.bucket_of`` or alike, on the
+    augmented cloud) batches by occupancy bucket: clouds gather per
+    bucket, a batch goes out (with its ``"bucket"``) whenever one fills,
+    and with ``drop_last`` the clouds left over at the end are refunded
+    and named in a printed line.
+    """
+    from pointcloudlib_tpu_torch.data.sampler import kpconv_augment
+
+    n = epoch_n if epoch_n is not None else len(dataset)
+    order = sampler.sample(n)
+
+    def emit(items, bucket=None):
+        pts = [it[0] for it in items]
+        lab = [it[1] for it in items]
+        xyz, valid = _pad_to(pts, batch_size)
+        labels, _ = _pad_to(lab, batch_size)
+        out = {
+            "xyz": xyz.astype(np.float32),
+            "label": labels.astype(np.int32),
+            "valid": valid,
+        }
+        if bucket is not None:
+            out["bucket"] = bucket
+        return out
+
+    if bucket_of is None:
+        for start in range(0, len(order), batch_size):
+            chunk = order[start : start + batch_size]
+            if len(chunk) < batch_size and drop_last:
+                # sampled but not trained on: their bumps come back
+                sampler.refund(chunk)
+                return
+            items = []
+            for i in chunk:
+                p, _nrm, l = dataset[int(i)]
+                if augment:
+                    p = kpconv_augment(p, rng, rotation=rotation)
+                items.append((p.astype(np.float32), l))
+            yield emit(items)
+        return
+
+    pend: Dict[int, list] = {}
+    for i in order:
+        p, _nrm, l = dataset[int(i)]
+        if augment:
+            p = kpconv_augment(p, rng, rotation=rotation)
+        p = p.astype(np.float32)
+        b = bucket_of(p)
+        pend.setdefault(b, []).append((p, l, int(i)))
+        if len(pend[b]) == batch_size:
+            yield emit(pend.pop(b), bucket=b)
+    if not drop_last:
+        for b, items in sorted(pend.items()):
+            if items:
+                yield emit(items, bucket=b)
+    else:
+        # up to n_buckets × (batch_size − 1) clouds are left: refund
+        # their bumps so they lead the next epoch's sample, and say so
+        dropped = [idx for items in pend.values() for *_ , idx in items]
+        if dropped:
+            sampler.refund(dropped)
+            print(f"kpconv bucketed batching: {len(dropped)} tail "
+                  f"clouds deferred to next epoch (potentials refunded)")
 
 
 def seg_batches(

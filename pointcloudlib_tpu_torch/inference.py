@@ -28,11 +28,17 @@ Example::
     s = SegPredictor.from_variables("pointnet2", jax_seg_variables)
     parts = s.predict(clouds, categories)         # [B, N] part ids
 
-``"pointnet2"`` (SSG), ``"pointnet2_msg"``, ``"dgcnn"`` (xyz only) and
-``"pointconv"`` (normals with ``with_normals=True``, as its bench row
-runs it) are the ported classification models, ``"pointnet2"`` (xyz as
-features), ``"dgcnn"`` and ``"pointconv"`` (xyz only) the ported part
-segmentation models.
+Every model of the JAX registry is served: classification by
+``"pointnet"``, ``"pointnet2"`` (SSG, normals as features),
+``"pointnet2_msg"``, ``"dgcnn"``, ``"pointconv"`` (normals with
+``with_normals=True``, as its bench row runs it), ``"pointcnn"``,
+``"kpconv"`` and ``"kpconv_deform"``; part segmentation by
+``"pointnet"``, ``"pointnet2"`` (xyz as features), ``"dgcnn"``,
+``"pointconv"`` and ``"pointcnn"``. ``from_variables`` and
+``from_checkpoint`` build KPConv at its uncalibrated shapes, as the JAX
+``from_checkpoint`` does (caps N/4^l of the served bucket); a pyramid
+calibrated on data (``models/kpconv/calibrate.py``) is served by
+building the model with those shapes and passing it to ``Predictor``.
 """
 
 from __future__ import annotations

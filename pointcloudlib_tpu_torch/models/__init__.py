@@ -1,13 +1,16 @@
-"""Model registry (counterpart of ``pointcloudlib_tpu/models``).
-
-PointNet, PointNet++ SSG and MSG, DGCNN, PointConv and PointCNN
-classification, and PointNet, PointNet++, DGCNN, PointConv and PointCNN
-part segmentation are ported; KPConv (``kpconv``, ``kpconv_deform``)
-follows in a later slice (ROADMAP.md)."""
+"""Model registry (counterpart of ``pointcloudlib_tpu/models``): every
+entry of the JAX package's — PointNet, PointNet++ SSG and MSG, DGCNN,
+PointConv, PointCNN and KPConv (rigid and deformable) classification,
+and PointNet, PointNet++, DGCNN, PointConv and PointCNN part
+segmentation."""
 
 from __future__ import annotations
 
 from pointcloudlib_tpu_torch.models.dgcnn import DGCNN, DGCNNPartSeg
+from pointcloudlib_tpu_torch.models.kpconv.adapter import (
+    KPConvCls,
+    KPConvDeformCls,
+)
 from pointcloudlib_tpu_torch.models.pointcnn import (
     PointCNNCls,
     PointCNNPartSeg,
@@ -25,7 +28,8 @@ from pointcloudlib_tpu_torch.models.pointnet2 import (
 
 CLS_MODELS = {"pointnet": PointNet, "pointnet2": PointNet2SSG,
               "pointnet2_msg": PointNet2MSG, "dgcnn": DGCNN,
-              "pointconv": PointConvDensityCls, "pointcnn": PointCNNCls}
+              "pointconv": PointConvDensityCls, "pointcnn": PointCNNCls,
+              "kpconv": KPConvCls, "kpconv_deform": KPConvDeformCls}
 SEG_MODELS = {"pointnet": PointNetPartSeg, "pointnet2": PointNet2PartSeg,
               "dgcnn": DGCNNPartSeg, "pointconv": PointConvPartSeg,
               "pointcnn": PointCNNPartSeg}

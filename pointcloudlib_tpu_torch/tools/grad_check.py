@@ -4,12 +4,15 @@ train-mode forward and backward from the same weights, with dropout 0.
     python -m pointcloudlib_tpu_torch.tools.grad_check \
         [--model pointnet|pointnet_partseg|pointnet2|pointnet2_msg|
                  pointnet2_partseg|dgcnn|dgcnn_partseg|pointconv|
-                 pointconv_partseg|pointcnn|pointcnn_partseg] \
+                 pointconv_partseg|pointcnn|pointcnn_partseg|kpconv|
+                 kpconv_deform] \
         [--clouds 8 ...] [--seeds 5 ...] [--n-points N] [--jitter REL]
 
 On the card the model runs the hand-written kernels with bf16 dense
-operands (PointNet's, PointConv's and PointCNN's Dense layers in f32),
-on the CPU their plain versions with f32 dense layers. The
+operands (PointNet's, PointConv's, PointCNN's and KPConv's Dense layers
+in f32), on the CPU their plain versions with f32 dense layers. KPConv
+builds its pyramid at the shapes ``bench.py`` calibrates on the batch's
+clouds (:func:`model_kwargs`), the same on both sides. The
 bounds are fixed (:data:`LOSS_RTOL`, :data:`GRAD_COS`,
 :data:`GRAD_NORM`): a last-bit difference can move a max-pool's winner and
 reroute that point's gradient, so the gradients agree in direction and
@@ -42,6 +45,11 @@ exact arithmetic and hold rounding residue:
   max by the same amount, which reaches the decoder as a constant of all
   clouds and points, and the decoder's first train-mode BatchNorm
   removes it.
+
+KPConv's layer types make no gradient 0 by their structure: its Dense
+layers have no bias, and every bias sits after a normalisation or where
+no train-mode BatchNorm follows (:func:`cancelled_by_structure` names
+none of its parameters).
 
 The last three must stay below :data:`CANCELLED_NORM` of the largest
 gradient's norm on both sides. One more is held to the cosine bound
@@ -119,7 +127,8 @@ GRAD_NORM = {"pointnet": 0.15, "pointnet_partseg": 0.15,
              "pointnet2_partseg": 0.15, "dgcnn": 0.15,
              "dgcnn_partseg": 0.15, "pointconv": 0.15,
              "pointconv_partseg": 0.15, "pointcnn": 0.15,
-             "pointcnn_partseg": 0.15}
+             "pointcnn_partseg": 0.15, "kpconv": 0.15,
+             "kpconv_deform": 0.15}
 FLOOR, CANCELLED_NORM = 1e-6, 1e-3
 # the part-segmentation models by this tool's name -> the seg registry's
 SEG = {"pointnet_partseg": "pointnet", "pointnet2_partseg": "pointnet2",
@@ -128,12 +137,31 @@ SEG = {"pointnet_partseg": "pointnet", "pointnet2_partseg": "pointnet2",
 # the classification models whose bench rows take normals as features
 # (bench.py:333-346)
 NORMALS = ("pointnet2", "pointnet2_msg", "pointconv")
+KPCONV = ("kpconv", "kpconv_deform")
 
 
 def build_model(name: str, **kw) -> torch.nn.Module:
     """Model ``name``: a classification model, or one of :data:`SEG`."""
     return get_seg_model(SEG[name], **kw) if name in SEG else \
         get_cls_model(name, **kw)
+
+
+def model_kwargs(name: str, xyz) -> Dict:
+    """For a KPConv model, the pyramid shapes ``bench.py:129-155``
+    calibrates on the clouds ``xyz [S, N, 3]`` (an array or a tensor on
+    any device; calibrated on the CPU, the model's own architecture), as
+    ``caps`` and ``neighborhood_limits``; for any other model none."""
+    if name not in KPCONV:
+        return {}
+    from pointcloudlib_tpu_torch.models.kpconv.calibrate import (
+        bench_calibration,
+    )
+
+    if torch.is_tensor(xyz):
+        xyz = xyz.detach().cpu().numpy()
+    arch = get_cls_model(name).cfg.architecture
+    cal = bench_calibration(np.asarray(xyz, np.float32), arch, device="cpu")
+    return {"caps": cal.caps, "neighborhood_limits": cal.neighborhood_limits}
 
 
 def synthetic_batch(name: str, clouds: int, seed: int, n_points: int
@@ -225,6 +253,9 @@ def model_grads(model: torch.nn.Module, name: str,
     else:
         logits = model(put["xyz"], put.get("feats"))
         loss = soft_cross_entropy(logits, put["label"])
+        reg = getattr(model, "aux", {}).get("reg_loss")
+        if reg is not None:  # the deformable KPConv's, as the step adds
+            loss = loss + reg
     loss.backward()
     for h in hooks:
         h.remove()
@@ -235,10 +266,12 @@ def model_grads(model: torch.nn.Module, name: str,
 def loss_and_grads(name: str, variables, batch: Dict[str, torch.Tensor],
                    dev: torch.device, jitter: float = 0.0
                    ) -> Tuple[float, Dict[str, torch.Tensor], set, set]:
-    """:func:`model_grads` of model ``name`` built with dropout 0 from
-    ``variables`` on ``dev``. ``jitter`` scales every weight by ``1 +
-    jitter·N(0, 1)`` first."""
-    model = build_model(name, dropout=0.0)
+    """:func:`model_grads` of model ``name`` built with dropout 0 (and
+    KPConv's :func:`model_kwargs` for the batch) from ``variables`` on
+    ``dev``. ``jitter`` scales every weight by ``1 + jitter·N(0, 1)``
+    first."""
+    model = build_model(name, dropout=0.0,
+                        **model_kwargs(name, batch["xyz"]))
     from_jax_variables(model, variables)
     if jitter:
         g = torch.Generator().manual_seed(1)

@@ -2,13 +2,15 @@
 
     python -m pointcloudlib_tpu_torch.tools.profile_serving \
         [--model pointnet|pointnet2|pointnet2_msg|dgcnn|pointconv|pointcnn|
-                 pointnet_partseg|pointnet2_partseg|dgcnn_partseg|
-                 pointconv_partseg|pointcnn_partseg] \
+                 kpconv|kpconv_deform|pointnet_partseg|pointnet2_partseg|
+                 dgcnn_partseg|pointconv_partseg|pointcnn_partseg] \
         [--n-points N] [--out DIR]
 
 Serves PointNet++ SSG at B=64, MSG and PointConv at B=32 (``Predictor``,
 normals as features, N=1024, 256 synthetic surface clouds), PointNet at
-B=64 or DGCNN and PointCNN at B=32 (the same clouds, xyz only), or part
+B=64 or DGCNN and PointCNN at B=32 (the same clouds, xyz only), KPConv
+rigid or deformable at B=16 (xyz only; the pyramid calibrated on the
+request's first 16 clouds as ``bench.py:129-155`` does), or part
 segmentation at B=16 (``SegPredictor.predict``, N=2048, 64
 ShapeNet-part-shaped synthetic clouds; PointNet++ with xyz as features,
 DGCNN at k=40, PointNet, PointConv and PointCNN on xyz alone), the
@@ -58,12 +60,17 @@ from pointcloudlib_tpu_torch.tools.grad_check import (
     NORMALS,
     SEG,
     build_model,
+    model_kwargs,
 )
-from pointcloudlib_tpu_torch.utils.interop import random_jax_variables
+from pointcloudlib_tpu_torch.utils.interop import (
+    from_jax_variables,
+    random_jax_variables,
+)
 
 # the JAX package's rows: batch, points, clouds a request
 BATCH = {"pointnet": 64, "pointnet2": 64, "pointnet2_msg": 32, "dgcnn": 32,
-         "pointconv": 32, "pointcnn": 32, **{name: 16 for name in SEG}}
+         "pointconv": 32, "pointcnn": 32, "kpconv": 16, "kpconv_deform": 16,
+         **{name: 16 for name in SEG}}
 N_POINTS = {**{name: 1024 for name in BATCH}, **{name: 2048 for name in SEG}}
 N_CLOUDS = {**{name: 256 for name in BATCH}, **{name: 64 for name in SEG}}
 
@@ -100,6 +107,11 @@ STAGES = (
     (r"chain_kernel", "sa_tail stages 3, 4 kernel"),
     (r"p1_rows_kernel|p1_mats_kernel", "sa_bwd_p1 kernel"),
     (r"p2_kernel", "sa_bwd_p2 kernel"),
+    # KPConv's pyramid: the voxel keys' sort, the voxel sums' running
+    # sums and the slots' bounds
+    (r"[Rr]adix[Ss]ort|sort_kernel|bitonic", "sort"),
+    (r"[Ss]can|cumsum", "scans (voxel sums)"),
+    (r"searchsorted", "searchsorted"),
     (r"multi_tensor|foreach|sgd", "optimizer"),
     (r"Memcpy HtoD|memcpy.*HtoD", "copy host->device"),
     (r"Memcpy DtoH|memcpy.*DtoH", "copy device->host"),
@@ -157,11 +169,14 @@ def main(argv=None) -> None:
         def request():
             pred.predict(clouds, labels)
     else:
-        pred = Predictor.from_variables(args.model, variables,
-                                        with_normals=args.model in NORMALS,
-                                        batch_size=batch)
         clouds, normals, _ = SyntheticModelNet(
             n_points=n_points, size=n_clouds, seed=0).batch(0, n_clouds)
+        model = build_model(args.model, feat_channels=3 if args.model in
+                            NORMALS else 0,
+                            **model_kwargs(args.model, clouds[:batch]))
+        pred = Predictor(from_jax_variables(model, variables),
+                         with_normals=args.model in NORMALS,
+                         batch_size=batch)
 
         def request():
             pred.predict_proba(clouds, normals)

@@ -3,15 +3,19 @@
 
     python -m pointcloudlib_tpu_torch.tools.profile_train \
         [--model pointnet|pointnet2|pointnet2_msg|dgcnn|pointconv|pointcnn|
-                 pointnet_partseg|pointnet2_partseg|dgcnn_partseg|
-                 pointconv_partseg|pointcnn_partseg] \
+                 kpconv|kpconv_deform|pointnet_partseg|pointnet2_partseg|
+                 dgcnn_partseg|pointconv_partseg|pointcnn_partseg] \
         [--n-points N] [--batch B] [--out DIR]
 
 Trains PointNet++ SSG at B=64 or MSG at B=32 (normals as features,
 N=1024, labelled synthetic surface clouds, SGD with momentum 0.9 and lr
 0.02), PointNet at B=64 or DGCNN and PointCNN at B=32 (the same clouds,
 xyz only, lr 0.1, ``bench.py:168``), PointConv at B=32 (normals as
-features, lr 0.1), or part segmentation at B=16 (N=2048,
+features, lr 0.1), KPConv rigid or deformable at B=16 (xyz only, the
+pyramid calibrated on the batch as ``bench.py:129-155`` does; rigid at
+lr 0.1, deformable by the CLI's KPConv recipe, ``kpconv_optimizer``,
+with the offsets at 0.1 × and the gradients clipped to 100: at lr 0.1
+its seeded weights diverge), or part segmentation at B=16 (N=2048,
 ShapeNet-part-shaped synthetic clouds, lr 0.01, ``bench.py:233``;
 PointNet++ with xyz as features, DGCNN at k=40, PointNet, PointConv and
 PointCNN on xyz alone), full width with
@@ -55,6 +59,7 @@ import torch
 from pointcloudlib_tpu_torch.tools.grad_check import (
     SEG,
     build_model,
+    model_kwargs,
     synthetic_batch,
 )
 from pointcloudlib_tpu_torch.tools.profile_serving import (
@@ -64,6 +69,8 @@ from pointcloudlib_tpu_torch.tools.profile_serving import (
     _union_us,
 )
 from pointcloudlib_tpu_torch.train import (
+    KPCONV_CLIP_NORM,
+    kpconv_optimizer,
     make_cls_train_step,
     make_seg_train_step,
     sgd_momentum,
@@ -74,7 +81,7 @@ from pointcloudlib_tpu_torch.utils.interop import (
 )
 
 LR = {"pointnet": 0.1, "pointnet2": 0.02, "pointnet2_msg": 0.02,
-      "dgcnn": 0.1, "pointconv": 0.1, "pointcnn": 0.1,
+      "dgcnn": 0.1, "pointconv": 0.1, "pointcnn": 0.1, "kpconv": 0.1,
       **{name: 0.01 for name in SEG}}
 WARMUP, TIMED, PROFILED = 3, 10, 5
 
@@ -98,13 +105,19 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
 
-    model = build_model(args.model)
+    cpu_batch = synthetic_batch(args.model, bsz, 5, n_points)
+    model = build_model(args.model,
+                        **model_kwargs(args.model, cpu_batch["xyz"]))
     from_jax_variables(model, random_jax_variables(model, seed=0))
     make = make_seg_train_step if args.model in SEG else make_cls_train_step
-    step = make(model, sgd_momentum(model.parameters(), LR[args.model]))
+    if args.model == "kpconv_deform":
+        opt, set_lr = kpconv_optimizer(model, 9840 // bsz, 0.1)
+        set_lr(0)
+        step = make(model, opt, clip_norm=KPCONV_CLIP_NORM)
+    else:
+        step = make(model, sgd_momentum(model.parameters(), LR[args.model]))
     dev = torch.device("cuda")
-    batch = {k: v.to(dev) for k, v in synthetic_batch(
-        args.model, bsz, 5, n_points).items()}
+    batch = {k: v.to(dev) for k, v in cpu_batch.items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(WARMUP):
         step(batch, gen)

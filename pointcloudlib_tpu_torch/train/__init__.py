@@ -11,7 +11,12 @@ from pointcloudlib_tpu_torch.train.schedules import (
     reference_flat_lr,
     step_decay,
 )
-from pointcloudlib_tpu_torch.train.state import sgd_momentum
+from pointcloudlib_tpu_torch.train.state import (
+    KPCONV_CLIP_NORM,
+    clip_grad_global_norm,
+    kpconv_optimizer,
+    sgd_momentum,
+)
 from pointcloudlib_tpu_torch.train.metrics import (
     balanced_accuracy,
     fast_confusion,
@@ -26,11 +31,14 @@ from pointcloudlib_tpu_torch.train.trainer import (
 )
 
 __all__ = [
+    "KPCONV_CLIP_NORM",
     "accuracy",
     "balanced_accuracy",
+    "clip_grad_global_norm",
     "cosine_with_warmup",
     "cross_entropy_seg",
     "fast_confusion",
+    "kpconv_optimizer",
     "make_cls_eval_step",
     "make_cls_pred_step",
     "make_cls_train_step",

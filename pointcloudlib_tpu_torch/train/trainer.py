@@ -9,6 +9,10 @@ does (``ops/spatial.canonicalize_batch``: N % 128 == 0 and N ≥ 4096,
 whatever the model). Per-point features and part
 labels ride along, and the part-segmentation eval step returns its ids in
 the caller's point order.
+
+A model may leave ``aux`` after its forward (KPConv does): the
+classification step adds ``aux["reg_loss"]`` to the loss and returns
+``aux["voxel_overflow"]`` among its metrics, both as tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from pointcloudlib_tpu_torch.train.losses import (
     cross_entropy_seg,
     soft_cross_entropy,
 )
+from pointcloudlib_tpu_torch.train.state import clip_grad_global_norm
 
 Device = Optional[Union[str, torch.device]]
 
@@ -60,14 +65,18 @@ def _seg_inputs(batch: Mapping, dev: torch.device):
 
 def make_cls_train_step(model: torch.nn.Module,
                         optimizer: torch.optim.Optimizer,
-                        smoothing: bool = True, device: Device = None
+                        smoothing: bool = True, device: Device = None,
+                        clip_norm: Optional[float] = None
                         ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(batch, generator=None) -> {"loss", "acc"}`` for
-    classification. ``batch = {"xyz" [B,N,3], "feats" (optional),
-    "label" [B]}`` as arrays or tensors. The model moves to ``device``
-    (the card by default) in place, so an optimizer built on its
-    parameters before stays valid. ``generator`` draws the dropout
-    mask; it must live on the same device."""
+    classification (``trainer.py:54``). ``batch = {"xyz" [B,N,3],
+    "feats" (optional), "label" [B]}`` as arrays or tensors. The model
+    moves to ``device`` (the card by default) in place, so an optimizer
+    built on its parameters before stays valid. ``generator`` draws the
+    dropout mask; it must live on the same device. A model's
+    ``aux["reg_loss"]`` joins the loss, its ``aux["voxel_overflow"]``
+    the metrics. ``clip_norm`` clips the gradients by their global norm
+    before the update (``optax.clip_by_global_norm``)."""
     dev = resolve_device(device)
     model.to(dev)
 
@@ -77,11 +86,19 @@ def make_cls_train_step(model: torch.nn.Module,
         model.train()
         logits = model(xyz, feats, generator=generator)
         loss = soft_cross_entropy(logits, label, smoothing=smoothing)
+        aux = getattr(model, "aux", {})
+        if aux.get("reg_loss") is not None:
+            loss = loss + aux["reg_loss"]
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if clip_norm is not None:
+            clip_grad_global_norm(model.parameters(), clip_norm)
         optimizer.step()
-        return {"loss": loss.detach(), "acc": accuracy(logits.detach(),
-                                                       label)}
+        metrics = {"loss": loss.detach(),
+                   "acc": accuracy(logits.detach(), label)}
+        if aux.get("voxel_overflow") is not None:
+            metrics["voxel_overflow"] = aux["voxel_overflow"].detach()
+        return metrics
 
     return step
 

@@ -49,7 +49,18 @@ abstraction is on:
   ``Dense_0/{kernel,bias}`` and, with BatchNorm, ``BatchNorm_0``; then
   ``DenseBlock_{0,1,2}`` (classification's head) or ``DenseBlock_{0..3}``
   (the decoders' fuse blocks). A lone ``PointCNNLayer`` maps as a flax
-  ``PointCNNLayer``'s own tree (``DenseBlock_0``, ``XConv_0``).
+  ``PointCNNLayer``'s own tree (``DenseBlock_0``, ``XConv_0``);
+* KPConv (rigid and deformable): ``KPCNN_0/SimpleBlock_0`` and
+  ``KPCNN_0/ResnetBottleneckBlock_{0..}``, each with
+  ``KPConvOp_0/weights [P, C_in, out]`` (the deformable ones also
+  ``KPConvOp_0/offset_conv/weights`` and ``KPConvOp_0/offset_bias``) and
+  ``MaskedBatchNorm_0/{scale,bias}`` with batch stats ``mean``/``var``;
+  a bottleneck's unaries numbered in the order flax makes them (the
+  input unary where the input is not out/4 wide, the output unary, the
+  shortcut unary where the widths differ), each ``Dense_0/kernel`` and
+  ``MaskedBatchNorm_0``; then the head's two ``UnaryBlock``s, each
+  ``Dense_0/kernel`` and ``MaskedBatchNorm_0/bias`` alone. A lone
+  ``KPCNN`` maps as a flax ``KPCNN``'s own tree.
 
 A checkpoint in the unfused layout goes through the JAX package's own
 ``pointcloudlib_tpu.utils.interop.convert_variables`` first, with an
@@ -67,6 +78,14 @@ import numpy as np
 import torch
 
 from pointcloudlib_tpu_torch.models.dgcnn import DGCNN, DGCNNPartSeg
+from pointcloudlib_tpu_torch.models.kpconv.adapter import KPConvCls
+from pointcloudlib_tpu_torch.models.kpconv.model import (
+    KPCNN,
+    KPConvOp,
+    MaskedBatchNorm,
+    ResnetBottleneckBlock,
+    UnaryBlock,
+)
 from pointcloudlib_tpu_torch.models.pointcnn import (
     DenseBlock,
     PointCNNCls,
@@ -281,7 +300,60 @@ def _pointcnn(model) -> _Entries:
     return out
 
 
+def _masked_bn(bn: MaskedBatchNorm, path, out: _Entries):
+    bn_path = (*path, "MaskedBatchNorm_0")
+    out[("params", *bn_path, "bias")] = (bn.bias, False)
+    if bn.use_bn:
+        out[("params", *bn_path, "scale")] = (bn.weight, False)
+        out[("batch_stats", *bn_path, "mean")] = (bn.running_mean, False)
+        out[("batch_stats", *bn_path, "var")] = (bn.running_var, False)
+
+
+def _unary(u: UnaryBlock, path, out: _Entries):
+    out[("params", *path, "Dense_0", "kernel")] = (u.dense.weight, True)
+    _masked_bn(u.bn, path, out)
+
+
+def _kpconv_op(op: KPConvOp, path, out: _Entries):
+    out[("params", *path, "weights")] = (op.weights, False)
+    if op.deformable:
+        out[("params", *path, "offset_conv", "weights")] = (
+            op.offset_conv.weights, False)
+        out[("params", *path, "offset_bias")] = (op.offset_bias, False)
+
+
+def _kpcnn(net: KPCNN, path, out: _Entries):
+    seen: Dict[str, int] = {}  # flax numbers the modules of each class
+
+    def numbered(module) -> Tuple[str, ...]:
+        cls = type(module).__name__
+        seen[cls] = seen.get(cls, -1) + 1
+        return (*path, f"{cls}_{seen[cls]}")
+
+    for blk in net.blocks:
+        p = numbered(blk)
+        if isinstance(blk, UnaryBlock):
+            _unary(blk, p, out)
+            continue
+        _kpconv_op(blk.conv, (*p, "KPConvOp_0"), out)
+        _masked_bn(blk.bn, p, out)
+        if isinstance(blk, ResnetBottleneckBlock):
+            unaries = [u for u in (blk.unary1, blk.unary2, blk.shortcut)
+                       if u is not None]
+            for i, u in enumerate(unaries):
+                _unary(u, (*p, f"UnaryBlock_{i}"), out)
+    for u in (net.head, net.out):
+        _unary(u, numbered(u), out)
+
+
 def _entries(model) -> _Entries:
+    if isinstance(model, (KPConvCls, KPCNN)):  # a lone KPCNN: its own tree
+        out: _Entries = {}
+        if isinstance(model, KPConvCls):
+            _kpcnn(model.kpcnn, ("KPCNN_0",), out)
+        else:
+            _kpcnn(model, (), out)
+        return out
     if isinstance(model, (PointNet, PointNetPartSeg)):
         return _pointnet(model)
     if isinstance(model, (PointCNNCls, PointCNNPartSeg)):
@@ -387,7 +459,8 @@ def random_jax_variables(model, seed: int = 0) -> Dict:
     """A seeded numpy tree in the layout :func:`from_jax_variables`
     takes: kernels (Dense ``kernel``, the fused layers' ``w`` and
     ``w1``–``w3``) U(±1/√fan_in), XConv's ``depthwise [c, K, dm]``
-    U(±1/√K) (its fan), BN scales U(0.8, 1.2), biases and
+    U(±1/√K) (its fan), KPConv's ``weights [P, C, out]`` U(±√(6/(P·C)))
+    (flax's ``variance_scaling(2.0, "fan_in", "uniform")``), BN scales U(0.8, 1.2), biases and
     running means N(0, 0.05²), running variances U(0.05, 0.5). For
     tests and the chip smoke run, where no trained checkpoint exists."""
     rng = np.random.default_rng(seed)
@@ -398,6 +471,9 @@ def random_jax_variables(model, seed: int = 0) -> Dict:
             return rng.uniform(-bound, bound, shape)
         if name == "depthwise":
             bound = 1.0 / np.sqrt(shape[1])
+            return rng.uniform(-bound, bound, shape)
+        if name == "weights":
+            bound = np.sqrt(6.0 / (shape[0] * shape[1]))
             return rng.uniform(-bound, bound, shape)
         if name.endswith("scale"):
             return rng.uniform(0.8, 1.2, shape)

@@ -5,7 +5,11 @@ data: the checkpoint round trip and the step after a restore, the
 predictors built from a checkpoint, ``make_cls_pred_step`` against the
 JAX pred step, ``MetricsLogger``'s records, two epochs of each CLI with
 ``--eval``, ``--resume``, ``--votes`` and ``--confusion``, the flags
-against the JAX CLIs' parsers and the refusal of the flags not ported."""
+against the JAX CLIs' parsers and the refusal of the flags not ported;
+KPConv's branch of ``train_cls``: its recipe's updates against the JAX
+CLI's optax chain, and a deformable run on the CPU (full width, B=8,
+N=64, two occupancy buckets) whose offsets stay where they were at
+``--deform-lr-factor 0``, then its voting test."""
 
 import json
 
@@ -13,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 import optax
 
@@ -27,9 +32,16 @@ from pointcloudlib_tpu.utils.logging import MetricsLogger as JaxLogger
 
 from pointcloudlib_tpu_torch.cli import common, train_cls, train_partseg
 from pointcloudlib_tpu_torch.data import SyntheticModelNet
-from pointcloudlib_tpu_torch.inference import Predictor, SegPredictor
+from pointcloudlib_tpu_torch.inference import (
+    Predictor,
+    SegPredictor,
+    _pad_points,
+)
 from pointcloudlib_tpu_torch.models import get_cls_model, get_seg_model
 from pointcloudlib_tpu_torch.train import (
+    KPCONV_CLIP_NORM,
+    clip_grad_global_norm,
+    kpconv_optimizer,
     make_cls_pred_step,
     make_cls_train_step,
     sgd_momentum,
@@ -253,9 +265,7 @@ def test_flags_are_the_jax_flags(cli, jax_cli):
 
 
 UNPORTED = {
-    "train_cls": [["--model", "kpconv"], ["--model", "kpconv_deform"],
-                  ["--kp-buckets", "1"], ["--kp-cap-quantile", "0.5"],
-                  ["--deform-lr-factor", "0.1"], ["--n-devices", "2"],
+    "train_cls": [["--n-devices", "2"],
                   ["--dp", "shard_map"], ["--multihost"],
                   ["--diff-checkpoint", "a.pt"], ["--diff-trace", "a.npz"],
                   ["--dump-trace", "b.npz"], ["--diff-atol", "1e-4"],
@@ -270,8 +280,120 @@ UNPORTED = {
     ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_unported_flags_exit_naming_their_item(name, flags):
     cli = {"train_cls": train_cls, "train_partseg": train_partseg}[name]
-    with pytest.raises(SystemExit, match=r"ROADMAP.md queue 1, item [6-9]"):
+    with pytest.raises(SystemExit, match=r"ROADMAP.md queue 1, item [7-9]"):
         cli.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "kpconv"], ["--model", "kpconv_deform"],
+    ["--kp-buckets", "1"], ["--kp-cap-quantile", "0.5"],
+    ["--deform-lr-factor", "0.1"]], ids=" ".join)
+def test_kpconv_flags_are_taken(flags):
+    """KPConv's model names and flags pass the refusal (they exited
+    naming their ROADMAP item before KPConv was ported)."""
+    args = train_cls.parse_args(["--device", "cpu", *flags])
+    common.refuse_unported(args)
+    assert vars(args)[flags[0][2:].replace("-", "_")] == (
+        flags[1] if flags[0] == "--model" else float(flags[1]))
+
+
+class _Offsets(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        g = torch.Generator().manual_seed(0)
+        self.w = torch.nn.Parameter(torch.randn(3, 4, generator=g))
+        self.offset_bias = torch.nn.Parameter(torch.randn(5, generator=g))
+
+
+@pytest.mark.parametrize("factor", [0.0, 0.5])
+def test_kpconv_recipe_matches_optax(factor):
+    """The KPConv recipe (``train.kpconv_optimizer`` and the step's
+    clip) against the JAX CLI's chain: ``clip_by_global_norm(100)``, SGD
+    at ``exponential_decay(1e-2, steps an epoch, 0.1^(1/100),
+    staircase)`` with momentum 0.98, the offsets' updates scaled by the
+    factor; five steps over three epochs of 2 steps, the first gradient
+    above the clip norm. At factor 0 the offsets stay where they were."""
+    model = _Offsets()
+    opt, set_lr = kpconv_optimizer(model, 2, factor)
+    params = {k: jnp.asarray(p.detach().numpy())
+              for k, p in model.named_parameters()}
+    sched = optax.exponential_decay(1e-2, transition_steps=2,
+                                    decay_rate=0.1 ** (1 / 100),
+                                    staircase=True)
+    tx = optax.chain(
+        optax.chain(optax.clip_by_global_norm(100.0),
+                    optax.sgd(sched, momentum=0.98)),
+        optax.masked(optax.scale(factor),
+                     {"w": False, "offset_bias": True}))
+    state = tx.init(params)
+    update = jax.jit(tx.update)
+    rng = np.random.default_rng(1)
+    for step in range(5):
+        grads = {k: rng.standard_normal(p.shape).astype(np.float32)
+                 * (60.0 if step == 0 else 0.5) for k, p in params.items()}
+        updates, state = update({k: jnp.asarray(g)
+                                 for k, g in grads.items()}, state, params)
+        params = optax.apply_updates(params, updates)
+        set_lr(step)
+        for k, p in model.named_parameters():
+            p.grad = torch.from_numpy(grads[k])
+        norm = clip_grad_global_norm(model.parameters(), KPCONV_CLIP_NORM)
+        assert (float(norm) > 100.0) == (step == 0)
+        opt.step()
+        for k, p in model.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       np.asarray(params[k]), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"{k} step {step}")
+    if factor == 0.0:
+        assert torch.equal(model.offset_bias, _Offsets().offset_bias)
+
+
+def test_train_cls_kpconv_deform_on_the_cpu(tmp_path, capsys):
+    """``--model kpconv_deform`` at full width on the CPU: the pyramid
+    calibrated into two occupancy buckets, one epoch of potential-sampled
+    clouds at the buckets' shapes, the offsets unchanged at the default
+    ``--deform-lr-factor 0`` while every other parameter moved, the
+    voxel overflow and the sampler's potentials in the epoch's line; then
+    ``--eval --votes 2`` through ``evaluate_voting_kpconv`` and
+    ``Predictor.from_checkpoint`` at the uncalibrated shapes."""
+    argv = ["--model", "kpconv_deform", "--synthetic", "--synthetic-size",
+            "32", "--batch_size", str(2 * B), "--num_points", str(N),
+            "--steps-per-epoch", "2", "--device", "cpu", "--checkpoint-dir",
+            str(tmp_path / "ck")]
+    run = train_cls.main(argv + ["--epochs", "1"])
+    out = capsys.readouterr().out
+    assert run["epochs"] == [0] and 1 <= run["steps"] <= 2
+    assert sum(run["steps_by_bucket"].values()) == run["steps"]
+    assert len(run["calibration"]["buckets"]) == 2
+    assert "kpconv calibration (32 clouds, 2 buckets)" in out
+    assert "potentials=[" in out and 0 in run["voxel_overflow"]
+    assert ("VOXEL-OVERFLOW" in out) == (run["voxel_overflow"][0] > 0)
+    init = common.seeded_model(lambda: get_cls_model(
+        "kpconv_deform", **{k: run["calibration"][k] for k in
+                            ("caps", "neighborhood_limits")}), 0)
+    trained = get_cls_model("kpconv_deform")
+    CheckpointManager(tmp_path / "ck" / "kpconv_deform").restore_variables(
+        trained, name="current")
+    before = dict(init.named_parameters())
+    offsets = moved = 0
+    for k, p in trained.named_parameters():
+        if "offset" in k:
+            offsets += 1
+            assert torch.equal(p, before[k]), k
+        else:
+            moved += not torch.equal(p, before[k])
+    assert offsets == 10 and moved == len(before) - offsets
+    voted = train_cls.main(argv + ["--eval", "--votes", "2"])
+    assert voted["votes"] == 2 and 0 <= voted["eval_oa"] <= 100
+    assert voted["calibration"] == run["calibration"]
+    clouds = SyntheticModelNet(n_points=N, size=B, seed=0).batch(0, B)[0]
+    served = Predictor.from_checkpoint(
+        tmp_path / "ck" / "kpconv_deform", "kpconv_deform", which="current",
+        batch_size=B, device="cpu").predict_proba(clouds)
+    [padded] = _pad_points([clouds], N)  # the served bucket, 128 points
+    with torch.no_grad():
+        want = torch.softmax(trained.eval()(torch.from_numpy(padded)), -1)
+    np.testing.assert_allclose(served, want.numpy(), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("cli", [train_cls, train_partseg])

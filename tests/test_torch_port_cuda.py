@@ -2252,3 +2252,173 @@ def test_train_cls_cli_epoch_and_served_checkpoint(card, tmp_path):
     assert got == {k: 2 * serve.get(k, 0) for k in counted}
     oa = 100.0 * int((probs.argmax(-1) == labels).sum()) / 64
     assert oa == run["test_oa"][0]
+
+
+# ------------------------------------------------------------------ KPConv
+
+# per served batch and per train step at bench.py's calibration of its 16
+# surface clouds (caps 896, 640, 256, 80, 24): the kNN over the supports of
+# layers 0-2 (self-neighbours and pools), the row gather of layers 0-2,
+# its backward the scatter-add
+KP_SERVE = {"knn": 6, "gather_neighbors": 11}
+KP_STEP = {**KP_SERVE, "scatter_rows": 11}
+
+
+def _kp_bench(name, dev):
+    """``(model at bench.py's calibration with seeded weights, on dev,
+    eval mode; the 16 clouds it is calibrated on)``."""
+    from pointcloudlib_tpu_torch.data import SyntheticModelNet
+    from pointcloudlib_tpu_torch.models.kpconv.calibrate import (
+        bench_calibration,
+    )
+
+    xyz = SyntheticModelNet(n_points=1024, size=16, train=True,
+                            seed=0).batch(0, 16)[0]
+    arch = get_cls_model(name).cfg.architecture
+    cal = bench_calibration(xyz, arch, device=dev)
+    model = get_cls_model(name, caps=cal.caps,
+                          neighborhood_limits=cal.neighborhood_limits)
+    from_jax_variables(model, random_jax_variables(model, seed=0))
+    return model.to(dev).eval(), xyz
+
+
+def _kp_counted():
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    return {"knn": kknn.knn, "gather_neighbors": kga.gather_neighbors,
+            "scatter_rows": kga.scatter_rows}
+
+
+def _kp_launches(fn):
+    counted = _kp_counted()
+    before = {k: f.launches for k, f in counted.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches - before[k] for k, f in counted.items()}
+
+
+@pytest.mark.parametrize("case", ["self0", "pool0", "self1", "pool1",
+                                  "self2", "pool2", "few_valid",
+                                  "none_valid", "k_eq_n"])
+def test_kpconv_knn_bit_identical_with_far_rows(card, case):
+    """The kNN kernel at KPConv's six launches (bench.py's calibration;
+    masked supports at 1e9, invalid queries at the origin) and at edge
+    cases: a cloud of fewer valid supports than k, a cloud of none, and
+    k = N: d² and idx bit-identical to ``knn_plain``."""
+    from pointcloudlib_tpu_torch.models.kpconv import pyramid as kpyr
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    model, xyz = _kp_bench("kpconv", card)
+    with torch.no_grad():
+        p = model.kpcnn.pyramid(torch.from_numpy(xyz).to(card))
+    ks = model.cfg.neighborhood_limits
+    if case[:-1] in ("self", "pool"):
+        layer = int(case[-1])
+        q = p.points[layer + (case[:-1] == "pool")]
+        s, sm, k = p.points[layer], p.masks[layer], ks[layer]
+        assert s.shape[1] >= kpyr.KNN_MIN_SUPPORTS and (~sm).any()
+    else:
+        s, sm = p.points[0].clone(), p.masks[0].clone()
+        q, k = s[:, ::3], 15
+        if case == "few_valid":
+            sm[1, 10:] = False
+        elif case == "none_valid":
+            sm[1] = False
+        else:
+            s, sm, q, k = s[:, :40], sm[:, :40], s[:, :40], 40
+    far = kpyr._far_supports(s, sm)
+    got, launches = _kp_launches(lambda: kknn.knn(q, far, k))
+    want = kknn.knn_plain(q, far, k)
+    assert launches["knn"] == 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_kpconv_gather_and_scatter_match_plain(card, monkeypatch):
+    """The row gather at its 11 launches of a served KPConv batch and the
+    scatter-add at the 11 of a train step's backward (arguments recorded
+    from the model at bench.py's calibration): the gather bit-identical,
+    the scatter-add within 1e-5 of the largest element."""
+    from pointcloudlib_tpu_torch.ops.kernels import gather as kga
+
+    model, xyz = _kp_bench("kpconv", card)
+    calls = {"gather_neighbors": [], "scatter_rows": []}
+    for name in calls:
+        orig = getattr(kga, name)
+
+        def rec(*args, _orig=orig, _name=name):
+            calls[_name].append(tuple(a.detach().clone() if torch.is_tensor(a)
+                                      else a for a in args))
+            return _orig(*args)
+
+        rec.launches = 0  # the original counts under its module name
+        monkeypatch.setattr(kga, name, rec)
+    x = torch.from_numpy(xyz).to(card)
+    with torch.no_grad():
+        model(x)
+    assert len(calls["gather_neighbors"]) == 11
+    assert not calls["scatter_rows"]
+    model.train()
+    model(x).sum().backward()
+    monkeypatch.undo()
+    assert len(calls["scatter_rows"]) == 11
+    for points, idx in calls["gather_neighbors"]:
+        assert torch.equal(kga.gather_neighbors(points, idx),
+                           kga.gather_neighbors_plain(points, idx))
+    for g, idx, n in calls["scatter_rows"]:
+        got = kga.scatter_rows(g, idx, n)
+        want = kga.scatter_rows_plain(g, idx, n)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("name", ["kpconv", "kpconv_deform"])
+def test_kpconv_serving_and_step_card_matches_cpu(card, name):
+    """KPConv at full width and bench.py's calibration: a served batch of
+    16 clouds launches exactly :data:`KP_SERVE`, a train step (SGD, lr
+    0.1) exactly :data:`KP_STEP`; the card's probabilities within 5e-3
+    of the CPU's on 2 clouds; one forward and backward on 8 clouds under
+    ``tools/grad_check.py``'s bounds."""
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        grad_agreement,
+        synthetic_batch,
+    )
+    from pointcloudlib_tpu_torch.train import (
+        make_cls_train_step,
+        sgd_momentum,
+    )
+
+    model, xyz = _kp_bench(name, card)
+    pred = Predictor(model, batch_size=16, device=card)
+    probs, launches = _kp_launches(lambda: pred.predict_proba(xyz))
+    assert launches == {**{k: 0 for k in KP_STEP}, **KP_SERVE}
+    cpu_model, _ = _kp_bench(name, "cpu")
+    ref = Predictor(cpu_model, batch_size=2, device="cpu").predict_proba(
+        xyz[:2])
+    assert np.isfinite(probs).all()
+    assert np.abs(probs[:2] - ref).max() <= 5e-3
+    step = make_cls_train_step(model, sgd_momentum(model.parameters(), 0.1),
+                               device=card)
+    batch = {"xyz": xyz, "label": np.arange(16) % 40}
+    out, launches = _kp_launches(lambda: step(batch))
+    assert launches == KP_STEP
+    assert np.isfinite(out["loss"].item())
+    variables = random_jax_variables(get_cls_model(name), seed=5)
+    got = grad_agreement(name, variables, synthetic_batch(name, 8, 11, 1024),
+                         card)
+    assert not got["failures"], got["failures"]
+
+
+def test_kpconv_pyramid_bit_identical_twice_and_to_cpu(card):
+    """Two pyramid builds of the deformable model on the card (sorts,
+    the voxel sums, the kNN) are bit-identical, and equal to the CPU's."""
+    model, xyz = _kp_bench("kpconv_deform", card)
+    x = torch.from_numpy(xyz)
+    with torch.no_grad():
+        builds = [model.kpcnn.pyramid(x.to(card)) for _ in range(2)]
+        cpu = model.to("cpu").kpcnn.pyramid(x)
+
+    def tensors(p):
+        return [t for f in p for t in (f if isinstance(f, list) else [f])]
+
+    for a, b, c in zip(*map(tensors, (*builds, cpu))):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)

@@ -1,7 +1,8 @@
 """The port's data layer against the JAX package's, on the CPU: the
 augmentations, the synthetic sets, the ModelNet40 text tree, its cache
-and the single archive, the ShapeNet hdf5 files, the batch iterators, the
-fork pool, ``prefetch`` and the confusion metrics. Where numpy draws are
+and the single archive, the ShapeNet hdf5 files, the batch iterators
+(KPConv's potential sampler, augmentation and epochs too), the fork
+pool, ``prefetch`` and the confusion metrics. Where numpy draws are
 involved the outputs must be bit-identical for the same seeds; the files
 are tiny and written by the tests."""
 
@@ -14,11 +15,12 @@ import pytest
 from pointcloudlib_tpu.data import augment as jax_augment
 from pointcloudlib_tpu.data import loader as jax_loader
 from pointcloudlib_tpu.data import modelnet40 as jax_modelnet40
+from pointcloudlib_tpu.data import sampler as jax_sampler
 from pointcloudlib_tpu.data import shapenet as jax_shapenet
 from pointcloudlib_tpu.data import synthetic as jax_synthetic
 from pointcloudlib_tpu.train import metrics as jax_metrics
 
-from pointcloudlib_tpu_torch.data import augment, loader, modelnet40
+from pointcloudlib_tpu_torch.data import augment, loader, modelnet40, sampler
 from pointcloudlib_tpu_torch.data import shapenet, synthetic
 from pointcloudlib_tpu_torch.data.workers import pool_batches
 from pointcloudlib_tpu_torch.train import metrics
@@ -219,6 +221,71 @@ def test_modelnet40_cls_batches_two_epochs(trees, path):
     assert len(got) == 2 * 3 + 3  # 15 train clouds by 4; 9 test clouds
     assert got[-1]["valid"].tolist() == [True, False, False, False]
     assert "feats" not in got[-1] and got[0]["feats"].shape == (4, 24, 3)
+
+
+def test_potential_sampler_bit_identical():
+    """Three epochs of 5 of 12 items and a refund between them: the same
+    picks, in the same order, and the same potentials as the JAX
+    sampler's."""
+    got, want = sampler.PotentialSampler(12, seed=3), \
+        jax_sampler.PotentialSampler(12, seed=3)
+    for epoch in range(3):
+        a, b = got.sample(5), want.sample(5)
+        np.testing.assert_array_equal(a, b)
+        if epoch == 1:
+            got.refund(a[:2])
+            want.refund(b[:2])
+        np.testing.assert_array_equal(got.potentials, want.potentials)
+    np.testing.assert_array_equal(got.sample(40), want.sample(40))
+
+
+@pytest.mark.parametrize("rotation", ["none", "vertical", "all"])
+def test_kpconv_augment_bit_identical(rotation):
+    x = np.random.default_rng(1).standard_normal((33, 3)).astype(np.float32)
+    got = sampler.kpconv_augment(x, np.random.default_rng(2), rotation)
+    want = jax_sampler.kpconv_augment(x, np.random.default_rng(2), rotation)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def _bucket_of(cloud):
+    """Two buckets by the cloud's mean height: the augmentation decides."""
+    return int(cloud[:, 2].mean() > 0)
+
+
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_kpconv_cls_batches_bit_identical(trees, bucketed, capsys):
+    """Two epochs of KPConv's iterator on the tree (permuted, no ModelNet
+    augmentation, as the CLI builds it): potential-sampled items, each
+    augmented, in batches of 4 (bucketed: by ``_bucket_of``, with the
+    bucket given and the left-over clouds refunded and named), the same
+    batches and potentials as the JAX iterator's."""
+    root = str(trees[0])
+
+    def run(mod, lmod, smod):
+        ds = mod.ModelNet40(n_points=24, train=True, data_root=root, seed=2,
+                            augment=False, permute=True)
+        s = smod.PotentialSampler(len(ds), seed=4)
+        rng = np.random.default_rng(6)
+        out = []
+        for _ in range(2):
+            out += list(lmod.kpconv_cls_batches(
+                ds, 4, s, rng, epoch_n=10,
+                bucket_of=_bucket_of if bucketed else None))
+        return out, s.potentials, capsys.readouterr().out
+
+    got, got_pot, got_log = run(modelnet40, loader, sampler)
+    want, want_pot, want_log = run(jax_modelnet40, jax_loader, jax_sampler)
+    buckets = [b.pop("bucket", None) for b in got]
+    assert buckets == [b.pop("bucket", None) for b in want]
+    _equal_batches(got, want)
+    np.testing.assert_array_equal(got_pot, want_pot)
+    assert got_log == want_log
+    if bucketed:
+        assert set(buckets) <= {0, 1} and None not in buckets
+        assert "deferred to next epoch" in got_log
+    else:
+        assert len(got) == 4 and buckets == [None] * 4
 
 
 def test_modelnet40_archive_and_errors(tmp_path):

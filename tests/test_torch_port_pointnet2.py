@@ -98,21 +98,20 @@ def test_fused_training_not_ported():
     assert not torch.equal(model.sa2.fused.mean3, before[1])
 
 
-def test_only_ported_models():
-    """Of the JAX registries' names, the port builds every one but
-    KPConv's two classification models, on which it raises."""
+def test_every_jax_registry_name_builds():
+    """The port builds every name of the JAX registries, and raises "not
+    yet ported" on a name neither has."""
     from pointcloudlib_tpu.models import CLS_MODELS as JAX_CLS
     from pointcloudlib_tpu.models import SEG_MODELS as JAX_SEG
 
+    from pointcloudlib_tpu_torch.models import CLS_MODELS, SEG_MODELS
     from pointcloudlib_tpu_torch.models import get_seg_model
 
-    missing = set()
+    assert set(CLS_MODELS) == set(JAX_CLS)
+    assert set(SEG_MODELS) == set(JAX_SEG)
     for name in JAX_CLS:
-        try:
-            get_cls_model(name)
-        except NotImplementedError as e:
-            assert "not yet ported" in str(e)
-            missing.add(name)
-    assert missing == {"kpconv", "kpconv_deform"}
+        get_cls_model(name)
     for name in JAX_SEG:
         get_seg_model(name)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_cls_model("no_such_model")

@@ -99,12 +99,14 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "pointcloudlib_tpu")
              or m.startswith(("jax.", "flax.", "pointcloudlib_tpu.")))
-models = ("pointnet", "pointnet2", "dgcnn", "pointconv", "pointcnn")
+models = ("pointnet", "pointnet2", "dgcnn", "pointconv", "pointcnn",
+          "kpconv.adapter", "kpconv.calibrate", "kpconv.kernel_points",
+          "kpconv.model", "kpconv.pyramid")
 modules = ["models." + m for m in models] + [
-    "data.augment", "data.loader", "data.modelnet40", "data.shapenet",
-    "data.synthetic", "data.workers", "utils.checkpoint", "utils.logging",
-    "train.metrics", "train.trainer", "inference", "cli.common",
-    "cli.train_cls", "cli.train_partseg"]
+    "data.augment", "data.loader", "data.modelnet40", "data.sampler",
+    "data.shapenet", "data.synthetic", "data.workers", "utils.checkpoint",
+    "utils.logging", "utils.ply", "train.metrics", "train.trainer",
+    "inference", "cli.common", "cli.train_cls", "cli.train_partseg"]
 unseen = [m for m in modules
           if "pointcloudlib_tpu_torch." + m not in sys.modules]
 print(bad, unseen)
@@ -113,7 +115,8 @@ sys.exit(1 if bad or unseen else 0)
 
 
 def test_port_imports_no_jax():
-    """The port, every one of its model, data, checkpoint, logging,
+    """The port, every one of its model (KPConv's five modules among
+    them), data (the KPConv sampler too), checkpoint, logging, ply,
     training and CLI modules included, and chip_smoke.py import nothing
     of JAX, flax or the JAX package
     (``pointcloudlib_tpu_torch`` shares the JAX package's name as a
