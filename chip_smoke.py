@@ -293,7 +293,35 @@ once:
    KPConv recipe (clip 100, momentum 0.98, lr 1e-2, offsets at 0.1 ×;
    ``bench.py``'s step diverges from its seeded weights); for the
    deformable model first its regulariser (finite, positive, and the
-   first step's loss the cross entropy plus it).
+   first step's loss the cross entropy plus it);
+31. KPConv on large clouds — ``Predictor.from_variables("kpconv")`` at
+   its uncalibrated shapes (as ``from_checkpoint`` builds it) serving
+   batches of 16 clouds of 4,096 and of 5,000 points: after a warm-up,
+   three timed runs of 50 batches, exact launches over them (the kNN six
+   times a batch, two of them on its rank route: layer 2 holds 256 / 312
+   supports and asks for k = 41), each run's rate and the rate over all,
+   finite rows, 2 clouds within 5e-3 of the CPU's probabilities and
+   within 1e-4 of the CPU's largest logit (the random weights saturate
+   the softmax); then the rank route at those two launches (self and
+   pools, recorded from the pyramid) and at k = 76 and 42 on the same
+   layer, bit for bit against ``knn_plain``, timed (device ms by CUDA
+   graphs, plain, ``torch.cdist`` + ``torch.topk``, bound);
+32. data parallelism (``parallel/``, the step factories' ``group=``): a
+   world of 1 over NCCL, PointNet at B=64 bit-identical to its step
+   without a group and PointNet++ SSG at B=64 (N=1024, normals)
+   bit-identical where two steps without a group are, else, as such a
+   second step, under ``tools/grad_check.py``'s bounds (its kernels'
+   atomic sums are not bit-reproducible run to run), both timed against
+   the step without a group; then two processes on the one card over
+   gloo (CUDA tensors) against one process on the whole batch, SSG at
+   B=64 (32 a rank) and one DGCNN part-segmentation step at B=16
+   (N=2048): the ranks' gradients equal to each other and within
+   ``tools/grad_check.py``'s bounds, the loss within 1e-4 relative and
+   every BN statistic within 1e-4 (where one process's own spread over
+   three orders of the clouds is larger, 2× that spread, named in the
+   line); two faults planted in the ranks' steps (BatchNorm on each
+   rank's rows only; the gradients' mean and sum swapped) must fail that
+   check; the phase's seconds.
 
 The line before the ``nvidia-smi`` line is ``{"kernels": [...]}``, one
 entry per TPU kernel replaced (thirty-one; the three forward tails
@@ -301,8 +329,11 @@ share one source and one wrapper, counted per stage; the given-index
 ``sa_f1``, ``fused_sa_eval`` and ``sa_bwd_p2`` have a second entry each
 for the windowed function they stand for at N ≥ 4096, with the N=4096
 cases and the launches of the N=4096 paths; ``edge_knn_eval``'s entry
-adds the ``torch.topk`` yardstick; an entry whose records name routes
-or lane groups lists them as ``kernel_routes``); the last line is
+adds the ``torch.topk`` yardstick; the kNN's rank route, which takes
+the lists of more than 40 that ``knn_pallas`` takes too, has an entry
+of its own, with phase 31's cases and launches; an entry whose records
+name routes or lane groups lists them as ``kernel_routes``); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 
@@ -332,11 +363,13 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+import pointcloudlib_tpu_torch.train.trainer as trainer
 from pointcloudlib_tpu_torch.data.synthetic import (
     SyntheticModelNet,
     SyntheticShapeNetPart,
@@ -347,6 +380,7 @@ from pointcloudlib_tpu_torch.models.dgcnn import DGCNNPartSeg, Fused2EdgeConv
 from pointcloudlib_tpu_torch.models.kpconv.calibrate import bench_calibration
 from pointcloudlib_tpu_torch.models.kpconv.pyramid import (
     KNN_MIN_SUPPORTS,
+    _far_supports,
     layer_blocks,
     pyramid_shapes,
 )
@@ -366,6 +400,12 @@ from pointcloudlib_tpu_torch.ops.kernels import gather as kga
 from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
 from pointcloudlib_tpu_torch.ops.kernels import knn_gather as kkg
 from pointcloudlib_tpu_torch.ops.kernels import three_interp as kti
+from pointcloudlib_tpu_torch.parallel import (
+    init_group,
+    rank_seed,
+    run_ranks,
+    sync_batchnorm,
+)
 from pointcloudlib_tpu_torch.tools.grad_check import (
     GRAD_COS,
     GRAD_NORM,
@@ -374,7 +414,9 @@ from pointcloudlib_tpu_torch.tools.grad_check import (
     SEG,
     build_model,
     cancelled_by_structure,
+    compare_grads,
     grad_agreement,
+    model_grads,
     synthetic_batch,
 )
 from pointcloudlib_tpu_torch.train import (
@@ -790,6 +832,8 @@ def _zero_counts() -> None:
         fn.launches = 0
     for stage in kft.sa_tail.launches_by_stage:
         kft.sa_tail.launches_by_stage[stage] = 0
+    for route in kknn.knn.launches_by_route:
+        kknn.knn.launches_by_route[route] = 0
 
 
 def _read_counts(what: str, per_unit: dict, units: int) -> dict:
@@ -801,8 +845,11 @@ def _read_counts(what: str, per_unit: dict, units: int) -> dict:
 
 
 def _read_totals(what: str, want: dict) -> dict:
-    """As :func:`_read_counts`, against ``want`` launches in all."""
+    """As :func:`_read_counts`, against ``want`` launches in all; the
+    kNN's launches on its rank route (lists longer than 40) are also
+    counted on their own, as ``knn_rank``."""
     launches = {name: fn.launches for name, fn in COUNTED.items()}
+    launches["knn_rank"] = kknn.knn.launches_by_route[kknn.RANK_ROUTE]
     for name, count in launches.items():
         if count != want.get(name, 0):
             fail(f"{what}: {name} launched {count} times; expected "
@@ -2715,6 +2762,8 @@ KERNELS = (
      "gather_neighbors"),
     ("knn_gather", "knn_gather.cu", PALLAS + "neighbors.py:306",
      "knn_gather"),
+    ("knn rank route (k > 40)", "knn.cu", PALLAS + "neighbors.py:155",
+     "knn_rank", "knn_rank", "kpconv_large"),
     ("sa_f1 for _k_f1w", "fused_sa_f1.cu", FUSED_SA + ":525", "sa_f1_4096",
      "sa_f1", "ssg4096"),
     ("fused_sa_eval for _k_evalw", "fused_sa_eval.cu", FUSED_SA + ":702",
@@ -4539,6 +4588,398 @@ def phase_cli(power) -> dict:
             "cli_train_partseg": seg_total}
 
 
+# ----------------------------------- KPConv on large clouds, data parallel
+
+KP_LARGE = (4096, 5000)            # served points: layer 2 holds 256 / 312
+KP_LARGE_BATCH = 16                # bench.py's KPConv batch
+KP_LARGE_CHECK = 2                 # clouds also served on the CPU
+KP_LARGE_RUNS, KP_LARGE_BATCHES = 3, 50   # timed runs, batches a run
+KP_LOGIT_RTOL = 1e-4               # logits against the CPU's largest
+KP_RANK_EXTRA = {4096: 76, 5000: 42}  # a longer list at the same layer
+
+
+def _kp_rank_launches(model, n_points):
+    """Launches of the kNN's rank route in a batch of ``model`` served at
+    ``n_points`` (uncalibrated caps): each neighbour search, self and
+    pools, over a support layer of at least ``KNN_MIN_SUPPORTS`` points
+    whose list is longer than ``knn.MAX_K``."""
+    cfg = model.cfg
+    n_layers = len(layer_blocks(cfg.architecture))
+    caps, ks = pyramid_shapes(n_points, n_layers, cfg.neighborhood_limits)
+    big = [caps[l] >= KNN_MIN_SUPPORTS and ks[l] > kknn.MAX_K
+           for l in range(n_layers)]
+    return sum(big) + sum(big[:n_layers - 1])
+
+
+def _served_logits(pred, clouds):
+    """``(probabilities, logits)`` of ``pred.predict_proba(clouds)``: the
+    logits under them as the model returned them, on the CPU."""
+    logits = []
+    hook = pred.model.register_forward_hook(
+        lambda _m, _i, out: logits.append(out.detach().cpu()))
+    try:
+        probs = pred.predict_proba(clouds)
+    finally:
+        hook.remove()
+    return probs, torch.cat(logits)
+
+
+def phase_kpconv_large(variables, power):
+    """Served KPConv (rigid) on clouds of 4,096 and 5,000 points through
+    ``Predictor.from_variables("kpconv")`` at its uncalibrated shapes (as
+    ``from_checkpoint`` builds it), batches of 16 clouds: after a warm-up,
+    :data:`KP_LARGE_RUNS` runs of :data:`KP_LARGE_BATCHES` batches each,
+    timed, with exact launches over them all (the kNN six times a batch,
+    two of them on its rank route at layer 2's k = 41; the row gather by
+    its gate); the rate of each run and over all; finite probability
+    rows; 2 clouds within 5e-3 of the CPU's probabilities and, since the
+    random weights saturate the softmax, their logits within
+    :data:`KP_LOGIT_RTOL` of the CPU's largest logit. Then the rank route
+    at its launches (layer 2's self-neighbours and pools, recorded from
+    the model's pyramid, masked supports at 1e9) and at k = 76 and 42 on
+    the same layer, bit for bit against ``knn_plain`` and timed. Returns
+    ``(records, {path: launches})``."""
+    recs, paths = [], {}
+    for n in KP_LARGE:
+        clouds = SyntheticModelNet(n_points=n, size=KP_LARGE_BATCH,
+                                   seed=4).batch(0, KP_LARGE_BATCH)[0]
+        pred = Predictor.from_variables("kpconv", variables,
+                                        batch_size=KP_LARGE_BATCH,
+                                        device=DEV)
+        serve = _kp_counts(pred.model, KP_LARGE_BATCH, n)[0]
+        serve["knn_rank"] = _kp_rank_launches(pred.model, n)
+        if serve["knn_rank"] != 2:
+            fail(f"kpconv N={n}: {serve['knn_rank']} rank-route launches "
+                 f"a batch by the shapes, expected 2")
+        probs, logits = _served_logits(pred, clouds)  # warm-up
+        secs = []
+        _zero_counts()
+        for _ in range(KP_LARGE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(KP_LARGE_BATCHES):
+                pred.predict_proba(clouds)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        rates = [KP_LARGE_BATCH * KP_LARGE_BATCHES / t for t in secs]
+        batches = KP_LARGE_RUNS * KP_LARGE_BATCHES
+        launches = _read_counts(f"kpconv N={n} serving", serve, batches)
+        if probs.shape != (KP_LARGE_BATCH, 40) or not np.isfinite(
+                probs).all() or np.abs(probs.sum(-1) - 1).max() > 1e-4:
+            fail(f"kpconv N={n}: probabilities {probs.shape} not finite "
+                 f"rows summing to 1")
+        ref, ref_logits = _served_logits(Predictor.from_variables(
+            "kpconv", variables, batch_size=KP_LARGE_CHECK, device="cpu"),
+            clouds[:KP_LARGE_CHECK])
+        diff = float(np.abs(ref - probs[:KP_LARGE_CHECK]).max())
+        if diff > PROB_ATOL:
+            fail(f"kpconv N={n}: card vs CPU probabilities differ by "
+                 f"{diff} > {PROB_ATOL}")
+        scale = float(ref_logits.abs().max())
+        logit_diff = float((logits[:KP_LARGE_CHECK] - ref_logits).abs().max())
+        if not torch.isfinite(logits).all() or (
+                logit_diff > KP_LOGIT_RTOL * scale):
+            fail(f"kpconv N={n}: card vs CPU logits differ by {logit_diff}"
+                 f" > {KP_LOGIT_RTOL} of the largest, {scale}")
+        emit(f"serving kpconv N={n}", {
+            "clouds_per_s": KP_LARGE_BATCH * batches / sum(secs),
+            "clouds_per_s_by_run": rates,
+            "run_spread": (max(rates) - min(rates)) / min(rates),
+            "batches_timed": batches, "batch": KP_LARGE_BATCH,
+            "n_points": n, "card": power, "launches": launches,
+            "max_abs_prob_diff_vs_cpu": diff,
+            "max_abs_logit_diff_vs_cpu": logit_diff,
+            "max_abs_logit_cpu": scale})
+        paths[f"kpconv_large_{n}"] = launches
+        with torch.no_grad():
+            pyr = pred.model.kpcnn.pyramid(torch.from_numpy(clouds).to(DEV))
+        far = _far_supports(pyr.points[2], pyr.masks[2])
+        k = pred.model.cfg.neighborhood_limits[2]
+        for case, query, kk in (("self2", pyr.points[2], k),
+                                ("pool2", pyr.points[3], k),
+                                ("self2", pyr.points[2], KP_RANK_EXTRA[n])):
+            rec = _knn_case(f"kpconv N={n} {case} k={kk}", query, far, kk,
+                            True)
+            if rec["route"] != "rank":
+                fail(f"knn at k={kk}: route {rec['route']}, not rank")
+            recs.append(rec)
+        del pred
+        torch.cuda.empty_cache()
+    return recs, paths
+
+
+DP_WORLD = 2
+DP_TOL = 1e-4                      # loss (relative) and BN statistics
+DP_SPREAD = 2                      # × one process's largest order spread
+DP_FAULTS = ("local_bn", "grad_scale")
+DP_STEP_TIMES = 10
+
+
+def _dp_model(name, variables, dropout):
+    model = build_model(name, dropout=dropout)
+    return from_jax_variables(model, variables)
+
+
+def _dp_device() -> torch.device:
+    return torch.device("cuda", 0) if DEV.type == "cuda" else DEV
+
+
+def _dp_step(name, variables, batch, group, seed, dropout, fault=None):
+    """One SGD step (the phase 7 learning rates) of model ``name`` from
+    ``variables`` on ``batch`` (the global batch; a ``group``'s step keeps
+    its rows), dropout drawn from a generator seeded ``seed``. ``fault``
+    plants one of :data:`DP_FAULTS` in a group's step: BatchNorm over the
+    rank's own rows only, or the gradients averaged where the step sums
+    them and summed where it averages them. Returns the loss, every
+    gradient and every buffer, on the CPU."""
+    dev = batch["xyz"].device
+    model = _dp_model(name, variables, dropout)
+    lr = SEG_LR if name in SEG else reference_flat_lr(
+        0.02, 9840, batch["xyz"].shape[0])
+    make = make_seg_train_step if name in SEG else make_cls_train_step
+    step = make(model, sgd_momentum(model.parameters(), lr), device=(
+        dev if group is None else None), group=group)
+    reduce = trainer.reduce_gradients
+    if fault == "local_bn":
+        sync_batchnorm(model, None)
+    elif fault == "grad_scale":
+        trainer.reduce_gradients = (
+            lambda params, g, average: reduce(params, g, not average))
+    try:
+        met = step(batch, torch.Generator(device=dev).manual_seed(seed))
+    finally:
+        trainer.reduce_gradients = reduce
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"loss": met["loss"].cpu(),
+            "grads": {k: p.grad.cpu() for k, p in model.named_parameters()
+                      if p.grad is not None},
+            "buffers": {k: v.cpu() for k, v in model.named_buffers()}}
+
+
+def _dp_rank(group, name, variables, batch):
+    """A rank of the two-process check (``parallel.run_ranks``): gloo over
+    CUDA tensors, both ranks on this card. The step, then the step with
+    each fault of :data:`DP_FAULTS` planted, by fault (``None`` for
+    none)."""
+    batch = {k: v.to(group.device) for k, v in batch.items()}
+    return {fault: _dp_step(name, variables, batch, group,
+                            rank_seed(0, group.rank), 0.0, fault)
+            for fault in (None, *DP_FAULTS)}
+
+
+def _dp_orders(b: int, device) -> list:
+    """The batch's clouds in other orders: pairs swapped, reversed, the
+    halves swapped (the same sums in another order)."""
+    i = torch.arange(b, device=device)
+    return [i.view(-1, 2).flip(1).reshape(-1), i.flip(0), i.roll(b // 2)]
+
+
+def _dp_check(name, got, want, spreads, cancelled, fragile):
+    """``(failures, readings)`` of a two-rank step ``got`` against one
+    process's ``want``: the gradients under ``tools/grad_check.py``'s
+    bounds; the loss within :data:`DP_TOL` relative and every BN running
+    statistic within :data:`DP_TOL` of its largest element (at least 1),
+    or, where larger, :data:`DP_SPREAD` × the largest deviation of the
+    one-process ``spreads`` (the step on the clouds in other orders)."""
+    check = compare_grads(name, (float(got["loss"]), got["grads"]),
+                          (float(want["loss"]), want["grads"], cancelled,
+                           fragile))
+    failures, widened = list(check["failures"]), []
+    loss = float(want["loss"])
+    dev = abs(float(got["loss"]) - loss)
+    own = max(abs(float(s["loss"]) - loss) for s in spreads)
+    if dev > max(DP_TOL * abs(loss), DP_SPREAD * own):
+        failures.append(f"loss {float(got['loss'])} against one process's "
+                        f"{loss} (its order spread {own})")
+    elif dev > DP_TOL * abs(loss):
+        widened.append("loss")
+    stats = {}
+    for k, w in want["buffers"].items():
+        if not w.is_floating_point():
+            continue
+        dev = float((got["buffers"][k] - w).abs().max())
+        own = max(float((s["buffers"][k] - w).abs().max()) for s in spreads)
+        stats[k] = (dev, own)
+        tol = DP_TOL * max(1.0, float(w.abs().max()))
+        if dev > max(tol, DP_SPREAD * own):
+            failures.append(f"BN statistic {k} off by {dev} (one "
+                            f"process's order spread {own})")
+        elif dev > tol:
+            widened.append(k)
+    agree = check["agree"]
+    return failures, {
+        "loss_ranks": float(got["loss"]),
+        "worst_grad_cos": min(agree.items(), key=lambda kv: kv[1][0]),
+        "worst_grad_norm_ratio": max(agree.items(),
+                                     key=lambda kv: abs(kv[1][1] - 1)),
+        "grads_not_compared": sorted(check["not_compared"]),
+        "loss_spread_one_process": max(
+            abs(float(s["loss"]) - loss) for s in spreads),
+        "max_bn_stat_dev": max(d for d, _ in stats.values()),
+        "max_bn_stat_spread_one_process": max(o for _, o in
+                                              stats.values()),
+        f"held_to_{DP_SPREAD}x_spread": widened}
+
+
+def _dp_two_ranks(name, variables, batch, power):
+    """Two processes on this card over gloo (``parallel.run_ranks``),
+    each on half of ``batch``, against one process on all of it (dropout
+    0) under :func:`_dp_check`, the ranks' reduced gradients equal to
+    each other. The bound of the loss and the BN statistics widens to
+    :data:`DP_SPREAD` × one process's own spread over
+    :func:`_dp_orders` where that spread is above :data:`DP_TOL` (the
+    bf16 layers' roundings follow the order of the sums), and the line
+    names what was so held. So each fault of :data:`DP_FAULTS`, planted
+    in both ranks' steps, must fail that check."""
+    want = _dp_step(name, variables, batch, None, 0, 0.0)
+    spreads = [_dp_step(name, variables, {k: v[order] for k, v in
+                                          batch.items()}, None, 0, 0.0)
+               for order in _dp_orders(batch["xyz"].shape[0],
+                                       batch["xyz"].device)]
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    # the gradients 0 in exact arithmetic on this batch (grad_check's)
+    _, _, cancelled, fragile = model_grads(
+        _dp_model(name, variables, 0.0).to(DEV), name, batch)
+    runs = run_ranks(_dp_rank, DP_WORLD, (name, variables, cpu_batch),
+                     device=_dp_device(), backend="gloo")
+    ranks = [r[None] for r in runs]
+    for got in ranks[1:]:
+        if not all(torch.equal(got["grads"][k], ranks[0]["grads"][k])
+                   for k in got["grads"]):
+            fail(f"dp {name}: the ranks' reduced gradients differ")
+    failures, readings = _dp_check(name, ranks[0], want, spreads,
+                                   cancelled, fragile)
+    caught = {}
+    for fault in DP_FAULTS:
+        found = [_dp_check(name, r[fault], want, spreads, cancelled,
+                           fragile)[0] for r in runs]
+        caught[fault] = [len(f) for f in found]
+        if not all(found):
+            fail(f"dp {name}: the check passed a step with the fault "
+                 f"{fault} planted")
+    emit(f"dp {name} two gloo ranks on one card", {
+        "card": power, "world": DP_WORLD, "batch": batch["xyz"].shape[0],
+        "loss_one_process": float(want["loss"]),
+        **readings, "failures_of_planted_faults_by_rank": caught})
+    if failures:
+        fail(f"dp {name}: two ranks against one process: {failures}")
+
+
+def _step_ms(step, batch, gen):
+    """Milliseconds a step of ``step``, over :data:`DP_STEP_TIMES` steps
+    ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_STEP_TIMES):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / DP_STEP_TIMES
+
+
+def _same(a, b) -> bool:
+    return a["grads"].keys() == b["grads"].keys() and torch.equal(
+        a["loss"], b["loss"]) and all(
+        torch.equal(a[part][k], b[part][k])
+        for part in ("grads", "buffers") for k in a[part])
+
+
+def _world1(name, variables, dropout, group, power):
+    """The step of model ``name`` (B=64, N=1024, PointNet++ with normals)
+    with the one-process ``group`` against the step without one, twice.
+    At a world of 1 the group's step sums nothing over ranks and keeps
+    sync-BN local, so the two run the same arithmetic: bit-identical
+    where the step is bit-reproducible run to run. Where its kernels'
+    atomic sums are not, the group's step and a second step without a
+    group are each held to the first under ``tools/grad_check.py``'s
+    bounds (loss and every gradient). Then both timed in turns (plain,
+    group, group, plain)."""
+    batch = {k: v.to(DEV) for k, v in synthetic_batch(
+        name, BATCH, 5, N_POINTS).items()}
+    plain = _dp_step(name, variables, batch, None, 0, dropout)
+    again = _dp_step(name, variables, batch, None, 0, dropout)
+    world1 = _dp_step(name, variables, batch, group, 0, dropout)
+    reproducible = _same(plain, again)
+    if reproducible and not _same(plain, world1):
+        fail(f"dp {name} world of 1 over NCCL: the step differs from the "
+             f"step without a group (bit-reproducible run to run)")
+    agreement = {}
+    if not reproducible:
+        _, _, cancelled, fragile = model_grads(
+            _dp_model(name, variables, 0.0).to(DEV), name, batch)
+        for tag, run in (("rerun", again), ("world1", world1)):
+            check = compare_grads(name, (float(run["loss"]), run["grads"]),
+                                  (float(plain["loss"]), plain["grads"],
+                                   cancelled, fragile))
+            if check["failures"]:
+                fail(f"dp {name} world of 1 over NCCL: {tag} against the "
+                     f"step without a group: {check['failures']}")
+            agree = check["agree"]
+            agreement[tag] = {
+                "loss_rel_dev": abs(float(run["loss"]) - float(
+                    plain["loss"])) / abs(float(plain["loss"])),
+                "worst_grad_cos": min(agree.items(),
+                                      key=lambda kv: kv[1][0]),
+                "worst_grad_norm_ratio": max(
+                    agree.items(), key=lambda kv: abs(kv[1][1] - 1))}
+    steps = []
+    for g in (None, group):
+        model = _dp_model(name, variables, dropout)
+        make = make_seg_train_step if name in SEG else make_cls_train_step
+        steps.append(make(model, sgd_momentum(model.parameters(), 0.05),
+                          device=DEV if g is None else None, group=g))
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for st in steps:
+        st(batch, gen)
+    order = (0, 1, 1, 0)
+    ms = [_step_ms(steps[i], batch, gen) for i in order]
+    emit(f"dp {name} world of 1 over NCCL", {
+        "card": power, "batch": BATCH,
+        "plain_rerun_bit_identical": reproducible,
+        "bit_identical": _same(plain, world1),
+        "grad_check_vs_plain": agreement,
+        "plain_step_ms": [m for i, m in zip(order, ms) if i == 0],
+        "world1_step_ms": [m for i, m in zip(order, ms) if i == 1]})
+
+
+def phase_dp(power):
+    """Data parallelism at full width. (a) A world of 1 over NCCL
+    (:func:`_world1`): PointNet (B=64; no kernel, every step
+    bit-reproducible) bit-identical to its step without a group, and
+    PointNet++ SSG (B=64, N=1024, normals, its dropout) bit-identical
+    where two steps without a group are, else under grad_check's bounds
+    as such a second step is; at a world of 1 the group's step sums
+    nothing over ranks and keeps sync-BN local. (b) Two processes on this
+    one card over gloo (which takes CUDA tensors), SSG at B=32 each,
+    against one process at B=64 (:func:`_dp_two_ranks`), with two faults
+    planted that the check must reject. (c) The same for one DGCNN
+    part-segmentation step (B=16, N=2048; 8 a rank), which puts the
+    two-layer EdgeConv kernels' statistics under the sums over the ranks.
+    Two ranks on one card measure correctness, not speed. Prints the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    name = "pointnet2"
+    variables = random_jax_variables(get_cls_model(name), seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        group = init_group(0, 1, f"file://{tmp}/store", device=_dp_device())
+        try:
+            _world1("pointnet", random_jax_variables(
+                get_cls_model("pointnet"), seed=0), 0.5, group, power)
+            _world1(name, variables, 0.5, group, power)
+        finally:
+            torch.distributed.destroy_process_group()
+    batch = {k: v.to(DEV) for k, v in synthetic_batch(
+        name, BATCH, 5, N_POINTS).items()}
+    torch.cuda.empty_cache()
+    _dp_two_ranks(name, variables, batch, power)
+    dseg_vars = random_jax_variables(build_model(DSEG), seed=0)
+    dseg = {k: v.to(DEV) for k, v in synthetic_batch(
+        DSEG, SEG_BATCH, 5, SEG_POINTS).items()}
+    _dp_two_ranks(DSEG, dseg_vars, dseg, power)
+    torch.cuda.empty_cache()
+    emit("dp phase", {"seconds": time.perf_counter() - t0})
+
+
 def _model_on_card(name, variables):
     model = build_model(name)
     from_jax_variables(model, variables)
@@ -4712,6 +5153,10 @@ def main() -> None:
         paths[f"{name}_serving"], paths[f"{name}_train"] = phase_kpconv(
             name, kp_vars, power, cal, (clouds, normals))
         torch.cuda.empty_cache()
+    recs["knn_rank"], large = phase_kpconv_large(
+        random_jax_variables(get_cls_model("kpconv"), seed=0), power)
+    paths.update(large)
+    phase_dp(power)
 
     kernels = []
     for name, source, replaces, key, *counted in KERNELS:

@@ -7,9 +7,18 @@
         --synthetic --device cpu --epochs 1 --steps-per-epoch 2
 
 Every flag of the JAX CLI, with its default, plus ``--device`` (``cuda``
-by default; without a card the run raises unless it is ``cpu``). Several
-devices, the activation audit and ``--debug`` are not ported yet: those
-flags exit naming their ROADMAP item.
+by default; without a card the run raises unless it is ``cpu``). The
+activation audit and ``--debug`` are not ported yet: those flags exit
+naming their ROADMAP item.
+
+Data parallelism: ``--n-devices`` W processes (by default every visible
+card), one a device, each on its rows of every global batch with sync-BN
+and the gradients summed (``common.launch``, ``parallel/``); ``--dp``
+takes the JAX CLI's three modes, all one step; ``--multihost`` joins
+``torchrun``'s process group. Every rank runs the same seeded loader and
+KPConv calibration (rank 0's broadcast); dropout draws from a generator
+seeded by ``(seed, rank)``; rank 0 alone prints, logs and writes
+checkpoints.
 
 The loop is the JAX CLI's: shuffled epochs (seed ``seed + epoch``) that
 drop the last partial batch, batches assembled in a prefetch thread (and
@@ -42,7 +51,9 @@ steps, the deformable offsets' updates scaled by
 ``steps``, ``first_loss``, ``last_loss``, ``test_oa``,
 ``samples_per_s`` and ``voxel_overflow`` (KPConv) by epoch, ``best_oa``,
 and for KPConv ``calibration`` and, with buckets, ``steps_by_bucket``;
-for ``--eval`` ``eval_oa``.
+for ``--eval`` ``eval_oa``; ``checkpoints``, the number of checkpoint
+saves this rank made; a spawned run adds ``ranks``, every rank's
+summary.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ KP_CALIBRATION_CLOUDS = 64
 KP_EPOCH_STEPS = 300          # the reference epoch's steps
 
 
-def _kpconv_calibration(args, train_ds, dev):
+def _kpconv_calibration(args, train_ds, dev, say=print):
     """``(calibration, bucketed or None, rng)``: the pyramid's shapes from
     the first 64 training clouds, each augmented by ``kpconv_augment``
     from ``default_rng(seed + 1)``, which the epochs then go on
@@ -94,12 +105,12 @@ def _kpconv_calibration(args, train_ds, dev):
         bcal = calibrate_buckets(clouds, FIRST_SUBSAMPLING_DL,
                                  base.conv_radius, base.deform_radius, arch,
                                  n_buckets=args.kp_buckets, **kw)
-        print(f"kpconv calibration ({n_cal} clouds, {args.kp_buckets} "
-              f"buckets): {bcal.describe()}")
+        say(f"kpconv calibration ({n_cal} clouds, {args.kp_buckets} "
+            f"buckets): {bcal.describe()}")
         return bcal.merged(), bcal, rng
     calib = calibrate_pyramid(clouds, FIRST_SUBSAMPLING_DL, base.conv_radius,
                               base.deform_radius, arch, **kw)
-    print(f"kpconv calibration ({n_cal} clouds): {calib.describe()}")
+    say(f"kpconv calibration ({n_cal} clouds): {calib.describe()}")
     return calib, None, rng
 
 
@@ -142,14 +153,17 @@ def parse_args(argv=None):
                         "VOXEL-OVERFLOW); negative = the maxima, margin "
                         "1.15")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="devices (default: one); more are not ported yet")
+                   help="data-parallel processes, one a device (default: "
+                        "every visible card; one with --device cpu)")
     p.add_argument("--dp", default="auto",
                    choices=["auto", "spmd", "shard_map"],
-                   help="multi-device mode; shard_map is not ported yet")
+                   help="multi-device mode; all three run the same "
+                        "sync-BN step (auto = shard_map on >1 device)")
     p.add_argument("--debug", action="store_true",
                    help="not ported yet")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported yet")
+                   help="join torchrun's process group (MASTER_ADDR, "
+                        "RANK, WORLD_SIZE, LOCAL_RANK)")
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num-workers", type=int, default=0,
@@ -173,7 +187,17 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     common.refuse_unported(args)
-    dev = common.device_of(args)
+    return common.launch(_run, args)
+
+
+def _run(args, group) -> dict:
+    """The run on one rank of ``group`` (``None``: one process)."""
+    from pointcloudlib_tpu_torch.parallel import rank_seed, replicate
+
+    dev = common.device_of(args) if group is None else group.device
+    rank = 0 if group is None else group.rank
+    world = 1 if group is None else group.world
+    say = print if rank == 0 else common.quiet
 
     from pointcloudlib_tpu_torch.data import (
         PotentialSampler,
@@ -195,8 +219,10 @@ def main(argv=None) -> dict:
     from pointcloudlib_tpu_torch.utils.checkpoint import CheckpointManager
     from pointcloudlib_tpu_torch.utils.logging import MetricsLogger
 
-    print(f"device: {common.device_name(dev)}, model={args.model}, "
-          f"N={args.num_points}, B={args.batch_size}")
+    say(f"device: {common.device_name(dev)}, model={args.model}, "
+        f"N={args.num_points}, B={args.batch_size}"
+        + (f", devices={world}, dp={common.dp_mode(args, world)}"
+           if world > 1 else ""))
     # only PointNet++ takes normals as features
     with_normals = args.model.startswith("pointnet2")
     is_kpconv = args.model.startswith("kpconv")
@@ -213,7 +239,9 @@ def main(argv=None) -> dict:
 
     model_kw, calib, kp_bcal = {}, None, None
     if is_kpconv:
-        calib, kp_bcal, kp_rng = _kpconv_calibration(args, train_ds, dev)
+        calib, kp_bcal, kp_rng = _kpconv_calibration(args, train_ds, dev,
+                                                     say)
+        calib, kp_bcal = common.from_rank0((calib, kp_bcal), group)
         model_kw = dict(caps=calib.caps,
                         neighborhood_limits=calib.neighborhood_limits)
         kp_sampler = PotentialSampler(len(train_ds), seed=args.seed)
@@ -230,14 +258,15 @@ def main(argv=None) -> dict:
     else:
         opt = common.make_optimizer(args, model, len(train_ds))
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"params: {n_params/1e6:.2f}M")
-    train_step = make_cls_train_step(model, opt, device=dev, clip_norm=clip)
-    eval_step = make_cls_eval_step(model, device=dev)
+    say(f"params: {n_params/1e6:.2f}M")
+    train_step = make_cls_train_step(model, opt, device=dev, clip_norm=clip,
+                                     group=group)
+    eval_step = make_cls_eval_step(model, device=dev, group=group)
     # one step per occupancy bucket, each model at its bucket's shapes
     # and sharing every parameter, buffer and the optimizer
     bucket_steps = None if kp_bcal is None else [
         make_cls_train_step(model.with_shapes(c.caps, c.neighborhood_limits),
-                            opt, device=dev, clip_norm=clip)
+                            opt, device=dev, clip_norm=clip, group=group)
         for c in kp_bcal.buckets]
     ckpt = CheckpointManager(Path(args.checkpoint_dir) / args.model)
 
@@ -247,8 +276,8 @@ def main(argv=None) -> dict:
         trues, preds = [], []
         # one forward a batch: the ids come back and the counts are made
         # from them on the host
-        pred_step = make_cls_pred_step(model, device=dev) if confusion \
-            else None
+        pred_step = make_cls_pred_step(model, device=dev, group=group) \
+            if confusion else None
         for batch in cls_batches(test_ds, args.batch_size,
                                  with_normals=with_normals):
             if confusion:
@@ -267,14 +296,15 @@ def main(argv=None) -> dict:
                                 np.concatenate(preds), 40)
             per_class = np.diag(cm) / np.maximum(cm.sum(1), 1)
             for c_id in np.nonzero(cm.sum(1))[0]:
-                print(f"  class {c_id:2d}: acc {per_class[c_id]*100:5.1f}% "
-                      f"({cm[c_id].sum()} samples)")
+                say(f"  class {c_id:2d}: acc {per_class[c_id]*100:5.1f}% "
+                    f"({cm[c_id].sum()} samples)")
         return 100.0 * int(correct) / max(int(total), 1)
 
     def evaluate_voting(n_votes):
         """The softmax averaged over ``n_votes`` passes of the test set,
         each re-augmented (the reference's incremental average)."""
-        prob_step = make_cls_pred_step(model, probs=True, device=dev)
+        prob_step = make_cls_pred_step(model, probs=True, device=dev,
+                                       group=group)
         vote_ds = make_modelnet40(
             args.num_points, train=False, data_root=args.data_root,
             synthetic=args.synthetic, synthetic_size=test_size,
@@ -308,7 +338,8 @@ def main(argv=None) -> dict:
         test set by fresh potentials and augments every cloud by
         ``kpconv_augment``; each item's probabilities are the incremental
         average of its passes."""
-        prob_step = make_cls_pred_step(model, probs=True, device=dev)
+        prob_step = make_cls_pred_step(model, probs=True, device=dev,
+                                       group=group)
         vote_ds = make_modelnet40(
             args.num_points, train=False, data_root=args.data_root,
             synthetic=args.synthetic, synthetic_size=test_size,
@@ -338,16 +369,19 @@ def main(argv=None) -> dict:
 
     if args.eval:
         if ckpt.restore_variables(model, name="current") is None:
-            print(f"no checkpoint under {ckpt.directory}: evaluating the "
-                  "initial weights")
+            say(f"no checkpoint under {ckpt.directory}: evaluating the "
+                "initial weights")
+        if group is not None:
+            replicate(group, model)
         if args.votes > 1:
             vote = evaluate_voting_kpconv if is_kpconv else evaluate_voting
             oa = float(vote(args.votes))
-            print(f"eval OA ({args.votes} votes): {oa:.2f}%")
+            say(f"eval OA ({args.votes} votes): {oa:.2f}%")
         else:
             oa = evaluate(confusion=args.confusion)
-            print(f"eval OA: {oa:.2f}%")
-        return {"eval_oa": oa, "votes": args.votes, **kp_summary}
+            say(f"eval OA: {oa:.2f}%")
+        return {"eval_oa": oa, "votes": args.votes, "checkpoints": 0,
+                **kp_summary}
 
     best_oa, step_count, start_epoch = 0.0, 0, 0
     if args.resume:
@@ -356,14 +390,18 @@ def main(argv=None) -> dict:
             step_count, start_epoch = restored
             start_epoch += 1
             best_oa = ckpt.best_metric() or 0.0
-            print(f"resumed from epoch {start_epoch - 1} "
-                  f"(best OA so far {best_oa:.2f}%)")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    mlog = MetricsLogger(args.log_dir, run_name=f"cls_{args.model}")
+            say(f"resumed from epoch {start_epoch - 1} "
+                f"(best OA so far {best_oa:.2f}%)")
+    if group is not None:
+        replicate(group, model)
+    gen = torch.Generator(device=dev).manual_seed(rank_seed(args.seed, rank))
+    mlog = MetricsLogger(args.log_dir if rank == 0 else None,
+                         run_name=f"cls_{args.model}")
     summary = {"start_epoch": start_epoch, "best_at_start": best_oa,
                "epochs": [], "steps": step_count, "first_loss": None,
                "last_loss": None, "test_oa": {}, "samples_per_s": {},
-               "voxel_overflow": {}, "steps_by_bucket": {}, **kp_summary}
+               "voxel_overflow": {}, "steps_by_bucket": {},
+               "checkpoints": 0, **kp_summary}
     first = None
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -393,16 +431,18 @@ def main(argv=None) -> dict:
                     by[bucket] = by.get(bucket, 0) + 1
                 if set_lr is not None:
                     set_lr(step_count)
-                # metrics read later: no sync
-                pending = step_fn(common.to_device(batch, dev), gen)
+                # metrics read later: no sync; a data-parallel step
+                # takes the global batch and copies its own rows
+                pending = step_fn(batch if group is not None
+                                  else common.to_device(batch, dev), gen)
                 if first is None:
                     first = pending["loss"]
                 seen += args.batch_size
                 step_count += 1
                 if (i + 1) % args.log_every == 0:
-                    print(f"epoch {epoch} step {i+1}: "
-                          f"loss={float(pending['loss']):.4f} "
-                          f"acc={float(pending['acc'])*100:.2f}%")
+                    say(f"epoch {epoch} step {i+1}: "
+                        f"loss={float(pending['loss']):.4f} "
+                        f"acc={float(pending['acc'])*100:.2f}%")
             common.synchronize(dev)
             dt = time.perf_counter() - t0
             loss = (float(pending["loss"]) if pending is not None
@@ -419,12 +459,14 @@ def main(argv=None) -> dict:
                 if overflow > 0:
                     extra += (f" VOXEL-OVERFLOW={int(overflow)} (pyramid "
                               "caps truncating; re-calibrate)")
-            print(f"epoch {epoch}: loss={loss:.4f} test OA={oa:.2f}% "
-                  f"({seen/dt:.1f} samples/s){extra}")
+            say(f"epoch {epoch}: loss={loss:.4f} test OA={oa:.2f}% "
+                f"({seen/dt:.1f} samples/s){extra}")
             mlog.log("epoch", epoch=epoch, loss=loss, test_oa=oa,
                      samples_per_sec=seen / dt)
-            ckpt.save(model, opt, step=epoch, best=oa > best_oa, metric=oa,
-                      train_steps=step_count)
+            if rank == 0:
+                ckpt.save(model, opt, step=epoch, best=oa > best_oa,
+                          metric=oa, train_steps=step_count)
+                summary["checkpoints"] += 1
             best_oa = max(best_oa, oa)
             summary["epochs"].append(epoch)
             summary["last_loss"] = loss
@@ -432,7 +474,7 @@ def main(argv=None) -> dict:
             summary["samples_per_s"][epoch] = seen / dt
     finally:
         mlog.close()
-    print(f"best OA: {best_oa:.2f}%")
+    say(f"best OA: {best_oa:.2f}%")
     summary.update(steps=step_count, best_oa=best_oa,
                    first_loss=None if first is None else float(first))
     return summary

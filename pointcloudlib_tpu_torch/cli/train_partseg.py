@@ -7,8 +7,10 @@ repository's ``train_partseg.py``)::
         --synthetic --device cpu --epochs 1 --steps-per-epoch 2
 
 Every flag of the JAX CLI, with its default, plus ``--device`` (``cuda``
-by default; without a card the run raises unless it is ``cpu``); several
-devices and ``--debug`` exit naming their ROADMAP item. SGD carries the
+by default; without a card the run raises unless it is ``cpu``);
+``--debug`` exits naming its ROADMAP item. ``--n-devices``, ``--dp`` and
+``--multihost`` run data-parallel as in ``train_cls`` (the loss and
+accuracy over the global valid points, the gradients summed). SGD carries the
 reference's weight decay 1e-4 at the flat lr of the batches kept
 (``drop_last``). The eval reports per-point accuracy, the balanced
 accuracy over the 50 parts and the mean shape IoU; the best checkpoint
@@ -19,7 +21,8 @@ seeding and the checkpoints are ``train_cls``'s.
 ``best_at_start`` (a resumed run's bar), ``epochs``,
 ``steps``, ``first_loss``, ``last_loss``, ``test_iou``, ``test_acc``,
 ``test_balanced_acc`` and ``samples_per_s`` by epoch, ``best_iou``; for
-``--eval`` ``eval_acc``, ``eval_balanced_acc`` and ``eval_iou``.
+``--eval`` ``eval_acc``, ``eval_balanced_acc`` and ``eval_iou``;
+``checkpoints`` and, from a spawned run, ``ranks`` as in ``train_cls``.
 """
 
 from __future__ import annotations
@@ -55,14 +58,17 @@ def parse_args(argv=None):
     p.add_argument("--synthetic-size", type=int, default=256)
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="devices (default: one); more are not ported yet")
+                   help="data-parallel processes, one a device (default: "
+                        "every visible card; one with --device cpu)")
     p.add_argument("--dp", default="auto",
                    choices=["auto", "spmd", "shard_map"],
-                   help="multi-device mode; shard_map is not ported yet")
+                   help="multi-device mode; all three run the same "
+                        "sync-BN step (auto = shard_map on >1 device)")
     p.add_argument("--debug", action="store_true",
                    help="not ported yet")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported yet")
+                   help="join torchrun's process group (MASTER_ADDR, "
+                        "RANK, WORLD_SIZE, LOCAL_RANK)")
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num-workers", type=int, default=0,
@@ -93,7 +99,17 @@ def _prep(batch, model_name):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     common.refuse_unported(args)
-    dev = common.device_of(args)
+    return common.launch(_run, args)
+
+
+def _run(args, group) -> dict:
+    """The run on one rank of ``group`` (``None``: one process)."""
+    from pointcloudlib_tpu_torch.parallel import rank_seed, replicate
+
+    dev = common.device_of(args) if group is None else group.device
+    rank = 0 if group is None else group.rank
+    world = 1 if group is None else group.world
+    say = print if rank == 0 else common.quiet
 
     from pointcloudlib_tpu_torch.data import make_shapenet, prefetch
     from pointcloudlib_tpu_torch.data import seg_batches
@@ -107,8 +123,10 @@ def main(argv=None) -> dict:
     from pointcloudlib_tpu_torch.utils.checkpoint import CheckpointManager
     from pointcloudlib_tpu_torch.utils.logging import MetricsLogger
 
-    print(f"device: {common.device_name(dev)}, model={args.model}, "
-          f"N={args.num_points}, B={args.batch_size}")
+    say(f"device: {common.device_name(dev)}, model={args.model}, "
+        f"N={args.num_points}, B={args.batch_size}"
+        + (f", devices={world}, dp={common.dp_mode(args, world)}"
+           if world > 1 else ""))
     train_ds = make_shapenet(
         "trainval", args.num_points, data_root=args.data_root,
         synthetic=args.synthetic, synthetic_size=args.synthetic_size,
@@ -128,9 +146,9 @@ def main(argv=None) -> dict:
     opt = common.make_optimizer(args, model, len(train_ds),
                                 weight_decay=1e-4, drop_last=True)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"params: {n_params/1e6:.2f}M")
-    train_step = make_seg_train_step(model, opt, device=dev)
-    eval_step = make_seg_eval_step(model, device=dev)
+    say(f"params: {n_params/1e6:.2f}M")
+    train_step = make_seg_train_step(model, opt, device=dev, group=group)
+    eval_step = make_seg_eval_step(model, device=dev, group=group)
     ckpt = CheckpointManager(
         Path(args.checkpoint_dir) / f"{args.model}_partseg")
 
@@ -153,12 +171,15 @@ def main(argv=None) -> dict:
 
     if args.eval:
         if ckpt.restore_variables(model, name="current") is None:
-            print(f"no checkpoint under {ckpt.directory}: evaluating the "
-                  "initial weights")
+            say(f"no checkpoint under {ckpt.directory}: evaluating the "
+                "initial weights")
+        if group is not None:
+            replicate(group, model)
         acc, iou, bal = evaluate()
-        print(f"eval acc: {acc:.2f}%  balanced: {bal:.2f}%  "
-              f"mean shape IoU: {iou:.2f}%")
-        return {"eval_acc": acc, "eval_balanced_acc": bal, "eval_iou": iou}
+        say(f"eval acc: {acc:.2f}%  balanced: {bal:.2f}%  "
+            f"mean shape IoU: {iou:.2f}%")
+        return {"eval_acc": acc, "eval_balanced_acc": bal, "eval_iou": iou,
+                "checkpoints": 0}
 
     best_iou, step_count, start_epoch = 0.0, 0, 0
     if args.resume:
@@ -167,14 +188,18 @@ def main(argv=None) -> dict:
             step_count, start_epoch = restored
             start_epoch += 1
             best_iou = ckpt.best_metric() or 0.0
-            print(f"resumed from epoch {start_epoch - 1} "
-                  f"(best IoU so far {best_iou:.2f}%)")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    mlog = MetricsLogger(args.log_dir, run_name=f"partseg_{args.model}")
+            say(f"resumed from epoch {start_epoch - 1} "
+                f"(best IoU so far {best_iou:.2f}%)")
+    if group is not None:
+        replicate(group, model)
+    gen = torch.Generator(device=dev).manual_seed(rank_seed(args.seed, rank))
+    mlog = MetricsLogger(args.log_dir if rank == 0 else None,
+                         run_name=f"partseg_{args.model}")
     summary = {"start_epoch": start_epoch, "best_at_start": best_iou,
                "epochs": [], "steps": step_count, "first_loss": None,
                "last_loss": None, "test_iou": {}, "test_acc": {},
-               "test_balanced_acc": {}, "samples_per_s": {}}
+               "test_balanced_acc": {}, "samples_per_s": {},
+               "checkpoints": 0}
     first = None
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -188,29 +213,33 @@ def main(argv=None) -> dict:
                     batches, dev, prep))):
                 if args.steps_per_epoch and i >= args.steps_per_epoch:
                     break
-                # metrics read later: no sync
-                pending = train_step(common.to_device(batch, dev), gen)
+                # metrics read later: no sync; a data-parallel step
+                # takes the global batch and copies its own rows
+                pending = train_step(batch if group is not None
+                                     else common.to_device(batch, dev), gen)
                 if first is None:
                     first = pending["loss"]
                 seen += args.batch_size
                 step_count += 1
                 if (i + 1) % args.log_every == 0:
-                    print(f"epoch {epoch} step {i+1}: "
-                          f"loss={float(pending['loss']):.4f} "
-                          f"acc={float(pending['acc'])*100:.2f}%")
+                    say(f"epoch {epoch} step {i+1}: "
+                        f"loss={float(pending['loss']):.4f} "
+                        f"acc={float(pending['acc'])*100:.2f}%")
             common.synchronize(dev)
             dt = time.perf_counter() - t0
             loss = (float(pending["loss"]) if pending is not None
                     else float("nan"))
             acc, iou, bal = evaluate()
-            print(f"epoch {epoch}: loss={loss:.4f} test acc={acc:.2f}% "
-                  f"bal={bal:.2f}% IoU={iou:.2f}% "
-                  f"({seen/dt:.1f} samples/s)")
+            say(f"epoch {epoch}: loss={loss:.4f} test acc={acc:.2f}% "
+                f"bal={bal:.2f}% IoU={iou:.2f}% "
+                f"({seen/dt:.1f} samples/s)")
             mlog.log("epoch", epoch=epoch, loss=loss, test_acc=acc,
                      test_balanced_acc=bal, test_iou=iou,
                      samples_per_sec=seen / dt)
-            ckpt.save(model, opt, step=epoch, best=iou > best_iou,
-                      metric=iou, train_steps=step_count)
+            if rank == 0:
+                ckpt.save(model, opt, step=epoch, best=iou > best_iou,
+                          metric=iou, train_steps=step_count)
+                summary["checkpoints"] += 1
             best_iou = max(best_iou, iou)
             summary["epochs"].append(epoch)
             summary["last_loss"] = loss
@@ -220,7 +249,7 @@ def main(argv=None) -> dict:
             summary["samples_per_s"][epoch] = seen / dt
     finally:
         mlog.close()
-    print(f"best IoU: {best_iou:.2f}%")
+    say(f"best IoU: {best_iou:.2f}%")
     summary.update(steps=step_count, best_iou=best_iou,
                    first_loss=None if first is None else float(first))
     return summary

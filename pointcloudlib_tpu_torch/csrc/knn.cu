@@ -71,7 +71,21 @@
 // select route's first tiles (every candidate of tile 0 enters a list)
 // and a grid of one block an SM or less weigh most, and takes widths the
 // select route's shared memory does not (C up to 379 at k = 40).
+//
+// "rank" (knn_rank_kernel), for lists longer than the other routes' 40
+// (KPConv's radius neighbours on layers of 256 supports or more ask for
+// 41 and up): one warp a query, the selection of knn_gather.cu's select
+// route (knn_rank.cuh): the query's d2 row as order keys in shared
+// memory (at C = 3 from the block's cloud staged as (x, y, z, |p|^2)),
+// the k smallest (key, index) words chosen by a bisection on the keys'
+// bits, exact on ties, then each word's rank counted against the list
+// and the word written at its rank: the index to idx, the key back as
+// its f32 d2 (the key is the d2's bits; d2 >= 0). Any k <= N whose warp
+// part (the N keys and k + 64 list words) fits a block's shared memory.
+// It is not fast: the row is formed once, but each bisection step reads
+// it again, and the ranks take k^2 / 32 compares a lane.
 
+#include "knn_rank.cuh"
 #include "knn_select.cuh"
 
 namespace pcl {
@@ -147,6 +161,83 @@ cudaError_t launch_kernel(K kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
+// The rank route's warp part: its key row (n rounded up to whole uint4
+// words) and its list of k words beside kKgCand candidates.
+__host__ __device__ inline size_t kr_warp_bytes(int n, int k) {
+  return ((size_t)((n + 3) / 4) * 16 + 8 * ((size_t)k + kKgCand) + 15) /
+         16 * 16;
+}
+
+// STAGED: C = 3 and every query of the block in one batch.
+template <bool STAGED>
+__global__ void __launch_bounds__(kKgMaxWarps * 32)
+    knn_rank_kernel(const float* __restrict__ query,
+                    const float* __restrict__ pts, float* __restrict__ d2,
+                    int* __restrict__ idx, long long queries, int m, int n,
+                    int c, int k) {
+  extern __shared__ __align__(16) unsigned char kr_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const long long qid = (long long)blockIdx.x * warps + warp;
+  const int words = (n + 3) / 4;
+  const float4* cloud = reinterpret_cast<const float4*>(kr_smem);
+  unsigned char* mine = kr_smem + (STAGED ? (size_t)n * 16 : 0) +
+                        (size_t)warp * kr_warp_bytes(n, k);
+  const uint4* row4 = reinterpret_cast<const uint4*>(mine);
+  uint32_t* row = reinterpret_cast<uint32_t*>(mine);
+  unsigned long long* list =
+      reinterpret_cast<unsigned long long*>(mine + (size_t)words * 16);
+  if (STAGED)
+    kg_stage_cloud(pts + (size_t)((long long)blockIdx.x * warps / m) * n * 3,
+                   n, reinterpret_cast<float4*>(kr_smem));
+  if (qid >= queries) return;  // no block-wide barrier follows
+  const long long b = qid / m;
+  const float* qp = query + qid * c;
+  kg_key_row<STAGED>(qp, kg_q2(qp, c), cloud, pts + (size_t)b * n * c, n, c,
+                     words, row, lane);
+  kg_select(row4, row, words, n, k, lane, list, list + k);
+  // each chosen word at its rank: the count of smaller words
+  for (int e = lane; e < k; e += 32) {
+    const unsigned long long w = list[e];
+    int r = 0;
+#pragma unroll 8
+    for (int f = 0; f < k; ++f) r += list[f] < w;
+    idx[qid * k + r] = (int)(w & 0xffffffffu);
+    d2[qid * k + r] = __uint_as_float((uint32_t)(w >> 32));
+  }
+}
+
+inline int kr_warps(int n, int k, size_t fixed = 0) {
+  return kg_fit(kr_warp_bytes(n, k), fixed);
+}
+
+// Staged where C = 3 and a block's queries (as many warps as fit beside
+// the cloud, dividing M) share a batch; else the row from global memory.
+inline cudaError_t launch_rank(const void* query, const void* pts, void* d2,
+                               void* idx, int b, int m, int n, int c, int k,
+                               cudaStream_t stream) {
+  int warps = c == 3 ? kr_warps(n, k, (size_t)n * 16) : 0;
+  while (warps > 1 && m % warps) --warps;
+  const bool staged = warps >= 1 && m % warps == 0;
+  if (!staged) warps = kr_warps(n, k);
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem =
+      (staged ? (size_t)n * 16 : 0) + warps * kr_warp_bytes(n, k);
+  auto kernel = staged ? knn_rank_kernel<true> : knn_rank_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long queries = (long long)b * m;
+  kernel<<<(unsigned)((queries + warps - 1) / warps), warps * 32, smem,
+           stream>>>(static_cast<const float*>(query),
+                     static_cast<const float*>(pts), static_cast<float*>(d2),
+                     static_cast<int*>(idx), queries, m, n, c, k);
+  return cudaGetLastError();
+}
+
+constexpr int kRankRoute = 4;  // the launcher's number of the rank route
+
 }  // namespace pcl
 
 // Shared memory bytes of one block of the block route for width c and k
@@ -206,13 +297,20 @@ cudaError_t launch_select(dim3 grid, size_t smem, cudaStream_t s,
 // the block route); all contiguous and 16-byte aligned. route: 0 the
 // block route; 1 .. 3 the select route with (queries a thread, tiles in
 // the ring, the fast pass) = (4, 3, no), (4, 3, yes), (8, 2, yes); the
-// fast pass for c % 4 == 0 only, 8 queries a thread for k <= 24 only.
+// fast pass for c % 4 == 0 only, 8 queries a thread for k <= 24 only;
+// 4 the rank route (any k <= n whose warp part fits shared memory).
 // Returns the launch's cudaGetLastError() code, or cudaErrorInvalidValue
-// for sizes it does not take (k > n, k > 40, too much shared memory, an
-// unknown route).
+// for sizes it does not take (k > n, k > 40 off the rank route, too much
+// shared memory, an unknown route).
 extern "C" int knn_launch(const void* query, const void* pts, void* d2,
                           void* idx, void* norms, int b, int m, int n, int c,
                           int k, int route, void* stream) {
+  if (route == pcl::kRankRoute) {
+    if (b < 1 || m < 1 || c < 1 || k < 1 || k > n)
+      return cudaErrorInvalidValue;
+    return pcl::launch_rank(query, pts, d2, idx, b, m, n, c, k,
+                            static_cast<cudaStream_t>(stream));
+  }
   if (b < 1 || m < 1 || c < 1 || k < 1 || k > n || k > pcl::kKnnMaxK ||
       route < 0 || route > pcl::kSelRouteCount)
     return cudaErrorInvalidValue;

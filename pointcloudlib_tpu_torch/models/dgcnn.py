@@ -44,6 +44,7 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_edge import (
     fused_edge_eval,
     fused_edge_eval_knn,
 )
+from pointcloudlib_tpu_torch.parallel.mesh import DPGroup
 
 SLOPE = 0.2
 
@@ -83,7 +84,11 @@ class FusedEdgeConv(nn.Module):
     with batch statistics over every edge, then updates the running ones
     (biased variance, momentum 0.9). Parameters keep the JAX names and
     layouts: ``w [2C, F]``, ``bn_scale``, ``bn_bias``; buffers ``mean``,
-    ``var``."""
+    ``var``. With a ``group`` of more than one rank
+    (``parallel.sync_batchnorm``) the train kernels' statistics and
+    backward sums are summed over the ranks."""
+
+    group: Optional[DPGroup] = None
 
     def __init__(self, in_channels: int, features: int, k: int):
         super().__init__()
@@ -114,10 +119,12 @@ class FusedEdgeConv(nn.Module):
                                    stats, SLOPE)
         if idx is None:
             out, batch = fused_edge_conv_knn(x, q, off, self.bn_scale,
-                                             self.bn_bias, self.k, SLOPE)
+                                             self.bn_bias, self.k, SLOPE,
+                                             group=self.group)
         else:
             out, batch = fused_edge_conv(q, off, idx, self.bn_scale,
-                                         self.bn_bias, SLOPE)
+                                         self.bn_bias, SLOPE,
+                                         group=self.group)
         update_running(self.mean, batch.mean)
         update_running(self.var, batch.var)
         return out
@@ -178,7 +185,10 @@ class Fused2EdgeConv(nn.Module):
     :meth:`~FusedEdgeConv.prepare` forms ``q`` and ``off``; the same two
     routes and running-statistics updates. Parameters keep the JAX names
     and layouts: ``w [2C, F1]``, ``w2 [F1, F2]``, ``bn{1,2}_scale``,
-    ``bn{1,2}_bias``; buffers ``mean{1,2}``, ``var{1,2}``."""
+    ``bn{1,2}_bias``; buffers ``mean{1,2}``, ``var{1,2}``. A ``group``
+    syncs both layers' statistics as in :class:`FusedEdgeConv`."""
+
+    group: Optional[DPGroup] = None
 
     def __init__(self, in_channels: int, features, k: int):
         super().__init__()
@@ -210,9 +220,11 @@ class Fused2EdgeConv(nn.Module):
                                             self.k, SLOPE)
             return fused_edge2_eval(q, off, idx, *p, self.stats(), SLOPE)
         if idx is None:
-            out, batch = fused_edge2_conv_knn(x, q, off, *p, self.k, SLOPE)
+            out, batch = fused_edge2_conv_knn(x, q, off, *p, self.k, SLOPE,
+                                              group=self.group)
         else:
-            out, batch = fused_edge2_conv(q, off, idx, *p, SLOPE)
+            out, batch = fused_edge2_conv(q, off, idx, *p, SLOPE,
+                                          group=self.group)
         for running, value in zip(self.stats(), batch):
             update_running(running, value)
         return out

@@ -43,6 +43,11 @@ from pointcloudlib_tpu_torch.models.kpconv.pyramid import (
 )
 from pointcloudlib_tpu_torch.nn.layers import reference_linear_init
 from pointcloudlib_tpu_torch.ops import geometry
+from pointcloudlib_tpu_torch.parallel.mesh import (
+    DPGroup,
+    all_reduce_sum_grad,
+    synced,
+)
 
 _BN_EPS = 1e-5
 
@@ -109,7 +114,14 @@ class MaskedBatchNorm(nn.Module):
     in training the masked mean and biased variance over every axis but
     the last, the running ones updated as ``m·running + (1 − m)·batch``;
     in eval the running ones. ``use_bn=False`` is a learned bias alone.
-    Names as ``nn.BatchNorm1d``'s (``weight`` for flax's ``scale``)."""
+    Names as ``nn.BatchNorm1d``'s (``weight`` for flax's ``scale``). With
+    a ``group`` of more than one rank (``parallel.sync_batchnorm``) the
+    masked count and Σx, then Σ(x − mean)², are summed over the ranks
+    (``_masked_moments`` with ``axis_name``, ``model.py:84-98``): ranks
+    carry different valid counts, so the sums are reduced, never the
+    moments."""
+
+    group: Optional[DPGroup] = None
 
     def __init__(self, features: int, use_bn: bool = True,
                  momentum: float = 0.95):
@@ -127,9 +139,18 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             w = mask.to(x.dtype)[..., None]
             dims = tuple(range(x.dim() - 1))
-            cnt = torch.clamp_min(w.sum(), 1.0)
-            mean = (x * w).sum(dims) / cnt
-            var = (w * (x - mean) ** 2).sum(dims) / cnt
+            if synced(self.group):
+                s = all_reduce_sum_grad(
+                    torch.cat([(x * w).sum(dims), w.sum().reshape(1)]),
+                    self.group)
+                cnt = torch.clamp_min(s[-1], 1.0)
+                mean = s[:-1] / cnt
+                var = all_reduce_sum_grad(
+                    (w * (x - mean) ** 2).sum(dims), self.group) / cnt
+            else:
+                cnt = torch.clamp_min(w.sum(), 1.0)
+                mean = (x * w).sum(dims) / cnt
+                var = (w * (x - mean) ** 2).sum(dims) / cnt
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -152,8 +152,9 @@ def radius_neighbors(query: torch.Tensor, qmask: torch.Tensor,
     on ties; invalid slots hold the sentinel N. For ``k > N`` the slots
     past N are invalid, as in the JAX package (``knn`` would repeat the
     last neighbour). On the card a layer of at least
-    :data:`KNN_MIN_SUPPORTS` supports launches the ``knn`` kernel, which
-    takes ``k ≤ knn.MAX_K`` and raises above it."""
+    :data:`KNN_MIN_SUPPORTS` supports launches the ``knn`` kernel (its
+    rank route for ``k > knn.MAX_K``, as the neighbour limits of the
+    uncalibrated shapes ask from 4,096 points up)."""
     n = support.shape[1]
     kk = min(k, n)
     far = _far_supports(support, smask)

@@ -39,6 +39,11 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
     fused_sa_train,
 )
 from pointcloudlib_tpu_torch.ops.spatial import window_width
+from pointcloudlib_tpu_torch.parallel.mesh import (
+    DPGroup,
+    all_reduce_sum_grad,
+    synced,
+)
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9  # flax convention: running = 0.9·running + 0.1·batch
@@ -81,7 +86,20 @@ class BatchNorm(nn.Module):
     ``running_mean``/``running_var`` with the batch mean and the
     *biased* variance ``E[x²] − E[x]²``, as ``flax.linen.BatchNorm``
     does. Names follow ``nn.BatchNorm1d`` (``weight``, ``bias``,
-    ``running_mean``, ``running_var``)."""
+    ``running_mean``, ``running_var``).
+
+    With a ``group`` of more than one rank (``parallel.sync_batchnorm``)
+    the batch is every rank's rows (sync-BN, flax's ``axis_name``): Σx,
+    Σx² and the row count are summed over the ranks in one
+    differentiable all-reduce, then Σ(x − mean)² in a second, and the
+    rows are normalized by those global moments; the gradient flows back
+    through the same sums. The second sum keeps the variance that
+    normalizes as exact as ``F.batch_norm``'s on one process: from Σx²
+    − N·mean² it loses what the two cancel, which a head's BatchNorm
+    over a few clouds of a large mean makes most of it. The running
+    variance takes Σx²/N − mean², as without a group."""
+
+    group: Optional[DPGroup] = None
 
     def __init__(self, features: int):
         super().__init__()
@@ -94,6 +112,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, _BN_EPS)
+        if synced(self.group):
+            return self._synced(x)
         with torch.no_grad():
             mean = x.mean(0)
             var = torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
@@ -101,6 +121,21 @@ class BatchNorm(nn.Module):
         update_running(self.running_var, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             _BN_EPS)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        sums = all_reduce_sum_grad(
+            torch.cat([x.sum(0), (x * x).sum(0),
+                       x.new_full((1,), float(x.shape[0]))]), self.group)
+        r = sums[2 * c]
+        mean = sums[:c] / r
+        var = all_reduce_sum_grad(((x - mean) ** 2).sum(0), self.group) / r
+        with torch.no_grad():
+            update_running(self.running_mean, mean)
+            update_running(self.running_var, torch.clamp_min(
+                sums[c:2 * c] / r - mean * mean, 0.0))
+        return ((x - mean) * torch.rsqrt(var + _BN_EPS) * self.weight
+                + self.bias)
 
 
 class DenseBNAct(nn.Module):
@@ -162,7 +197,11 @@ class FusedSetAbstraction(nn.Module):
 
     Parameters keep the JAX names and layouts (``w1 [3+C, C1]``,
     ``w2``, ``w3``, ``bn{l}_scale``/``bn{l}_bias``; buffers
-    ``mean{l}``/``var{l}``)."""
+    ``mean{l}``/``var{l}``). With a ``group`` of more than one rank
+    (``parallel.sync_batchnorm``) the train kernels' statistics and
+    backward sums are summed over the ranks."""
+
+    group: Optional[DPGroup] = None
 
     def __init__(self, in_channels: int, mlp: Sequence[int], n_points: int,
                  radius: float, n_samples: int):
@@ -238,10 +277,11 @@ class FusedSetAbstraction(nn.Module):
         if fuse_bq:
             out, batch = fused_sa_bq_train(new_xyz, xyz, q, off,
                                            self.sa_params(), self.radius,
-                                           self.n_samples)
+                                           self.n_samples, group=self.group)
         else:
             # every slot runs in training: the counts change nothing
-            out, batch = fused_sa_train(q, off, nidx, self.sa_params())
+            out, batch = fused_sa_train(q, off, nidx, self.sa_params(),
+                                        group=self.group)
         for running, value in zip(self.sa_stats(), batch):
             update_running(running, value)
         return new_xyz, out

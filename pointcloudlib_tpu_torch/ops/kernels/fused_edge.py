@@ -38,7 +38,7 @@ sums of pass 1 into dW2 and the BN1 sums, as in the JAX package.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,6 +63,13 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
     _z,
 )
 from pointcloudlib_tpu_torch.ops.kernels.knn import MAX_K
+from pointcloudlib_tpu_torch.parallel.mesh import (
+    DPGroup,
+    all_reduce_sums,
+    summed,
+    synced,
+    world_of,
+)
 
 
 class EdgeStats(NamedTuple):
@@ -518,17 +525,21 @@ def fused_edge_eval_knn(x, q, off, gamma, beta, stats: EdgeStats, k: int,
     return edge_knn_eval(x.float(), q.bfloat16(), off.float(), st, k, slope)
 
 
-def assemble_grads(ps, scat, d1, d2, st, k: int):
+def assemble_grads(ps, scat, d1, d2, st, k: int,
+                   group: Optional[DPGroup] = None):
     """``(dq, doff, dγ, dβ)`` from the backward pass's sums
     (``_edge_bwd_rule``, ``fused_edge.py:469-480``): the BN backward
     ``dh = sc·(dz − u1 − x̂·u2)`` with ``u = ps / R`` is affine in them, so
     ``dq`` (the scatter of ``dh`` onto the neighbour rows) and ``doff``
-    (minus its per-center sum) follow from ``scat``, ``d1`` and ``d2``."""
+    (minus its per-center sum) follow from ``scat``, ``d1`` and ``d2``.
+    Over a group, u from ``ps`` summed over the ranks and ``R`` over all
+    their edges; dγ and dβ stay this rank's partial sums."""
     b, m, c = d1.shape
-    r = float(b * m * k)
+    r = float(b * m * k * world_of(group))
     sc = st[0]
-    u1 = ps[0] / r
-    u2 = ps[1] / r
+    ps_g = summed(ps, group)
+    u1 = ps_g[0] / r
+    u2 = ps_g[1] / r
     dq = sc * (scat[..., :c] - scat[..., 2 * c:] * u1
                - scat[..., c:2 * c] * u2)
     doff = -sc * (d1 - float(k) * u1 - d2 * u2)
@@ -549,16 +560,19 @@ class _EdgeTrain(torch.autograd.Function):
     routes: from pass 1's ``(idx, h, psum)``, the batch moments over all
     B·M·k edges, the folded rows, ``edge_out``; backward ``edge_bwd`` and
     the dq/doff assembly. ``q`` is rounded to bf16 before pass 1, so
-    ``dq`` comes back float32; the graph carries no gradient."""
+    ``dq`` comes back float32; the graph carries no gradient. Given a
+    data-parallel group, the moments' sums and the backward's ``ps`` are
+    summed over its ranks (``fused_edge.py:405-407,469``)."""
 
     @staticmethod
-    def _tail(ctx, idx, h, psum, gamma, beta, slope):
+    def _tail(ctx, idx, h, psum, gamma, beta, slope, group):
         b, m, k, _ = h.shape
-        mean, var = _moments(psum, float(b * m * k))
+        mean, var = _moments(summed(psum, group),
+                             float(b * m * k * world_of(group)))
         st = _stack_stats(mean, var, gamma, beta)
         out = edge_out(h, st, slope)
         ctx.save_for_backward(idx, h, st)
-        ctx.slope = slope
+        ctx.slope, ctx.group = slope, group
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -568,63 +582,69 @@ class _EdgeTrain(torch.autograd.Function):
         idx, h, st = ctx.saved_tensors
         sums = edge_bwd(h, dout.float().contiguous(), idx, st, ctx.slope,
                         h.shape[1])
-        return assemble_grads(*sums, st, h.shape[2])
+        return assemble_grads(*sums, st, h.shape[2], ctx.group)
 
 
 class FusedEdgeKnnTrain(_EdgeTrain):
     """Train-mode EdgeConv with the graph built inside
     (``fused_edge_conv_knn`` and its custom VJP). Inputs ``x [B,N,Cin]``,
-    ``q [B,N,C]`` and ``off [B,N,C]`` float32, ``gamma``/``beta [C]``, k
-    and the LeakyReLU slope. Returns ``out [B,N,C]`` and the batch mean and
-    biased variance over all B·N·k edges (not differentiable). ``x`` gets
-    no gradient here, and reaches its gradient through ``q`` and ``off``,
-    computed from it outside."""
+    ``q [B,N,C]`` and ``off [B,N,C]`` float32, ``gamma``/``beta [C]``,
+    k, the LeakyReLU slope and the data-parallel group (or ``None``).
+    Returns ``out [B,N,C]`` and the batch mean and biased variance over
+    all B·N·k edges (not differentiable). ``x`` gets no gradient here,
+    and reaches its gradient through ``q`` and ``off``, computed from it
+    outside."""
 
     @staticmethod
-    def forward(ctx, x, q, off, gamma, beta, k, slope):
+    def forward(ctx, x, q, off, gamma, beta, k, slope, group):
         idx, h, psum = edge_knn_f1(x.detach().float(), q.bfloat16(),
                                    off.float(), k)
-        return _EdgeTrain._tail(ctx, idx, h, psum, gamma, beta, slope)
+        return _EdgeTrain._tail(ctx, idx, h, psum, gamma, beta, slope, group)
 
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
-        return (None, *_EdgeTrain._grads(ctx, dout), None, None)
+        return (None, *_EdgeTrain._grads(ctx, dout), None, None, None)
 
 
 class FusedEdgeTrain(_EdgeTrain):
     """Train-mode EdgeConv from a given self-kNN index ``idx [B,N,k]``
     (``fused_edge_conv`` and its custom VJP): inputs ``q``, ``off``,
-    ``idx``, ``gamma``, ``beta``, the slope; returns as
+    ``idx``, ``gamma``, ``beta``, the slope and the group; returns as
     :class:`FusedEdgeKnnTrain`."""
 
     @staticmethod
-    def forward(ctx, q, off, idx, gamma, beta, slope):
+    def forward(ctx, q, off, idx, gamma, beta, slope, group):
         idx = idx.int()
         h, psum = edge_f1(q.bfloat16(), off.float(), idx)
-        return _EdgeTrain._tail(ctx, idx, h, psum, gamma, beta, slope)
+        return _EdgeTrain._tail(ctx, idx, h, psum, gamma, beta, slope, group)
 
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
         dq, doff, dgamma, dbeta = _EdgeTrain._grads(ctx, dout)
-        return dq, doff, None, dgamma, dbeta, None
+        return dq, doff, None, dgamma, dbeta, None, None
 
 
-def fused_edge_conv_knn(x, q, off, gamma, beta, k: int, slope: float = 0.2
+def fused_edge_conv_knn(x, q, off, gamma, beta, k: int, slope: float = 0.2,
+                        group: Optional[DPGroup] = None
                         ) -> Tuple[torch.Tensor, EdgeStats]:
     """``(out [B, N, C], EdgeStats)`` of the train-mode EdgeConv with the
     graph built inside (``fused_edge_conv_knn``, ``fused_edge.py:487``),
-    with its hand-written backward."""
+    with its hand-written backward; with a ``group``, sync-BN over its
+    ranks."""
     out, mean, var = FusedEdgeKnnTrain.apply(x, q, off, gamma, beta, k,
-                                             slope)
+                                             slope, group)
     return out, EdgeStats(mean, var)
 
 
-def fused_edge_conv(q, off, idx, gamma, beta, slope: float = 0.2
+def fused_edge_conv(q, off, idx, gamma, beta, slope: float = 0.2,
+                    group: Optional[DPGroup] = None
                     ) -> Tuple[torch.Tensor, EdgeStats]:
     """``(out [B, N, C], EdgeStats)`` of the train-mode EdgeConv from a
     given self-kNN index (``fused_edge_conv``, ``fused_edge.py:387``), with
-    its hand-written backward."""
-    out, mean, var = FusedEdgeTrain.apply(q, off, idx, gamma, beta, slope)
+    its hand-written backward; with a ``group``, sync-BN over its
+    ranks."""
+    out, mean, var = FusedEdgeTrain.apply(q, off, idx, gamma, beta, slope,
+                                          group)
     return out, EdgeStats(mean, var)
 
 
@@ -965,19 +985,24 @@ class _Edge2Train(torch.autograd.Function):
     ``edge2_stats2``, the BN2 moments, ``edge2_out``; backward
     ``edge2_p1`` → ``_combine_p1`` (dW2 and the BN1 sums) → ``edge2_p2``.
     ``q`` is rounded to bf16 before pass 1, so ``dq`` comes back
-    float32; the graph carries no gradient."""
+    float32; the graph carries no gradient. Given a data-parallel group,
+    both layers' moment sums and the backward's ``ps2``, ``vecs`` and
+    ``mats`` are summed over its ranks; dW2 and the BN parameters'
+    gradients stay this rank's partials against the global u-terms
+    (``fused_edge.py:737-754,794-868``)."""
 
     @staticmethod
-    def _tail(ctx, idx, h1, psum1, w2, g1, b1, g2, b2, slope, n):
+    def _tail(ctx, idx, h1, psum1, w2, g1, b1, g2, b2, slope, n, group):
         b, m, k, _ = h1.shape
-        r = float(b * m * k)
-        m1, v1 = _moments(psum1, r)
+        r = float(b * m * k * world_of(group))
+        m1, v1 = _moments(summed(psum1, group), r)
         st1 = _stack_stats(m1, v1, g1, b1)
-        m2, v2 = _moments(edge2_stats2(h1, st1, w2, slope), r)
+        m2, v2 = _moments(
+            summed(edge2_stats2(h1, st1, w2, slope), group), r)
         st2 = _stack_stats(m2, v2, g2, b2)
         out = edge2_out(h1, st1, st2, w2, slope)
         ctx.save_for_backward(idx, h1, st1, st2, w2)
-        ctx.slope, ctx.n = slope, n
+        ctx.slope, ctx.n, ctx.group = slope, n, group
         ctx.mark_non_differentiable(m1, v1, m2, v2)
         return out, m1, v1, m2, v2
 
@@ -985,12 +1010,17 @@ class _Edge2Train(torch.autograd.Function):
     def _grads(ctx, dout):
         """``(dq, doff, dw2, dγ1, dβ1, dγ2, dβ2)``."""
         idx, h1, st1, st2, w2 = ctx.saved_tensors
+        group = ctx.group
         b, m, k, _ = h1.shape
-        r = float(b * m * k)
+        r = float(b * m * k * world_of(group))
         dout = dout.float().contiguous()
         ps2, vecs, mats = edge2_p1(h1, dout, st1, st2, w2, ctx.slope)
-        dw2, s1 = _combine_p1(ps2, vecs, mats, st2, w2, r)
-        dq, doff = edge2_p2(h1, dout, idx, st1, st2, w2, ps2 / r, s1 / r,
+        ps2_g, vecs_g, mats_g = all_reduce_sums([ps2, vecs, mats], group)
+        # dW2 and the BN1 parameters' sums from this rank's rows
+        dw2, s1 = _combine_p1(ps2_g, vecs, mats, st2, w2, r)
+        s1_g = (_combine_p1(ps2_g, vecs_g, mats_g, st2, w2, r)[1]
+                if synced(group) else s1)
+        dq, doff = edge2_p2(h1, dout, idx, st1, st2, w2, ps2_g / r, s1_g / r,
                             ctx.slope, ctx.n)
         return dq, doff, dw2, s1[1], s1[0], ps2[1], ps2[0]
 
@@ -999,20 +1029,20 @@ class FusedEdge2KnnTrain(_Edge2Train):
     """Train-mode two-layer EdgeConv with the graph built inside
     (``fused_edge2_conv_knn`` and its custom VJP). Inputs ``x [B,N,Cin]``,
     ``q [B,N,C1]`` and ``off [B,N,C1]`` float32, ``w2 [C1,C2]``, the BN
-    scales and offsets of both layers, k and the LeakyReLU slope. Returns
-    ``out [B,N,C2]`` and the four batch statistics (not
-    differentiable)."""
+    scales and offsets of both layers, k, the LeakyReLU slope and the
+    data-parallel group (or ``None``). Returns ``out [B,N,C2]`` and the
+    four batch statistics (not differentiable)."""
 
     @staticmethod
-    def forward(ctx, x, q, off, w2, g1, b1, g2, b2, k, slope):
+    def forward(ctx, x, q, off, w2, g1, b1, g2, b2, k, slope, group):
         idx, h1, psum = edge_knn_f1(x.detach().float(), q.bfloat16(),
                                     off.float(), k)
         return _Edge2Train._tail(ctx, idx, h1, psum, w2, g1, b1, g2, b2,
-                                 slope, q.shape[1])
+                                 slope, q.shape[1], group)
 
     @staticmethod
     def backward(ctx, dout, *_):
-        return (None, *_Edge2Train._grads(ctx, dout), None, None)
+        return (None, *_Edge2Train._grads(ctx, dout), None, None, None)
 
 
 class FusedEdge2Train(_Edge2Train):
@@ -1021,36 +1051,37 @@ class FusedEdge2Train(_Edge2Train):
     :class:`FusedEdge2KnnTrain`."""
 
     @staticmethod
-    def forward(ctx, q, off, idx, w2, g1, b1, g2, b2, slope):
+    def forward(ctx, q, off, idx, w2, g1, b1, g2, b2, slope, group):
         idx = idx.int()
         h1, psum = edge_f1(q.bfloat16(), off.float(), idx)
         return _Edge2Train._tail(ctx, idx, h1, psum, w2, g1, b1, g2, b2,
-                                 slope, q.shape[1])
+                                 slope, q.shape[1], group)
 
     @staticmethod
     def backward(ctx, dout, *_):
         dq, doff, *rest = _Edge2Train._grads(ctx, dout)
-        return (dq, doff, None, *rest, None)
+        return (dq, doff, None, *rest, None, None)
 
 
 def fused_edge2_conv_knn(x, q, off, w2, g1, b1, g2, b2, k: int,
-                         slope: float = 0.2
+                         slope: float = 0.2, group: Optional[DPGroup] = None
                          ) -> Tuple[torch.Tensor, Edge2Stats]:
     """``(out [B, N, C2], Edge2Stats)`` of the train-mode two-layer
     EdgeConv with the graph built inside (``fused_edge2_conv_knn``,
     ``fused_edge.py:931``), with its hand-written backward."""
     out, *stats = FusedEdge2KnnTrain.apply(x, q, off, w2, g1, b1, g2, b2,
-                                           k, slope)
+                                           k, slope, group)
     return out, Edge2Stats(*stats)
 
 
-def fused_edge2_conv(q, off, idx, w2, g1, b1, g2, b2, slope: float = 0.2
+def fused_edge2_conv(q, off, idx, w2, g1, b1, g2, b2, slope: float = 0.2,
+                     group: Optional[DPGroup] = None
                      ) -> Tuple[torch.Tensor, Edge2Stats]:
     """``(out [B, N, C2], Edge2Stats)`` of the train-mode two-layer
     EdgeConv from a given self-kNN index (``fused_edge2_conv``,
     ``fused_edge.py:770``), with its hand-written backward."""
     out, *stats = FusedEdge2Train.apply(q, off, idx, w2, g1, b1, g2, b2,
-                                        slope)
+                                        slope, group)
     return out, Edge2Stats(*stats)
 
 

@@ -20,6 +20,18 @@ the BN statistics (repeat-first padding included). The BN rows are
 folded as ``(sc, bi, rs, mrs)``: ``z = h·sc + bi``, ``x̂ = h·rs − mrs``.
 Products take bf16 operands with f32 sums; h1 is checkpointed in bf16,
 its statistics taken before the rounding (``fused_sa.py:1957-1960``).
+
+Data parallelism (sync-BN, the JAX functions' ``axis_name`` / ``world``):
+given a group of more than one rank, the forward sums pass 1's ``p1``
+and tail stages 2 and 3 over the ranks before each moment, over ``R =
+B·M·k·W`` rows; the backward sums pass 1's ``ps3``, ``vecs`` and
+``mats`` before the BN2 sums and ``ps1`` before dq and doff
+(``fused_sa.py:1332-1341,1741,1760,1879``). The parameter gradients stay
+this rank's partials, taken against the global u-terms
+(``fused_sa.py:1893-1910``), so that the step's sum over the ranks counts
+each row once. The JAX package's slot-capped variants need every shard
+on one branch (``_maxcnt_pred``'s ``pmax``, ``:1589``); the kernels here
+run every slot and have no such branch.
 """
 
 from __future__ import annotations
@@ -40,6 +52,13 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa import (
     _aligned,
     _bf16_mm,
     _stack_stats,
+)
+from pointcloudlib_tpu_torch.parallel.mesh import (
+    DPGroup,
+    all_reduce_sums,
+    summed,
+    synced,
+    world_of,
 )
 
 _TILE_ROWS = 64  # grouped rows per kernel tile; k divides it or is a multiple
@@ -509,35 +528,44 @@ def _combine_p1(ps3, vecs, mats, st3, w3, r: float):
     return dw3, torch.stack([s2_1, s2_2])
 
 
-def _forward_tail(h1, p1, params: SAParams):
+def _forward_tail(h1, p1, params: SAParams, group: Optional[DPGroup] = None):
     """The forward after pass 1, shared by the two routes
     (``tail_from``, ``fused_sa.py:1614``): ``(out, SAStats, (st1, st2,
-    st3))`` from the bf16 h1 and its ``[Σ, Σ²]``."""
-    r = float(h1.shape[0] * h1.shape[1] * h1.shape[2])
-    m1, v1 = _moments(p1, r)
+    st3))`` from the bf16 h1 and its ``[Σ, Σ²]``, each sum over every
+    rank of ``group``."""
+    r = float(h1.shape[0] * h1.shape[1] * h1.shape[2] * world_of(group))
+    m1, v1 = _moments(summed(p1, group), r)
     st1 = _stack_stats(m1, v1, params.g1, params.b1)
-    m2, v2 = _moments(sa_tail(2, h1, st1, None, None, params.w2, params.w3),
-                      r)
+    m2, v2 = _moments(summed(sa_tail(2, h1, st1, None, None, params.w2,
+                                      params.w3), group), r)
     st2 = _stack_stats(m2, v2, params.g2, params.b2)
-    m3, v3 = _moments(sa_tail(3, h1, st1, st2, None, params.w2, params.w3),
-                      r)
+    m3, v3 = _moments(summed(sa_tail(3, h1, st1, st2, None, params.w2,
+                                      params.w3), group), r)
     st3 = _stack_stats(m3, v3, params.g3, params.b3)
     out = sa_tail(4, h1, st1, st2, st3, params.w2, params.w3)
     return out, SAStats(m1, v1, m2, v2, m3, v3), (st1, st2, st3)
 
 
-def _backward(dout, idx, h1, st1, st2, st3, w2, w3, n: int):
+def _backward(dout, idx, h1, st1, st2, st3, w2, w3, n: int,
+              group: Optional[DPGroup] = None):
     """``(dq, doff, SAParams of gradients)`` (``_fused_train_bwd``,
-    ``fused_sa.py:1848``)."""
+    ``fused_sa.py:1848``). Over a group: dq and doff of this rank's rows
+    from the global sums, the parameter gradients this rank's partials
+    against the global u-terms."""
     b, m, k, c1 = h1.shape
-    r = float(b * m * k)
+    r = float(b * m * k * world_of(group))
     ps3, vecs, mats = sa_bwd_p1(h1, dout, st1, st2, st3, w2, w3)
-    dw3, s2 = _combine_p1(ps3, vecs, mats, st3, w3, r)
+    ps3_g, vecs_g, mats_g = all_reduce_sums([ps3, vecs, mats], group)
+    # dW3 and the BN2 parameters' sums from this rank's rows
+    dw3, s2 = _combine_p1(ps3_g, vecs, mats, st3, w3, r)
+    s2_g = (_combine_p1(ps3_g, vecs_g, mats_g, st3, w3, r)[1]
+            if synced(group) else s2)
     dw2, ps1, scat, d1, d2 = sa_bwd_p2(h1, dout, idx, st1, st2, st3, w2, w3,
-                                       ps3 / r, s2 / r, n)
+                                       ps3_g / r, s2_g / r, n)
+    ps1_g = summed(ps1, group)
     sc1 = st1[0]
-    u1 = ps1[0] / r
-    u2 = ps1[1] / r
+    u1 = ps1_g[0] / r
+    u2 = ps1_g[1] / r
     dq = sc1 * (scat[..., :c1] - scat[..., 2 * c1:] * u1
                 - scat[..., c1:2 * c1] * u2)
     doff = -sc1 * (d1 - float(k) * u1 - d2 * u2)
@@ -551,10 +579,11 @@ class _FusedSAFunction(torch.autograd.Function):
     whole backward. A subclass's ``forward`` calls :meth:`finish`."""
 
     @staticmethod
-    def finish(ctx, idx, h1, p1, params: SAParams, n: int):
-        out, stats, (st1, st2, st3) = _forward_tail(h1, p1, params)
+    def finish(ctx, idx, h1, p1, params: SAParams, n: int,
+               group: Optional[DPGroup]):
+        out, stats, (st1, st2, st3) = _forward_tail(h1, p1, params, group)
         ctx.save_for_backward(idx, h1, st1, st2, st3, params.w2, params.w3)
-        ctx.n = n
+        ctx.n, ctx.group = n, group
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
 
@@ -563,7 +592,7 @@ class _FusedSAFunction(torch.autograd.Function):
         """``(dq, doff, *SAParams gradients)``."""
         idx, h1, st1, st2, st3, w2, w3 = ctx.saved_tensors
         dq, doff, g = _backward(dout.float().contiguous(), idx, h1, st1, st2,
-                                st3, w2, w3, ctx.n)
+                                st3, w2, w3, ctx.n, ctx.group)
         return (dq, doff, *g)
 
 
@@ -571,58 +600,64 @@ class FusedSABqTrain(_FusedSAFunction):
     """Train-mode fused SA with the ball query inside. Inputs
     ``new_xyz [B,M,3]``, ``pts [B,N,3]``, ``q [B,N,C1]`` and ``off
     [B,M,C1]`` float32, then the eight :class:`SAParams` tensors, the
-    radius and k. Returns ``out [B,M,C3]`` and the six batch statistics
-    (not differentiable). ``q`` is rounded to bf16 inside, so ``dq`` comes
-    back float32; the grouping inputs get no gradient."""
+    radius, k and the data-parallel group (or ``None``). Returns ``out
+    [B,M,C3]`` and the six batch statistics (not differentiable). ``q``
+    is rounded to bf16 inside, so ``dq`` comes back float32; the
+    grouping inputs get no gradient."""
 
     @staticmethod
     def forward(ctx, new_xyz, pts, q, off, w2, w3, g1, b1, g2, b2, g3, b3,
-                radius, k):
+                radius, k, group):
         idx, h1, _, p1 = bq_f1(new_xyz, pts, q.bfloat16(), off, radius, k)
         return _FusedSAFunction.finish(
             ctx, idx, h1, p1, SAParams(w2, w3, g1, b1, g2, b2, g3, b3),
-            pts.shape[1])
+            pts.shape[1], group)
 
     @staticmethod
     def backward(ctx, dout, *_):
-        return (None, None, *_FusedSAFunction.grads(ctx, dout), None, None)
+        return (None, None, *_FusedSAFunction.grads(ctx, dout), None, None,
+                None)
 
 
 class FusedSATrain(_FusedSAFunction):
     """Train-mode fused SA from a given neighbour index. Inputs
     ``q [B,N,C1]`` and ``off [B,M,C1]`` float32, ``idx [B,M,k]`` int32,
-    then the eight :class:`SAParams` tensors. Returns as
-    :class:`FusedSABqTrain`; no gradient flows to ``idx``."""
+    then the eight :class:`SAParams` tensors and the data-parallel group
+    (or ``None``). Returns as :class:`FusedSABqTrain`; no gradient flows
+    to ``idx``."""
 
     @staticmethod
-    def forward(ctx, q, off, idx, w2, w3, g1, b1, g2, b2, g3, b3):
+    def forward(ctx, q, off, idx, w2, w3, g1, b1, g2, b2, g3, b3, group):
         h1, p1 = sa_f1(q.bfloat16(), off, idx)
         return _FusedSAFunction.finish(
             ctx, idx, h1, p1, SAParams(w2, w3, g1, b1, g2, b2, g3, b3),
-            q.shape[1])
+            q.shape[1], group)
 
     @staticmethod
     def backward(ctx, dout, *_):
         dq, doff, *g = _FusedSAFunction.grads(ctx, dout)
-        return (dq, doff, None, *g)
+        return (dq, doff, None, *g, None)
 
 
 def fused_sa_bq_train(new_xyz, pts, q, off, params: SAParams, radius: float,
-                      k: int) -> Tuple[torch.Tensor, SAStats]:
+                      k: int, group: Optional[DPGroup] = None
+                      ) -> Tuple[torch.Tensor, SAStats]:
     """``(out [B,M,C3], SAStats)`` of the train-mode fused SA, with its
-    hand-written backward."""
+    hand-written backward; with a ``group``, sync-BN over its ranks."""
     out, *stats = FusedSABqTrain.apply(new_xyz, pts, q, off, *params,
-                                       radius, k)
+                                       radius, k, group)
     return out, SAStats(*stats)
 
 
 def fused_sa_train(q, off, idx, params: SAParams,
-                   cnt: Optional[torch.Tensor] = None
+                   cnt: Optional[torch.Tensor] = None,
+                   group: Optional[DPGroup] = None
                    ) -> Tuple[torch.Tensor, SAStats]:
     """``(out [B,M,C3], SAStats)`` of the train-mode fused SA from a given
     ``idx [B,M,k]``, with its hand-written backward. ``cnt`` (the ball
     query's counts) is accepted as the JAX function accepts it; the JAX
     package only uses it to pick slot-capped variants of the same passes,
-    which give the same result, and the kernels here run every slot."""
-    out, *stats = FusedSATrain.apply(q, off, idx, *params)
+    which give the same result, and the kernels here run every slot.
+    With a ``group``, sync-BN over its ranks (the JAX ``axis_name``)."""
+    out, *stats = FusedSATrain.apply(q, off, idx, *params, group)
     return out, SAStats(*stats)

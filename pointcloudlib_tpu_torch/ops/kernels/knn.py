@@ -10,14 +10,20 @@ int32)``, ascending, the lower index first on ties. The plain version is
 EdgeConvs take it at N % 128 ≠ 0; ``geometry.knn`` sends CUDA tensors
 here.
 
-Two routes (``csrc/knn.cu``), chosen from the shapes by :func:`knn_route`:
-``select`` (a block of 128 or 256 queries, the points streamed through a
-ring of shared-memory tiles, d² filtered in registers against each
-query's k-th and the survivors merged into lists that 8 lanes hold; at
-C % 4 == 0 an FMA pass with an error bound in front, its near pairs
-recomputed in the plain order) for large clouds and grids, else
-``block`` (the first version's 64-query blocks, which also take widths
-up to 379 at k = 40).
+Three routes (``csrc/knn.cu``), chosen from the shapes by
+:func:`knn_route`. For k ≤ :data:`MAX_K`: ``select`` (a block of 128 or
+256 queries, the points streamed through a ring of shared-memory tiles,
+d² filtered in registers against each query's k-th and the survivors
+merged into lists that 8 lanes hold; at C % 4 == 0 an FMA pass with an
+error bound in front, its near pairs recomputed in the plain order) for
+large clouds and grids, else ``block`` (the first version's 64-query
+blocks, which also take widths up to 379 at k = 40). Above it, ``rank``
+(one warp a query: the d² row as order keys in shared memory, the k
+smallest chosen by a bisection on the keys' bits, exact on ties; the
+selection of ``csrc/knn_gather.cu``, shared through
+``csrc/knn_rank.cuh``), for any k ≤ N whose warp part fits a block
+(:func:`rank_warp_bytes`): KPConv's radius neighbours ask for k = 41 and
+up on layers of 256 supports or more.
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ from pointcloudlib_tpu_torch.ops.kernels.fused_sa_train import (
     _stream,
 )
 
-MAX_K = 40  # longest neighbour list of the kNN kernels (csrc/edge_knn.cuh)
+MAX_K = 40  # longest list of the block and select routes (csrc/edge_knn.cuh)
+RANK_ROUTE = 4  # the rank route, as the launcher numbers it (knn.cu)
+_RANK_CAND = 64  # candidates a warp's bisection finishes in registers
 # the select route's instances, as the launcher numbers them: (queries a
 # thread, tiles in the ring, the fast pass); a block takes 32 queries a
 # thread; the fast pass takes C % 4 == 0
@@ -71,8 +79,16 @@ def block_smem(c: int, k: int) -> int:
     return 4 * (128 * c + 64 * 68 + 128 + 2 * 64 * k)
 
 
+def rank_warp_bytes(n: int, k: int) -> int:
+    """Shared memory bytes of one warp (one query) of the rank route
+    (``csrc/knn.cu`` ``kr_warp_bytes``): the N keys in whole 16-byte
+    words, then k list words and 64 candidates of 8 bytes."""
+    return (-(-n // 4) * 16 + 8 * (k + _RANK_CAND) + 15) // 16 * 16
+
+
 def knn_route(b: int, m: int, n: int, c: int, k: int) -> int:
-    """The launcher's route for these shapes. The select route where the
+    """The launcher's route for these shapes. Above :data:`MAX_K`
+    neighbours the rank route (:data:`RANK_ROUTE`). The select route where the
     clouds have at least :data:`_SEL_MIN_N` points or its grid at least
     :data:`_SEL_MIN_BLOCKS` blocks of 128 queries: with the fast pass
     where C % 4 == 0 and the clouds have at least :data:`_SEL_MIN_N`
@@ -81,6 +97,8 @@ def knn_route(b: int, m: int, n: int, c: int, k: int) -> int:
     at C ≥ 96 and k ≤ 24 where they fit a block (C ≤ 148), else 128
     queries and 3 tiles. Else, or where no select instance fits a block,
     0 (the block route)."""
+    if k > MAX_K:
+        return RANK_ROUTE
     block_fits = block_smem(c, k) <= _SMEM_LIMIT
     if block_fits and n < _SEL_MIN_N and b * -(-m // 128) < _SEL_MIN_BLOCKS:
         return 0
@@ -224,6 +242,8 @@ def edge_route_name(route: int, layers: int = 0) -> str:
 def route_name(route: int) -> str:
     if route == 0:
         return "block"
+    if route == RANK_ROUTE:
+        return "rank"
     qpt, stages, fast = SELECT[route]
     return f"select {32 * qpt}x{stages}" + (" fast" if fast else "")
 
@@ -244,9 +264,12 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(d² [B, M, k] float32, idx [B, M, k] int32)`` of ``query [B, M,
     C]`` in ``points [B, N, C]``, as :func:`knn_plain`: the kernel for
-    CUDA tensors (float32, at most ``MAX_K`` neighbours) on the route
-    :func:`knn_route` picks, the plain version for CPU tensors. For ``k >
-    N`` the kernel finds all N and the last repeats, as in the plain
+    CUDA tensors (float32) on the route :func:`knn_route` picks, the
+    plain version for CPU tensors. Above :data:`MAX_K` neighbours the
+    rank route takes any k whose warp part fits a block's shared memory
+    (:func:`rank_warp_bytes`: N up to 57,900 at k = 41, and N = k up
+    to 19,328); the wrapper raises above that. For ``k > N``
+    the kernel finds all N and the last repeats, as in the plain
     version."""
     if not _on_card("knn", points):
         return knn_plain(query, points, k)
@@ -255,11 +278,18 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int
     kk = min(k, n)
     _expect("knn", points.device, query=(query, (b, m, c), torch.float32),
             points=(points, (b, n, c), torch.float32))
-    if not 1 <= kk <= MAX_K:
-        raise ValueError(f"knn: the kernel finds 1 to {MAX_K} neighbours, "
-                         f"got k={k} (N={n})")
+    if kk < 1:
+        raise ValueError(f"knn: needs k >= 1 and N >= 1, got k={k}, N={n}")
     lib = _lib()
     route = knn_route(b, m, n, c, kk)
+    if route == RANK_ROUTE:
+        smem = rank_warp_bytes(n, kk)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(
+                f"knn: k={kk} > {MAX_K} takes the rank route, which holds "
+                f"a query's N keys and k list words in shared memory: N={n} "
+                f"and k={kk} need {smem} bytes, above one block's "
+                f"{_SMEM_LIMIT}")
     smem = block_smem(c, kk)
     if route == 0 and smem > _SMEM_LIMIT:
         raise ValueError(f"knn: width C={c} and k={kk} need {smem} bytes of "
@@ -268,8 +298,8 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int
     d2 = torch.empty((b, m, kk), dtype=torch.float32, device=dev)
     idx = torch.empty((b, m, kk), dtype=torch.int32, device=dev)
     # the select route's |p|^2 of every point (csrc/knn.cu knn_norms_kernel)
-    norms = torch.empty(b * n if route else 1, dtype=torch.float32,
-                        device=dev)
+    norms = torch.empty(b * n if route in SELECT else 1,
+                        dtype=torch.float32, device=dev)
     query, points = _aligned(query), _aligned(points)
     with torch.cuda.device(dev):
         err = lib.knn_launch(query.data_ptr(), points.data_ptr(),
@@ -277,7 +307,12 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int
                              b, m, n, c, kk, route, _stream(dev))
     _build.check(err, "knn")
     knn.launches += 1
+    _LAUNCHES_BY_ROUTE[route] += 1
     return geometry.repeat_last(d2, idx, k)
 
 
 knn.launches = 0
+# by route: 0 block, 1-3 the select instances, RANK_ROUTE (module-level,
+# so that a wrapper swapped in for ``knn`` leaves it counting)
+_LAUNCHES_BY_ROUTE = {r: 0 for r in (0, *SELECT, RANK_ROUTE)}
+knn.launches_by_route = _LAUNCHES_BY_ROUTE

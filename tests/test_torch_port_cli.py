@@ -265,13 +265,10 @@ def test_flags_are_the_jax_flags(cli, jax_cli):
 
 
 UNPORTED = {
-    "train_cls": [["--n-devices", "2"],
-                  ["--dp", "shard_map"], ["--multihost"],
-                  ["--diff-checkpoint", "a.pt"], ["--diff-trace", "a.npz"],
+    "train_cls": [["--diff-checkpoint", "a.pt"], ["--diff-trace", "a.npz"],
                   ["--dump-trace", "b.npz"], ["--diff-atol", "1e-4"],
                   ["--debug"]],
-    "train_partseg": [["--n-devices", "4"], ["--dp", "shard_map"],
-                      ["--multihost"], ["--debug"]],
+    "train_partseg": [["--debug"]],
 }
 
 
@@ -280,8 +277,60 @@ UNPORTED = {
     ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_unported_flags_exit_naming_their_item(name, flags):
     cli = {"train_cls": train_cls, "train_partseg": train_partseg}[name]
-    with pytest.raises(SystemExit, match=r"ROADMAP.md queue 1, item [7-9]"):
+    with pytest.raises(SystemExit, match=r"ROADMAP.md queue 1, item [89]"):
         cli.main(["--device", "cpu", *flags])
+
+
+@pytest.fixture(scope="module")
+def dp_cls_run(tmp_path_factory):
+    """``train_cls --n-devices 2 --device cpu``: two gloo ranks (spawned
+    processes) for one epoch of two steps."""
+    tmp = tmp_path_factory.mktemp("dp_cls")
+    return tmp, train_cls.main(_args(tmp, "--epochs", "1",
+                                     "--n-devices", "2"))
+
+
+PARALLEL_FLAGS = [["--n-devices", "2"], ["--dp", "shard_map"],
+                  ["--multihost"]]
+
+
+@pytest.mark.parametrize("name,flags", [
+    (name, flags) for name in ("train_cls", "train_partseg")
+    for flags in PARALLEL_FLAGS],
+    ids=lambda v: v if isinstance(v, str) else " ".join(v))
+def test_parallel_flags_train(name, flags, dp_cls_run, tmp_path):
+    """``--n-devices 2 --device cpu`` (two gloo ranks), ``--dp
+    shard_map`` and ``--multihost`` (no ``torchrun`` environment: one
+    process) each run two CPU steps of both CLIs on synthetic data; the
+    two ranks report the same steps and losses."""
+    if name == "train_cls" and flags[0] == "--n-devices":
+        run = dp_cls_run[1]
+    else:
+        cli = {"train_cls": train_cls, "train_partseg": train_partseg}[name]
+        run = cli.main(_args(tmp_path, "--epochs", "1", *flags))
+    assert run["steps"] == 2 and np.isfinite(run["last_loss"])
+    ranks = run.get("ranks", [run])
+    assert len(ranks) == (2 if flags[0] == "--n-devices" else 1)
+    for r in ranks:
+        assert r["steps"] == 2 and r["last_loss"] == run["last_loss"]
+
+
+def test_rank_0_alone_writes_checkpoints(dp_cls_run):
+    """Of the two ranks, rank 0 alone saves (one checkpoint an epoch) and
+    logs; the files it wrote serve."""
+    tmp, run = dp_cls_run
+    assert [r["checkpoints"] for r in run["ranks"]] == [1, 0]
+    directory = tmp / "ck" / "pointnet"
+    assert (directory / "current.pt").exists()
+    records = (tmp / "log" / "cls_pointnet.jsonl").read_text().splitlines()
+    assert len(records) == 1
+    served = Predictor.from_checkpoint(directory, "pointnet",
+                                       which="current", batch_size=B,
+                                       device="cpu")
+    clouds, _, labels = SyntheticModelNet(n_points=N, size=64,
+                                          seed=0).batch(0, 64)
+    oa = 100.0 * (served.predict(clouds) == labels).mean()
+    assert oa == run["test_oa"][0]
 
 
 @pytest.mark.parametrize("flags", [

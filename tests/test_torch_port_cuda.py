@@ -1326,12 +1326,44 @@ def test_knn_every_route_bit_identical(card, name, monkeypatch):
         assert torch.equal(d2, wd2), kknn.route_name(route)
 
 
+@pytest.mark.parametrize("b,m,n,c,k", [
+    (16, 256, 256, 3, 41),    # KPConv's layer 2 at 4,096 points
+    (16, 64, 256, 3, 41),     # its pools into layer 3
+    (16, 312, 312, 3, 42),    # layer 2 at 5,000 points
+    (2, 80, 80, 3, 76),       # the deformable radius's calibrated limit
+    (2, 300, 1000, 3, 256),
+    (2, 77, 500, 64, 76),     # C ≠ 3: the key row from global memory
+    (3, 5, 1000, 3, 300),     # more neighbours than a block's 256 threads
+    (2, 333, 333, 3, 41),     # M not a multiple of the block's warps
+])
+def test_knn_rank_route_bit_identical(card, b, m, n, c, k):
+    """Lists longer than 40 take the rank route: idx and d² equal to
+    ``knn_plain``'s, on clouds with duplicated points (exact ties) and
+    supports masked at 1e9 as KPConv's pyramid masks them."""
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    rng = np.random.default_rng(n + k + c)
+    p = torch.from_numpy(rng.standard_normal((b, n, c)).astype(
+        np.float32)).to(card)
+    p[:, n // 2:n // 2 + 10] = p[:, :10]
+    p[:, -5:] = 1e9
+    q = p[:, :m].contiguous()
+    assert kknn.knn_route(b, m, n, c, k) == kknn.RANK_ROUTE
+    before = kknn.knn.launches_by_route[kknn.RANK_ROUTE]
+    d2, idx = kknn.knn(q, p, k)
+    torch.cuda.synchronize()
+    assert kknn.knn.launches_by_route[kknn.RANK_ROUTE] == before + 1
+    wd2, widx = kknn.knn_plain(q, p, k)
+    assert torch.equal(idx, widx) and torch.equal(d2, wd2)
+
+
 def test_knn_rejects_what_it_cannot_run(card):
     from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
 
     x = torch.zeros((1, 64, 3), device=card)
-    with pytest.raises(ValueError, match="1 to 40"):
-        kknn.knn(x, x, 41)
+    big = torch.zeros((1, 60000, 3), device=card)
+    with pytest.raises(ValueError, match="rank route"):
+        kknn.knn(big[:, :4], big, 41)
     with pytest.raises(ValueError, match="shared memory"):
         kknn.knn(torch.zeros((1, 64, 500), device=card),
                  torch.zeros((1, 64, 500), device=card), 8)
@@ -2261,6 +2293,8 @@ def test_train_cls_cli_epoch_and_served_checkpoint(card, tmp_path):
 # layers 0-2 (self-neighbours and pools), the row gather of layers 0-2,
 # its backward the scatter-add
 KP_SERVE = {"knn": 6, "gather_neighbors": 11}
+# served KPConv's logits against the CPU's, of the CPU's largest logit
+KP_LOGIT_RTOL = 1e-4
 KP_STEP = {**KP_SERVE, "scatter_rows": 11}
 
 
@@ -2406,6 +2440,128 @@ def test_kpconv_serving_and_step_card_matches_cpu(card, name):
     got = grad_agreement(name, variables, synthetic_batch(name, 8, 11, 1024),
                          card)
     assert not got["failures"], got["failures"]
+
+
+@pytest.mark.parametrize("n_points", [4096, 5000])
+def test_kpconv_served_large_clouds_card_matches_cpu(card, n_points):
+    """``Predictor`` of KPConv at its uncalibrated shapes (as
+    ``from_checkpoint`` builds it) on clouds of 4,096 and 5,000 points:
+    layer 2 holds 256 / 312 supports, so its radius search and pools
+    launch the kNN's rank route (k = 41) twice a batch beside four
+    launches of the other routes; the probabilities within 5e-3 of the
+    CPU's, and the logits under them (the random weights saturate the
+    softmax) within :data:`KP_LOGIT_RTOL` of the CPU's largest."""
+    from pointcloudlib_tpu_torch.data import SyntheticModelNet
+    from pointcloudlib_tpu_torch.ops.kernels import knn as kknn
+
+    xyz = SyntheticModelNet(n_points=n_points, size=2, train=False,
+                            seed=3).batch(0, 2)[0]
+    variables = random_jax_variables(get_cls_model("kpconv"), seed=0)
+    logits = {}
+    preds = {}
+    for dev in (card, "cpu"):
+        pred = Predictor.from_variables("kpconv", variables, batch_size=2,
+                                        device=dev)
+        pred.model.register_forward_hook(
+            lambda _m, _i, out, dev=str(dev): logits.setdefault(
+                dev, out.detach().cpu()))
+        preds[str(dev)] = pred
+    rank0 = kknn.knn.launches_by_route[kknn.RANK_ROUTE]
+    probs, launches = _kp_launches(
+        lambda: preds[str(card)].predict_proba(xyz))
+    assert launches["knn"] == 6
+    assert kknn.knn.launches_by_route[kknn.RANK_ROUTE] - rank0 == 2
+    ref = preds["cpu"].predict_proba(xyz)
+    assert np.isfinite(probs).all()
+    assert np.abs(probs - ref).max() <= 5e-3
+    want = logits["cpu"]
+    assert torch.isfinite(logits[str(card)]).all()
+    assert ((logits[str(card)] - want).abs().max()
+            <= KP_LOGIT_RTOL * want.abs().max())
+
+
+def _world1_runs(card, name, group):
+    """Three steps of model ``name`` (B=16, N=1024; normals for PointNet++)
+    from the same weights and dropout generator: without a group, again
+    without one, and with ``group``: each run's loss, gradients by name
+    and state; then the names of the gradients that ``grad_check`` does
+    not compare on this batch (cancelled, fragile)."""
+    from pointcloudlib_tpu_torch.tools.grad_check import (
+        build_model,
+        model_grads,
+        synthetic_batch,
+    )
+    from pointcloudlib_tpu_torch.train import (
+        make_cls_train_step,
+        sgd_momentum,
+    )
+
+    batch = synthetic_batch(name, 16, 2, 1024)
+    variables = random_jax_variables(get_cls_model(name), seed=0)
+    runs = []
+    for g in (None, None, group):
+        model = get_cls_model(name)
+        from_jax_variables(model, variables)
+        step = make_cls_train_step(
+            model, sgd_momentum(model.parameters(), 0.05),
+            device=card if g is None else None, group=g)
+        met = step(batch, torch.Generator(device=card).manual_seed(0))
+        torch.cuda.synchronize()
+        runs.append({"loss": met["loss"].cpu(),
+                     "grads": {k: p.grad.cpu() for k, p in
+                               model.named_parameters()
+                               if p.grad is not None},
+                     "state": {k: v.cpu()
+                               for k, v in model.state_dict().items()}})
+    model = from_jax_variables(build_model(name, dropout=0.0), variables)
+    _, _, cancelled, fragile = model_grads(model.to(card), name, batch)
+    return runs, cancelled, fragile
+
+
+def _same(a, b):
+    return torch.equal(a["loss"], b["loss"]) and all(
+        a[part].keys() == b[part].keys()
+        and all(torch.equal(a[part][k], b[part][k]) for k in a[part])
+        for part in ("grads", "state"))
+
+
+def test_world_1_nccl_step_bit_identical(card, tmp_path):
+    """The data-parallel step over a one-process NCCL group against the
+    step without a group, from the same weights and dropout generator.
+    At a world of 1 the group's step shards nothing, sums nothing over
+    ranks and keeps sync-BN local, so the two run the same arithmetic:
+    PointNet's (no kernel, bit-reproducible run to run) loss, every
+    gradient and every state tensor are bit-identical. PointNet++ SSG's
+    kernels sum Σ/Σ² by atomics in no fixed order: where two runs without
+    a group are bit-identical the group's run must be too, else its loss
+    and every gradient are held to the step without a group under
+    ``tools/grad_check.py``'s bounds (loss within 1e-2 relative, each
+    gradient's cosine ≥ 0.85 and norm within 15 %), as a second run
+    without a group is."""
+    import torch.distributed as dist
+
+    from pointcloudlib_tpu_torch.parallel import init_group
+    from pointcloudlib_tpu_torch.tools.grad_check import compare_grads
+
+    group = init_group(0, 1, f"file://{tmp_path}/store", device=card)
+    try:
+        runs = {name: _world1_runs(card, name, group)
+                for name in ("pointnet", "pointnet2")}
+    finally:
+        dist.destroy_process_group()
+    (plain, again, world1), _, _ = runs["pointnet"]
+    assert _same(plain, again)
+    assert _same(plain, world1)
+    (plain, again, world1), cancelled, fragile = runs["pointnet2"]
+    if _same(plain, again):
+        assert _same(plain, world1)
+    want = (float(plain["loss"]),
+            {k: g.double() for k, g in plain["grads"].items()},
+            cancelled, fragile)
+    for run in (again, world1):
+        check = compare_grads("pointnet2", (float(run["loss"]), {
+            k: g.double() for k, g in run["grads"].items()}), want)
+        assert not check["failures"], check["failures"]
 
 
 def test_kpconv_pyramid_bit_identical_twice_and_to_cpu(card):

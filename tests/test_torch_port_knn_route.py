@@ -130,6 +130,68 @@ def test_knn_wrapper_takes_the_plain_version_on_the_cpu():
     assert torch.equal(idx, want[1]) and torch.equal(d2, want[0])
 
 
+@pytest.mark.parametrize("b,m,n,c,k,want", [
+    # k <= 40: the routes of before the rank route, unchanged
+    (32, 1000, 1000, 3, 20, "select 128x3"),
+    (32, 1000, 1000, 64, 20, "select 128x3"),
+    (1, 10000, 10000, 128, 20, "select 256x2 fast"),
+    (16, 2048, 2048, 64, 40, "select 128x3 fast"),
+    (16, 1000, 1000, 64, 40, "block"),
+    (2, 1024, 1024, 3, 32, "block"),
+    (16, 1024, 1024, 3, 35, "block"),   # KPConv's layer 1 at 4,096 points
+    (16, 256, 256, 3, 40, "block"),
+    # above 40: the rank route, whatever the shapes
+    (16, 256, 256, 3, 41, "rank"),      # KPConv's layer 2 at 4,096 points
+    (16, 64, 256, 3, 41, "rank"),       # and its pools into layer 3
+    (16, 312, 312, 3, 42, "rank"),
+    (16, 80, 80, 3, 76, "rank"),        # the deformable radius's limit
+    (2, 1000, 1000, 3, 300, "rank"),
+    (2, 1000, 1000, 64, 300, "rank"),
+])
+def test_knn_route_choice(b, m, n, c, k, want):
+    """``knn_route``: lists of at most ``MAX_K`` keep their routes, and
+    longer ones take the rank route, which fits any of these shapes."""
+    assert kknn.route_name(kknn.knn_route(b, m, n, c, k)) == want
+    if want == "rank":
+        assert k > kknn.MAX_K
+        assert kknn.rank_warp_bytes(n, k) <= 227 * 1024
+
+
+def test_knn_rank_route_size_limit():
+    """The rank route's warp holds N keys and k + 64 list words: 57,900
+    points fit at k = 41, 57,901 do not; the wrapper names the limit."""
+    assert kknn.rank_warp_bytes(57900, 41) <= 227 * 1024
+    assert kknn.rank_warp_bytes(57901, 41) > 227 * 1024
+
+
+def test_radius_neighbors_asks_for_41_at_4096_points(monkeypatch):
+    """Served KPConv at the uncalibrated shapes of a 4,096-point bucket
+    (``Predictor``'s): layer 2 holds 256 supports, so its radius search
+    and its pools take ``geometry.knn`` (the kernel on the card) with
+    k = 41, above the block and select routes' 40: the case the rank
+    route is for."""
+    from pointcloudlib_tpu_torch.models.kpconv import pyramid as kpyr
+    from pointcloudlib_tpu_torch.ops import geometry
+
+    calls = []
+    plain = geometry.knn_plain
+
+    def spy(query, points, k):
+        calls.append((points.shape[1], query.shape[1], k))
+        return plain(query, points, k)
+
+    monkeypatch.setattr(geometry, "knn", spy)
+    model = get_cls_model("kpconv")
+    rng = np.random.default_rng(4)
+    xyz = rng.standard_normal((1, 4096, 3)).astype(np.float32)
+    xyz /= np.linalg.norm(xyz, axis=-1, keepdims=True)
+    pyr = model.kpcnn.pyramid(_t(xyz))
+    assert pyr.points[2].shape[1] == kpyr.KNN_MIN_SUPPORTS == 256
+    assert (256, 256, 41) in calls and (256, 64, 41) in calls
+    assert all(n >= kpyr.KNN_MIN_SUPPORTS for n, _, _ in calls)
+    assert kknn.knn_route(1, 256, 256, 3, 41) == kknn.RANK_ROUTE
+
+
 # ---------------------------- the routes of the kernels with the kNN inside
 
 

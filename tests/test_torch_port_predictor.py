@@ -106,7 +106,8 @@ modules = ["models." + m for m in models] + [
     "data.augment", "data.loader", "data.modelnet40", "data.sampler",
     "data.shapenet", "data.synthetic", "data.workers", "utils.checkpoint",
     "utils.logging", "utils.ply", "train.metrics", "train.trainer",
-    "inference", "cli.common", "cli.train_cls", "cli.train_partseg"]
+    "inference", "cli.common", "cli.train_cls", "cli.train_partseg",
+    "parallel.mesh", "parallel.multihost"]
 unseen = [m for m in modules
           if "pointcloudlib_tpu_torch." + m not in sys.modules]
 print(bad, unseen)
@@ -117,8 +118,8 @@ sys.exit(1 if bad or unseen else 0)
 def test_port_imports_no_jax():
     """The port, every one of its model (KPConv's five modules among
     them), data (the KPConv sampler too), checkpoint, logging, ply,
-    training and CLI modules included, and chip_smoke.py import nothing
-    of JAX, flax or the JAX package
+    training, CLI and parallel modules included, and chip_smoke.py
+    import nothing of JAX, flax or the JAX package
     (``pointcloudlib_tpu_torch`` shares the JAX package's name as a
     prefix, hence the exact-name and dotted-prefix tests)."""
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
